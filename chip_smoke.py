@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (tpdm_tpu_torch) once on one CUDA card.
+"""Drive the PyTorch port (tpdm_tpu_torch) once on the visible CUDA cards (one is enough).
 
-Run from the repository root on a machine with an sm_90a (Hopper) card:
+Run from the repository root on a machine with sm_90a (Hopper) cards:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--seq-parallel-only]
 
 Phases, one line each, and any failure exits non-zero:
 
@@ -17,24 +17,43 @@ Phases, one line each, and any failure exits non-zero:
 5. the slice: full-width SD3-medium MMDiT (24 layers, 24 heads x 64), the
    TPM and the SD3 VAE decoder at 1024 px, weights drawn from the seed,
    answering two requests (batch 1, then batch 2) through
-   TPDMPipeline.generate, with the kernels' launch counts read around them.
+   TPDMPipeline.generate, with the kernels' launch counts read around them;
+6. K3 against its plain version at the per-rank shapes of a 4-way ring at
+   2048 px and at this machine's ring size, with its time beside PyTorch's
+   flash-attention call that also returns the log-sum-exp;
+7. the merge on one card: K3 over four image shards and the text tokens
+   of the 2048 px joint sequence, merged by merge_attention_shards,
+   against K1 over the whole sequence;
+8. sequence parallelism: one process per visible card, joined in an NCCL
+   seq group (one card makes a ring of one, and then no NCCL exchange
+   runs). A full-width MMDiT forward at 2048 px through the ring against
+   the unsharded K1 forward on the same bf16 weights, beside the gap that
+   one bf16 step on the latents makes in the unsharded forward; then two
+   2048 px requests (batch 1) through TPDMPipeline.generate, every rank
+   reporting its steps, times, launch counts and peak memory.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
-exits with an error and prints no result.
+exits with an error and prints no result. ``--seq-parallel-only`` runs
+phases 1, 2 and 8 alone (for a machine with several cards) and prints no
+kernels line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
+import torch.multiprocessing as mp
 
 REPO = Path(__file__).resolve().parent
 T_MAX = 28
@@ -42,11 +61,33 @@ N_CTX = 333  # SD3's joint text length: 77 CLIP + 256 T5 tokens
 TPM_HEAD_BIAS = (1.0, 0.55)  # a trained-like policy: the schedule stops itself
 WEIGHT_STD = 0.02  # N(0, 0.02²) weights keep every bf16 activation finite
 # bf16 kernel vs plain version: both round P and the output to bf16 (2^-8
-# relative) and sum in different orders; outputs are of order one
-KERNEL_ATOL = KERNEL_RTOL = 2e-2
+# relative) and sum in different orders. With N(0, 1) q, k, v at d = 64 an
+# output's scale is sqrt(e / n_kv), about 0.026 against 4096 kv rows and
+# 0.013 against 16384, so the bound is relative: the max abs error within
+# KERNEL_REL_TOL of the plain output's largest magnitude (a few bf16 steps
+# there), as for the merged shards below
+KERNEL_REL_TOL = 2e-2
 # bf16 on the card vs fp32 on the CPU through whole modules: bf16 rounding
 # of every activation; bound on max error relative to the output's range
 MODULE_REL_TOL = 5e-2
+# K3's statistics in the frame log2(l) + m: exact bf16 products summed in
+# fp32 in another order, on values of order 10 (or -170 when strongly negative)
+LSE_ATOL, LSE_RTOL = 1e-3, 1e-4
+# ring-merged K3 (bf16 partial outputs, fp32 merge) against K1: max error
+# relative to the output's range, a few bf16 steps (2^-8). The seq-parallel
+# 24-layer forward against the unsharded one: RMS error relative to the
+# output's RMS within it. Its max error is held to the rounding floor
+# instead: the two paths round attention at other places, and the layers
+# amplify any bf16 step to a few steps at h2's largest elements, so each
+# gap may be at most FLOOR_FACTOR times the gap that one bf16 step on every
+# input latent makes in the unsharded forward
+SHARDED_REL_TOL = 2e-2
+FLOOR_FACTOR = 2.0
+# H100 SXM published dense peaks: the bound of a kernel is the larger of its
+# bytes over the memory rate and its operations over the bf16 tensor rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+N_IMG_2048 = 16384  # 2048 px: 256 x 256 latents, 128 x 128 tokens
 
 
 def phase(name: str, msg: str) -> None:
@@ -72,92 +113,132 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def attention_bound(bh, n_q, n_kv, d, kv_len=None, stats=False):
+    """(bound_ms, bound_by) of one attention call: 4*bh*n_q*kv_len*d
+    operations (the masked columns need none) against q, the valid rows of
+    k and v, o (and m, l) moved once."""
+    n_valid = n_kv if kv_len is None else kv_len
+    flops = 4 * bh * n_q * n_valid * d
+    nbytes = 2 * bh * d * (2 * n_q + 2 * n_valid) + (8 * bh * n_q if stats else 0)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_to_range(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def rel_rms(got, ref):
+    ref = ref.float()
+    return (torch.linalg.vector_norm(got.float() - ref) / torch.linalg.vector_norm(ref)).item()
+
+
+def output_error(name, out, ref):
+    """(max abs error, its share of max |ref|, mean |ref|) of a kernel's
+    bf16 output against its plain version; fails beyond KERNEL_REL_TOL."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if not (bool(torch.isfinite(out.float()).all()) and err <= KERNEL_REL_TOL * scale):
+        fail(f"{name} disagrees with its plain version: max abs err {err}, "
+             f"max |plain| {scale} (bound {KERNEL_REL_TOL} of it)")
+    return err, err / scale, ref.abs().mean().item()
+
+
+def fmt_err(err):
+    """'max abs err E (R of max |o|, typical |o| T)' for output_error's triple."""
+    return f"max abs err {err[0]:.3e} ({err[1]:.3e} of max |o|, typical |o| {err[2]:.3e})"
+
+
+def check_k3(name, q, k, v, kv_len, rows=None):
+    """K3 against attention_reference_stats on the same inputs; with
+    ``rows`` (an index of query rows) the plain version runs on those rows
+    only (rows are independent; the full one would not fit in memory).
+    Returns output_error's triple for o and the max abs error on
+    log2(l) + m."""
+    from tpdm_tpu_torch.ops.attention import attention_reference_stats, flash_attention_with_stats
+
+    o, m, l = flash_attention_with_stats(q, k, v, kv_len)
+    q_ref = q if rows is None else q.index_select(2, rows)
+    o_ref, m_ref, l_ref = attention_reference_stats(q_ref, k, v, kv_len)
+    if rows is not None:
+        o, m, l = (x.index_select(2, rows) for x in (o, m, l))
+    torch.cuda.synchronize()
+    o_err = output_error(name, o, o_ref)
+    lse, lse_ref = torch.log2(l) + m, torch.log2(l_ref) + m_ref
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not (bool(torch.isfinite(lse).all())
+            and torch.allclose(lse, lse_ref, atol=LSE_ATOL, rtol=LSE_RTOL)):
+        fail(f"{name} disagrees with its plain version: max abs err log2(l)+m {lse_err}")
+    return o_err, lse_err
+
+
 def check_kernel(name, kernel, plain, q, k, v, kv_len):
     out = kernel(q, k, v, kv_len)
     ref = plain(q, k, v, kv_len)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs()
-    ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
-        out.float(), ref.float(), atol=KERNEL_ATOL, rtol=KERNEL_RTOL
-    )
-    if not ok:
-        fail(f"{name} disagrees with its plain version: max abs err {err.max().item()}")
-    return err.max().item(), err.mean().item()
+    return output_error(name, out, ref)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-
-    # 1. the device
-    if not torch.cuda.is_available():
-        fail("no CUDA device: the port's kernels run only on a CUDA card")
-    if not (REPO / "tpdm_tpu_torch").is_dir():
-        fail(f"tpdm_tpu_torch not found beside {Path(__file__).name}: run from the repository")
-    sys.path.insert(0, str(REPO))
-    from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
-    from tpdm_tpu_torch.models.tpm import TimePredictor
-    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
-    from tpdm_tpu_torch.ops import _build
+def kernel_phase(g, dev):
+    """Phase 3: K1 and K2 against their plain versions at the 1024 px
+    path's shapes, with their times, bounds and PyTorch's own call."""
     from tpdm_tpu_torch.ops.attention import (
         attention_reference,
         flash_attention,
         flash_attention_streaming,
     )
-    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+    from torch.nn.functional import scaled_dot_product_attention
 
-    # fp32 products in the comparisons below run in full fp32, not TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(smi, flush=True)
-    phase("device", f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
-                    f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load_library()
-    phase("build", f"{lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
-
-    # 3. each kernel against its plain version at the main path's shapes
-    g = torch.Generator(device=dev).manual_seed(args.seed)
     rand = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     n_joint = 4480  # 4096 image + 333 text tokens, padded to a multiple of 128
     q, k, v = (rand(2, 24, n_joint, 64) for _ in range(3))
-    k1_err, k1_mean = check_kernel("K1", flash_attention, attention_reference, q, k, v, 4429)
+    k1_err = check_kernel("K1", flash_attention, attention_reference, q, k, v, 4429)
     qn, kn = q.clone(), k.clone()
     qn[..., 0] += 12.0
     kn[..., 0] = -80.0  # every valid score ~ -120: the mask must act as -inf
-    k1n_err, _ = check_kernel("K1 (strongly negative)", flash_attention,
-                              attention_reference, qn, kn, v, 4429)
+    k1n_err = check_kernel("K1 (strongly negative)", flash_attention,
+                           attention_reference, qn, kn, v, 4429)
     k1_ms = median_ms(lambda: flash_attention(q, k, v, 4429))
     k1_plain_ms = median_ms(lambda: attention_reference(q, k, v, 4429))
-    phase("K1", f"(2, 24, 4480, 64) bf16 kv_len 4429: max abs err {k1_err:.3e}, mean "
-                f"{k1_mean:.3e}, strongly-negative case max {k1n_err:.3e} (atol/rtol "
-                f"{KERNEL_ATOL}); kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
-    del q, k, v, qn, kn
+    # PyTorch's flash attention takes no mask: the same function is the call
+    # on the valid kv rows (views, no copy)
+    k_v, v_v = k[:, :, :4429], v[:, :, :4429]
+    k1_lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k_v, v_v))
+    k1_bound, k1_by = attention_bound(48, n_joint, n_joint, 64, 4429)
+    phase("K1", f"(2, 24, 4480, 64) bf16 kv_len 4429: {fmt_err(k1_err)}; strongly negative "
+                f"{fmt_err(k1n_err)} (bound {KERNEL_REL_TOL} of max |o|); kernel "
+                f"{k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, scaled_dot_product_attention "
+                f"{k1_lib_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})")
+    del q, k, v, qn, kn, k_v, v_v
     q, k, v = (rand(1, 1, 16384, 512) for _ in range(3))
-    k2_err, k2_mean = check_kernel("K2", flash_attention_streaming, attention_reference,
-                                   q, k, v, None)
+    k2_err = check_kernel("K2", flash_attention_streaming, attention_reference, q, k, v, None)
     k2_ms = median_ms(lambda: flash_attention_streaming(q, k, v))
     k2_plain_ms = median_ms(lambda: attention_reference(q, k, v))
-    phase("K2", f"(1, 1, 16384, 512) bf16: max abs err {k2_err:.3e}, mean {k2_mean:.3e} "
-                f"(atol/rtol {KERNEL_ATOL}); kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
+    k2_lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k, v))
+    k2_bound, k2_by = attention_bound(1, 16384, 16384, 512)
+    phase("K2", f"(1, 1, 16384, 512) bf16: {fmt_err(k2_err)} (bound {KERNEL_REL_TOL} of max "
+                f"|o|); kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
+                f"scaled_dot_product_attention {k2_lib_ms:.3f} ms, bound {k2_bound:.3f} ms "
+                f"({k2_by})")
     del q, k, v
     torch.cuda.empty_cache()
+    return {
+        "K1": dict(max_abs_err=max(k1_err[0], k1n_err[0]), ms=k1_ms, plain_ms=k1_plain_ms,
+                   bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib_ms),
+        "K2": dict(max_abs_err=k2_err[0], ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
+                   bound_by=k2_by, library_ms=k2_lib_ms),
+    }
 
-    # 4. reference check: card (bf16, kernels) vs CPU (fp32, plain versions)
-    def rel_err(card_out, cpu_out):
-        ref = cpu_out.float()
-        return ((card_out.float().cpu() - ref).abs().max() / ref.abs().max()).item()
 
-    cpu_gen = torch.Generator().manual_seed(args.seed)
+def reference_phase(seed, dev):
+    """Phase 4: card (bf16, kernels) vs CPU (fp32, plain versions)."""
+    from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+
+    rel_err = lambda card_out, cpu_out: rel_to_range(card_out.cpu(), cpu_out)
+    cpu_gen = torch.Generator().manual_seed(seed)
     small = MMDiTConfig.sd3_medium(num_layers=2, num_attention_heads=4,
                                    caption_projection_dim=256, sample_size=16)
     m_cpu = MMDiT(small).init_weights(cpu_gen, WEIGHT_STD).to(torch.bfloat16).float()
@@ -183,28 +264,58 @@ def main() -> int:
                        f"max rel err {vae_err:.3e} (bound {MODULE_REL_TOL})")
     if not mmdit_err < MODULE_REL_TOL or not vae_err < MODULE_REL_TOL:
         fail("the card's modules disagree with their CPU fp32 reference")
-    del m_cpu, m_card, v_cpu, v_card
 
-    # 5. the slice at full width
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+def build_models(dev, seed, mmdit_config):
+    """Full-width SD3-medium MMDiT, TPM and SD3 VAE decoder in bf16 with
+    N(0, WEIGHT_STD²) weights from ``seed``, on ``dev``."""
+    from tpdm_tpu_torch.models.mmdit import MMDiT
+    from tpdm_tpu_torch.models.tpm import TimePredictor
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.device(dev):
-        mmdit = MMDiT(MMDiTConfig.sd3_medium())
+        mmdit = MMDiT(mmdit_config)
         tpm = TimePredictor(conv_out_channels=128, in_channels=3072, temb_dim=1536,
                             init_alpha=TPM_HEAD_BIAS[0], init_beta=TPM_HEAD_BIAS[1])
         vae = VAE(VAEConfig.sd3())
     for module in (mmdit, tpm, vae):
         module.init_weights(gen, WEIGHT_STD)
         module.to(device=dev, dtype=torch.bfloat16).eval()
-    n_params = sum(p.numel() for m in (mmdit, tpm, vae) for p in m.parameters())
-    pipe = TPDMPipeline(mmdit, tpm, vae)
-    torch.cuda.synchronize()
-    phase("models", f"SD3-medium MMDiT + TPM + SD3 VAE decoder, {n_params / 1e9:.3f} B "
-                    f"params bf16 on {dev}, weights N(0, {WEIGHT_STD}^2) from seed "
-                    f"{args.seed}, TPM head bias {TPM_HEAD_BIAS}; "
-                    f"{time.perf_counter() - t0:.1f} s")
+    return mmdit, tpm, vae
 
-    decode_s = {}
+
+def from_rank0(group, tensors):
+    """Overwrite ``tensors`` on every rank of ``group`` with rank 0's, so no
+    rank depends on its own card's random bits; nothing on a ring of 1."""
+    import torch.distributed as dist
+
+    if group.size > 1:
+        for t in tensors:
+            dist.broadcast(t, src=group.global_rank(0), group=group.group)
+
+
+def seq_parallel_rank(rank, world, store, seed):
+    """One rank's start: its seq group over the visible cards (NCCL, rank r
+    on cuda:r, joined through the file ``store``) and build_models'
+    SD3-medium modules, the MMDiT sequence-parallel over the group, with
+    rank 0's weights on every rank. Returns (group, (mmdit, tpm, vae))."""
+    sys.path.insert(0, str(REPO))
+    from tpdm_tpu_torch.models.mmdit import MMDiTConfig
+    from tpdm_tpu_torch.parallel import seq_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = seq_group("cuda", rank=rank, world_size=world, init_method=f"file://{store}")
+    modules = build_models(group.device, seed, MMDiTConfig.sd3_medium(seq_group=group))
+    for module in modules:
+        from_rank0(group, module.state_dict().values())
+    return group, modules
+
+
+def timed_decoder(pipe, decode_s):
+    """Wrap pipe's decode so it checks its input and output and records its
+    seconds in decode_s["last"]."""
 
     def timed_decode(latents, _decode=pipe._decode_impl):
         if not torch.isfinite(latents).all():
@@ -219,10 +330,45 @@ def main() -> int:
         return images
 
     pipe._decode_impl = timed_decode
+
+
+def check_schedule(res, b, px):
+    """uint8 images of (b, px, px, 3) and strictly decreasing valid sigmas."""
+    n = res.num_steps
+    if res.images.dtype.name != "uint8" or res.images.shape != (b, px, px, 3):
+        fail(f"images {res.images.dtype} {res.images.shape}, expected uint8 ({b}, {px}, {px}, 3)")
+    if not 1 <= n <= T_MAX:
+        fail(f"{n} steps, expected 1..{T_MAX}")
+    for i in range(b):
+        last = int(res.last_valid_index[i])
+        sig = [1.0] + [float(s) for s in res.sigmas[i, : last + 1]]
+        if last < 0 or not all(a > c for a, c in zip(sig, sig[1:])):
+            fail(f"sample {i}: sigma not strictly decreasing over valid steps: {sig}")
+
+
+def slice_1024_phase(seed, dev):
+    """Phase 5: two full-width 1024 px requests; returns the K1 and K2
+    launches counted over them."""
+    from tpdm_tpu_torch.models.mmdit import MMDiTConfig
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+
+    t0 = time.perf_counter()
+    mmdit, tpm, vae = build_models(dev, seed, MMDiTConfig.sd3_medium())
+    n_params = sum(p.numel() for m in (mmdit, tpm, vae) for p in m.parameters())
+    pipe = TPDMPipeline(mmdit, tpm, vae)
+    torch.cuda.synchronize()
+    phase("models", f"SD3-medium MMDiT + TPM + SD3 VAE decoder, {n_params / 1e9:.3f} B "
+                    f"params bf16 on {dev}, weights N(0, {WEIGHT_STD}^2) from seed "
+                    f"{seed}, TPM head bias {TPM_HEAD_BIAS}; "
+                    f"{time.perf_counter() - t0:.1f} s")
+
+    decode_s = {}
+    timed_decoder(pipe, decode_s)
     flash_attention.launches = 0
     flash_attention_streaming.launches = 0
-    for request, (b, seed) in enumerate([(1, args.seed + 1), (2, args.seed + 2)]):
-        eg = torch.Generator(device=dev).manual_seed(seed)
+    for request, (b, req_seed) in enumerate([(1, seed + 1), (2, seed + 2)]):
+        eg = torch.Generator(device=dev).manual_seed(req_seed)
         emb = lambda *shape: torch.randn(shape, generator=eg, device=dev, dtype=torch.bfloat16)
         pe, npe = emb(b, N_CTX, 4096), emb(b, N_CTX, 4096)
         pp, npp = emb(b, 2048), emb(b, 2048)
@@ -231,21 +377,13 @@ def main() -> int:
         torch.cuda.synchronize()
         start = time.perf_counter()
         res = pipe.generate(pe, pp, npe, npp, max_inference_steps=T_MAX, guidance_scale=7.0,
-                            predict=True, seed=seed)
+                            predict=True, seed=req_seed)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         n = res.num_steps
         k1_n = flash_attention.launches - k1_before
         k2_n = flash_attention_streaming.launches - k2_before
-        if res.images.dtype.name != "uint8" or res.images.shape != (b, 1024, 1024, 3):
-            fail(f"images {res.images.dtype} {res.images.shape}, expected uint8 ({b}, 1024, 1024, 3)")
-        if not 1 <= n <= T_MAX:
-            fail(f"{n} steps, expected 1..{T_MAX}")
-        for i in range(b):
-            last = int(res.last_valid_index[i])
-            sig = [1.0] + [float(s) for s in res.sigmas[i, : last + 1]]
-            if last < 0 or not all(a > c for a, c in zip(sig, sig[1:])):
-                fail(f"sample {i}: sigma not strictly decreasing over valid steps: {sig}")
+        check_schedule(res, b, 1024)
         if k1_n != mmdit.config.num_layers * n:
             fail(f"K1 launched {k1_n} times in {n} steps, expected {mmdit.config.num_layers * n}")
         if k2_n < 1:
@@ -257,17 +395,327 @@ def main() -> int:
               f"{seconds:.3f} s total, {seconds / b:.3f} s/image, K1 launches {k1_n}, "
               f"K2 launches {k2_n}, peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    k1_total, k2_total = flash_attention.launches, flash_attention_streaming.launches
+    return flash_attention.launches, flash_attention_streaming.launches
 
-    src = "tpdm_tpu_torch/csrc/flash_attn_fwd.cu"
-    print(json.dumps({"kernels": [
-        {"name": "flash_attention (K1)", "route": "cuda", "source": src,
-         "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": src,
-         "replaces": "tpdm_tpu/ops/attention.py:193", "launches": k2_total,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
-    ]}), flush=True)
+
+def k3_phase(g, dev, world):
+    """Phase 6: K3 at the ring's per-rank shapes of 2048 px generation at
+    batch 1 (CFG 2): a 4-way ring, and this machine's ring of ``world``."""
+    from tpdm_tpu_torch.ops.attention import flash_attention_with_stats
+    from tpdm_tpu_torch.ops.attention import attention_reference_stats
+
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    n_q4 = N_IMG_2048 // 4 + N_CTX  # rank 0 of 4: its image shard + the text queries
+    q, k, v = rand(2, 24, n_q4, 64), rand(2, 24, 4096, 64), rand(2, 24, 4096, 64)
+    kt, vt = rand(2, 24, 384, 64), rand(2, 24, 384, 64)
+    # the text kv as the ring launches it (333 rows, no mask), and padded to
+    # 384 rows with the pad masked
+    kt0, vt0 = kt[:, :, :N_CTX].contiguous(), vt[:, :, :N_CTX].contiguous()
+    o_err, lse_err = check_k3("K3 ring step", q, k, v, None)
+    t_o_err, t_lse_err = check_k3("K3 text tokens", q, kt0, vt0, None)
+    p_o_err, p_lse_err = check_k3("K3 text tokens, padded", q, kt, vt, N_CTX)
+    qn, kn = q.clone(), kt.clone()
+    qn[..., 0] += 12.0
+    kn[..., 0] = -80.0  # every valid score ~ -120 against masked pad columns
+    n_o_err, n_lse_err = check_k3("K3 (strongly negative)", qn, kn, vt, N_CTX)
+    del qn, kn
+    t_ms = median_ms(lambda: flash_attention_with_stats(q, kt0, vt0))
+    t_bound, t_by = attention_bound(48, n_q4, N_CTX, 64, stats=True)
+    ms = median_ms(lambda: flash_attention_with_stats(q, k, v))
+    plain_ms = median_ms(lambda: attention_reference_stats(q, k, v))
+    # PyTorch's flash attention returns the output and the natural-log
+    # log-sum-exp, K3's function; its lse also checks K3's m and l
+    lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)
+    lib_ms = median_ms(lib)
+    _, m, l = flash_attention_with_stats(q, k, v)
+    lib_lse, lse = lib()[1], (torch.log2(l) + m) * math.log(2.0)
+    lib_lse_err = (f"{(lib_lse - lse).abs().max().item():.3e}" if lib_lse.shape == lse.shape
+                   else f"not compared, its shape is {tuple(lib_lse.shape)}")
+    bound, bound_by = attention_bound(48, n_q4, 4096, 64, stats=True)
+    phase("K3", f"q (2, 24, {n_q4}, 64) x kv (2, 24, 4096, 64) bf16: o {fmt_err(o_err)}, "
+                f"log2(l)+m max abs err {lse_err:.3e}; x text kv (2, 24, {N_CTX}, 64): o "
+                f"{fmt_err(t_o_err)}, log2(l)+m {t_lse_err:.3e}; x text kv (2, 24, 384, 64) "
+                f"kv_len {N_CTX}: o {fmt_err(p_o_err)}, log2(l)+m {p_lse_err:.3e}; the same, "
+                f"strongly negative: o {fmt_err(n_o_err)}, log2(l)+m {n_lse_err:.3e} (o bound "
+                f"{KERNEL_REL_TOL} of max |o|, log2(l)+m atol {LSE_ATOL} rtol {LSE_RTOL}); "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"_scaled_dot_product_flash_attention {lib_ms:.3f} ms (its lse vs K3's: max abs "
+                f"{lib_lse_err}), bound {bound:.3f} ms ({bound_by}); x text kv (2, 24, {N_CTX}, "
+                f"64): kernel {t_ms:.3f} ms, bound {t_bound:.3f} ms ({t_by})")
+    del q, k, v, kt, vt, kt0, vt0, m, l, lib_lse, lse
+    errs = [o_err, t_o_err, p_o_err, n_o_err]
+    if world != 4:
+        # this machine's ring: rank 0 holds N_IMG_2048 / world image rows and
+        # the text queries; the plain version runs on a subset of query rows
+        n_local = N_IMG_2048 // world
+        q = rand(2, 24, n_local + N_CTX, 64)
+        k, v = rand(2, 24, n_local, 64), rand(2, 24, n_local, 64)
+        kt, vt = rand(2, 24, N_CTX, 64), rand(2, 24, N_CTX, 64)
+        rows = torch.cat([torch.arange(1024), torch.arange(n_local, n_local + N_CTX)]).to(dev)
+        w_o_err, w_lse_err = check_k3(f"K3 ring of {world}", q, k, v, None, rows)
+        wt_o_err, wt_lse_err = check_k3(f"K3 ring of {world}, text", q, kt, vt, None, rows)
+        phase("K3", f"ring of {world}, plain version on {rows.numel()} query rows: q (2, 24, "
+                    f"{n_local + N_CTX}, 64) x kv (2, 24, {n_local}, 64): o {fmt_err(w_o_err)}, "
+                    f"log2(l)+m {w_lse_err:.3e}; x text kv (2, 24, {N_CTX}, 64): o "
+                    f"{fmt_err(wt_o_err)}, log2(l)+m {wt_lse_err:.3e}")
+        errs += [w_o_err, wt_o_err]
+        del q, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+def merge_phase(g, dev):
+    """Phase 7: K3 over 4 image shards + the text tokens, merged, against
+    K1 over the whole 2048 px joint sequence (padded to 128 as the
+    unsharded model pads it, the pad masked)."""
+    from tpdm_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_with_stats,
+        merge_attention_shards,
+    )
+
+    n_tok = N_IMG_2048 + N_CTX
+    n_pad = -(-n_tok // 128) * 128
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (rand(2, 24, n_pad, 64) for _ in range(3))
+    bounds = [(i, i + N_IMG_2048 // 4) for i in range(0, N_IMG_2048, N_IMG_2048 // 4)]
+    bounds.append((N_IMG_2048, n_tok))
+    parts = [flash_attention_with_stats(q, k[:, :, a:b].contiguous(), v[:, :, a:b].contiguous())
+             for a, b in bounds]
+    merged = merge_attention_shards(*(torch.stack(x) for x in zip(*parts)))
+    whole = flash_attention(q, k, v, n_tok)
+    torch.cuda.synchronize()
+    err = rel_to_range(merged[:, :, :n_tok], whole[:, :, :n_tok])
+    abs_err = (merged[:, :, :n_tok].float() - whole[:, :, :n_tok].float()).abs().max().item()
+    phase("merge", f"2048 px joint attention q (2, 24, {n_pad}, 64): K3 over 4 image shards of "
+                   f"4096 + {N_CTX} text tokens, merge_attention_shards, vs K1 with kv_len "
+                   f"{n_tok}: max abs err {abs_err:.3e}, {err:.3e} of the output's range "
+                   f"(bound {SHARDED_REL_TOL})")
+    if not err < SHARDED_REL_TOL:
+        fail("merged K3 shards disagree with K1 over the whole sequence")
+    del q, k, v, parts, merged, whole
+    torch.cuda.empty_cache()
+
+
+def _seq_parallel_rank(rank, world, store, seed, out_dir):
+    """Phase 8 on one rank: the seq-parallel forward against the unsharded
+    one (rank 0), then two 2048 px requests; writes its numbers to
+    out_dir/rank{rank}.json."""
+    group, (mmdit, tpm, vae) = seq_parallel_rank(rank, world, store, seed)
+    import torch.distributed as dist
+
+    from tpdm_tpu_torch.models.mmdit import MMDiT
+    from tpdm_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_streaming,
+        flash_attention_with_stats,
+    )
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+
+    dev = group.device
+    report = {"rank": rank, "world": world, "device": str(dev)}
+    counters = (flash_attention, flash_attention_with_stats, flash_attention_streaming)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    # the forward: CFG batch 2 at 2048 px, inputs from rank 0
+    eg = torch.Generator(device=dev).manual_seed(seed + 10)
+    inputs = [torch.randn(2, 16, 256, 256, generator=eg, device=dev, dtype=torch.bfloat16),
+              torch.tensor([1000.0, 1000.0], device=dev, dtype=torch.bfloat16),
+              torch.randn(2, N_CTX, 4096, generator=eg, device=dev, dtype=torch.bfloat16),
+              torch.randn(2, 2048, generator=eg, device=dev, dtype=torch.bfloat16)]
+    from_rank0(group, inputs)
+    # the same latents, each moved by one bf16 step up or down
+    step = torch.randint(0, 2, inputs[0].shape, generator=eg, device=dev, dtype=torch.int16)
+    nudged = [(inputs[0].view(torch.int16) + 2 * step - 1).view(torch.bfloat16), *inputs[1:]]
+    names = ("velocity", "temb", "h1", "h2")
+
+    def gaps(out, ref):
+        return ({n: rel_to_range(a, b) for n, a, b in zip(names, out, ref)},
+                {n: rel_rms(a, b) for n, a, b in zip(names, out, ref)})
+
+    def timed(model):
+        with torch.no_grad():
+            model(*inputs)  # warm-up: cuBLAS picks its kernels for these shapes
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = model(*inputs)
+            torch.cuda.synchronize()
+        return out, 1000 * (time.perf_counter() - start)
+
+    # the seq-parallel forward, and on rank 0 the unsharded one twice: on
+    # the same inputs, and on the nudged latents (the rounding floor)
+    reset()
+    sp_out, report["sp_forward_ms"] = timed(mmdit)
+    report["sp_forward_k3"] = flash_attention_with_stats.launches  # over timed()'s two forwards
+    report["sp_forward_k1"] = flash_attention.launches
+    if rank == 0:
+        with torch.device(dev):
+            plain = MMDiT(dataclasses.replace(mmdit.config, seq_group=None))
+        plain.to(torch.bfloat16).eval()
+        plain.load_state_dict(mmdit.state_dict())
+        ref_out, report["unsharded_forward_ms"] = timed(plain)
+        report["forward_rel_err"], report["forward_rel_rms"] = gaps(sp_out, ref_out)
+        report["forward_finite"] = all(bool(torch.isfinite(a.float()).all()) for a in sp_out)
+        with torch.no_grad():
+            floor_out = plain(*nudged)
+        report["floor_rel_err"], report["floor_rel_rms"] = gaps(floor_out, ref_out)
+        del plain, ref_out, floor_out
+    del sp_out, nudged
+    torch.cuda.empty_cache()
+    if world > 1:
+        dist.barrier()
+
+    pipe = TPDMPipeline(mmdit, tpm, vae)
+    decode_s = {}
+    timed_decoder(pipe, decode_s)
+    report["requests"] = []
+    for req_seed in (seed + 3, seed + 4):
+        eg = torch.Generator(device=dev).manual_seed(req_seed)
+        emb = lambda *shape: torch.randn(shape, generator=eg, device=dev, dtype=torch.bfloat16)
+        pe, npe, pp, npp = emb(1, N_CTX, 4096), emb(1, N_CTX, 4096), emb(1, 2048), emb(1, 2048)
+        from_rank0(group, (pe, npe, pp, npp))
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        reset()
+        start = time.perf_counter()
+        res = pipe.generate(pe, pp, npe, npp, max_inference_steps=T_MAX, guidance_scale=7.0,
+                            predict=True, seed=req_seed, height=2048, width=2048)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = [fn.launches for fn in counters]
+        check_schedule(res, 1, 2048)
+        n = res.num_steps
+        report["requests"].append(dict(
+            steps=n, sigmas=[float(x) for x in res.sigmas[0, :n]], seconds=seconds,
+            decode_ms=1000 * decode_s["last"],
+            step_ms=1000 * (seconds - decode_s["last"]) / n,
+            k1=counts[0], k3=counts[1], k2=counts[2],
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+            image_mean=float(res.images.mean())))
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
+    if world > 1:
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+def seq_parallel_phase(seed, world):
+    """Phase 8: one process per card; rank 0's numbers printed, every rank's
+    checked. Returns rank 0's K3 launches over the second request."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_seq_parallel_rank, args=(world, f"{tmp}/store", seed, tmp), nprocs=world,
+                 join=True)
+        reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)]
+        wall = time.perf_counter() - t0
+    layers = 24
+    per_step = layers * (world + 1)  # a layer: one K3 per image shard of the ring + the text
+    r0 = reports[0]
+    nccl = (f"NCCL ring of {world}" if world > 1
+            else "a ring of 1 on one card: no NCCL exchange ran")
+    if not r0["forward_finite"]:
+        fail("the seq-parallel forward gave non-finite values")
+    show = lambda gaps: ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+    phase("seq-parallel forward", f"{nccl}; SD3-medium at 2048 px (CFG batch 2, {N_IMG_2048} "
+          f"+ {N_CTX} tokens), seq-parallel (K3) vs unsharded (K1): RMS err "
+          f"{show(r0['forward_rel_rms'])} of each output's RMS (bound {SHARDED_REL_TOL}), max "
+          f"err {show(r0['forward_rel_err'])} of its range; the unsharded forward on latents "
+          f"moved by one bf16 step against itself: RMS err {show(r0['floor_rel_rms'])}, max err "
+          f"{show(r0['floor_rel_err'])} (bound {FLOOR_FACTOR}x each). Warm forward "
+          f"{r0['sp_forward_ms']:.1f} ms seq-parallel, {r0['unsharded_forward_ms']:.1f} ms "
+          f"unsharded; per rank over two forwards K3 launches "
+          f"{[rep['sp_forward_k3'] for rep in reports]} (expected {2 * per_step}), K1 "
+          f"{[rep['sp_forward_k1'] for rep in reports]}")
+    if not max(r0["forward_rel_rms"].values()) <= SHARDED_REL_TOL:
+        fail("the seq-parallel forward disagrees with the unsharded one")
+    for key in ("rel_err", "rel_rms"):
+        sp, floor = r0[f"forward_{key}"], r0[f"floor_{key}"]
+        if not all(sp[n] <= FLOOR_FACTOR * floor[n] for n in sp):
+            fail(f"the seq-parallel 24-layer forward is further from the unsharded one "
+                 f"({sp}) than {FLOOR_FACTOR}x one bf16 step on the latents moves it ({floor})")
+    for rep in reports:
+        if rep["sp_forward_k3"] != 2 * per_step or rep["sp_forward_k1"] != 0:
+            fail(f"rank {rep['rank']}: two forwards launched K3 {rep['sp_forward_k3']} and K1 "
+                 f"{rep['sp_forward_k1']} times, expected {2 * per_step} and 0")
+    for i in range(2):
+        reqs = [rep["requests"][i] for rep in reports]
+        q0 = reqs[0]
+        for rep, q in zip(reports, reqs):
+            if q["steps"] != q0["steps"] or q["sigmas"] != q0["sigmas"]:
+                fail(f"rank {rep['rank']} took other steps than rank 0")
+            if q["k3"] != per_step * q["steps"] or q["k1"] != 0 or q["k2"] < 1:
+                fail(f"rank {rep['rank']}: K3 {q['k3']} (expected {per_step * q['steps']}), "
+                     f"K1 {q['k1']} (expected 0), K2 {q['k2']} (expected >= 1) launches")
+        phase(f"request 2048 px {i + 1}", f"{nccl}; batch 1: {q0['steps']} steps, sigmas "
+              f"{[round(s, 5) for s in q0['sigmas']]}, {q0['step_ms']:.1f} ms/step (CFG batch "
+              f"2), decode {q0['decode_ms']:.1f} ms, {q0['seconds']:.3f} s/image; per rank "
+              f"K3 launches {[q['k3'] for q in reqs]} (expected {per_step} a step), K1 "
+              f"{[q['k1'] for q in reqs]}, K2 {[q['k2'] for q in reqs]}, peak memory "
+              f"{[round(q['peak_gib'], 2) for q in reqs]} GiB")
+    phase("seq-parallel", f"{world} process(es), {wall:.1f} s with start-up")
+    return reports[0]["requests"][1]["k3"]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seq-parallel-only", action="store_true",
+                    help="run only the device, build and sequence-parallel phases")
+    args = ap.parse_args()
+
+    # 1. the device
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's kernels run only on a CUDA card")
+    if not (REPO / "tpdm_tpu_torch").is_dir():
+        fail(f"tpdm_tpu_torch not found beside {Path(__file__).name}: run from the repository")
+    sys.path.insert(0, str(REPO))
+    from tpdm_tpu_torch.ops import _build
+
+    # fp32 products in the comparisons below run in full fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    world = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi, flush=True)
+    phase("device", f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+                    f"CUDA {torch.version.cuda}, {world} device(s)")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    phase("build", f"{lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
+
+    if args.seq_parallel_only:
+        seq_parallel_phase(args.seed, world)
+    else:
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        kernels = kernel_phase(g, dev)  # 3
+        reference_phase(args.seed, dev)  # 4
+        k1_total, k2_total = slice_1024_phase(args.seed, dev)  # 5
+        kernels["K3"] = k3_phase(g, dev, world)  # 6
+        merge_phase(g, dev)  # 7
+        k3_total = seq_parallel_phase(args.seed, world)  # 8
+
+        src = "tpdm_tpu_torch/csrc/flash_attn_fwd.cu"
+        print(json.dumps({"kernels": [
+            {"name": "flash_attention (K1)", "route": "cuda", "source": src,
+             "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total, **kernels["K1"]},
+            {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": src,
+             "replaces": "tpdm_tpu/ops/attention.py:193", "launches": k2_total,
+             **kernels["K2"]},
+            {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": src,
+             "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,
+             **kernels["K3"]},
+        ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

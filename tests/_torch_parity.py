@@ -52,8 +52,10 @@ def perturb(variables, seed: int, scale: float = 0.05):
     return {**variables, "params": noisy}
 
 
-def toy_mmdit(seed: int = 0):
-    jm = JMMDiT(JMMDiTConfig.toy())
+def toy_mmdit(seed: int = 0, **cfg_kw):
+    """Toy JAX MMDiT, its perturbed variables and the port's copy;
+    ``cfg_kw`` overrides fields of both toy configs."""
+    jm = JMMDiT(JMMDiTConfig.toy(**cfg_kw))
     c = jm.config
     variables = jm.init(
         jax.random.PRNGKey(seed),
@@ -63,7 +65,7 @@ def toy_mmdit(seed: int = 0):
         jnp.zeros((1, c.pooled_projection_dim)),
     )
     variables = perturb(variables, seed)
-    cfg = MMDiTConfig.toy()
+    cfg = MMDiTConfig.toy(**cfg_kw)
     tm = MMDiT(cfg)
     tm.load_state_dict(mmdit_from_jax(variables, cfg))
     return jm, variables, tm.eval()

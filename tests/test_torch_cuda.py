@@ -13,6 +13,12 @@ one. Both versions round P to bf16 before the PV product and the output to
 bf16 (a relative step of 2^-8 = 0.4 %); they sum in different orders and the
 kernel rescales its running sums tile by tile, so a few output ulps apart is
 expected and anything wrong in the algorithm is far outside the bound.
+
+K3's statistics are compared in the frame log2(l) + m, which does not
+depend on where each version puts m: atol 1e-3 / rtol 1e-4. The scores are
+exact products of bf16 values summed in fp32 in another order (relative
+~1e-6) and the sums l are fp32 in both, so on values of order 10 (or -170
+for the strongly negative case) the two agree to a few 1e-4.
 """
 
 import pytest
@@ -20,14 +26,18 @@ import torch
 
 from tpdm_tpu_torch.ops.attention import (
     attention_reference,
+    attention_reference_stats,
     flash_attention,
     flash_attention_streaming,
+    flash_attention_with_stats,
     joint_attention,
+    merge_attention_shards,
 )
 
 pytestmark = pytest.mark.cuda
 
 ATOL = RTOL = 2e-2
+LSE_ATOL, LSE_RTOL = 1e-3, 1e-4
 
 
 @pytest.fixture
@@ -79,6 +89,53 @@ def test_k1_mask_with_strongly_negative_scores(device):
     _assert_close(out, ref)
 
 
+def _assert_stats_close(got, ref):
+    (o, m, l), (o_ref, m_ref, l_ref) = got, ref
+    _assert_close(o, o_ref)
+    assert m.dtype == l.dtype == torch.float32 and m.shape == l.shape == o.shape[:3]
+    torch.testing.assert_close(torch.log2(l) + m, torch.log2(l_ref) + m_ref,
+                               atol=LSE_ATOL, rtol=LSE_RTOL)
+
+
+@pytest.mark.parametrize(
+    "shape,kv_len",
+    [
+        ((2, 24, 4429, 4096), None),  # 2048 px, 4-way ring: rank 0 vs an image shard
+        ((2, 24, 4429, 384), 333),  # ... vs the text tokens, padded and masked
+        ((2, 24, 4096, 333), None),  # another rank vs the text tokens
+        ((1, 2, 333, 437), 400),  # ragged on both axes
+        ((1, 1, 200, 256), 1),  # a single valid kv column
+    ],
+)
+def test_k3_matches_plain(device, shape, kv_len):
+    b, h, n_q, n_kv = shape
+    q, k, v = _qkv(device, b, h, n_q, n_kv, 64, seed=n_kv)
+    before = flash_attention_with_stats.launches
+    got = flash_attention_with_stats(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention_with_stats.launches == before + 1
+    _assert_stats_close(got, attention_reference_stats(q, k, v, kv_len))
+
+
+def test_k3_mask_with_strongly_negative_scores(device):
+    q, k, v = _qkv(device, 1, 2, 128, 256, 64, seed=21)
+    q[..., 0] += 12.0
+    k[..., 0] = -80.0
+    got = flash_attention_with_stats(q, k, v, 200)
+    _assert_stats_close(got, attention_reference_stats(q, k[:, :, :200], v[:, :, :200]))
+
+
+def test_k3_shards_merge_to_k1(device):
+    """K3 over four kv shards, the last one partly pad, merged by
+    merge_attention_shards, equals K1 over the whole masked sequence."""
+    q, k, v = _qkv(device, 1, 4, 300, 1000, 64, seed=22)
+    parts = [flash_attention_with_stats(q, k[:, :, i:i + 250].contiguous(),
+                                        v[:, :, i:i + 250].contiguous(), min(250, 900 - i))
+             for i in range(0, 1000, 250)]
+    merged = merge_attention_shards(*(torch.stack(x) for x in zip(*parts)))
+    _assert_close(merged, flash_attention(q, k, v, 900))
+
+
 @pytest.mark.parametrize(
     "shape,kv_len",
     [
@@ -121,3 +178,8 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
         flash_attention_streaming(q, k, v)
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention(q, k, v, 0)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention_with_stats(q, k, v, 65)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_with_stats(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                   v[..., :32].contiguous())

@@ -1,14 +1,20 @@
 // Non-causal flash-attention forward for Hopper (sm_90a), bf16 in and out.
 //
-// One kernel template serves both attention kernels of the SD3 generation
-// path of the JAX package:
+// One kernel template serves the three attention kernels of the SD3
+// generation paths of the JAX package:
 //
 //   K1  tpdm_flash_attention_d64  replaces tpdm_tpu/ops/attention.py
 //       _flash_kernel (+ _chunk_walk): MMDiT joint attention, q/k/v
 //       (2b, 24, 4480, 64) with kv_len = 4429 at 1024 px, 24 calls a step.
 //   K2  tpdm_flash_attention_d512 replaces tpdm_tpu/ops/attention.py
 //       _flash_kernel_streaming: VAE mid-block attention, (b, 1, 16384, 512)
-//       at 1024 px, once a decode.
+//       at 1024 px and (b, 1, 65536, 512) at 2048 px, once a decode.
+//   K3  tpdm_flash_attention_stats_d64 replaces tpdm_tpu/ops/attention.py
+//       _flash_kernel_stats: K1 plus each query row's softmax statistics,
+//       the local step of the sequence-parallel ring. At 2048 px over a
+//       4-way ring a rank runs q (2b, 24, 4429, 64) against each image kv
+//       shard (2b, 24, 4096, 64) and against the 333 text tokens, so
+//       P + 1 calls a layer.
 //
 // The TPU kernels differ in where K/V live (resident in VMEM, or streamed
 // over a sequential grid axis with (m, acc) carried in scratch). On Hopper
@@ -27,7 +33,14 @@
 //      the running denominator l, all in fp32;
 //   4. O = alpha * O + P V on the tensor cores; O stays in registers, each
 //      warp owning a 16-row by D/WARPS_N-column slice of it.
-// After the walk O / l is written as bf16.
+// After the walk O / l is written as bf16. K3 (kStats) also writes each
+// row's final m and l as fp32: m is the largest exp2-domain score
+// s2 = q.k * log2(e)/sqrt(d) over the columns < kv_len, and
+// l = sum exp2(s2 - m) over them, summed from the fp32 p (the bf16 copy of
+// p feeds only the PV product). These are the statistics that
+// merge_attention_shards and the ring's running merge combine across kv
+// shards; every thread of a row holds the same m_run and l_run after the
+// shuffle reductions, so one of them stores the pair.
 //
 // Masking is a bias, never a zero fill: a masked score is -1e30, so it can
 // never raise the running max. Zero-filling masked scores would pull the
@@ -36,8 +49,9 @@
 // the JAX package). Tile 0 always holds a valid column (kv_len >= 1), so the
 // running max is a real score from the first tile on.
 //
-// What bounds it on the H100: at both shapes above the work is compute
-// bound (K1 246 GFLOP over 110 MB of operands, K2 550 GFLOP over 67 MB), so
+// What bounds it on the H100: at the shapes above the work is compute
+// bound (K1 246 GFLOP over 110 MB of operands, K2 550 GFLOP over 67 MB, K3
+// 223 GFLOP over 106 MB a ring step, the stats 8 bytes a row of it), so
 // the limit is the tensor cores and how well they are fed. This first
 // version is the simple, correct shape of the algorithm: synchronous tile
 // copies, S and P staged through shared memory, four barriers a tile, and
@@ -140,11 +154,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N>
+template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N, bool kStats>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o, int n_q, int n_kv,
-                          int kv_len, float scale_log2) {
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ m_out, float* __restrict__ l_out, int n_q,
+                          int n_kv, int kv_len, float scale_log2) {
   using C = Cfg<D, BQ, BKV, WARPS_M, WARPS_N>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -293,6 +308,12 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
   }
 
   if (sm_part == 0) sL[sm_row] = l_run;
+  if constexpr (kStats) {
+    if (sm_part == 0 && q0 + sm_row < n_q) {
+      m_out[bh * n_q + q0 + sm_row] = m_run;
+      l_out[bh * n_q + q0 + sm_row] = l_run;
+    }
+  }
   __syncthreads();
 
   const float inv_lo = 1.f / sL[o_row0 + g];
@@ -313,18 +334,19 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
   }
 }
 
-template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N>
+template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N, bool kStats = false>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int n_q, int n_kv,
-           int kv_len, void* stream) {
+           int kv_len, void* stream, void* m = nullptr, void* l = nullptr) {
   using C = Cfg<D, BQ, BKV, WARPS_M, WARPS_N>;
-  auto kernel = flash_attn_fwd_kernel<D, BQ, BKV, WARPS_M, WARPS_N>;
+  auto kernel = flash_attn_fwd_kernel<D, BQ, BKV, WARPS_M, WARPS_N, kStats>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n_q + BQ - 1) / BQ, bh);
   kernel<<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), n_q, n_kv, kv_len, kLog2e / sqrtf(static_cast<float>(D)));
+      static_cast<bf16*>(o), static_cast<float*>(m), static_cast<float*>(l), n_q, n_kv, kv_len,
+      kLog2e / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -335,6 +357,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int n_q
 extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void* v, void* o,
                                         int bh, int n_q, int n_kv, int kv_len, void* stream) {
   return launch<64, 64, 64, 4, 1>(q, k, v, o, bh, n_q, n_kv, kv_len, stream);
+}
+
+// K3: as tpdm_flash_attention_d64, and also m, l: (bh, n_q) fp32, the row
+// statistics in the exp2 domain (see the note at the top).
+extern "C" int tpdm_flash_attention_stats_d64(const void* q, const void* k, const void* v,
+                                              void* o, void* m, void* l, int bh, int n_q,
+                                              int n_kv, int kv_len, void* stream) {
+  return launch<64, 64, 64, 4, 1, true>(q, k, v, o, bh, n_q, n_kv, kv_len, stream, m, l);
 }
 
 extern "C" int tpdm_flash_attention_d512(const void* q, const void* k, const void* v, void* o,

@@ -63,6 +63,29 @@ def get_2d_sincos_pos_embed(
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
 
 
+def get_2d_sincos_pos_embed_fp32(
+    embed_dim: int,
+    grid_size: int,
+    base_size: int,
+    device: torch.device = None,
+) -> torch.Tensor:
+    """``get_2d_sincos_pos_embed`` computed in fp32 torch on ``device``, as
+    ``tpdm_tpu/models/layers.py:get_2d_sincos_pos_embed_jnp``: the table for
+    a grid larger than the stored one, made when it is needed rather than
+    kept as a (grid², embed_dim) buffer."""
+    coords = torch.arange(grid_size, dtype=torch.float32, device=device) / (grid_size / base_size)
+    gw, gh = torch.meshgrid(coords, coords, indexing="xy")  # w first, per diffusers
+
+    def _1d(dim: int, pos: torch.Tensor) -> torch.Tensor:
+        omega = torch.arange(dim // 2, dtype=torch.float32, device=device) / (dim / 2.0)
+        omega = 1.0 / 10000.0**omega
+        out = pos.reshape(-1)[:, None] * omega[None, :]
+        return torch.cat([torch.sin(out), torch.cos(out)], dim=1)
+
+    # the "h" half takes the w-varying grid, as in the stored table
+    return torch.cat([_1d(embed_dim // 2, gw), _1d(embed_dim // 2, gh)], dim=1)
+
+
 def _layer_norm_fp32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Affine-free LayerNorm over the last axis with fp32 statistics."""
     return F.layer_norm(x.float(), (x.shape[-1],), eps=eps).to(x.dtype)
@@ -140,7 +163,10 @@ class CombinedTimestepTextEmbed(nn.Module):
 class PatchEmbed(nn.Module):
     """Patchify NCHW latents into tokens and add the center-cropped sincos
     table. The stride-p conv is a Linear over each (p, p, c)-ordered patch,
-    as in the JAX package."""
+    as in the JAX package. A token grid larger than the stored table (SD3
+    at 2048 px: 128 x 128 against 96 x 96) gets the table regenerated at
+    m = max(gh, gw) with the same base_size, whose coordinates stay in the
+    trained [0, base_size) range (``tpdm_tpu/models/layers.py:233-247``)."""
 
     def __init__(
         self,
@@ -154,6 +180,7 @@ class PatchEmbed(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.pos_embed_max_size = pos_embed_max_size
+        self.base_size = base_size
         self.proj = nn.Linear(patch_size * patch_size * in_channels, embed_dim)
         table = get_2d_sincos_pos_embed(embed_dim, pos_embed_max_size, base_size)
         self.register_buffer("pos_embed", torch.from_numpy(table), persistent=False)
@@ -163,15 +190,14 @@ class PatchEmbed(nn.Module):
         b, c, h, w = latent.shape
         p, m = self.patch_size, self.pos_embed_max_size
         gh, gw = h // p, w // p
+        table = self.pos_embed
         if gh > m or gw > m:
-            raise NotImplementedError(
-                f"a {gh}x{gw} token grid exceeds the stored {m}x{m} position "
-                "table; regenerating it (2048 px generation) is not ported yet"
-            )
+            m = max(gh, gw)
+            table = get_2d_sincos_pos_embed_fp32(self.embed_dim, m, self.base_size, latent.device)
         x = latent.reshape(b, c, gh, p, gw, p).permute(0, 2, 4, 3, 5, 1)
         x = self.proj(x.reshape(b, gh * gw, p * p * c))
         top, left = (m - gh) // 2, (m - gw) // 2
-        pos = self.pos_embed.reshape(m, m, self.embed_dim)[top : top + gh, left : left + gw]
+        pos = table.reshape(m, m, self.embed_dim)[top : top + gh, left : left + gw]
         return x + pos.reshape(1, gh * gw, self.embed_dim).to(x.dtype)
 
 

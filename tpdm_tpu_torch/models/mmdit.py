@@ -5,16 +5,31 @@ Counterpart of ``tpdm_tpu/models/mmdit.py``: SD3-medium's MMDiT, returning
 the post-final-AdaLN tokens that feed the Time Prediction Module. The joint
 attention runs kernel K1 on the card (``ops/attention.py``).
 
-Not ported yet: SD3.5's dual attention and qk RMSNorm, sequence
-parallelism, the Δ-cache ``cache_mode`` and quantised matmuls.
+Sequence parallelism (``MMDiTConfig.seq_group``, the counterpart of
+``seq_mesh``) shards the image tokens over the group's ranks, rank r
+holding the r-th of P equal shards (the last ones padded). The text tokens
+are held whole on every rank. Each joint attention runs the ring of
+``parallel/sp_attention.py`` over the image kv shards (K3, P calls) plus
+one K3 call against the local text kv; rank 0 alone adds the text queries
+to its own and updates the text stream, which it then broadcasts, so the
+text stream is the same bits on every rank. At the end the ranks
+all-gather h2, and velocity comes from the whole h2 on every rank; h1 is
+computed whole on every rank. The JAX package pads the joint sequence to a
+multiple of lcm(128, P) for its Pallas kernel; the port's kernels take any
+length, so only the image tokens are padded, to a multiple of P.
+
+Not ported yet: SD3.5's dual attention and qk RMSNorm, the Δ-cache
+``cache_mode``, quantised matmuls, and the batch axis sharded beside the
+token axis (``seq_batch_axes``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tpdm_tpu_torch.models.layers import (
@@ -27,6 +42,8 @@ from tpdm_tpu_torch.models.layers import (
     init_weights,
 )
 from tpdm_tpu_torch.ops.attention import joint_attention
+from tpdm_tpu_torch.parallel.mesh import SeqGroup
+from tpdm_tpu_torch.parallel.sp_attention import _ring_forward, shard_valid_counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +64,9 @@ class MMDiTConfig:
     dual_attention_layers: Tuple[int, ...] = ()
     qk_norm: Optional[str] = None
     dtype: torch.dtype = torch.bfloat16
+    # sequence parallelism: the image tokens sharded over this group's ranks
+    # (parallel/mesh.py); the parameters are the same as without it
+    seq_group: Optional[SeqGroup] = None
 
     @property
     def inner_dim(self) -> int:
@@ -90,7 +110,12 @@ class JointAttention(nn.Module):
         if not context_pre_only:
             self.to_add_out = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, ctx: torch.Tensor):
+    def forward(
+        self, x: torch.Tensor, ctx: torch.Tensor, shard_valid: Optional[Sequence[int]] = None
+    ):
+        """Without a seq group: (image output, text output or None). With
+        one, x is this rank's image shard, shard_valid the valid rows of
+        each rank's shard, and the text output is None except on rank 0."""
         cfg = self.config
         h, d = cfg.num_attention_heads, cfg.attention_head_dim
         b, n_img, _ = x.shape
@@ -98,6 +123,9 @@ class JointAttention(nn.Module):
 
         def heads(t):  # (b, n, h*d) -> (b, h, n, d)
             return t.reshape(b, -1, h, d).transpose(1, 2)
+
+        if cfg.seq_group is not None:
+            return self._seq_parallel(x, ctx, shard_valid, heads)
 
         # The context is padded so the joint length is a multiple of 128;
         # the pad kv columns are masked through kv_len and the pad query
@@ -121,6 +149,23 @@ class JointAttention(nn.Module):
             return o_img, None
         return o_img, self.to_add_out(o[:, n_img:n_tok])
 
+    def _seq_parallel(self, x, ctx, shard_valid, heads):
+        group = self.config.seq_group
+        b, n_local, _ = x.shape
+        q = heads(self.to_q(x))
+        k, v = (heads(proj(x)).contiguous() for proj in (self.to_k, self.to_v))
+        k_ctx, v_ctx = (heads(proj(ctx)).contiguous() for proj in (self.add_k_proj, self.add_v_proj))
+        text_rows = group.rank == 0 and not self.context_pre_only
+        if text_rows:
+            q = torch.cat([q, heads(self.add_q_proj(ctx))], dim=2)
+        o, _, _ = _ring_forward(q.contiguous(), k, v, group, shard_valid,
+                                local_kv=((k_ctx, v_ctx, None),))
+        o = o.transpose(1, 2).reshape(b, -1, o.shape[1] * o.shape[3])
+        o_img = self.to_out(o[:, :n_local])
+        if not text_rows:
+            return o_img, None
+        return o_img, self.to_add_out(o[:, n_local:])
+
 
 class JointBlock(nn.Module):
     """One MMDiT dual-stream block (diffusers ``JointTransformerBlock``)."""
@@ -138,7 +183,16 @@ class JointBlock(nn.Module):
         if not context_pre_only:
             self.ff_context = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, ctx: torch.Tensor, temb: torch.Tensor):
+    def forward(
+        self,
+        x: torch.Tensor,
+        ctx: torch.Tensor,
+        temb: torch.Tensor,
+        shard_valid: Optional[Sequence[int]] = None,
+    ):
+        """Returns (x, ctx); ctx comes back unchanged where the attention
+        gave no text output (the last block, and ranks other than 0 of a
+        seq group)."""
         norm_x, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
         if self.context_pre_only:
             norm_ctx = self.norm1_context(ctx, temb)
@@ -146,11 +200,11 @@ class JointBlock(nn.Module):
             norm_ctx, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(
                 ctx, temb
             )
-        attn_out, ctx_attn_out = self.attn(norm_x, norm_ctx)
+        attn_out, ctx_attn_out = self.attn(norm_x, norm_ctx, shard_valid)
         x = x + gate_msa[:, None] * attn_out
         norm_x = _layer_norm_fp32(x) * (1.0 + scale_mlp[:, None]) + shift_mlp[:, None]
         x = x + gate_mlp[:, None] * self.ff(norm_x)
-        if self.context_pre_only:
+        if ctx_attn_out is None:
             return x, ctx
         ctx = ctx + c_gate_msa[:, None] * ctx_attn_out
         norm_ctx = _layer_norm_fp32(ctx) * (1.0 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
@@ -197,15 +251,29 @@ class MMDiT(nn.Module):
         pooled_projections: torch.Tensor,  # (b, pooled_projection_dim)
     ):
         cfg = self.config
+        group = cfg.seq_group
         b, _, height, width = latents.shape
         p = cfg.patch_size
         x = self.pos_embed(latents)
         h1 = x
         temb = self.time_text_embed(timestep, pooled_projections)
         ctx = self.context_embedder(encoder_hidden_states)
+        shard_valid = None
+        if group is not None:
+            n_img = x.shape[1]
+            n_local = -(-n_img // group.size)
+            shard_valid = shard_valid_counts(n_local, group.size, n_img)
+            x = x[:, group.rank * n_local : (group.rank + 1) * n_local]
+            x = nn.functional.pad(x, (0, 0, 0, n_local - x.shape[1]))
         for block in self.transformer_blocks:
-            x, ctx = block(x, ctx, temb)
+            x, ctx = block(x, ctx, temb, shard_valid)
+            if group is not None and group.size > 1 and not block.context_pre_only:
+                dist.broadcast(ctx, src=group.global_rank(0), group=group.group)
         x = self.norm_out(x, temb)
+        if group is not None:
+            parts = [torch.empty_like(x) for _ in range(group.size)]
+            dist.all_gather(parts, x.contiguous(), group=group.group)
+            x = torch.cat(parts, dim=1)[:, :n_img]
         h2 = x
         x = self.proj_out(x)
         # unpatchify: (b, gh*gw, p*p*c) -> (b, c, h, w), einsum nhwpqc->nchpwq

@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills into build.log
 )
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-# C entry points: (q, k, v, o, bh, n_q, n_kv, kv_len, stream) -> cudaError_t
+# C entry points: (q, k, v, o, bh, n_q, n_kv, kv_len, stream) -> cudaError_t;
+# tpdm_flash_attention_stats_d64 takes m, l after o
 ATTENTION_ENTRIES = ("tpdm_flash_attention_d64", "tpdm_flash_attention_d512")
 
 
@@ -97,6 +98,9 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.tpdm_flash_attention_stats_d64
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.tpdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpdm_cuda_error_string.restype = ctypes.c_char_p
     return lib

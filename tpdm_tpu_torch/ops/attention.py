@@ -1,10 +1,11 @@
 """Attention for the joint image+text sequence and the VAE mid block.
 
-Two hand-written Hopper kernels (``csrc/flash_attn_fwd.cu``) and their plain
-PyTorch version, ``attention_reference``. The wrappers dispatch on the
-tensor's device: a CUDA tensor launches the kernel (or the wrapper raises on
-what the kernel does not take), a CPU tensor runs the plain version. There is
-no flag that picks the plain version on CUDA.
+Three hand-written Hopper kernels (``csrc/flash_attn_fwd.cu``) and their
+plain PyTorch versions, ``attention_reference`` and
+``attention_reference_stats``. The wrappers dispatch on the tensor's device:
+a CUDA tensor launches the kernel (or the wrapper raises on what the kernel
+does not take), a CPU tensor runs the plain version. There is no flag that
+picks the plain version on CUDA.
 
 Layouts follow the JAX package: q, k, v and the output are (b, h, n, d).
 """
@@ -18,6 +19,7 @@ import torch
 from tpdm_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
 
 
 def attention_reference(
@@ -72,13 +74,16 @@ def _check_kernel_operands(name: str, q, k, v, head_dim: int, kv_len) -> int:
     return kv_len
 
 
-def _launch(entry: str, q, k, v, kv_len: int) -> torch.Tensor:
+def _launch(entry: str, q, k, v, kv_len: int, *stats: torch.Tensor) -> torch.Tensor:
+    """Launch ``entry`` on q's current stream; ``stats`` are K3's (m, l)
+    outputs, passed after o."""
     lib = _build.load_library()
     out = torch.empty_like(q)
     b, h, n_q, _ = q.shape
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in stats),
             b * h, n_q, k.shape[2], kv_len,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -147,6 +152,84 @@ def flash_attention_streaming(
 
 
 flash_attention_streaming.launches = 0
+
+
+def attention_reference_stats(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_len: Optional[int] = None,
+):
+    """Plain attention returning (o, m, l), K3's plain version.
+
+    As ``tpdm_tpu/ops/attention.py:attention_reference_stats``: with the
+    exp2-domain scores s2 = q.k / sqrt(d) * log2(e) in fp32 and kv positions
+    >= kv_len set to -1e30, m = max s2 and l = sum exp2(s2 - m) per query
+    row (fp32, shape (b, h, n_q)), and o = exp2(s2 - m) V / l with the
+    probabilities cast to v's dtype before the product, in q's dtype.
+    """
+    d = q.shape[-1]
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (_LOG2E / d**0.5)
+    if kv_len is not None and kv_len < k.shape[2]:
+        valid = torch.arange(k.shape[2], device=k.device) < kv_len
+        s2 = s2.masked_fill(~valid, _NEG_INF)
+    m = s2.amax(dim=-1)
+    p = torch.exp2(s2 - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l[..., None]
+    return o.to(q.dtype), m, l
+
+
+def merge_attention_shards(
+    o_parts: torch.Tensor, m_parts: torch.Tensor, l_parts: torch.Tensor
+) -> torch.Tensor:
+    """Combine per-shard partial attentions into the global softmax result.
+
+    As ``tpdm_tpu/ops/attention.py:merge_attention_shards``: with per-shard
+    (o_i, m_i, l_i) over disjoint kv shards, the global output is
+    sum_i w_i o_i / sum_i w_i, w_i = exp2(m_i - m*) l_i, m* = max_i m_i.
+    Stacked inputs: o (p, b, h, n, d); m, l (p, b, h, n). Output in o's dtype.
+    """
+    m_star = m_parts.amax(dim=0)
+    w = torch.exp2(m_parts - m_star[None]) * l_parts
+    num = (w[..., None] * o_parts.float()).sum(dim=0)
+    return (num / w.sum(dim=0)[..., None]).to(o_parts.dtype)
+
+
+def flash_attention_with_stats(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_len: Optional[int] = None,
+):
+    """K3: K1 plus each query row's softmax statistics, for merging across
+    kv shards (the local step of ``parallel/sp_attention.py``'s ring).
+
+    Replaces ``tpdm_tpu/ops/attention.py:_flash_kernel_stats`` (driven by
+    ``flash_attention_with_stats``). Returns (o, m, l): o (b, h, n_q, d) in
+    q's dtype; m, l (b, h, n_q) fp32, in the exp2 domain of the scores
+    s2 = q.k / sqrt(d) * log2(e) over the kv columns < kv_len (see
+    ``attention_reference_stats``). q and kv may differ in length. The JAX
+    version refuses kv longer than 8192, a bound set by the TPU's VMEM; the
+    CUDA kernel walks kv in tiles through shared memory and has no such
+    limit. The kernel shares K1's template (``csrc/flash_attn_fwd.cu``) and
+    writes m and l from its running statistics, l summed from the fp32
+    probabilities.
+
+    CUDA: bf16, contiguous (b, h, n, 64) tensors and 1 <= kv_len <= n_kv, or
+    it raises. CPU: the plain version ``attention_reference_stats``.
+    """
+    if q.device.type == "cpu":
+        return attention_reference_stats(q, k, v, kv_len)
+    kv_len = _check_kernel_operands("flash_attention_with_stats", q, k, v, 64, kv_len)
+    m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    out = _launch("tpdm_flash_attention_stats_d64", q, k, v, kv_len, m, l)
+    flash_attention_with_stats.launches += 1
+    return out, m, l
+
+
+flash_attention_with_stats.launches = 0
 
 
 def joint_attention(

@@ -5,6 +5,13 @@ precomputed prompt embeds: the CFG-doubled MMDiT and the TPM run the
 adaptive loop (``pipeline/sampler.py``), then the VAE decodes each sample's
 last valid latents to uint8 images. The modules hold their own weights, on
 their own device; the pipeline runs where the MMDiT's weights are.
+
+With a sequence-parallel MMDiT (``MMDiTConfig.seq_group``) every rank of
+the group calls ``generate`` with the same arguments. Rank 0's initial
+latents are broadcast to the others, the sampler shares rank 0's ratios
+each step, and every rank ends with the same final latents. Every rank
+then decodes its own copy: the decode needs no collective and takes no
+longer than rank 0's alone, and each rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tpdm_tpu_torch.models.vae import VAE, vae_scale_factor
@@ -168,6 +176,10 @@ class TPDMPipeline:
             )
         else:
             latents = torch.as_tensor(latents, device=device)
+        group = mcfg.seq_group
+        if group is not None and group.size > 1:
+            latents = latents.clone(memory_format=torch.contiguous_format)
+            dist.broadcast(latents, src=group.global_rank(0), group=group.group)
 
         p = mcfg.patch_size
         denoise_fn = make_cfg_denoise_fn(
@@ -184,7 +196,7 @@ class TPDMPipeline:
         )
         out = adaptive_sample(
             denoise_fn, self.tpm, latents, generator, scfg,
-            step_caps=step_caps, init_sigma=init_sigma,
+            step_caps=step_caps, init_sigma=init_sigma, group=group,
         )
         if decode and self.vae is not None:
             images = postprocess_images(self._decode_impl(out.final_latents))

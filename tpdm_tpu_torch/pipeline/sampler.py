@@ -9,6 +9,14 @@ clamp and the fp32 Euler step; per-step records land in preallocated (T, b)
 buffers. A sample that is done (sigma below ``min_sigma``, or past its step
 cap) keeps its last valid latents and is masked in ``prob_masks``.
 
+With a sequence-parallel MMDiT every rank of the group runs this loop
+together, and a rank that took one step more or less than the others would
+wait forever in the ring's collectives. So each step rank 0's
+(alpha, beta, ratio) are broadcast and used by every rank: the step count,
+the sigmas and (since the MMDiT's outputs are gathered whole) the latents
+are then the same on every rank, whatever bits the TPM or the Beta draw
+give on each card.
+
 Not ported yet: the Δ-cache (``cache_interval``/``cache_tau``), the
 guidance interval, AB2, the inpainting projection, the host offload,
 ``replay_logprobs`` and the fixed-schedule samplers.
@@ -20,6 +28,7 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from tpdm_tpu_torch.ops.beta import (
     beta_log_prob,
@@ -28,6 +37,7 @@ from tpdm_tpu_torch.ops.beta import (
     mode_concentration_to_alpha_beta,
 )
 from tpdm_tpu_torch.ops.flow_euler import flow_euler_step
+from tpdm_tpu_torch.parallel.mesh import SeqGroup
 
 INVALID_LOGPROB = 1.0
 
@@ -102,6 +112,7 @@ def adaptive_sample(
     cfg: SamplerConfig,
     step_caps: Optional[torch.Tensor] = None,
     init_sigma: Optional[torch.Tensor] = None,
+    group: Optional[SeqGroup] = None,
 ) -> SampleOutput:
     """Run the adaptive, self-terminating denoise loop.
 
@@ -109,6 +120,8 @@ def adaptive_sample(
         generator: draws the Beta ratios (unused when ``cfg.predict``).
         step_caps: optional (b,) per-sample step caps; None = T for all.
         init_sigma: optional (b,) starting noise levels (default 1.0).
+        group: the seq group of a sequence-parallel denoiser, whose ranks
+            all call this with the same arguments; rank 0's ratios are used.
     """
     b = init_latents.shape[0]
     T = cfg.max_inference_steps
@@ -143,6 +156,10 @@ def adaptive_sample(
         alpha, beta = _raw_to_alpha_beta(raw.float(), cfg.prediction_type)
         ratio = beta_mode(alpha, beta) if cfg.predict else beta_sample(generator, alpha, beta)
         ratio = _clamp_ratio(ratio, sigma, cfg)
+        if group is not None and group.size > 1:
+            shared = torch.stack([alpha, beta, ratio.float()])
+            dist.broadcast(shared, src=group.global_rank(0), group=group.group)
+            alpha, beta, ratio = shared.unbind(0)
 
         sigma_next = sigma * ratio if cfg.relative else sigma - ratio
         logprob = beta_log_prob(alpha, beta, ratio)
