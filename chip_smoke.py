@@ -10,21 +10,29 @@ Phases, one line each, and any failure exits non-zero:
 1. the device: its name and power limit as nvidia-smi reports them;
 2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version at the main path's
-   shapes, with errors and median times (CUDA events);
-4. a reference check: a 2-layer MMDiT and a VAE decoder with a 512-wide
-   mid block, on the card in bf16 through the kernels, against the same
-   bf16 weights run in fp32 on the CPU through the plain versions;
+   shapes, with errors and median times (CUDA events): K1, K2, and the
+   GEMMs K4 (int8, bit for bit on its int32 accumulator) and K5 (bf16) at
+   every matmul shape of the batch 1 and batch 2 requests, beside
+   torch._int_mm and cuBLAS's bf16 product;
+4. a reference check: a 2-layer MMDiT (float, W8A8 and int4) and a VAE
+   decoder with a 512-wide mid block, on the card in bf16 through the
+   kernels, against the same weights run in fp32 on the CPU through the
+   plain versions;
 5. the slice: full-width SD3-medium MMDiT (24 layers, 24 heads x 64), the
    TPM and the SD3 VAE decoder at 1024 px, weights drawn from the seed,
    answering two requests (batch 1, then batch 2) through
    TPDMPipeline.generate, with the kernels' launch counts read around them;
-6. K3 against its plain version at the per-rank shapes of a 4-way ring at
+6. the quantised slice: copies of that MMDiT prequantised to W8A8 int8
+   (K4) and to int4 weight-only (K5), one 1024 px forward of each against
+   the bf16 forward, then two W8A8 requests (batch 1, then 2) and one int4
+   request, with the launch counts read around each;
+7. K3 against its plain version at the per-rank shapes of a 4-way ring at
    2048 px and at this machine's ring size, with its time beside PyTorch's
    flash-attention call that also returns the log-sum-exp;
-7. the merge on one card: K3 over four image shards and the text tokens
+8. the merge on one card: K3 over four image shards and the text tokens
    of the 2048 px joint sequence, merged by merge_attention_shards,
    against K1 over the whole sequence;
-8. sequence parallelism: one process per visible card, joined in an NCCL
+9. sequence parallelism: one process per visible card, joined in an NCCL
    seq group (one card makes a ring of one, and then no NCCL exchange
    runs). A full-width MMDiT forward at 2048 px through the ring against
    the unsharded K1 forward on the same bf16 weights, beside the gap that
@@ -35,7 +43,7 @@ Phases, one line each, and any failure exits non-zero:
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
 exits with an error and prints no result. ``--seq-parallel-only`` runs
-phases 1, 2 and 8 alone (for a machine with several cards) and prints no
+phases 1, 2 and 9 alone (for a machine with several cards) and prints no
 kernels line.
 """
 
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -84,9 +93,28 @@ LSE_ATOL, LSE_RTOL = 1e-3, 1e-4
 SHARDED_REL_TOL = 2e-2
 FLOOR_FACTOR = 2.0
 # H100 SXM published dense peaks: the bound of a kernel is the larger of its
-# bytes over the memory rate and its operations over the bf16 tensor rate
+# bytes over the memory rate and its operations over the tensor rate of
+# its type
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+# K4's dequant epilogue against its plain version: the same fp32 operations,
+# each rounded once, then one rounding to bf16, so within one bf16 step
+# (2^-8 of |plain|) at every element; its int32 accumulator is exact
+BF16_STEP = 2.0**-8
+# (M, K, N) of the quantised matmuls at 1024 px, batch 1 (CFG 2): image rows
+# against the qkv/out, FF proj_in and FF proj_out weights, then text rows;
+# then the same at batch 2 (CFG 4), which the second W8A8 request runs; the
+# first FF proj_in shape is the one in the kernels line
+_GEMM_KN = [(1536, 1536), (1536, 6144), (6144, 1536)]
+GEMM_SHAPES = [(m, k, n) for m in (8192, 666, 16384, 1332) for k, n in _GEMM_KN]
+TIMED_GEMM = (8192, 1536, 6144)
+# a quantised 24-layer forward against the bf16 one, mean |dv| / mean |v|:
+# int8 within the JAX package's bound (tests/test_mmdit.py:153); int4 only
+# within an order one, since N(0, 0.02^2) weights are int4's worst case
+# (about 12 % weight error a matmul) and the bit-exact and reference checks
+# hold the kernels and layouts
+QUANT_REL_BOUND = {8: 0.15, 4: 1.0}
 N_IMG_2048 = 16384  # 2048 px: 256 x 256 latents, 128 x 128 tokens
 
 
@@ -121,6 +149,15 @@ def attention_bound(bh, n_q, n_kv, d, kv_len=None, stats=False):
     flops = 4 * bh * n_q * n_valid * d
     nbytes = 2 * bh * d * (2 * n_q + 2 * n_valid) + (8 * bh * n_q if stats else 0)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gemm_bound(m, k, n, operand_bytes, out_bytes, peak, extra_bytes=0):
+    """(bound_ms, bound_by) of an (M, K) x (K, N) product: 2MNK operations
+    over ``peak``, against both operands read once, the output written once
+    and ``extra_bytes`` (scales, bias) moved once."""
+    t_ops = 2 * m * n * k / peak
+    t_bytes = (operand_bytes * (m * k + n * k) + out_bytes * m * n + extra_bytes) / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -232,10 +269,80 @@ def kernel_phase(g, dev):
     }
 
 
+def gemm_phase(g, dev):
+    """Phase 3, the GEMMs: K4 (both epilogues) and K5 against their plain
+    versions at every quantised matmul shape of the 1024 px path, with
+    their times, bounds and PyTorch's own products on the same operands
+    (torch._int_mm and torch.matmul in bf16, both on b_t.t())."""
+    from tpdm_tpu_torch.ops.gemm import (
+        bf16_gemm,
+        bf16_gemm_reference,
+        int8_gemm,
+        int8_gemm_reference,
+    )
+
+    res = {}
+    k4_err = k5_err = 0.0
+    for m, k, n in GEMM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        b_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        acc, acc_ref = int8_gemm(a, b_t), int8_gemm_reference(a, b_t)
+        lib_acc = torch._int_mm(a, b_t.t())
+        torch.cuda.synchronize()
+        if not torch.equal(acc, acc_ref):
+            fail(f"K4 int32 ({m}, {k}) x ({n}, {k}) is not bit-identical to its plain version: "
+                 f"{int((acc != acc_ref).sum())} elements differ")
+        x_scale = torch.rand(m, generator=g, device=dev) * 1e-2 + 1e-3
+        w_scale = torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3
+        bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+        out = int8_gemm(a, b_t, x_scale, w_scale, bias)
+        ref = int8_gemm_reference(a, b_t, x_scale, w_scale, bias).float()
+        torch.cuda.synchronize()
+        gap = (out.float() - ref).abs()
+        if not (gap <= BF16_STEP * ref.abs()).all():
+            fail(f"K4 dequant ({m}, {k}) x ({n}, {k}) is more than one bf16 step from its plain "
+                 f"version: max abs err {gap.max().item()}")
+        k4_err = max(k4_err, gap.max().item())
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device=dev) * WEIGHT_STD).to(torch.bfloat16)
+        k5 = output_error(f"K5 ({m}, {k}) x ({n}, {k})", bf16_gemm(x, w), bf16_gemm_reference(x, w))
+        k5_err = max(k5_err, k5[0])
+        times = dict(
+            k4=median_ms(lambda: int8_gemm(a, b_t, x_scale, w_scale, bias)),
+            k4_plain=median_ms(lambda: int8_gemm_reference(a, b_t, x_scale, w_scale, bias)),
+            k4_lib=median_ms(lambda: torch._int_mm(a, b_t.t())),
+            k5=median_ms(lambda: bf16_gemm(x, w)),
+            k5_plain=median_ms(lambda: bf16_gemm_reference(x, w)),
+            k5_lib=median_ms(lambda: torch.matmul(x, w.t())),
+        )
+        k4_bound = gemm_bound(m, k, n, 1, 2, PEAK_INT8_OPS, extra_bytes=4 * m + 6 * n)
+        k5_bound = gemm_bound(m, k, n, 2, 2, PEAK_BF16_FLOPS)
+        phase("K4/K5", f"({m}, {k}) x ({n}, {k}): K4 int32 bit-identical (torch._int_mm "
+              f"{'equal' if torch.equal(lib_acc, acc_ref) else 'DIFFERS'}), dequant max abs err "
+              f"{gap.max().item():.3e} (bound one bf16 step), {times['k4']:.4f} ms, plain "
+              f"{times['k4_plain']:.4f} ms, torch._int_mm {times['k4_lib']:.4f} ms, bound "
+              f"{k4_bound[0]:.4f} ms ({k4_bound[1]}), {2 * m * n * k / times['k4'] / 1e9:.1f} "
+              f"TOP/s; K5 {fmt_err(k5)}, {times['k5']:.4f} ms, plain {times['k5_plain']:.4f} ms, "
+              f"torch.matmul {times['k5_lib']:.4f} ms, bound {k5_bound[0]:.4f} ms "
+              f"({k5_bound[1]}), {2 * m * n * k / times['k5'] / 1e9:.1f} TFLOP/s")
+        if (m, k, n) == TIMED_GEMM:
+            res["K4"] = dict(ms=times["k4"], plain_ms=times["k4_plain"], bound_ms=k4_bound[0],
+                             bound_by=k4_bound[1], library_ms=times["k4_lib"])
+            res["K5"] = dict(ms=times["k5"], plain_ms=times["k5_plain"], bound_ms=k5_bound[0],
+                             bound_by=k5_bound[1], library_ms=times["k5_lib"])
+        del a, b_t, acc, acc_ref, lib_acc, out, ref, gap, x, w
+    res["K4"]["max_abs_err"] = k4_err
+    res["K5"]["max_abs_err"] = k5_err
+    torch.cuda.empty_cache()
+    return res
+
+
 def reference_phase(seed, dev):
     """Phase 4: card (bf16, kernels) vs CPU (fp32, plain versions)."""
     from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
     from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.ops.gemm import bf16_gemm, int8_gemm
+    from tpdm_tpu_torch.ops.quant import prequantize_
 
     rel_err = lambda card_out, cpu_out: rel_to_range(card_out.cpu(), cpu_out)
     cpu_gen = torch.Generator().manual_seed(seed)
@@ -259,10 +366,29 @@ def reference_phase(seed, dev):
     z = torch.randn(1, 16, 16, 16, generator=cpu_gen)
     with torch.no_grad():
         vae_err = rel_err(v_card.decode(z.to(dev)), v_cpu.decode(z))
+    # the quantised MMDiT: the same int weights on both sides (quantised
+    # once from the bf16-rounded float weights), K4 / K5 on the card
+    quant_errs = {}
+    for bits, kernel in ((8, int8_gemm), (4, bf16_gemm)):
+        qsmall = dataclasses.replace(small, quant_matmuls=True, quant_bits=bits)
+        q_cpu = prequantize_(MMDiT(qsmall).init_weights(cpu_gen, WEIGHT_STD)
+                             .to(torch.bfloat16).float())
+        q_card = MMDiT(qsmall).to(dev)
+        q_card.load_state_dict(q_cpu.state_dict())
+        q_card.to(torch.bfloat16)
+        before = kernel.launches
+        with torch.no_grad():
+            ref_out = q_cpu(*inputs)
+            card_out = q_card(*(x.to(dev, torch.bfloat16) for x in inputs))
+        if kernel.launches - before != 12 + 9:
+            fail(f"the 2-layer int{bits} MMDiT launched its GEMM {kernel.launches - before} "
+                 f"times, expected 21")
+        quant_errs[bits] = max(rel_err(c, r) for c, r in zip(card_out, ref_out))
     phase("reference", f"2-layer MMDiT (4x64 heads, 64+77 tokens, kv_len mask) max rel err "
-                       f"{mmdit_err:.3e}; VAE decoder with 512-wide mid block (256 tokens) "
+                       f"{mmdit_err:.3e}, W8A8 (K4) {quant_errs[8]:.3e}, int4 (K5) "
+                       f"{quant_errs[4]:.3e}; VAE decoder with 512-wide mid block (256 tokens) "
                        f"max rel err {vae_err:.3e} (bound {MODULE_REL_TOL})")
-    if not mmdit_err < MODULE_REL_TOL or not vae_err < MODULE_REL_TOL:
+    if not max(mmdit_err, vae_err, *quant_errs.values()) < MODULE_REL_TOL:
         fail("the card's modules disagree with their CPU fp32 reference")
 
 
@@ -346,9 +472,29 @@ def check_schedule(res, b, px):
             fail(f"sample {i}: sigma not strictly decreasing over valid steps: {sig}")
 
 
+def timed_request(pipe, dev, b, req_seed, counters):
+    """One 1024 px request of batch b through ``pipe.generate`` (prompt
+    embeds drawn from ``req_seed``), its schedule checked. Returns the
+    result, its seconds and each counter's launches during it."""
+    eg = torch.Generator(device=dev).manual_seed(req_seed)
+    emb = lambda *shape: torch.randn(shape, generator=eg, device=dev, dtype=torch.bfloat16)
+    pe, npe = emb(b, N_CTX, 4096), emb(b, N_CTX, 4096)
+    pp, npp = emb(b, 2048), emb(b, 2048)
+    before = [fn.launches for fn in counters]
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    res = pipe.generate(pe, pp, npe, npp, max_inference_steps=T_MAX, guidance_scale=7.0,
+                        predict=True, seed=req_seed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check_schedule(res, b, 1024)
+    return res, seconds, [fn.launches - n for fn, n in zip(counters, before)]
+
+
 def slice_1024_phase(seed, dev):
     """Phase 5: two full-width 1024 px requests; returns the K1 and K2
-    launches counted over them."""
+    launches counted over them, and the modules for phase 6."""
     from tpdm_tpu_torch.models.mmdit import MMDiTConfig
     from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
     from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
@@ -368,22 +514,9 @@ def slice_1024_phase(seed, dev):
     flash_attention.launches = 0
     flash_attention_streaming.launches = 0
     for request, (b, req_seed) in enumerate([(1, seed + 1), (2, seed + 2)]):
-        eg = torch.Generator(device=dev).manual_seed(req_seed)
-        emb = lambda *shape: torch.randn(shape, generator=eg, device=dev, dtype=torch.bfloat16)
-        pe, npe = emb(b, N_CTX, 4096), emb(b, N_CTX, 4096)
-        pp, npp = emb(b, 2048), emb(b, 2048)
-        k1_before, k2_before = flash_attention.launches, flash_attention_streaming.launches
-        torch.cuda.reset_peak_memory_stats(dev)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        res = pipe.generate(pe, pp, npe, npp, max_inference_steps=T_MAX, guidance_scale=7.0,
-                            predict=True, seed=req_seed)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
+        res, seconds, (k1_n, k2_n) = timed_request(
+            pipe, dev, b, req_seed, (flash_attention, flash_attention_streaming))
         n = res.num_steps
-        k1_n = flash_attention.launches - k1_before
-        k2_n = flash_attention_streaming.launches - k2_before
-        check_schedule(res, b, 1024)
         if k1_n != mmdit.config.num_layers * n:
             fail(f"K1 launched {k1_n} times in {n} steps, expected {mmdit.config.num_layers * n}")
         if k2_n < 1:
@@ -395,11 +528,106 @@ def slice_1024_phase(seed, dev):
               f"{seconds:.3f} s total, {seconds / b:.3f} s/image, K1 launches {k1_n}, "
               f"K2 launches {k2_n}, peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return flash_attention.launches, flash_attention_streaming.launches
+    return flash_attention.launches, flash_attention_streaming.launches, [mmdit, tpm, vae]
+
+
+def module_bytes(module):
+    return sum(t.nbytes for t in (*module.parameters(), *module.buffers()))
+
+
+def quantized_copy(mmdit, bits, dev):
+    """A quant_matmuls copy of the bf16 ``mmdit`` on ``dev``, prequantised
+    from its weights (W8A8 int8 at bits 8, int4 weight-only at bits 4)."""
+    from tpdm_tpu_torch.models.mmdit import MMDiT
+    from tpdm_tpu_torch.ops.quant import prequantize_
+
+    with torch.device(dev):
+        qm = MMDiT(dataclasses.replace(mmdit.config, quant_matmuls=True, quant_bits=bits))
+    qm.to(device=dev, dtype=torch.bfloat16).eval()  # the sincos table is made on the CPU
+    qm.load_state_dict(mmdit.state_dict())
+    return prequantize_(qm)
+
+
+def quant_phase(seed, dev, modules):
+    """Phase 6: the quantised slice on phase 5's modules (``modules`` is
+    emptied, so the bf16 MMDiT is freed once it is no longer needed).
+    Returns the K4 and K5 launches counted over its requests."""
+    from tpdm_tpu_torch.ops.attention import flash_attention
+    from tpdm_tpu_torch.ops.gemm import bf16_gemm, int8_gemm
+    from tpdm_tpu_torch.ops.quant import DenseMaybeQuant
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+
+    mmdit, tpm, vae = modules
+    modules.clear()
+    cfg = mmdit.config
+    t0 = time.perf_counter()
+    quant = {bits: quantized_copy(mmdit, bits, dev) for bits in (8, 4)}
+    torch.cuda.synchronize()
+    n_quant = sum(isinstance(m, DenseMaybeQuant) for m in quant[8].modules())
+    mb = lambda m: f"{module_bytes(m) / 1e9:.3f} GB"
+    phase("quant models", f"prequantised from the bf16 MMDiT in {time.perf_counter() - t0:.1f} "
+          f"s: {n_quant} quantised matmuls; MMDiT weights bf16 {mb(mmdit)}, W8A8 {mb(quant[8])}, "
+          f"int4 {mb(quant[4])}")
+
+    # one CFG-batch 1024 px forward of each against the bf16 forward
+    eg = torch.Generator(device=dev).manual_seed(seed + 20)
+    rand = lambda *shape: torch.randn(shape, generator=eg, device=dev, dtype=torch.bfloat16)
+    inputs = (rand(2, 16, 128, 128), torch.tensor([1000.0, 420.0], device=dev, dtype=torch.bfloat16),
+              rand(2, N_CTX, 4096), rand(2, 2048))
+    gaps = {}
+    with torch.no_grad():
+        v_ref = mmdit(*inputs)[0].float()
+        for bits, qm in quant.items():
+            v = qm(*inputs)[0].float()
+            if not bool(torch.isfinite(v).all()):
+                fail(f"the int{bits} MMDiT forward gave non-finite values")
+            gaps[bits] = ((v - v_ref).abs().mean() / v_ref.abs().mean()).item()
+    phase("quant forward", f"SD3-medium 1024 px (CFG batch 2), mean |dv| / mean |v| against the "
+          f"bf16 forward on the same weights: W8A8 {gaps[8]:.4e} (bound {QUANT_REL_BOUND[8]}), "
+          f"int4 {gaps[4]:.4e} (bound {QUANT_REL_BOUND[4]})")
+    for bits, gap in gaps.items():
+        if not gap < QUANT_REL_BOUND[bits]:
+            fail(f"the int{bits} forward is {gap} from the bf16 one (bound {QUANT_REL_BOUND[bits]})")
+    del mmdit, v_ref, v
+    quant[4].to("cpu")  # resident on the card only for its own request
+    gc.collect()  # timed_decoder's closure holds phase 5's pipeline in a cycle
+    torch.cuda.empty_cache()
+
+    per_step = (cfg.num_layers - 1) * 12 + 9  # quantised matmuls a CFG-doubled step
+    counters = (int8_gemm, bf16_gemm, flash_attention)
+    decode_s = {}
+    int8_gemm.launches = bf16_gemm.launches = 0
+    for mode, bits, b, req_seed in (("W8A8", 8, 1, seed + 5), ("W8A8", 8, 2, seed + 6),
+                                    ("int4", 4, 1, seed + 7)):
+        if bits == 4 and quant[8] is not None:
+            pipe = quant[8] = None  # the W8A8 model leaves the card first
+            gc.collect()
+            torch.cuda.empty_cache()
+            quant[4].to(dev)
+        pipe = TPDMPipeline(quant[bits], tpm, vae)
+        timed_decoder(pipe, decode_s)
+        res, seconds, (k4_n, k5_n, k1_n) = timed_request(pipe, dev, b, req_seed, counters)
+        n = res.num_steps
+        want = (per_step * n, 0) if bits == 8 else (0, per_step * n)
+        if (k4_n, k5_n) != want or k1_n != cfg.num_layers * n:
+            fail(f"{mode} request: K4 {k4_n}, K5 {k5_n}, K1 {k1_n} launches in {n} steps, "
+                 f"expected K4 {want[0]}, K5 {want[1]}, K1 {cfg.num_layers * n}")
+        step_ms = 1000 * (seconds - decode_s["last"]) / n
+        phase(f"request {mode}", f"batch {b}: {n} steps, sigmas "
+              f"{[round(float(s), 5) for s in res.sigmas[0, :n]]}, {step_ms:.1f} ms/step "
+              f"(CFG batch {2 * b}), decode {1000 * decode_s['last']:.1f} ms, {seconds:.3f} s "
+              f"total, {seconds / b:.3f} s/image, K4 launches {k4_n}, K5 launches {k5_n} "
+              f"({per_step} a step), K1 launches {k1_n}, peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    totals = int8_gemm.launches, bf16_gemm.launches
+    del quant, pipe, tpm, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def k3_phase(g, dev, world):
-    """Phase 6: K3 at the ring's per-rank shapes of 2048 px generation at
+    """Phase 7: K3 at the ring's per-rank shapes of 2048 px generation at
     batch 1 (CFG 2): a 4-way ring, and this machine's ring of ``world``."""
     from tpdm_tpu_torch.ops.attention import flash_attention_with_stats
     from tpdm_tpu_torch.ops.attention import attention_reference_stats
@@ -466,7 +694,7 @@ def k3_phase(g, dev, world):
 
 
 def merge_phase(g, dev):
-    """Phase 7: K3 over 4 image shards + the text tokens, merged, against
+    """Phase 8: K3 over 4 image shards + the text tokens, merged, against
     K1 over the whole 2048 px joint sequence (padded to 128 as the
     unsharded model pads it, the pad masked)."""
     from tpdm_tpu_torch.ops.attention import (
@@ -499,7 +727,7 @@ def merge_phase(g, dev):
 
 
 def _seq_parallel_rank(rank, world, store, seed, out_dir):
-    """Phase 8 on one rank: the seq-parallel forward against the unsharded
+    """Phase 9 on one rank: the seq-parallel forward against the unsharded
     one (rank 0), then two 2048 px requests; writes its numbers to
     out_dir/rank{rank}.json."""
     group, (mmdit, tpm, vae) = seq_parallel_rank(rank, world, store, seed)
@@ -603,7 +831,7 @@ def _seq_parallel_rank(rank, world, store, seed, out_dir):
 
 
 def seq_parallel_phase(seed, world):
-    """Phase 8: one process per card; rank 0's numbers printed, every rank's
+    """Phase 9: one process per card; rank 0's numbers printed, every rank's
     checked. Returns rank 0's K3 launches over the second request."""
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -699,13 +927,16 @@ def main() -> int:
     else:
         g = torch.Generator(device=dev).manual_seed(args.seed)
         kernels = kernel_phase(g, dev)  # 3
+        kernels.update(gemm_phase(g, dev))
         reference_phase(args.seed, dev)  # 4
-        k1_total, k2_total = slice_1024_phase(args.seed, dev)  # 5
-        kernels["K3"] = k3_phase(g, dev, world)  # 6
-        merge_phase(g, dev)  # 7
-        k3_total = seq_parallel_phase(args.seed, world)  # 8
+        k1_total, k2_total, modules = slice_1024_phase(args.seed, dev)  # 5
+        k4_total, k5_total = quant_phase(args.seed, dev, modules)  # 6
+        kernels["K3"] = k3_phase(g, dev, world)  # 7
+        merge_phase(g, dev)  # 8
+        k3_total = seq_parallel_phase(args.seed, world)  # 9
 
         src = "tpdm_tpu_torch/csrc/flash_attn_fwd.cu"
+        gemm_src = "tpdm_tpu_torch/csrc/gemm.cu"
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": src,
              "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total, **kernels["K1"]},
@@ -715,6 +946,12 @@ def main() -> int:
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,
              **kernels["K3"]},
+            {"name": "int8_gemm (K4)", "route": "cuda", "source": gemm_src,
+             "replaces": "experiments/attn_round3.py:301", "launches": k4_total,
+             **kernels["K4"]},
+            {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
+             "replaces": "experiments/attn_round3.py:266", "launches": k5_total,
+             **kernels["K5"]},
         ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

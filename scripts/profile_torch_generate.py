@@ -7,12 +7,15 @@ with torch.profiler on every rank and prints, for rank 0, the device time
 by kernel group, the launches, the device's idle share between its first
 and last kernel, and the request's wall time (with the profiler on).
 
-    python3 scripts/profile_torch_generate.py --px 1024 [--batch 1]
+    python3 scripts/profile_torch_generate.py --px 1024 [--batch 1] [--quant 8|4]
     python3 scripts/profile_torch_generate.py --px 2048
 
 At 2048 px the MMDiT is sequence-parallel over one process per visible
 card (a ring of 1 on a single card); at 1024 px it runs unsharded on
-cuda:0. ``--out FILE`` also writes every rank's table as JSON.
+cuda:0, and ``--quant`` prequantises it (W8A8 int8 on K4, or int4
+weight-only on K5). Between the warm-up and the profiled request one more
+request runs with the profiler off, for its wall time. ``--out FILE`` also
+writes every rank's table as JSON.
 """
 
 from __future__ import annotations
@@ -31,13 +34,22 @@ import torch.multiprocessing as mp
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import N_CTX, T_MAX, build_models, from_rank0, seq_parallel_rank  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    N_CTX,
+    T_MAX,
+    build_models,
+    from_rank0,
+    quantized_copy,
+    seq_parallel_rank,
+)
 
 # kernel-name patterns, first match wins
 GROUPS = (
     ("K3 flash_attn_fwd_kernel<64> stats", r"flash_attn_fwd_kernel<64,.*true>"),
     ("K1 flash_attn_fwd_kernel<64>", r"flash_attn_fwd_kernel<64,"),
     ("K2 flash_attn_fwd_kernel<512>", r"flash_attn_fwd_kernel<512,"),
+    ("K4 gemm_kernel<int8>", r"gemm_kernel<true"),
+    ("K5 gemm_kernel<bf16>", r"gemm_kernel<false"),
     ("NCCL", r"nccl"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|Kernel2"),
     ("convolution (cuDNN)", r"conv|cudnn|implicit|winograd|fft"),
@@ -100,6 +112,9 @@ def _rank(rank, world, store, args, out_dir):
     else:
         dev = torch.device("cuda", rank)
         models = build_models(dev, args.seed, MMDiTConfig.sd3_medium())
+        if args.quant:
+            models = (quantized_copy(models[0], args.quant, dev), *models[1:])
+            torch.cuda.empty_cache()
     pipe = TPDMPipeline(*models)
     eg = torch.Generator(device=dev).manual_seed(args.seed + 1)
     b = args.batch
@@ -114,6 +129,10 @@ def _rank(rank, world, store, args, out_dir):
 
     request()  # warm-up: cuBLAS and cuDNN pick their kernels for these shapes
     torch.cuda.synchronize()
+    start = time.perf_counter()
+    request()
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - start
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         res = request()
@@ -121,7 +140,7 @@ def _rank(rank, world, store, args, out_dir):
         wall = time.perf_counter() - start
     rows, busy_ms, idle, window_ms = device_table(prof, rank)
     report = dict(rank=rank, world=world, px=args.px, batch=b, steps=res.num_steps,
-                  wall_ms=1e3 * wall, kernel_ms=busy_ms, window_ms=window_ms,
+                  wall_ms=1e3 * wall, warm_wall_ms=1e3 * warm_wall, kernel_ms=busy_ms, window_ms=window_ms,
                   idle_share=idle, groups={k: dict(ms=v[0], launches=v[1])
                                            for k, v in rows.items()})
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
@@ -134,8 +153,12 @@ def main() -> int:
     ap.add_argument("--px", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quant", type=int, choices=(8, 4), default=None,
+                    help="prequantise the 1024 px MMDiT: 8 = W8A8 int8, 4 = int4 weight-only")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
+    if args.quant and args.px > 1024:
+        raise SystemExit("--quant is for the unsharded 1024 px path")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile is of the card")
     world = torch.cuda.device_count() if args.px > 1024 else 1
@@ -148,8 +171,10 @@ def main() -> int:
         mp.spawn(_rank, args=(world, f"{tmp}/store", args, tmp), nprocs=world, join=True)
         reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)]
     r0 = reports[0]
-    print(f"{smi}; {args.px} px, batch {args.batch}, {world} rank(s); rank 0: "
-          f"{r0['steps']} steps, {r0['wall_ms']:.1f} ms wall with the profiler on, "
+    mode = {None: "bf16", 8: "W8A8 int8", 4: "int4 weight-only"}[args.quant]
+    print(f"{smi}; {args.px} px, {mode}, batch {args.batch}, {world} rank(s); rank 0: "
+          f"{r0['steps']} steps, {r0['warm_wall_ms']:.1f} ms wall warm with the profiler off, "
+          f"{r0['wall_ms']:.1f} ms wall with the profiler on, "
           f"{r0['kernel_ms']:.1f} ms of device busy time over a {r0['window_ms']:.1f} ms window, "
           f"idle share {r0['idle_share']:.4f}")
     total = sum(g["ms"] for g in r0["groups"].values())

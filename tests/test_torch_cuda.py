@@ -19,11 +19,24 @@ depend on where each version puts m: atol 1e-3 / rtol 1e-4. The scores are
 exact products of bf16 values summed in fp32 in another order (relative
 ~1e-6) and the sums l are fp32 in both, so on values of order 10 (or -170
 for the strongly negative case) the two agree to a few 1e-4.
+
+The GEMMs: K4's int32 accumulator is exact, so it must equal its plain
+version bit for bit; its dequant epilogue rounds each fp32 operation as the
+plain version does and then once to bf16, so it is held to one bf16 step
+(2^-8 of |ref|) at every element. K5 sums bf16 products in fp32 in another
+order than cuBLAS's fp32 product and rounds once to bf16: within 2e-2 of
+the output's largest magnitude, as chip_smoke.py holds it.
 """
 
 import pytest
 import torch
 
+from tpdm_tpu_torch.ops.gemm import (
+    bf16_gemm,
+    bf16_gemm_reference,
+    int8_gemm,
+    int8_gemm_reference,
+)
 from tpdm_tpu_torch.ops.attention import (
     attention_reference,
     attention_reference_stats,
@@ -183,3 +196,79 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_with_stats(q[..., :32].contiguous(), k[..., :32].contiguous(),
                                    v[..., :32].contiguous())
+
+
+# (M, K, N): the SD3 1024 px image rows (batch 1, CFG 2) against the qkv/out,
+# FF proj_in and FF proj_out weights, the text rows, batch 2's rows, and M
+# tails
+GEMM_SHAPES = [
+    (8192, 1536, 1536), (8192, 1536, 6144), (8192, 6144, 1536),
+    (666, 1536, 1536), (666, 1536, 6144), (1332, 6144, 1536), (16384, 1536, 6144),
+    (1, 1536, 1536), (8193, 1536, 1536), (77, 96, 40),  # tails; N and K off the tile
+]
+
+
+def _int8(g, device, *shape):
+    return torch.randint(-127, 128, shape, generator=g, device=device, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_k4_matches_plain(device, m, k, n):
+    g = torch.Generator(device=device).manual_seed(m + n)
+    a, b_t = _int8(g, device, m, k), _int8(g, device, n, k)
+    before = int8_gemm.launches
+    acc = int8_gemm(a, b_t)
+    torch.cuda.synchronize()
+    assert int8_gemm.launches == before + 1
+    assert acc.dtype == torch.int32 and torch.equal(acc, int8_gemm_reference(a, b_t))
+    x_scale = torch.rand(m, generator=g, device=device) * 0.01 + 1e-3
+    w_scale = torch.rand(n, generator=g, device=device) * 0.01 + 1e-3
+    bias = torch.randn(n, generator=g, device=device).to(torch.bfloat16)
+    for b in (bias, None):
+        out = int8_gemm(a, b_t, x_scale, w_scale, b)
+        ref = int8_gemm_reference(a, b_t, x_scale, w_scale, b)
+        assert out.dtype == torch.bfloat16
+        bound = ref.float().abs() * 2.0**-8
+        assert ((out.float() - ref.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_k5_matches_plain(device, m, k, n):
+    g = torch.Generator(device=device).manual_seed(m + n + 1)
+    a = torch.randn(m, k, generator=g, device=device).to(torch.bfloat16)
+    b_t = (torch.randn(n, k, generator=g, device=device) * 0.02).to(torch.bfloat16)
+    before = bf16_gemm.launches
+    out = bf16_gemm(a, b_t)
+    torch.cuda.synchronize()
+    assert bf16_gemm.launches == before + 1
+    ref = bf16_gemm_reference(a, b_t).float()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert (out.float() - ref).abs().max() <= RTOL * ref.abs().max()
+
+
+def test_gemm_wrappers_raise_on_what_the_kernel_does_not_take(device):
+    g = torch.Generator(device=device).manual_seed(3)
+    a, b_t = _int8(g, device, 64, 64), _int8(g, device, 32, 64)
+    with pytest.raises(TypeError, match="int8"):
+        int8_gemm(a.float(), b_t.float())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int8_gemm(a[:, :48].contiguous(), b_t[:, :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_gemm(a.t(), b_t[:, :64])
+    with pytest.raises(ValueError, match="differ in K"):
+        int8_gemm(a, b_t[:, :32].contiguous())
+    with pytest.raises(ValueError, match="x_scale"):
+        int8_gemm(a, b_t, torch.ones(63, device=device), torch.ones(32, device=device))
+    with pytest.raises(TypeError, match="out_dtype"):
+        int8_gemm(a, b_t, torch.ones(64, device=device), torch.ones(32, device=device),
+                  out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="bias"):
+        int8_gemm(a, b_t, torch.ones(64, device=device), torch.ones(32, device=device),
+                  torch.ones(32, device=device))
+    x, w = a.to(torch.bfloat16), b_t.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        bf16_gemm(x.float(), w.float())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        bf16_gemm(x[:, :40].contiguous(), w[:, :40].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        bf16_gemm(x.view(-1)[4:4 + 63 * 64].view(63, 64), w)

@@ -1,6 +1,7 @@
 """The whole tpdm_tpu_torch slice against the JAX package: adaptive sampling
 and ``TPDMPipeline.generate`` on the same toy weights, embeds and latents."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -11,16 +12,25 @@ import pytest
 import torch
 
 from _torch_parity import close, t, toy_mmdit, toy_tpm, toy_vae
+from tpdm_tpu.models.mmdit import MMDiT as JMMDiT
+from tpdm_tpu.ops.quant import fit_quant_params, prequantize_params
 from tpdm_tpu.pipeline.denoise import make_cfg_denoise_fn as jax_make_cfg_denoise_fn
 from tpdm_tpu.pipeline.pipeline import TPDMPipeline as JTPDMPipeline
 from tpdm_tpu.pipeline.sampler import SamplerConfig as JSamplerConfig
 from tpdm_tpu.pipeline.sampler import adaptive_sample as jax_adaptive_sample
 from tpdm_tpu_torch.pipeline.denoise import make_cfg_denoise_fn
 from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
 from tpdm_tpu_torch.pipeline.sampler import SamplerConfig, adaptive_sample
+from tpdm_tpu_torch.utils.convert import mmdit_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
 N_CTX = 6
+# W8A8 generation against JAX's: an fp32 drift of ~1e-6 can move an
+# activation across an int8 rounding boundary (one level, 1/127 of its
+# row's absmax), so the schedule is held to the toy quant MMDiT's bound
+# (tests/test_torch_quant.py) rather than the fp32 one
+W8A8_TOL = 2e-3
 
 
 @pytest.fixture(scope="module")
@@ -43,8 +53,32 @@ def world():
     return jpipe, tpipe, inputs
 
 
-def test_generate_matches_jax(world):
+def _w8a8(jpipe, tpipe):
+    """The W8A8 counterparts of the world's pipelines: JAX's quant MMDiT on
+    its prequantised tree, and the port's on that tree converted."""
+    jm, mvars = jpipe.mmdit, jpipe.mmdit_params
+    jqm = JMMDiT(dataclasses.replace(jm.config, quant_matmuls=True))
+    c = jm.config
+    shapes = jax.eval_shape(
+        jqm.init, jax.random.PRNGKey(0), np.zeros((1, c.in_channels, 8, 8), np.float32),
+        np.ones(1, np.float32), np.zeros((1, N_CTX, c.joint_attention_dim), np.float32),
+        np.zeros((1, c.pooled_projection_dim), np.float32))["params"]
+    qvars = {**mvars, "params": prequantize_params(fit_quant_params(mvars["params"], shapes))}
+    qcfg = MMDiTConfig.toy(quant_matmuls=True)
+    tqm = MMDiT(qcfg)
+    tqm.load_state_dict(mmdit_from_jax(qvars, qcfg))
+    return (JTPDMPipeline(jqm, qvars, jpipe.tpm, jpipe.tpm_params, jpipe.vae, jpipe.vae_params,
+                          min_sigma=0.01),
+            TPDMPipeline(tqm.eval(), tpipe.tpm, tpipe.vae, min_sigma=0.01))
+
+
+@pytest.mark.parametrize("quant", ["float", "w8a8"])
+def test_generate_matches_jax(world, quant):
     jpipe, tpipe, x = world
+    tol = {}
+    if quant == "w8a8":
+        jpipe, tpipe = _w8a8(jpipe, tpipe)
+        tol = dict(rtol=W8A8_TOL, atol=W8A8_TOL)
     kw = dict(max_inference_steps=10, guidance_scale=7.0, predict=True, seed=0)
     ref = jpipe.generate(x["pe"], x["pp"], x["npe"], x["npp"], latents=x["lat"], **kw)
     out = tpipe.generate(t(x["pe"]), t(x["pp"]), t(x["npe"]), t(x["npp"]),
@@ -54,7 +88,7 @@ def test_generate_matches_jax(world):
     np.testing.assert_array_equal(out.prob_masks, ref.prob_masks)
     np.testing.assert_array_equal(out.last_valid_index, ref.last_valid_index)
     for name in ("sigmas", "alphas", "betas"):
-        close(getattr(out, name), getattr(ref, name))
+        close(getattr(out, name), getattr(ref, name), **tol)
     assert out.images.dtype == np.uint8 and out.images.shape == ref.images.shape
     diff = np.abs(out.images.astype(np.int16) - ref.images.astype(np.int16))
     assert diff.max() <= 1 and (diff > 0).mean() < 0.01

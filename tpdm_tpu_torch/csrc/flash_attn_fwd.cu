@@ -71,9 +71,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "mma.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskedScore = -1e30f;
@@ -112,19 +112,6 @@ struct Cfg {
   static_assert(BKV % kThreadsPerRow == 0, "softmax columns per thread");
   static_assert(kSmemBytes <= 232448, "Hopper allows 227 KB of shared memory a block");
 };
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // A fragment of a row-major 16x16 bf16 tile at `p` (its top-left corner)
 // with row stride `ld`: rows g, g+8 and columns 2t, 2t+1, 2t+8, 2t+9.

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpdm_tpu_torch.ops.quant import DenseMaybeQuant
+
 
 def sinusoidal_timestep_embedding(
     timesteps: torch.Tensor,
@@ -230,13 +232,23 @@ class AdaLayerNormContinuous(nn.Module):
         return _layer_norm_fp32(x) * (1.0 + scale[:, None]) + shift[:, None]
 
 
-class FeedForward(nn.Module):
-    """proj_in -> tanh-GELU -> proj_out, hidden width mult·dim."""
+def dense(in_features: int, out_features: int, quant: bool = False, bits: int = 8) -> nn.Module:
+    """``nn.Linear``, or with ``quant`` a quantised ``DenseMaybeQuant``: the
+    matmuls that the JAX package builds as ``DenseMaybeQuant``."""
+    if quant:
+        return DenseMaybeQuant(in_features, out_features, bits=bits)
+    return nn.Linear(in_features, out_features)
 
-    def __init__(self, dim: int, mult: int = 4):
+
+class FeedForward(nn.Module):
+    """proj_in -> tanh-GELU -> proj_out, hidden width mult·dim; both
+    projections quantised with ``quant`` (int8 W8A8, or int4 weight-only at
+    ``quant_bits`` 4)."""
+
+    def __init__(self, dim: int, mult: int = 4, quant: bool = False, quant_bits: int = 8):
         super().__init__()
-        self.proj_in = nn.Linear(dim, dim * mult)
-        self.proj_out = nn.Linear(dim * mult, dim)
+        self.proj_in = dense(dim, dim * mult, quant, quant_bits)
+        self.proj_out = dense(dim * mult, dim, quant, quant_bits)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
@@ -245,10 +257,12 @@ class FeedForward(nn.Module):
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator, std: float) -> nn.Module:
     """Random weights from ``generator`` (on the module's device): every
-    Linear and Conv2d weight ~ N(0, std²) and bias 0, every norm weight 1
-    and bias 0. For runs without converted weights."""
+    Linear, float DenseMaybeQuant and Conv2d weight ~ N(0, std²) and bias 0,
+    every norm weight 1 and bias 0. For runs without converted weights."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d)) or (
+            isinstance(m, DenseMaybeQuant) and not m.quantized
+        ):
             m.weight.normal_(0.0, std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()

@@ -18,9 +18,17 @@ computed whole on every rank. The JAX package pads the joint sequence to a
 multiple of lcm(128, P) for its Pallas kernel; the port's kernels take any
 length, so only the image tokens are padded, to a multiple of P.
 
+Quantised matmuls (``MMDiTConfig.quant_matmuls``, ``quant_bits``): the ten
+attention projections and both feed-forwards of every block are
+``ops/quant.py``'s ``DenseMaybeQuant``, W8A8 int8 on K4 at ``quant_bits`` 8
+and int4 weight-only on K5 at 4; the AdaLN, embedder, ``context_embedder``
+and ``proj_out`` linears stay ``nn.Linear``, as in JAX. Load the float
+weights, then ``prequantize_`` the model once (or load a prequantised
+state dict).
+
 Not ported yet: SD3.5's dual attention and qk RMSNorm, the Δ-cache
-``cache_mode``, quantised matmuls, and the batch axis sharded beside the
-token axis (``seq_batch_axes``).
+``cache_mode``, the batch axis sharded beside the token axis
+(``seq_batch_axes``), and quantised matmuls under ``seq_group``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from tpdm_tpu_torch.models.layers import (
     FeedForward,
     PatchEmbed,
     _layer_norm_fp32,
+    dense,
     init_weights,
 )
 from tpdm_tpu_torch.ops.attention import joint_attention
@@ -67,6 +76,8 @@ class MMDiTConfig:
     # sequence parallelism: the image tokens sharded over this group's ranks
     # (parallel/mesh.py); the parameters are the same as without it
     seq_group: Optional[SeqGroup] = None
+    quant_matmuls: bool = False  # W8A8-dynamic int8 for the qkv/out/FF matmuls
+    quant_bits: int = 8  # 4 = group-int4 weight-only (capacity mode)
 
     @property
     def inner_dim(self) -> int:
@@ -104,11 +115,12 @@ class JointAttention(nn.Module):
         self.config = config
         self.context_pre_only = context_pre_only
         dim = config.inner_dim
+        linear = lambda: dense(dim, dim, config.quant_matmuls, config.quant_bits)
         for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
-            setattr(self, name, nn.Linear(dim, dim))
-        self.to_out = nn.Linear(dim, dim)
+            setattr(self, name, linear())
+        self.to_out = linear()
         if not context_pre_only:
-            self.to_add_out = nn.Linear(dim, dim)
+            self.to_add_out = linear()
 
     def forward(
         self, x: torch.Tensor, ctx: torch.Tensor, shard_valid: Optional[Sequence[int]] = None
@@ -179,9 +191,10 @@ class JointBlock(nn.Module):
             AdaLayerNormContinuous(dim) if context_pre_only else AdaLayerNormZero(dim)
         )
         self.attn = JointAttention(config, context_pre_only)
-        self.ff = FeedForward(dim)
+        ff = lambda: FeedForward(dim, quant=config.quant_matmuls, quant_bits=config.quant_bits)
+        self.ff = ff()
         if not context_pre_only:
-            self.ff_context = FeedForward(dim)
+            self.ff_context = ff()
 
     def forward(
         self,
@@ -221,6 +234,11 @@ class MMDiT(nn.Module):
             raise NotImplementedError(
                 "SD3.5 dual attention and qk RMSNorm are not ported yet "
                 "(ROADMAP queue 1, SD3.5 layers)"
+            )
+        if config.quant_matmuls and config.seq_group is not None:
+            raise NotImplementedError(
+                "quant_matmuls with seq_group has no parity check yet "
+                "(ROADMAP queue 1, item 13(d))"
             )
         if config.caption_projection_dim != config.inner_dim:
             raise ValueError("caption_projection_dim must equal the inner width")

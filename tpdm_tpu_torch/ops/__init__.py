@@ -1,5 +1,5 @@
-"""Ops of the port: attention kernels and their plain versions, Beta math,
-the flow Euler step."""
+"""Ops of the port: attention and GEMM kernels and their plain versions,
+quantised dense layers, Beta math, the flow Euler step."""
 
 from tpdm_tpu_torch.ops.attention import (
     attention_reference,
@@ -9,4 +9,10 @@ from tpdm_tpu_torch.ops.attention import (
     flash_attention_with_stats,
     joint_attention,
     merge_attention_shards,
+)
+from tpdm_tpu_torch.ops.gemm import (
+    bf16_gemm,
+    bf16_gemm_reference,
+    int8_gemm,
+    int8_gemm_reference,
 )

@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels under ``tpdm_tpu_torch/csrc``.
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface and loaded through ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The library goes to ``build/tpdm_tpu_torch/`` at the repository
-root, named by a hash of the sources and flags, on first use: a checkout
-builds everything it runs, and a changed source never loads a stale library.
+Each source is compiled by its own ``nvcc``, all started together, and the
+objects are linked into one shared library with a plain C interface, loaded
+through ``ctypes`` (no PyTorch headers, so a build takes seconds). The
+library goes to ``build/tpdm_tpu_torch/`` at the repository root, named by a
+hash of the sources, headers and flags, on first use: a checkout builds
+everything it runs, and a changed source never loads a stale library.
 
 Nothing here runs at import time, and nothing falls back: without ``nvcc``
 the build raises.
@@ -23,16 +24,29 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdm_tpu_torch"
-SOURCES = ("flash_attn_fwd.cu",)
+SOURCES = ("flash_attn_fwd.cu", "gemm.cu")
+HEADERS = ("mma.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills into build.log
 )
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-# C entry points: (q, k, v, o, bh, n_q, n_kv, kv_len, stream) -> cudaError_t;
-# tpdm_flash_attention_stats_d64 takes m, l after o
-ATTENTION_ENTRIES = ("tpdm_flash_attention_d64", "tpdm_flash_attention_d512")
+# C entry points, each returning a cudaError_t: every pointer and the stream
+# are void*, every size an int.
+#   (q, k, v, o, bh, n_q, n_kv, kv_len, stream); the stats entry takes m, l
+#   after o
+#   tpdm_int8_gemm (a, b, out, x_scale, w_scale, bias, m, n, k, stream), the
+#   int32 epilogue when x_scale is null; tpdm_bf16_gemm (a, b, out, m, n, k,
+#   stream)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRIES = {
+    "tpdm_flash_attention_d64": [_P] * 4 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_d512": [_P] * 4 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_stats_d64": [_P] * 6 + [_I] * 4 + [_P],
+    "tpdm_int8_gemm": [_P] * 6 + [_I] * 3 + [_P],
+    "tpdm_bf16_gemm": [_P] * 3 + [_I] * 3 + [_P],
+}
 
 
 def find_nvcc() -> str:
@@ -46,7 +60,7 @@ def find_nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     raise RuntimeError(
         "nvcc, the CUDA compiler, was not found on PATH, in $CUDA_HOME/bin "
-        f"or in {DEFAULT_CUDA_HOME}/bin: the tpdm_tpu_torch attention kernels "
+        f"or in {DEFAULT_CUDA_HOME}/bin: the tpdm_tpu_torch kernels "
         "cannot be built. They need the CUDA toolkit and an sm_90a (Hopper) "
         "card."
     )
@@ -54,7 +68,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -63,7 +77,7 @@ def _source_hash() -> str:
 def build() -> Path:
     """Compile the kernels if this version of the sources has no library yet.
 
-    Returns the library's path. The compiler's output (ptxas register and
+    Returns the library's path. The compilers' output (ptxas register and
     shared-memory report) is kept beside it as ``build.log``.
     """
     nvcc = find_nvcc()
@@ -71,22 +85,27 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC_DIR / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outs = [p.communicate() for p in procs]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+        log = [" ".join(c) + "\n" + out + err for c, (out, err) in zip(cmds, outs)]
+        failed = [(c, p.returncode, err) for c, p, (_, err) in zip(cmds, procs, outs)
+                  if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append((link, proc.returncode, proc.stderr))
+        (BUILD_DIR / "build.log").write_text("".join(log))
+        if failed:
+            cmd, rc, err = failed[0]
+            raise RuntimeError(f"nvcc failed (exit {rc}) on {cmd[-1]}:\n{err[-4000:]}")
+        os.replace(os.path.join(tmp, "lib.so"), lib_path)
     return lib_path
 
 
@@ -94,13 +113,10 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its C signatures."""
     lib = ctypes.CDLL(str(build()))
-    for name in ATTENTION_ENTRIES:
+    for name, argtypes in ENTRIES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    fn = lib.tpdm_flash_attention_stats_d64
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     lib.tpdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpdm_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -139,7 +139,8 @@ class TPDMPipeline:
             raise _not_ported(f"solver={solver!r}", "the Δ-cache and guidance-interval knobs")
 
         mcfg = self.mmdit.config
-        param = next(self.mmdit.parameters())
+        # a float parameter: a quantised MMDiT's int weights set no dtype
+        param = next(p for p in self.mmdit.parameters() if p.is_floating_point())
         device, dtype = param.device, param.dtype
         as_dev = lambda t: torch.as_tensor(t, device=device, dtype=dtype)
         b = prompt_embeds.shape[0]

@@ -6,12 +6,19 @@ maps one to one: ``transformer_blocks_3/attn/to_q/kernel`` becomes
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - Conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
-- GroupNorm / RMSNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``.
+- GroupNorm / RMSNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
+- a prequantised Dense (``tpdm_tpu/ops/quant.py:prequantize_params``): an
+  int8 ``kernel`` -> int8 ``weight`` (out, in); an int4 ``kernel`` ->
+  ``weight`` packed two to a byte (uint8 (out, in/2), ``ops/quant.py``);
+  ``kernel_scale`` -> fp32 ``weight_scale``.
 
 The trees are taken as nested dicts of numpy arrays (``jax.device_get`` of
 the Flax params, with or without the outer ``{"params": ...}``); nothing
-here imports JAX. The state dicts are fp32 torch tensors: cast the module
-(e.g. ``.to(torch.bfloat16)``) after loading for the card.
+here imports JAX. Float leaves become fp32 torch tensors: cast the module
+(e.g. ``.to(torch.bfloat16)``) after loading for the card; a quantised
+module keeps its scales fp32 through the cast. A float tree for a
+``quant_matmuls`` MMDiT loads as it is, and ``ops/quant.py:prequantize_``
+then quantises the model once.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from tpdm_tpu_torch.ops.quant import pack_int4
 
 # Flax names that index lists of submodules:
 # "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1"
@@ -44,17 +53,29 @@ def _flax_to_state_dict(tree: Mapping, drop_prefixes=()) -> Dict[str, torch.Tens
         if any(path.startswith(p) for p in drop_prefixes):
             continue
         *mods, leaf = path.split("/")
+        tensor = None
         if leaf == "kernel" and value.ndim == 2:
-            leaf, value = "weight", value.T
+            leaf = "weight"
+            if value.dtype.name == "int4":  # ml_dtypes.int4, from prequantize_params
+                q = np.ascontiguousarray(value.astype(np.int8).T)
+                tensor = pack_int4(torch.from_numpy(q))
+            elif value.dtype == np.int8:
+                tensor = torch.from_numpy(np.ascontiguousarray(value.T))
+            else:
+                value = value.T
         elif leaf == "kernel" and value.ndim == 4:
             leaf, value = "weight", value.transpose(3, 2, 0, 1)
+        elif leaf == "kernel_scale":
+            leaf = "weight_scale"
         elif leaf == "scale":
             leaf = "weight"
         elif leaf != "bias":
             raise ValueError(f"unexpected Flax parameter {path} {value.shape}")
         mods = [_INDEXED.sub(r"\1.\2.", m).rstrip(".") for m in mods]
         name = ".".join(mods + [leaf])
-        out[name] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+        if tensor is None:
+            tensor = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+        out[name] = tensor
     return out
 
 
