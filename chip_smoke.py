@@ -38,7 +38,14 @@ Phases, one line each, and any failure exits non-zero:
    the unsharded K1 forward on the same bf16 weights, beside the gap that
    one bf16 step on the latents makes in the unsharded forward; then two
    2048 px requests (batch 1) through TPDMPipeline.generate, every rank
-   reporting its steps, times, launch counts and peak memory.
+   reporting its steps, times, launch counts and peak memory;
+10. the K1 layout and tuning studies (tpdm_tpu_torch.experiments, on K6-K9)
+   at the SD3 1024 px study shape (2, 24, 4480, 64): every study function
+   and three attention blocks at width 1536 once, with the launch counts
+   read around them, each against the same function with the plain
+   versions swapped in; then each one's median time, each kernel mode's
+   alone, and K6-K9 beside their plain versions and
+   scaled_dot_product_attention.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -50,11 +57,12 @@ kernels line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -124,21 +132,6 @@ def phase(name: str, msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def attention_bound(bh, n_q, n_kv, d, kv_len=None, stats=False):
@@ -888,6 +881,301 @@ def seq_parallel_phase(seed, world):
     return reports[0]["requests"][1]["k3"]
 
 
+@contextlib.contextmanager
+def plain_studies():
+    """Inside: every study module of tpdm_tpu_torch.experiments calls the
+    plain versions (on the card, in fp32) where it calls K1 and K6-K9. The
+    kernels' counts are set to 0 on entry, and it fails if any moved, so a
+    study that reaches a kernel by another name cannot pass as its own
+    plain version."""
+    import pkgutil
+
+    from tpdm_tpu_torch import experiments
+    from tpdm_tpu_torch.ops import attention_studies as st
+    from tpdm_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    plain = {
+        "attention_strided": lambda *a, streams=1, **kw: st.attention_strided_reference(*a, **kw),
+        "attention_maxfree": st.attention_maxfree_reference,
+        "attention_int8qk": st.attention_int8qk_reference,
+        "attention_probe": st.attention_probe_reference,
+        "flash_attention": attention_reference,
+    }
+    kernels = (st.attention_strided, st.attention_maxfree, st.attention_int8qk,
+               st.attention_probe, flash_attention)
+    for fn in kernels:
+        fn.launches = 0
+    saved = []
+    for info in pkgutil.iter_modules(experiments.__path__):
+        mod = importlib.import_module(f"{experiments.__name__}.{info.name}")
+        for name, fn in plain.items():
+            if hasattr(mod, name):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    moved = {fn.__name__: fn.launches for fn in kernels if fn.launches}
+    if moved:
+        fail(f"the plain pass launched kernels {moved}: a study reaches one by another name")
+
+
+def study_bound(terms, nbytes):
+    """(bound_ms, bound_by): the larger of the operations, each term
+    (count, peak) at its type's rate, and ``nbytes`` over the memory rate."""
+    t_ops = sum(count / peak for count, peak in terms)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def studies_phase(g, dev):
+    """Phase 10: the K1 layout and tuning studies (tpdm_tpu_torch.experiments)
+    at the SD3-medium 1024 px study shape. Every study function (the 23
+    kernel bodies of experiments/attn_*.py) and the three attention blocks
+    at width 1536 run once with the counts at 0, each against the same
+    function with the plain versions swapped in; then the median time of
+    each, of each kernel mode called alone, and of K6-K9 beside their plain
+    versions and scaled_dot_product_attention. Returns the kernels' entries."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from tpdm_tpu_torch.experiments import (
+        _common,
+        attn_block_layout,
+        attn_kernel_floor,
+        attn_layout,
+        attn_natural_operands,
+        attn_nocopy,
+        attn_overlap,
+        attn_round3,
+        attn_round3b,
+        attn_round4,
+        attn_transpose_cost,
+        attn_variants,
+    )
+    from tpdm_tpu_torch.ops import attention_studies as st
+
+    b, h, n, d, kv_len, c = _common.B, _common.H, _common.N, _common.D, _common.N_REAL, _common.C
+    bh = b * h
+    rand = lambda *shape, std=1.0: (torch.randn(shape, generator=g, device=dev) * std).to(
+        torch.bfloat16)
+    q, k, v = (rand(b, h, n, d) for _ in range(3))  # 4480 tokens, the valid 4429 masked
+    qr, kr, vr = (t[:, :, :kv_len].contiguous() for t in (q, k, v))  # 4429, padded by the study
+    q2, k2, v2 = (t.transpose(1, 2).reshape(b, n, c) for t in (q, k, v))  # (b, n, h*d)
+    # the transposed studies' operands: qt (bh, d, n) prescaled, k3, vt_ext
+    # (bh, 80, n) with the ones row
+    qt = (rand(bh, d, n).float() * (_common.LOG2E / d**0.5)).to(torch.bfloat16)
+    k3 = k.reshape(bh, n, d)
+    vt_ext = torch.cat([v.reshape(bh, n, d).transpose(1, 2), _common.ones_rows(bh, n, v)], dim=1)
+    x = rand(b, n, c)
+    ws = [rand(c, c, std=WEIGHT_STD) for _ in range(4)]
+    bf = torch.bfloat16
+    K6, K7, K8, K9 = (st.attention_strided, st.attention_maxfree, st.attention_int8qk,
+                      st.attention_probe)
+    # (row of the study table, name, kernel, call). Row 7, the noexp probe,
+    # divides by acc[:, 64] + 1, which comes near zero on some rows: it is
+    # held by its RMS error instead of its max error
+    rows = [
+        (1, "attn_variants.attn_v1", K6, lambda: attn_variants.attn_v1(qr, kr, vr)),
+        (2, "attn_variants.attn_v2", K6, lambda: attn_variants.attn_v2(qr, kr, vr)),
+        (3, "attn_variants.attn_v3", K7, lambda: attn_variants.attn_v3(qr, kr, vr)),
+        (4, "attn_variants.attn_v4", K6, lambda: attn_variants.attn_v4(qr, kr, vr)),
+        (5, "attn_overlap prefetch", K6, lambda: attn_overlap.make_runner("prefetch")(qr, kr, vr)),
+        (6, "attn_overlap qk_only", K9, lambda: attn_overlap.make_runner("qk_only")(qr, kr, vr)),
+        (7, "attn_overlap noexp", K9, lambda: attn_overlap.make_runner("noexp")(qr, kr, vr)),
+        (8, "attn_layout.attn_kt", K6, lambda: attn_layout.attn_kt(qr, kr, vr)),
+        (9, "attn_layout.attn_kt kt_qkonly", K9,
+         lambda: attn_layout.attn_kt(qr, kr, vr, kernel="kt_qkonly")),
+        (10, "attn_nocopy.attn_vsum", K6, lambda: attn_nocopy.attn_vsum(q, k, v, kv_len)),
+        (11, "attn_nocopy.attn_packed2", K6, lambda: attn_nocopy.attn_packed2(q2, k2, v2, kv_len)),
+        (12, "attn_round3.attn_T fp32 (vT)", K6, lambda: attn_round3.attn_T(q, k, v)),
+        (12, "attn_round3.attn_T bf16 (vTb)", K6, lambda: attn_round3.attn_T(q, k, v, bf)),
+        (13, "attn_round3.attn_I", K8, lambda: attn_round3.attn_I(q, k, v)),
+        (14, "attn_round3.attn_TI", K8, lambda: attn_round3.attn_TI(q, k, v)),
+        (15, "attn_round3b.attn_T fp32 (vT)", K6, lambda: attn_round3b.attn_T(q, k, v)),
+        (15, "attn_round3b.attn_T bf16 (vTc)", K6, lambda: attn_round3b.attn_T(q, k, v, bf)),
+        (16, "attn_round3b.attn_Tm fp32 (vTm)", K7, lambda: attn_round3b.attn_Tm(q, k, v)),
+        (16, "attn_round3b.attn_Tm bf16 (vTmc)", K7, lambda: attn_round3b.attn_Tm(q, k, v, bf)),
+        (17, "attn_natural_operands.flash_nat", K6,
+         lambda: attn_natural_operands.flash_nat(q, k, v)),
+        (18, "attn_round4.kernel_call", K6, lambda: attn_round4.kernel_call(qt, k3, vt_ext)),
+        (19, "attn_round4.split_call", K6, lambda: attn_round4.split_call(qt, k3, vt_ext)),
+        (20, "attn_block_layout._kernel_call", K6,
+         lambda: attn_block_layout._kernel_call(qt, k3, vt_ext)),
+        (21, "attn_transpose_cost.kernel_only", K6,
+         lambda: attn_transpose_cost.kernel_only(qt, k3, vt_ext)),
+        (22, "attn_kernel_floor.kernel_call", K6,
+         lambda: attn_kernel_floor.kernel_call(qt, k3, vt_ext)),
+        (23, "attn_kernel_floor.kernel_call_inT", K6,
+         lambda: attn_kernel_floor.kernel_call_inT(qt.transpose(1, 2), k3, vt_ext)),
+        ("block", "attn_natural_operands.block_standard (K1)", None,
+         lambda: attn_natural_operands.block_standard(x, *ws)),
+        ("block", "attn_natural_operands.block_nat", K6,
+         lambda: attn_natural_operands.block_nat(x, *ws)),
+        ("block", "attn_block_layout.block_transposed", K6,
+         lambda: attn_block_layout.block_transposed(x, *ws)),
+    ]
+    counters = (K6, K7, K8, K9)
+    # the studies' path: every function once, the counts read around it
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [call() for _, _, _, call in rows]
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {fn: fn.launches for fn in counters}
+    want = {fn: sum(kernel is fn for _, _, kernel, _ in rows) for fn in counters}
+    if launches != want:
+        fail(f"the studies launched K6-K9 {list(launches.values())} times, expected "
+             f"{list(want.values())} (one launch a study function)")
+    errs = {fn: 0.0 for fn in counters}
+    lines = []
+    for (row, name, kernel, call), out in zip(rows, outs):
+        with plain_studies():
+            ref = call()
+        torch.cuda.synchronize()
+        if row == 7:
+            gap = rel_rms(out, ref)
+            if not (bool(torch.isfinite(out.float()).all()) and gap <= KERNEL_REL_TOL):
+                fail(f"{name} disagrees with its plain version: RMS err {gap} of the plain "
+                     f"output's RMS (bound {KERNEL_REL_TOL})")
+            err = (out.float() - ref.float()).abs().max().item()
+            check = f"RMS err {gap:.3e} of RMS |o| (bound {KERNEL_REL_TOL}), max abs err {err:.3e}"
+        else:
+            e = output_error(name, out, ref)
+            err, check = e[0], fmt_err(e)
+        if kernel is not None:
+            errs[kernel] = max(errs[kernel], err)
+        lines.append((row, name, check))
+        del ref
+    del outs
+    torch.cuda.empty_cache()
+    for (row, name, check), (_, _, _, call) in zip(lines, rows):
+        phase("study", f"row {row} {name}: {check}; {median_ms(call, reps=5):.3f} ms")
+
+    # each kernel mode alone at the study shape, on the views the studies pass
+    tok = lambda t: t.transpose(-1, -2).contiguous().transpose(-1, -2)  # token axis contiguous
+    packed = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # (b, n, h*d) storage
+    qs = _common.prescale(q)
+    # V_ext: the ones column, zeroed at or past kv_len where the mode masks
+    v65 = torch.cat([v, (torch.arange(n, device=dev) < kv_len).to(bf).expand(b, h, n)[..., None]],
+                    dim=-1)
+    extra = torch.zeros(b, h, n, 16, dtype=bf, device=dev)
+    extra[..., 0] = 1
+    v80 = torch.cat([v, extra], dim=-1)
+    v80t = tok(v80)
+    ot = tok(torch.empty_like(q))
+    rb = (torch.linalg.vector_norm(qs.float(), dim=-1)
+          * torch.linalg.vector_norm(k.float(), dim=-1).amax(-1)[..., None])
+    qi, sq = attn_round3._quant_rows(qs)
+    ki, sk = attn_round3._quant_rows(k)
+    sq, sk = sq[..., 0].contiguous(), sk[..., 0].contiguous()
+    qs_t, k_t, qs_p, k_p, v_p, o_p = tok(qs), tok(k), packed(qs), packed(k), packed(v), packed(q)
+    qi_t = tok(qi)
+    n_chunks = -(-n // 640)  # the probes' kv chunks
+
+    def work(kv, qk_peak=PEAK_BF16_FLOPS, qk_bytes=2, v_cols=d, extra=0):
+        """The bound of an attention call over kv valid columns: QK^T at
+        qk_peak and PV at the bf16 peak (4*bh*n*kv*d operations); q and k
+        (qk_bytes an element), V's v_cols columns, o and ``extra`` bytes
+        moved once."""
+        return study_bound([(2 * bh * n * kv * d, qk_peak), (2 * bh * n * kv * d, PEAK_BF16_FLOPS)],
+                           qk_bytes * bh * d * (n + kv) + 2 * bh * (kv * v_cols + n * d) + extra)
+
+    bf16_nat, bf16_ext, bf16_all = work(kv_len), work(kv_len, v_cols=d + 1), work(n, v_cols=d + 1)
+    k7_nat, k7_ext, k7_all = (work(kv, v_cols=w, extra=4 * bh * n)
+                              for kv, w in ((kv_len, d), (kv_len, d + 1), (n, d + 1)))
+    k8_nat, k8_ext, k8_all = (work(kv, PEAK_INT8_OPS, 1, w, 4 * bh * (n + kv))
+                              for kv, w in ((kv_len, d), (kv_len, d + 1), (n, d + 1)))
+    # the probes' own functions. qk_only's output needs only the first 64
+    # columns of each chunk's QK^T and their PV against 64 rows of V: q, o
+    # and those k and V rows moved once. The kernel runs every chunk's whole
+    # QK^T as the probe did; that work is reported beside it as probe_work,
+    # never as its bound. noexp: QK^T and PV over V's 65 columns
+    used = 64 * n_chunks
+    qk_only = study_bound([(2 * bh * n * used * d, PEAK_BF16_FLOPS)] * 2,
+                          2 * bh * d * (2 * n + 2 * used))
+    probe_work = study_bound([(2 * bh * n * n * d, PEAK_BF16_FLOPS),
+                              (2 * bh * n * used * d, PEAK_BF16_FLOPS)],
+                             2 * bh * d * (3 * n + used))
+    noexp = study_bound([(2 * bh * n * n * d, PEAK_BF16_FLOPS),
+                         (2 * bh * n * n * (d + 1), PEAK_BF16_FLOPS)],
+                        2 * bh * (3 * n * d + n * (d + 1)))
+    modes = [
+        ("K6 natural, V 64 wide, kv_len (vsum)", lambda: K6(qs, k, v, kv_len), bf16_nat),
+        ("K6 natural, V_ext 65, kv_len (v1, v2, prefetch)",
+         lambda: K6(qs, k, v65, kv_len), bf16_ext),
+        ("K6 natural, V_ext 65, no mask (v4)", lambda: K6(qs, k, v65), bf16_all),
+        ("K6 K^T, V_ext 65, kv_len (kt)", lambda: K6(qs, k_t, v65, kv_len), bf16_ext),
+        ("K6 packed (b, n, h*d), kv_len (packed2)",
+         lambda: K6(qs_p, k_p, v_p, kv_len, out=o_p), bf16_nat),
+        ("K6 q^T, V^T_ext 80, o^T (vT, round4, kernel_floor)",
+         lambda: K6(qs_t, k, v80t, out=ot), bf16_all),
+        ("K6 q^T, V^T_ext 80, o^T, bf16 scores (vTb, vTc)",
+         lambda: K6(qs_t, k, v80t, score_bf16=True, out=ot), bf16_all),
+        ("K6 q^T, V^T_ext 80, o^T, two streams (split)",
+         lambda: K6(qs_t, k, v80t, streams=2, out=ot), bf16_all),
+        ("K6 natural, V_ext 80, o^T (nat)", lambda: K6(qs, k, v80, out=ot), bf16_all),
+        ("K6 q natural, V^T_ext 80, o^T (inT)", lambda: K6(qs, k, v80t, out=ot), bf16_all),
+        ("K7 natural, V_ext 65, kv_len (v3)", lambda: K7(qs, k, v65, rb, kv_len), k7_ext),
+        ("K7 q^T, V^T_ext 80, o^T (vTm)", lambda: K7(qs_t, k, v80t, rb, out=ot), k7_all),
+        ("K7 q^T, V^T_ext 80, o^T, bf16 softmax (vTmc)",
+         lambda: K7(qs_t, k, v80t, rb, soft_bf16=True, out=ot), k7_all),
+        ("K8 natural, V_ext 65, kv_len (vI)", lambda: K8(qi, ki, v65, sq, sk, kv_len), k8_ext),
+        ("K8 q^T, V^T_ext 80, o^T (vTI)",
+         lambda: K8(qi_t, ki, v80t, sq, sk, k_scale_first=True, out=ot), k8_all),
+        ("K9 qk_only, chunk 640 (qk_only)", lambda: K9(qs, k, v65, "qk_only"), qk_only),
+        ("K9 qk_only, K^T, chunk 640 (kt_qkonly)",
+         lambda: K9(qs, k_t, v65, "qk_only"), qk_only),
+        ("K9 noexp, chunk 640 (noexp)", lambda: K9(qs, k, v65, "noexp"), noexp),
+    ]
+    for name, call, bound in modes:
+        ms = median_ms(call)
+        work_s = (f"; the probe's work (every chunk's whole QK^T) {probe_work[0]:.4f} ms, "
+                  f"{probe_work[0] / ms * 100:.1f} % of it" if bound is qk_only else "")
+        phase("study mode", f"{name}: {ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+                            f"{bound[0] / ms * 100:.1f} % of it{work_s}")
+
+    # K6-K9 beside their plain versions and PyTorch's attention: natural
+    # operands at kv_len 4429, V 64 wide (K9: its qk_only probe)
+    sdpa = lambda: scaled_dot_product_attention(qs, k[:, :, :kv_len], v[:, :, :kv_len],
+                                                scale=math.log(2.0))
+    timed = {
+        "K6": (lambda: K6(qs, k, v, kv_len),
+               lambda: st.attention_strided_reference(qs, k, v, kv_len), sdpa, bf16_nat),
+        "K7": (lambda: K7(qs, k, v, rb, kv_len),
+               lambda: st.attention_maxfree_reference(qs, k, v, rb, kv_len), sdpa,
+               k7_nat),
+        "K8": (lambda: K8(qi, ki, v, sq, sk, kv_len),
+               lambda: st.attention_int8qk_reference(qi, ki, v, sq, sk, kv_len), sdpa, k8_nat),
+        "K9": (lambda: K9(qs, k, v, "qk_only"),
+               lambda: st.attention_probe_reference(qs, k, v, "qk_only"), None, qk_only),
+    }
+    res = {}
+    k9_work = f", the probe's work (every chunk's whole QK^T) {probe_work[0]:.4f} ms"
+    for (key, (kernel, plain, lib, bound)), fn in zip(timed.items(), counters):
+        e = output_error(f"{key} (natural, V 64 wide)", kernel(), plain())
+        ms, plain_ms = median_ms(kernel), median_ms(plain)
+        lib_ms = None if lib is None else median_ms(lib)
+        phase(key, f"{(b, h, n, d)} natural, V 64 wide{f', kv_len {kv_len}' if key != 'K9' else ''}: "
+                   f"{fmt_err(e)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                   f"scaled_dot_product_attention "
+                   f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound {bound[0]:.4f} ms "
+                   f"({bound[1]}){k9_work if key == 'K9' else ''}; launches on the studies' path "
+                   f"{launches[fn]}")
+        res[key] = dict(launches=launches[fn], max_abs_err=max(errs[fn], e[0]), ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                        library_ms=lib_ms)
+        if key == "K9":  # labelled apart: the probe's work is not what its output needs
+            res[key]["probe_work_ms"] = probe_work[0]
+    phase("studies", f"{len(rows)} study functions at {(b, h, n, d)}, blocks at width {c}: "
+                     f"one pass {path_s:.2f} s, K6-K9 launches {list(launches.values())}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -901,6 +1189,8 @@ def main() -> int:
     if not (REPO / "tpdm_tpu_torch").is_dir():
         fail(f"tpdm_tpu_torch not found beside {Path(__file__).name}: run from the repository")
     sys.path.insert(0, str(REPO))
+    global median_ms  # the phases time with the port's CUDA-event median
+    from tpdm_tpu_torch.experiments._common import median_ms
     from tpdm_tpu_torch.ops import _build
 
     # fp32 products in the comparisons below run in full fp32, not TF32
@@ -934,9 +1224,12 @@ def main() -> int:
         kernels["K3"] = k3_phase(g, dev, world)  # 7
         merge_phase(g, dev)  # 8
         k3_total = seq_parallel_phase(args.seed, world)  # 9
+        studies = studies_phase(g, dev)  # 10
 
         src = "tpdm_tpu_torch/csrc/flash_attn_fwd.cu"
         gemm_src = "tpdm_tpu_torch/csrc/gemm.cu"
+        studies_src = "tpdm_tpu_torch/csrc/attn_studies.cu"
+        sites = lambda script, lines: "; ".join(f"experiments/{script}.py:{n}" for n in lines)
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": src,
              "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total, **kernels["K1"]},
@@ -952,6 +1245,23 @@ def main() -> int:
             {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:266", "launches": k5_total,
              **kernels["K5"]},
+            {"name": "attention_strided (K6)", "route": "cuda", "source": studies_src,
+             "replaces": "; ".join([
+                 sites("attn_variants", (36, 54, 190)), sites("attn_overlap", (64,)),
+                 sites("attn_layout", (35,)), sites("attn_nocopy", (56, 103)),
+                 sites("attn_round3", (39,)), sites("attn_round3b", (33,)),
+                 sites("attn_natural_operands", (42,)), sites("attn_round4", (44, 61)),
+                 sites("attn_block_layout", (40,)), sites("attn_transpose_cost", (32,)),
+                 sites("attn_kernel_floor", (38, 55))]),
+             **studies["K6"]},
+            {"name": "attention_maxfree (K7)", "route": "cuda", "source": studies_src,
+             "replaces": f"{sites('attn_variants', (86,))}; {sites('attn_round3b', (63,))}",
+             **studies["K7"]},
+            {"name": "attention_int8qk (K8)", "route": "cuda", "source": studies_src,
+             "replaces": sites("attn_round3", (117, 195)), **studies["K8"]},
+            {"name": "attention_probe (K9)", "route": "cuda", "source": studies_src,
+             "replaces": f"{sites('attn_overlap', (97, 109))}; {sites('attn_layout', (59,))}",
+             **studies["K9"]},
         ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

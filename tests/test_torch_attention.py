@@ -6,6 +6,9 @@ JAX package's own tests run them, in interpret mode. The kernels themselves
 are checked on the card in test_torch_cuda.py.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -92,3 +95,22 @@ def test_build_without_nvcc_raises_naming_it(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load_library()
     _build.load_library.cache_clear()
+
+
+def _c_entries():
+    """{name: ctypes types} of every ``extern "C" int`` entry in the sources."""
+    found = {}
+    for src in _build.SOURCES:
+        text = (_build.CSRC_DIR / src).read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[name] = [ctypes.POINTER(ctypes.c_longlong) if "long long*" in p
+                           else ctypes.c_void_p if "*" in p else ctypes.c_int
+                           for p in params.split(",")]
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build.ENTRIES))
+def test_ctypes_entries_match_the_c_signatures(name):
+    """The ctypes argtypes bound at load agree with the C definitions, so a
+    changed kernel signature fails here rather than at its first launch."""
+    assert _c_entries().get(name) == _build.ENTRIES[name]

@@ -26,6 +26,13 @@ plain version does and then once to bf16, so it is held to one bf16 step
 (2^-8 of |ref|) at every element. K5 sums bf16 products in fp32 in another
 order than cuBLAS's fp32 product and rounds once to bf16: within 2e-2 of
 the output's largest magnitude, as chip_smoke.py holds it.
+
+The studies' kernels K6-K9 (``ops/attention_studies.py``): every layout and
+mode against its plain version on the same views, the output's max error
+within 2e-2 of its largest magnitude (bf16 P and output, as K1). K8's int32
+scores are exact. The noexp probe divides by acc[:, 64] + 1, which can
+come near zero on some rows, so it is held by RMS: within 2e-2 of the
+plain output's RMS.
 """
 
 import pytest
@@ -36,6 +43,18 @@ from tpdm_tpu_torch.ops.gemm import (
     bf16_gemm_reference,
     int8_gemm,
     int8_gemm_reference,
+)
+from tpdm_tpu_torch.experiments.attn_round3 import _quant_rows
+from tpdm_tpu_torch.ops.attention_studies import (
+    attention_int8qk,
+    attention_int8qk_reference,
+    attention_maxfree,
+    attention_maxfree_reference,
+    attention_probe,
+    attention_probe_reference,
+    attention_strided,
+    attention_strided_reference,
+    int8_scores,
 )
 from tpdm_tpu_torch.ops.attention import (
     attention_reference,
@@ -272,3 +291,189 @@ def test_gemm_wrappers_raise_on_what_the_kernel_does_not_take(device):
         bf16_gemm(x[:, :40].contiguous(), w[:, :40].contiguous())
     with pytest.raises(ValueError, match="aligned"):
         bf16_gemm(x.view(-1)[4:4 + 63 * 64].view(63, 64), w)
+
+
+# ------------------------------------------------------------ K6-K9
+
+def _layout(t, kind):
+    """The same values as the (b, h, n, d) tensor t, held in another layout:
+    "nat" (b, h, n, d); "T" (b, h, d, n), token axis contiguous; "packed"
+    (b, n, h, d), the projections' (b, n, h*d)."""
+    if kind == "nat":
+        return t.contiguous()
+    if kind == "T":
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _ones_column(v, kv_len, width=65):
+    """v with the studies' ones column at 64 (zero at or past kv_len) and
+    zeros to ``width``."""
+    b, h, n, _ = v.shape
+    ones = (torch.arange(n, device=v.device) < kv_len).to(v.dtype)
+    extra = torch.zeros(b, h, n, width - 64, dtype=v.dtype, device=v.device)
+    extra[..., 0] = ones
+    return torch.cat([v, extra], dim=-1)
+
+
+def _rel_close(out, ref, tol=RTOL):
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max()
+    assert err <= tol * ref.float().abs().max(), (err, ref.float().abs().max())
+
+
+def _prescaled(q):
+    """q in the exp2 domain the study kernels take: q * log2(e)/sqrt(64)."""
+    return (q.float() * (1.4426950408889634 / 8.0)).to(q.dtype)
+
+
+# (q, k, v, out) layouts: the studies' natural, transposed (vT, round4),
+# K^T, packed, natural-in/transposed-out; v "nat"/"T" with its ones column
+K6_LAYOUTS = [
+    ("nat", "nat", "nat", "nat"),
+    ("T", "nat", "T", "T"),
+    ("nat", "T", "nat", "nat"),
+    ("packed", "packed", "packed", "packed"),
+    ("nat", "nat", "nat", "T"),
+    ("T", "T", "T", "nat"),
+]
+
+
+@pytest.mark.parametrize("layouts", K6_LAYOUTS)
+@pytest.mark.parametrize("v_width", [64, 65, 80])
+@pytest.mark.parametrize("shape,kv_len", [((1, 2, 333, 437), 400), ((2, 3, 64, 128), None)])
+def test_k6_layouts_match_plain(device, layouts, v_width, shape, kv_len):
+    b, h, n_q, n_kv = shape
+    q, k, v = _qkv(device, b, h, n_q, n_kv, 64, seed=n_q + v_width)
+    q = _prescaled(q)
+    if v_width > 64:
+        v = _ones_column(v, n_kv if kv_len is None else kv_len, v_width)
+    lq, lk, lv, lo = layouts
+    qv, kv_, vv = _layout(q, lq), _layout(k, lk), _layout(v, lv)
+    out = _layout(torch.empty(b, h, n_q, 64, device=device, dtype=torch.bfloat16), lo)
+    before = attention_strided.launches
+    got = attention_strided(qv, kv_, vv, kv_len, out=out)
+    torch.cuda.synchronize()
+    assert got is out and attention_strided.launches == before + 1
+    _rel_close(got, attention_strided_reference(q, k, v, kv_len))
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("score_bf16", [False, True])
+def test_k6_modes_match_plain(device, streams, score_bf16):
+    q, k, v = _qkv(device, 2, 3, 200, 389, 64, seed=7)
+    q = _prescaled(q)
+    kv_len = 333
+    for kv_len_ in (kv_len, 1, None):
+        got = attention_strided(q, k, v, kv_len_, score_bf16=score_bf16, streams=streams)
+        ref = attention_strided_reference(q, k, v, kv_len_, score_bf16=score_bf16)
+        _rel_close(got, ref)
+
+
+def test_k6_study_shape_transposed_two_streams(device):
+    """attn_round4's split_call: q^T, k, v^T with the ones row, o^T, at the
+    SD3 1024 px study shape."""
+    q, k, v = _qkv(device, 2, 24, 4480, 4480, 64, seed=8)
+    q, v = _prescaled(q), _ones_column(v, 4480, 80)
+    out = _layout(torch.empty_like(q), "T")
+    got = attention_strided(_layout(q, "T"), k, _layout(v, "T"), streams=2, out=out)
+    _rel_close(got, attention_strided_reference(q, k, v))
+
+
+def test_k6_mask_with_strongly_negative_scores(device):
+    q, k, v = _qkv(device, 1, 2, 128, 256, 64, seed=20)
+    q[..., 0] += 12.0
+    k[..., 0] = -80.0
+    qs = _prescaled(q)
+    for streams in (1, 2):
+        got = attention_strided(_layout(qs, "T"), _layout(k, "T"), v, 200, streams=streams)
+        # K1's plain softmax on the same (rounded) exp2-domain q, in fp32
+        q_nat = qs.float() * (8.0 / 1.4426950408889634)
+        _rel_close(got, attention_reference(q_nat, k[:, :, :200], v[:, :, :200]))
+
+
+@pytest.mark.parametrize("soft_bf16", [False, True])
+@pytest.mark.parametrize("layouts", [("nat", "nat", "nat", "nat"), ("T", "nat", "T", "T")])
+def test_k7_matches_plain(device, soft_bf16, layouts):
+    q, k, v = _qkv(device, 2, 3, 333, 437, 64, seed=9)
+    q, v = _prescaled(q), _ones_column(v, 400)
+    rb = torch.linalg.vector_norm(q.float(), dim=-1) * torch.linalg.vector_norm(
+        k.float(), dim=-1).amax(-1)[..., None]
+    lq, lk, lv, lo = layouts
+    out = _layout(torch.empty_like(q), lo)
+    before = attention_maxfree.launches
+    got = attention_maxfree(_layout(q, lq), _layout(k, lk), _layout(v, lv), rb, 400,
+                            soft_bf16=soft_bf16, out=out)
+    torch.cuda.synchronize()
+    assert attention_maxfree.launches == before + 1
+    _rel_close(got, attention_maxfree_reference(q, k, v, rb, 400, soft_bf16=soft_bf16))
+
+
+@pytest.mark.parametrize("q_layout", ["nat", "T"])
+@pytest.mark.parametrize("shape,kv_len", [((1, 2, 333, 437), 400), ((2, 24, 4480, 4480), None)])
+def test_k8_matches_plain_and_its_scores_are_exact(device, q_layout, shape, kv_len):
+    b, h, n_q, n_kv = shape
+    q, k, v = _qkv(device, b, h, n_q, n_kv, 64, seed=10)
+    qi, sq = _quant_rows(q.float() * (1.4426950408889634 / 8.0))
+    ki, sk = _quant_rows(k)
+    sq, sk = sq[..., 0].contiguous(), sk[..., 0].contiguous()
+    v = _ones_column(v, n_kv if kv_len is None else kv_len)
+    scores = torch.empty(b, h, n_q, n_kv, dtype=torch.int32, device=device)
+    before = attention_int8qk.launches
+    got = attention_int8qk(_layout(qi, q_layout), ki, v, sq, sk, kv_len,
+                           k_scale_first=q_layout == "T", scores_out=scores)
+    torch.cuda.synchronize()
+    assert attention_int8qk.launches == before + 1
+    assert torch.equal(scores, int8_scores(qi, ki))
+    _rel_close(got, attention_int8qk_reference(qi, ki, v, sq, sk, kv_len,
+                                               k_scale_first=q_layout == "T"))
+
+
+@pytest.mark.parametrize("k_layout", ["nat", "T"])
+@pytest.mark.parametrize("mode", ["qk_only", "noexp"])
+@pytest.mark.parametrize("n_kv,chunk", [(4480, 640), (448, 128), (300, 64)])
+def test_k9_matches_plain(device, k_layout, mode, n_kv, chunk):
+    q, k, v = _qkv(device, 1, 4, 333, n_kv, 64, seed=11)
+    q, v = _prescaled(q), _ones_column(v, n_kv)
+    before = attention_probe.launches
+    got = attention_probe(q, _layout(k, k_layout), v, mode, chunk)
+    torch.cuda.synchronize()
+    assert attention_probe.launches == before + 1
+    ref = attention_probe_reference(q, k, v, mode, chunk)
+    if mode == "qk_only":
+        _rel_close(got, ref)
+    else:
+        assert torch.isfinite(got.float()).all()
+        rms = lambda x: x.float().pow(2).mean().sqrt()
+        assert rms(got.float() - ref.float()) <= RTOL * rms(ref)
+
+
+def test_study_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    q, k, v = _qkv(device, 1, 2, 64, 64, 64, seed=12)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_strided(q.float(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_strided(q.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), k, v)
+    with pytest.raises(ValueError, match="kv_len"):
+        attention_strided(q, k, v, 65)
+    with pytest.raises(ValueError, match="streams"):
+        attention_strided(q, k, v, streams=3)
+    with pytest.raises(ValueError, match="last dim"):
+        attention_strided(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="out"):
+        attention_strided(q, k, v, out=torch.empty(1, 2, 63, 64, device=device,
+                                                   dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="rb"):
+        attention_maxfree(q, k, v, torch.zeros(1, 2, 63, device=device))
+    qi, ki = q.to(torch.int8), k.to(torch.int8)
+    sq = torch.ones(1, 2, 64, device=device)
+    with pytest.raises(ValueError, match="dim axis"):
+        attention_int8qk(qi, _layout(ki, "T"), v, sq, sq)
+    with pytest.raises(ValueError, match="sk"):
+        attention_int8qk(qi, ki, v, sq, sq[..., :63])
+    with pytest.raises(ValueError, match="multiple of 64"):
+        attention_probe(q, k, v, "qk_only", 96)
+    with pytest.raises(ValueError, match="65 wide"):
+        attention_probe(q, k, v, "noexp", 64)
+    with pytest.raises(ValueError, match="mode"):
+        attention_probe(q, k, v, "exp", 64)

@@ -159,11 +159,11 @@ def test_not_ported_options_raise(world):
 
 
 def test_port_imports_without_jax():
-    """Every tpdm_tpu_torch module imports with JAX, Flax and the JAX
-    package blocked."""
+    """Every tpdm_tpu_torch module imports with JAX, Flax, the JAX
+    package and the JAX study scripts (``experiments``) blocked."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'flax', 'tpdm_tpu'):\n"
+        "for m in ('jax', 'flax', 'tpdm_tpu', 'experiments'):\n"
         "    sys.modules[m] = None\n"
         "import tpdm_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(tpdm_tpu_torch.__path__, 'tpdm_tpu_torch.')]\n"
@@ -177,3 +177,8 @@ def test_port_imports_without_jax():
     names = set(proc.stdout.split())
     assert len(names) >= 18
     assert {"tpdm_tpu_torch.parallel.mesh", "tpdm_tpu_torch.parallel.sp_attention"} <= names
+    studies = ("attn_variants", "attn_overlap", "attn_layout", "attn_nocopy", "attn_round3",
+               "attn_round3b", "attn_round4", "attn_natural_operands", "attn_block_layout",
+               "attn_transpose_cost", "attn_kernel_floor")
+    assert {"tpdm_tpu_torch.ops.attention_studies"} | {
+        f"tpdm_tpu_torch.experiments.{n}" for n in studies} <= names

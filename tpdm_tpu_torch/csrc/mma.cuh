@@ -39,3 +39,21 @@ __device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4]
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
+
+// Four 8x8 b16 matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i (16 bytes each, 16-byte aligned). Without .trans
+// lane (g, t) receives row g, elements 2t and 2t+1 of each matrix; with
+// .trans the matrix is transposed on the way: row 2t and 2t+1, element g.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}

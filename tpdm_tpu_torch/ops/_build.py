@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdm_tpu_torch"
-SOURCES = ("flash_attn_fwd.cu", "gemm.cu")
+SOURCES = ("flash_attn_fwd.cu", "gemm.cu", "attn_studies.cu")
 HEADERS = ("mma.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,13 +39,20 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 #   tpdm_int8_gemm (a, b, out, x_scale, w_scale, bias, m, n, k, stream), the
 #   int32 epilogue when x_scale is null; tpdm_bf16_gemm (a, b, out, m, n, k,
 #   stream)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+#   the studies' kernels (attn_studies.cu): q, k, v, o (K7 adds rb, K8 sq,
+#   sk, scores), a pointer to the views' int64 strides, then sizes and
+#   flags (b, h, n_q, n_kv[, kv_len], v_cols, ...), stream
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 ENTRIES = {
     "tpdm_flash_attention_d64": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d512": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_stats_d64": [_P] * 6 + [_I] * 4 + [_P],
     "tpdm_int8_gemm": [_P] * 6 + [_I] * 3 + [_P],
     "tpdm_bf16_gemm": [_P] * 3 + [_I] * 3 + [_P],
+    "tpdm_attention_strided_d64": [_P] * 4 + [_S] + [_I] * 8 + [_P],
+    "tpdm_attention_maxfree_d64": [_P] * 5 + [_S] + [_I] * 7 + [_P],
+    "tpdm_attention_int8qk_d64": [_P] * 7 + [_S] + [_I] * 7 + [_P],
+    "tpdm_attention_probe_d64": [_P] * 4 + [_S] + [_I] * 7 + [_P],
 }
 
 
