@@ -8,12 +8,16 @@ Run from the repository root on a machine with sm_90a (Hopper) cards:
 Phases, one line each, and any failure exits non-zero:
 
 1. the device: its name and power limit as nvidia-smi reports them;
-2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc;
+2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc, and
+   the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions that
+   cuobjdump finds in the two wgmma kernels, K1 and K5;
 3. each kernel against its plain PyTorch version at the main path's
    shapes, with errors and median times (CUDA events): K1, K2, and the
    GEMMs K4 (int8, bit for bit on its int32 accumulator) and K5 (bf16) at
    every matmul shape of the batch 1 and batch 2 requests, beside
-   torch._int_mm and cuBLAS's bf16 product;
+   torch._int_mm and cuBLAS's bf16 product; K1's and K5's TFLOP/s and
+   share of their bound, and the registers and spills ptxas reported for
+   them;
 4. a reference check: a 2-layer MMDiT (float, W8A8 and int4) and a VAE
    decoder with a 512-wide mid block, on the card in bf16 through the
    kernels, against the same weights run in fp32 on the CPU through the
@@ -63,6 +67,7 @@ import gc
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -211,6 +216,46 @@ def check_kernel(name, kernel, plain, q, k, v, kv_len):
     return output_error(name, out, ref)
 
 
+def ptxas_report(kernel):
+    """'N registers, S bytes spill stores, L bytes spill loads' that ptxas
+    reported for the entry whose mangled name holds ``kernel``, read from
+    the build's log (the count is the one at launch, before setmaxnreg)."""
+    from tpdm_tpu_torch.ops import _build
+
+    lines = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    starts = [i for i, line in enumerate(lines)
+              if "Compiling entry function" in line and kernel in line]
+    if not starts:
+        return "not in build.log"
+    regs = spills = None
+    for line in lines[starts[0] + 1:]:
+        if "Compiling entry function" in line:
+            break
+        regs = regs or re.search(r"Used (\d+) registers", line)
+        spills = spills or re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    return (f"{regs.group(1) if regs else '?'} registers, {spills.group(1) if spills else '?'} "
+            f"bytes spill stores, {spills.group(2) if spills else '?'} bytes spill loads")
+
+
+def sass_report(lib_path, kernels):
+    """{kernel: (HGMMA, UTMALDG, UTMASTG) instruction counts} in the built
+    library's SASS (cuobjdump, beside nvcc), or None without cuobjdump."""
+    from tpdm_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0]
+        for kernel in kernels:
+            if kernel in name:
+                counts[kernel] = tuple(section.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG"))
+    return counts
+
+
 def kernel_phase(g, dev):
     """Phase 3: K1 and K2 against their plain versions at the 1024 px
     path's shapes, with their times, bounds and PyTorch's own call."""
@@ -221,6 +266,8 @@ def kernel_phase(g, dev):
     )
     from torch.nn.functional import scaled_dot_product_attention
 
+    phase("ptxas", f"K1 flash_attn_sm90_kernel: {ptxas_report('flash_attn_sm90_kernel')}; "
+                   f"K5 bf16_gemm_kernel: {ptxas_report('bf16_gemm_kernel')}")
     rand = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     n_joint = 4480  # 4096 image + 333 text tokens, padded to a multiple of 128
     q, k, v = (rand(2, 24, n_joint, 64) for _ in range(3))
@@ -237,10 +284,13 @@ def kernel_phase(g, dev):
     k_v, v_v = k[:, :, :4429], v[:, :, :4429]
     k1_lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k_v, v_v))
     k1_bound, k1_by = attention_bound(48, n_joint, n_joint, 64, 4429)
+    k1_flop = 4 * 48 * n_joint * 4429 * 64
     phase("K1", f"(2, 24, 4480, 64) bf16 kv_len 4429: {fmt_err(k1_err)}; strongly negative "
                 f"{fmt_err(k1n_err)} (bound {KERNEL_REL_TOL} of max |o|); kernel "
-                f"{k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, scaled_dot_product_attention "
-                f"{k1_lib_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})")
+                f"{k1_ms:.3f} ms, {k1_flop / k1_ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * k1_bound / k1_ms:.1f} % of bound; plain {k1_plain_ms:.3f} ms, "
+                f"scaled_dot_product_attention {k1_lib_ms:.3f} ms, bound {k1_bound:.3f} ms "
+                f"({k1_by})")
     del q, k, v, qn, kn, k_v, v_v
     q, k, v = (rand(1, 1, 16384, 512) for _ in range(3))
     k2_err = check_kernel("K2", flash_attention_streaming, attention_reference, q, k, v, None)
@@ -317,7 +367,8 @@ def gemm_phase(g, dev):
               f"{k4_bound[0]:.4f} ms ({k4_bound[1]}), {2 * m * n * k / times['k4'] / 1e9:.1f} "
               f"TOP/s; K5 {fmt_err(k5)}, {times['k5']:.4f} ms, plain {times['k5_plain']:.4f} ms, "
               f"torch.matmul {times['k5_lib']:.4f} ms, bound {k5_bound[0]:.4f} ms "
-              f"({k5_bound[1]}), {2 * m * n * k / times['k5'] / 1e9:.1f} TFLOP/s")
+              f"({k5_bound[1]}), {2 * m * n * k / times['k5'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * k5_bound[0] / times['k5']:.1f} % of bound")
         if (m, k, n) == TIMED_GEMM:
             res["K4"] = dict(ms=times["k4"], plain_ms=times["k4_plain"], bound_ms=k4_bound[0],
                              bound_by=k4_bound[1], library_ms=times["k4_lib"])
@@ -1211,6 +1262,9 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     phase("build", f"{lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
+    sass = sass_report(lib_path, ("flash_attn_sm90_kernel", "bf16_gemm_kernel"))
+    phase("sass", "cuobjdump not found beside nvcc" if sass is None else "; ".join(
+        f"{name}: {h} HGMMA, {ld} UTMALDG, {st} UTMASTG" for name, (h, ld, st) in sass.items()))
 
     if args.seq_parallel_only:
         seq_parallel_phase(args.seed, world)
@@ -1227,11 +1281,13 @@ def main() -> int:
         studies = studies_phase(g, dev)  # 10
 
         src = "tpdm_tpu_torch/csrc/flash_attn_fwd.cu"
+        k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
         gemm_src = "tpdm_tpu_torch/csrc/gemm.cu"
+        k5_src = "tpdm_tpu_torch/csrc/gemm_sm90.cu"
         studies_src = "tpdm_tpu_torch/csrc/attn_studies.cu"
         sites = lambda script, lines: "; ".join(f"experiments/{script}.py:{n}" for n in lines)
         print(json.dumps({"kernels": [
-            {"name": "flash_attention (K1)", "route": "cuda", "source": src,
+            {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total, **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": src,
              "replaces": "tpdm_tpu/ops/attention.py:193", "launches": k2_total,
@@ -1242,7 +1298,7 @@ def main() -> int:
             {"name": "int8_gemm (K4)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:301", "launches": k4_total,
              **kernels["K4"]},
-            {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
+            {"name": "bf16_gemm (K5)", "route": "cuda", "source": k5_src,
              "replaces": "experiments/attn_round3.py:266", "launches": k5_total,
              **kernels["K5"]},
             {"name": "attention_strided (K6)", "route": "cuda", "source": studies_src,

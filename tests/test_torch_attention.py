@@ -109,6 +109,13 @@ def _c_entries():
     return found
 
 
+def test_every_kernel_source_is_built_and_hashed():
+    """Every file under csrc is a source or a header of the build: a header
+    left out of the hash would load a library built from its old text."""
+    on_disk = sorted(p.name for p in _build.CSRC_DIR.iterdir() if p.is_file())
+    assert on_disk == sorted(_build.SOURCES + _build.HEADERS)
+
+
 @pytest.mark.parametrize("name", sorted(_build.ENTRIES))
 def test_ctypes_entries_match_the_c_signatures(name):
     """The ctypes argtypes bound at load agree with the C definitions, so a

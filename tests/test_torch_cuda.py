@@ -110,6 +110,29 @@ def test_k1_matches_plain(device, shape, kv_len):
     _assert_close(out, attention_reference(q, k, v, kv_len))
 
 
+@pytest.mark.parametrize("n_kv", [64, 128, 129, 256, 4480])
+@pytest.mark.parametrize("n_q", [1, 127, 128, 129, 192, 193])
+def test_k1_tile_edges(device, n_q, n_kv):
+    """Query tiles of 128 rows (two warp groups of 64) and kv tiles of 128
+    rows through a 2-stage ring: one or two query tiles, a last tile with
+    one row or one warp group, kv walks of one, two and 35 tiles."""
+    q, k, v = _qkv(device, 1, 2, n_q, n_kv, 64, seed=n_q * 7 + n_kv)
+    _assert_close(flash_attention(q, k, v), attention_reference(q, k, v))
+
+
+@pytest.mark.parametrize("kv_len", [1, 127, 128, 129])
+def test_k1_kv_len_at_tile_edges(device, kv_len):
+    q, k, v = _qkv(device, 1, 2, 200, 256, 64, seed=kv_len)
+    _assert_close(flash_attention(q, k, v, kv_len), attention_reference(q, k, v, kv_len))
+
+
+def test_k1_2048px_unsharded(device):
+    """The 2048 px joint sequence on one card: 16384 image + 333 text
+    tokens padded to 16768, 131 kv tiles."""
+    q, k, v = _qkv(device, 1, 2, 16768, 16768, 64, seed=16768)
+    _assert_close(flash_attention(q, k, v, 16717), attention_reference(q, k, v, 16717))
+
+
 def test_k1_mask_with_strongly_negative_scores(device):
     """Masked kv must score like -inf: every valid score ~ -120 here, so a
     zero-filled mask would pull the max to 0 and NaN the row."""
@@ -210,6 +233,10 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
         flash_attention_streaming(q, k, v)
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention(q, k, v, 0)
+    # TMA takes 16-byte aligned tensors: the kernel's entry refuses the launch
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=device)[1:].view(q.shape)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        flash_attention(shifted.copy_(q), k, v)
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention_with_stats(q, k, v, 65)
     with pytest.raises(ValueError, match="head_dim"):
@@ -218,12 +245,17 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
 
 
 # (M, K, N): the SD3 1024 px image rows (batch 1, CFG 2) against the qkv/out,
-# FF proj_in and FF proj_out weights, the text rows, batch 2's rows, and M
-# tails
+# FF proj_in and FF proj_out weights, the text rows, batch 2's rows (the
+# twelve shapes chip_smoke.py times), and tails
 GEMM_SHAPES = [
     (8192, 1536, 1536), (8192, 1536, 6144), (8192, 6144, 1536),
-    (666, 1536, 1536), (666, 1536, 6144), (1332, 6144, 1536), (16384, 1536, 6144),
+    (666, 1536, 1536), (666, 1536, 6144), (666, 6144, 1536),
+    (16384, 1536, 1536), (16384, 1536, 6144), (16384, 6144, 1536),
+    (1332, 1536, 1536), (1332, 1536, 6144), (1332, 6144, 1536),
     (1, 1536, 1536), (8193, 1536, 1536), (77, 96, 40),  # tails; N and K off the tile
+    # K5's persistent grid: 133 output tiles of 128 x 256, one past a wave of
+    # 132 SMs; N at and one past a tile
+    (17024, 64, 256), (300, 128, 256), (300, 128, 257),
 ]
 
 

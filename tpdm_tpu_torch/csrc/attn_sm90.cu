@@ -1,0 +1,330 @@
+// K1, the MMDiT joint attention, for Hopper (sm_90a): wgmma fed by TMA
+// through an mbarrier ring, with a producer warp.
+//
+//   K1  tpdm_flash_attention_d64 replaces tpdm_tpu/ops/attention.py
+//       _flash_kernel (+ _chunk_walk): softmax(Q K^T / sqrt(d)) V for each
+//       batch*head at d = 64, q/k/v (2b, 24, 4480, 64) with kv_len = 4429
+//       at 1024 px, 24 calls a step.
+//
+// The function is K1's as the mma.sync template (flash_attn_fwd.cu, which
+// keeps K2 and K3) computes it: scores in the exp2 domain, scaled by
+// log2(e)/sqrt(d) in fp32; columns >= kv_len biased to -1e30, never
+// zero-filled (see that file's note); p = exp2(s - m) in fp32, the running
+// denominator l summed from the fp32 p, P rounded to bf16 for the PV
+// product; O / l written once in bf16.
+//
+// What bounds it on the H100: compute (246 GFLOP over 110 MB at the shape
+// above), so the tensor cores and how well they are fed. The design:
+// - one block a (192 query rows, batch*head), one block an SM; four warp
+//   groups: three consumers own 64 query rows each (registers up to 160),
+//   and one producer (registers down to 24) whose one thread issues every
+//   TMA load. Three consumers beat two at the 1024 px shape (0.618 against
+//   0.686 ms on an H100 80GB HBM3 at 700 W, scripts/sm90_variants.py);
+//   with few heads a long sequence fills the card's 132 SMs better with
+//   two (BQ 128);
+// - q, k, v and o through 3-D tensor maps (64, n, b*h), so a tile never
+//   reads the next head's rows: TMA zero-fills rows past n. Q is loaded
+//   once a block; K and V come as 128 x 64 tiles through a 2-stage ring,
+//   each stage with a full barrier for K, one for V, and an empty barrier
+//   that every consumer thread arrives on. Only the tiles below kv_len
+//   are loaded;
+// - S = Q K^T: wgmma m64n128k16 from shared memory (both K-major), four
+//   k16 steps; the 64 x 128 fp32 S stays in registers (64 a thread, two
+//   rows a thread), the row max and sum reduce over the 4 threads of a
+//   quad, and m and l stay in registers. The mask runs only in the tile
+//   that holds kv_len;
+// - O = alpha O + P V: wgmma m64n64k16 with A = P from registers (the S
+//   accumulator converted pairwise to bf16x2 is already the A fragment)
+//   and B = V from shared memory, MN-major through the transpose bit;
+// - the epilogue writes O / l as bf16 into the warp group's own Q rows
+//   (128-byte swizzled, conflict free) and stores the 64 x 64 tile with
+//   one TMA store, which drops rows >= n_q.
+// Overlap: each warp group issues S of tile t before P V of tile t - 1
+// and runs tile t's softmax while that product is in flight (two wgmma
+// groups in flight, waited in order), and the consumer warp groups, on
+// their own rows, fill each other's gaps. A third ring stage bought
+// nothing measurable at the 1024 px shape, so the ring keeps two.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int kD = 64;  // 128 bytes a row: one swizzle row
+constexpr int kConsumers = 3;
+// registers a thread after setmaxnreg: the producer gives its share to the
+// consumers (65,536 an SM; two consumer warp groups could take 240)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+constexpr int kBQ = 64 * kConsumers;
+constexpr int kBKV = 128;
+constexpr int kStages = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kTileQ = kBQ * kD * 2;
+constexpr int kTileKV = kBKV * kD * 2;
+constexpr int kOffK = kTileQ;
+constexpr int kOffV = kOffK + kStages * kTileKV;
+constexpr int kOffBar = kOffV + kStages * kTileKV;
+constexpr int kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskedScore = -1e30f;
+static_assert(128 * (kConsumers * kConsumerRegs + kProducerRegs) <= 65536, "register file");
+static_assert(kSmemBytes <= 232448, "Hopper allows 227 KB of shared memory a block");
+
+// S (64 x 128) = Q K^T for one warp group: both operands K-major, four k16
+// steps of +32 bytes (2 in the descriptor's 16-byte address units).
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t desc_q, const void* s_k) {
+  const uint64_t desc_k = sm90::make_smem_desc(s_k, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    sm90::wgmma_m64n128k16_ss(sc, desc_q + 2 * kk, desc_k + 2 * kk, kk);
+  }
+}
+
+// O += P V: the A fragment of k16 step kk is p[4kk .. 4kk + 3]; V is
+// MN-major, 16 kv rows (2048 bytes) a k16 step.
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32],
+                                         const void* s_v) {
+  const uint64_t desc_v = sm90::make_smem_desc(s_v, 1024, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kBKV / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    sm90::wgmma_m64n64k16_rs_tb(o, a, desc_v + 128 * kk, 1);
+  }
+}
+
+// The online softmax of one kv tile starting at column kv0, in place: S to
+// exp2-domain scores (masked only in the tile that holds kv_len), then to
+// the fp32 p. Rows r = 0 (g) and 1 (g + 8) hold sc[4j + 2r + {0, 1}], at
+// columns 8j + 2q + {0, 1}; alpha[r] rescales the row's O.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2],
+                                             float (&l_run)[2], float (&alpha)[2], int kv0,
+                                             int kv_len, float scale_log2, int q) {
+  if (kv0 + kBKV > kv_len) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = kv0 + 8 * (i / 4) + 2 * q + (i & 1);
+      sc[i] = col < kv_len ? sc[i] * scale_log2 : kMaskedScore;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[r], mx);
+    alpha[r] = exp2f(m_run[r] - m_new);  // 0 on the first tile
+    m_run[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      sc[4 * j + 2 * r] = exp2f(sc[4 * j + 2 * r] - m_new);
+      sc[4 * j + 2 * r + 1] = exp2f(sc[4 * j + 2 * r + 1] - m_new);
+      sum += sc[4 * j + 2 * r] + sc[4 * j + 2 * r + 1];
+    }
+    l_run[r] = l_run[r] * alpha[r] + sum;
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    o[4 * j + 0] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+// P rounded to bf16, pairwise: p[2j + r] holds row r's columns 8j + 2q,
+// 8j + 2q + 1, so p[4kk .. 4kk + 3] is mma's A fragment of k16 step kk.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&sc)[64]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      p[2 * j + r] = sm90::pack_bf16x2(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_o, int n_q, int kv_len,
+                           float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* kv_empty = v_full + kStages;
+
+  const int q0 = blockIdx.x * kBQ;
+  const int bh = blockIdx.y;
+  const int n_tiles = (kv_len + kBKV - 1) / kBKV;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], 128 * kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread issues every load
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kConsumers) {
+      sm90::tma_prefetch_map(&map_q);
+      sm90::tma_prefetch_map(&map_k);
+      sm90::tma_prefetch_map(&map_v);
+      sm90::mbar_arrive_expect_tx(q_full, kTileQ);
+      sm90::tma_load_3d(smem, &map_q, q_full, 0, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        sm90::mbar_wait(&kv_empty[s], ((t / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&k_full[s], kTileKV);
+        sm90::tma_load_3d(smem + kOffK + s * kTileKV, &map_k, &k_full[s], 0, t * kBKV, bh);
+        sm90::mbar_arrive_expect_tx(&v_full[s], kTileKV);
+        sm90::tma_load_3d(smem + kOffV + s * kTileKV, &map_v, &v_full[s], 0, t * kBKV, bh);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x / 32) & 3;
+    const int g = lane >> 2;
+    const int q = lane & 3;
+    unsigned char* s_q = smem + wg * 64 * kD * 2;  // this warp group's 64 rows
+    const uint64_t desc_q = sm90::make_smem_desc(s_q, 16, 1024);
+
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    // rows g and g + 8 of the warp's 16: running max and this thread's
+    // share of the running denominator
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+    float sc[64];   // S of the current tile, then its fp32 p
+    uint32_t p[32];  // bf16 P of the previous tile, the A operand of PV
+
+    // tile 0: S alone
+    sm90::mbar_wait(q_full, 0);
+    sm90::mbar_wait(&k_full[0], 0);
+    sm90::wgmma_fence();
+    issue_qk(sc, desc_q, smem + kOffK);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    float alpha[2];
+    softmax_tile(sc, m_run, l_run, alpha, 0, kv_len, scale_log2, q);
+    pack_p(p, sc);
+
+    // tile t: S_t is issued before P_{t-1} V_{t-1}, so the softmax of S_t
+    // runs while the tensor cores take the PV product
+    for (int t = 1; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int prev = (t - 1) % kStages;
+      sm90::mbar_wait(&k_full[s], (t / kStages) & 1);
+      sm90::mbar_wait(&v_full[prev], ((t - 1) / kStages) & 1);
+      sm90::wgmma_fence();
+      issue_qk(sc, desc_q, smem + kOffK + s * kTileKV);
+      sm90::wgmma_commit();
+      issue_pv(o, p, smem + kOffV + prev * kTileKV);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // S_t is in
+      sm90::fence_regs(sc);
+      softmax_tile(sc, m_run, l_run, alpha, t * kBKV, kv_len, scale_log2, q);
+      sm90::wgmma_wait<0>();  // P_{t-1} V_{t-1} is in: stage prev is free
+      sm90::fence_regs(o);
+      sm90::fence_regs(p);
+      sm90::mbar_arrive(&kv_empty[prev]);
+      rescale(o, alpha);
+      pack_p(p, sc);
+    }
+    const int last = (n_tiles - 1) % kStages;
+    sm90::mbar_wait(&v_full[last], ((n_tiles - 1) / kStages) & 1);
+    sm90::wgmma_fence();
+    issue_pv(o, p, smem + kOffV + last * kTileKV);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::fence_regs(p);
+    sm90::mbar_arrive(&kv_empty[last]);
+
+    // O / l into this warp group's Q rows (its last S product is done),
+    // 128-byte swizzled as the o map expects, then one TMA store
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / l;
+      const int row = 16 * warp + g + 8 * r;  // row % 8 == g
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(s_q + row * 128 + ((j ^ g) * 16) + 4 * q) =
+            sm90::pack_bf16x2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(1 + wg, 128);
+    if ((threadIdx.x & 127) == 0 && q0 + 64 * wg < n_q) {
+      sm90::tma_store_3d(&map_o, s_q, 0, q0 + 64 * wg, bh);
+      sm90::tma_store_commit();
+      sm90::tma_store_wait();
+    }
+  }
+}
+
+}  // namespace
+
+// q, o: (bh, n_q, 64); k, v: (bh, n_kv, 64); bf16, contiguous, 16-byte
+// aligned. Columns at or past kv_len (1 <= kv_len <= n_kv) are masked.
+// Returns a cudaError_t.
+extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void* v, void* o,
+                                        int bh, int n_q, int n_kv, int kv_len, void* stream) {
+  for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  CUtensorMap map_q, map_k, map_v, map_o;
+  const uint64_t row = kD * 2;
+  const uint64_t dims_q[3] = {kD, static_cast<uint64_t>(n_q), static_cast<uint64_t>(bh)};
+  const uint64_t dims_kv[3] = {kD, static_cast<uint64_t>(n_kv), static_cast<uint64_t>(bh)};
+  const uint64_t strides_q[2] = {row, row * n_q};
+  const uint64_t strides_kv[2] = {row, row * n_kv};
+  const uint32_t box_q[3] = {kD, kBQ, 1};
+  const uint32_t box_kv[3] = {kD, kBKV, 1};
+  const uint32_t box_o[3] = {kD, 64, 1};
+  int err = sm90::make_tensor_map(&map_q, q, 3, dims_q, strides_q, box_q);
+  if (err == 0) err = sm90::make_tensor_map(&map_k, k, 3, dims_kv, strides_kv, box_kv);
+  if (err == 0) err = sm90::make_tensor_map(&map_v, v, 3, dims_kv, strides_kv, box_kv);
+  if (err == 0) err = sm90::make_tensor_map(&map_o, o, 3, dims_q, strides_q, box_o);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_sm90_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n_q + kBQ - 1) / kBQ, bh);
+  flash_attn_sm90_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, map_o, n_q, kv_len, kLog2e / sqrtf(static_cast<float>(kD)));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,11 +1,10 @@
 // Non-causal flash-attention forward for Hopper (sm_90a), bf16 in and out.
 //
-// One kernel template serves the three attention kernels of the SD3
-// generation paths of the JAX package:
+// One mma.sync kernel template serves two attention kernels of the SD3
+// generation paths of the JAX package (K1, the MMDiT joint attention
+// tpdm_flash_attention_d64, is a wgmma + TMA kernel of its own in
+// attn_sm90.cu; K3 is K1's function plus statistics):
 //
-//   K1  tpdm_flash_attention_d64  replaces tpdm_tpu/ops/attention.py
-//       _flash_kernel (+ _chunk_walk): MMDiT joint attention, q/k/v
-//       (2b, 24, 4480, 64) with kv_len = 4429 at 1024 px, 24 calls a step.
 //   K2  tpdm_flash_attention_d512 replaces tpdm_tpu/ops/attention.py
 //       _flash_kernel_streaming: VAE mid-block attention, (b, 1, 16384, 512)
 //       at 1024 px and (b, 1, 65536, 512) at 2048 px, once a decode.
@@ -50,7 +49,7 @@
 // running max is a real score from the first tile on.
 //
 // What bounds it on the H100: at the shapes above the work is compute
-// bound (K1 246 GFLOP over 110 MB of operands, K2 550 GFLOP over 67 MB, K3
+// bound (K2 550 GFLOP over 67 MB of operands, K3
 // 223 GFLOP over 106 MB a ring step, the stats 8 bytes a row of it), so
 // the limit is the tensor cores and how well they are fed. This first
 // version is the simple, correct shape of the algorithm: synchronous tile
@@ -340,14 +339,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int n_q
 }  // namespace
 
 // q, o: (bh, n_q, D); k, v: (bh, n_kv, D); bf16, contiguous. Columns at or
-// past kv_len (1 <= kv_len <= n_kv) are masked. Returns a cudaError_t.
-extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void* v, void* o,
-                                        int bh, int n_q, int n_kv, int kv_len, void* stream) {
-  return launch<64, 64, 64, 4, 1>(q, k, v, o, bh, n_q, n_kv, kv_len, stream);
-}
-
-// K3: as tpdm_flash_attention_d64, and also m, l: (bh, n_q) fp32, the row
-// statistics in the exp2 domain (see the note at the top).
+// past kv_len (1 <= kv_len <= n_kv) are masked. Each entry returns a
+// cudaError_t.
+//
+// K3: the attention, and also m, l: (bh, n_q) fp32, the row statistics in
+// the exp2 domain (see the note at the top).
 extern "C" int tpdm_flash_attention_stats_d64(const void* q, const void* k, const void* v,
                                               void* o, void* m, void* l, int bh, int n_q,
                                               int n_kv, int kv_len, void* stream) {

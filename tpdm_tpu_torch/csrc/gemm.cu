@@ -1,6 +1,4 @@
-// Tiled GEMMs for the quantised dense layers, Hopper (sm_90a).
-//
-// One kernel template serves two TPU kernels of the JAX package:
+// The int8 GEMM of the W8A8 dense layers, Hopper (sm_90a).
 //
 //   K4  tpdm_int8_gemm replaces experiments/attn_round3.py _mm_kernel_i8, the
 //       int8 x int8 -> int32 product that tpdm_tpu/ops/quant.py
@@ -11,9 +9,8 @@
 //       JAX's order, each operation rounded on its own (__fmul_rn and
 //       __fadd_rn, so the compiler fuses none into an fma), then rounded
 //       once to bf16.
-//   K5  tpdm_bf16_gemm replaces experiments/attn_round3.py _mm_kernel: bf16 x
-//       bf16 with an fp32 accumulator and a bf16 output, the product of
-//       w4_matmul (and w8_matmul) once the weight is dequantised.
+//
+// K5, the bf16 product, is a wgmma + TMA kernel of its own (gemm_sm90.cu).
 //
 // C (M, N) = A (M, K) . B^T with B given as (N, K), nn.Linear's (out, in)
 // weight: both operands are K-major, the only layout of Hopper's integer
@@ -21,9 +18,9 @@
 //
 // A block owns a 128 x 128 tile of C; its 8 warps (2 x 4) own 64 x 32 each,
 // as 4 x 4 mma tiles with the accumulator in registers (64 a thread). K is
-// walked 64 bytes a stage (64 int8 or 32 bf16 values) through a 3-stage
-// cp.async ring in shared memory: the copy of stage k + 2 runs while stage
-// k is multiplied, one barrier a stage. Shared-memory rows are padded by 16
+// walked 64 bytes a stage (64 int8 values) through a 3-stage cp.async ring
+// in shared memory: the copy of stage k + 2 runs while stage k is
+// multiplied, one barrier a stage. Shared-memory rows are padded by 16
 // bytes (a stride of 20 words), so the 32 fragment words a warp loads fall
 // in 32 distinct banks. Rows of A past M and of B past N, and 16-byte chunks
 // past K, are zero-filled by the copy (cp.async with a source size of 0),
@@ -35,14 +32,12 @@
 // 122 MB), so the limit is the tensor cores and how well they are fed. This
 // first version is the simple, correct shape: mma.sync (not wgmma), 32-bit
 // fragment loads from shared memory (not ldmatrix), one tile per block (no
-// persistent scheduling). wgmma with TMA, and the activation quantisation
-// fused into K4's prologue, are later work.
+// persistent scheduling). wgmma with TMA (as gemm_sm90.cu has), and the activation
+// quantisation fused into the prologue, are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "mma.cuh"
 
@@ -64,9 +59,8 @@ static_assert(kBKBytes % 32 == 0, "an mma step takes 32 bytes of K");
 static_assert(kSmemBytes <= 232448, "Hopper allows 227 KB of shared memory a block");
 
 enum Epilogue : int {
-  kInt32,    // K4: the raw accumulator
-  kDequant,  // K4: dequantised, bf16
-  kBf16,     // K5: the fp32 accumulator rounded to bf16
+  kInt32,    // the raw accumulator
+  kDequant,  // dequantised, bf16
 };
 
 __device__ __forceinline__ void cp_async_16(unsigned char* dst, const unsigned char* src,
@@ -108,16 +102,6 @@ __device__ __forceinline__ void load_stage(unsigned char* s, const unsigned char
   }
 }
 
-template <bool kInt8, typename Acc>
-__device__ __forceinline__ void mma_step(Acc (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (kInt8) {
-    mma_s8_16832(c, a, b0, b1);
-  } else {
-    mma_bf16_16816(c, a, b0, b1);
-  }
-}
-
 // Two values of one output row at columns col, col + 1 (col even), stored
 // as one pair where both are in range and the row is pair-aligned (n even).
 __device__ __forceinline__ void store_pair(int* row, int col, int n, int v0, int v1) {
@@ -138,13 +122,12 @@ __device__ __forceinline__ void store_pair(bf16* row, int col, int n, float v0, 
   }
 }
 
-template <bool kInt8, int kEpi>
+template <int kEpi>
 __global__ void __launch_bounds__(kThreads)
     gemm_kernel(const unsigned char* __restrict__ a, const unsigned char* __restrict__ b,
                 void* __restrict__ out, const float* __restrict__ x_scale,
                 const float* __restrict__ w_scale, const bf16* __restrict__ bias, int m,
                 int n, int k_bytes) {
-  using Acc = std::conditional_t<kInt8, int, float>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -156,12 +139,12 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
 
-  Acc acc[kMT][kNT][4];
+  int acc[kMT][kNT][4];
 #pragma unroll
   for (int i = 0; i < kMT; ++i) {
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = Acc(0);
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
     }
   }
 
@@ -203,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
         const uint32_t b0 = ld_u32(p);
         const uint32_t b1 = ld_u32(p + 16);
 #pragma unroll
-        for (int i = 0; i < kMT; ++i) mma_step<kInt8>(acc[i][j], af[i], b0, b1);
+        for (int i = 0; i < kMT; ++i) mma_s8_16832(acc[i][j], af[i], b0, b1);
       }
     }
   }
@@ -219,12 +202,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int col = n0 + wn * kNT * 8 + 8 * j + 2 * t;
-        const Acc c0 = acc[i][j][2 * half];
-        const Acc c1 = acc[i][j][2 * half + 1];
+        const int c0 = acc[i][j][2 * half];
+        const int c1 = acc[i][j][2 * half + 1];
         if constexpr (kEpi == kInt32) {
           store_pair(static_cast<int*>(out) + off, col, n, c0, c1);
-        } else if constexpr (kEpi == kBf16) {
-          store_pair(static_cast<bf16*>(out) + off, col, n, c0, c1);
         } else {
           const float xs = x_scale[row];
           float v[2] = {0.f, 0.f};
@@ -243,10 +224,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kInt8, int kEpi>
+template <int kEpi>
 int launch(const void* a, const void* b, void* out, const void* x_scale, const void* w_scale,
            const void* bias, int m, int n, int k_bytes, void* stream) {
-  auto kernel = gemm_kernel<kInt8, kEpi>;
+  auto kernel = gemm_kernel<kEpi>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -269,14 +250,7 @@ extern "C" int tpdm_int8_gemm(const void* a, const void* b, void* out, const voi
                               const void* w_scale, const void* bias, int m, int n, int k,
                               void* stream) {
   if (x_scale == nullptr) {
-    return launch<true, kInt32>(a, b, out, nullptr, nullptr, nullptr, m, n, k, stream);
+    return launch<kInt32>(a, b, out, nullptr, nullptr, nullptr, m, n, k, stream);
   }
-  return launch<true, kDequant>(a, b, out, x_scale, w_scale, bias, m, n, k, stream);
-}
-
-// K5. a (m, k) and b (n, k) bf16, contiguous, 16-byte aligned, k a multiple
-// of 16; out (m, n) bf16. Returns a cudaError_t.
-extern "C" int tpdm_bf16_gemm(const void* a, const void* b, void* out, int m, int n, int k,
-                              void* stream) {
-  return launch<false, kBf16>(a, b, out, nullptr, nullptr, nullptr, m, n, 2 * k, stream);
+  return launch<kDequant>(a, b, out, x_scale, w_scale, bias, m, n, k, stream);
 }

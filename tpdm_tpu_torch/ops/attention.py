@@ -1,8 +1,8 @@
 """Attention for the joint image+text sequence and the VAE mid block.
 
-Three hand-written Hopper kernels (``csrc/flash_attn_fwd.cu``) and their
-plain PyTorch versions, ``attention_reference`` and
-``attention_reference_stats``. The wrappers dispatch on the tensor's device:
+Three hand-written Hopper kernels (K1 in ``csrc/attn_sm90.cu``, K2 and K3
+in ``csrc/flash_attn_fwd.cu``) and their plain PyTorch versions,
+``attention_reference`` and ``attention_reference_stats``. The wrappers dispatch on the tensor's device:
 a CUDA tensor launches the kernel (or the wrapper raises on what the kernel
 does not take), a CPU tensor runs the plain version. There is no flag that
 picks the plain version on CUDA.
@@ -105,10 +105,10 @@ def flash_attention(
     ``_flash_attention_fwd_impl``): softmax(QK^T/sqrt(d))V per batch*head
     with an fp32 exp2-domain online softmax and kv positions >= kv_len
     masked by a -1e30 bias. On the H100 the SD3 1024 px shape
-    (2, 24, 4480, 64) is compute bound; the kernel runs its two products on
-    the tensor cores (mma.sync bf16, fp32 accumulate) over 64-row kv tiles
-    in shared memory, 64 query rows a block. ``csrc/flash_attn_fwd.cu``
-    holds the design note.
+    (2, 24, 4480, 64) is compute bound; the kernel runs its two products as
+    wgmma (bf16, fp32 accumulate) on K and V tiles that a producer warp
+    brings by TMA through a shared-memory ring, 128 query rows a block.
+    ``csrc/attn_sm90.cu`` holds the design note.
 
     CUDA: bf16, contiguous (b, h, n, 64) tensors, or it raises. CPU: the
     plain version ``attention_reference``.
@@ -212,8 +212,8 @@ def flash_attention_with_stats(
     ``attention_reference_stats``). q and kv may differ in length. The JAX
     version refuses kv longer than 8192, a bound set by the TPU's VMEM; the
     CUDA kernel walks kv in tiles through shared memory and has no such
-    limit. The kernel shares K1's template (``csrc/flash_attn_fwd.cu``) and
-    writes m and l from its running statistics, l summed from the fp32
+    limit. The kernel is the mma.sync template of ``csrc/flash_attn_fwd.cu``
+    that K2 shares, and writes m and l from its running statistics, l summed from the fp32
     probabilities.
 
     CUDA: bf16, contiguous (b, h, n, 64) tensors and 1 <= kv_len <= n_kv, or

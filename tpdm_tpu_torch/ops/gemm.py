@@ -1,7 +1,7 @@
 """Matrix products of the quantised dense layers.
 
-Two hand-written Hopper kernels (``csrc/gemm.cu``) and their plain PyTorch
-versions, ``int8_gemm_reference`` and ``bf16_gemm_reference``. The wrappers
+Two hand-written Hopper kernels (K4 in ``csrc/gemm.cu``, K5 in
+``csrc/gemm_sm90.cu``) and their plain PyTorch versions, ``int8_gemm_reference`` and ``bf16_gemm_reference``. The wrappers
 dispatch on the tensor's device: a CUDA tensor launches the kernel (or the
 wrapper raises on what the kernel does not take), a CPU tensor runs the
 plain version. There is no flag that picks the plain version on CUDA.
@@ -18,7 +18,7 @@ import torch
 
 from tpdm_tpu_torch.ops import _build
 
-_MAX_ROW_TILES = 65535  # the grid's y extent, in 128-row tiles
+_MAX_ROW_TILES = 65535  # K4's grid y extent, in 128-row tiles
 
 
 def int8_gemm_reference(
@@ -159,8 +159,8 @@ def bf16_gemm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
     Replaces ``experiments/attn_round3.py:_mm_kernel``: the product of
     ``tpdm_tpu/ops/quant.py:w4_matmul`` (and ``w8_matmul``) once the weight
-    is dequantised. The same kernel template as K4 (``csrc/gemm.cu``) on
-    bf16 tensor-core steps.
+    is dequantised. A persistent wgmma kernel fed by TMA
+    (``csrc/gemm_sm90.cu`` holds the design note).
 
     CUDA: contiguous, 16-byte aligned bf16 operands with K a multiple of 16,
     or it raises. CPU: the plain version ``bf16_gemm_reference``.
