@@ -8,16 +8,18 @@ Run from the repository root on a machine with sm_90a (Hopper) cards:
 Phases, one line each, and any failure exits non-zero:
 
 1. the device: its name and power limit as nvidia-smi reports them;
-2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc, and
-   the wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions that
-   cuobjdump finds in the two wgmma kernels, K1 and K5;
+2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc;
+   for each instantiation of the two wgmma kernels (K1 and K3 of
+   attn_sm90.cu, K4 and K5 of gemm_sm90.cu) the registers and spills
+   ptxas reported and the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG)
+   instructions that cuobjdump finds in it; it fails on a spill or on a
+   kernel without wgmma or TMA loads;
 3. each kernel against its plain PyTorch version at the main path's
    shapes, with errors and median times (CUDA events): K1, K2, and the
    GEMMs K4 (int8, bit for bit on its int32 accumulator) and K5 (bf16) at
    every matmul shape of the batch 1 and batch 2 requests, beside
-   torch._int_mm and cuBLAS's bf16 product; K1's and K5's TFLOP/s and
-   share of their bound, and the registers and spills ptxas reported for
-   them;
+   torch._int_mm and cuBLAS's bf16 product; K1's, K4's and K5's TFLOP/s
+   (TOP/s) and share of their bound;
 4. a reference check: a 2-layer MMDiT (float, W8A8 and int4) and a VAE
    decoder with a 512-wide mid block, on the card in bf16 through the
    kernels, against the same weights run in fp32 on the CPU through the
@@ -31,8 +33,10 @@ Phases, one line each, and any failure exits non-zero:
    the bf16 forward, then two W8A8 requests (batch 1, then 2) and one int4
    request, with the launch counts read around each;
 7. K3 against its plain version at the per-rank shapes of a 4-way ring at
-   2048 px and at this machine's ring size, with its time beside PyTorch's
-   flash-attention call that also returns the log-sum-exp;
+   2048 px, of a ring of one (q (2, 24, 16717, 64) against the whole image
+   kv, the plain version on a subset of query rows) and of this machine's
+   ring size, with its time at the first two beside its bound and
+   PyTorch's flash-attention call that also returns the log-sum-exp;
 8. the merge on one card: K3 over four image shards and the text tokens
    of the 2048 px joint sequence, merged by merge_attention_shards,
    against K1 over the whole sequence;
@@ -129,6 +133,17 @@ TIMED_GEMM = (8192, 1536, 6144)
 # hold the kernels and layouts
 QUANT_REL_BOUND = {8: 0.15, 4: 1.0}
 N_IMG_2048 = 16384  # 2048 px: 256 x 256 latents, 128 x 128 tokens
+# the wgmma kernels' instantiations, each by a piece of its mangled name
+# (template arguments between I and E: Lb0 / Lb1 kStats off / on; 'a'
+# int8_t, then the epilogue: Li0 bf16 rounding, Li1 dequant, Li2 int32)
+WGMMA_KERNELS = (
+    ("K1", "flash_attn_sm90_kernelILb0E"),
+    ("K3", "flash_attn_sm90_kernelILb1E"),
+    ("K4", "gemm_sm90_kernelIaLi1E"),
+    ("K4 int32", "gemm_sm90_kernelIaLi2E"),
+    ("K5", "gemm_sm90_kernelI13__nv_bfloat16Li0E"),
+)
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")
 
 
 def phase(name: str, msg: str) -> None:
@@ -217,29 +232,32 @@ def check_kernel(name, kernel, plain, q, k, v, kv_len):
 
 
 def ptxas_report(kernel):
-    """'N registers, S bytes spill stores, L bytes spill loads' that ptxas
-    reported for the entry whose mangled name holds ``kernel``, read from
-    the build's log (the count is the one at launch, before setmaxnreg)."""
+    """(registers, spill store bytes, spill load bytes) that ptxas reported
+    for the entry whose mangled name holds ``kernel``, read from the
+    build's log (the count is the one at launch, before setmaxnreg), or
+    None where the log has no such entry."""
     from tpdm_tpu_torch.ops import _build
 
     lines = (_build.BUILD_DIR / "build.log").read_text().splitlines()
     starts = [i for i, line in enumerate(lines)
               if "Compiling entry function" in line and kernel in line]
     if not starts:
-        return "not in build.log"
+        return None
     regs = spills = None
     for line in lines[starts[0] + 1:]:
         if "Compiling entry function" in line:
             break
         regs = regs or re.search(r"Used (\d+) registers", line)
         spills = spills or re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-    return (f"{regs.group(1) if regs else '?'} registers, {spills.group(1) if spills else '?'} "
-            f"bytes spill stores, {spills.group(2) if spills else '?'} bytes spill loads")
+    if regs is None or spills is None:
+        return None
+    return int(regs.group(1)), int(spills.group(1)), int(spills.group(2))
 
 
 def sass_report(lib_path, kernels):
-    """{kernel: (HGMMA, UTMALDG, UTMASTG) instruction counts} in the built
-    library's SASS (cuobjdump, beside nvcc), or None without cuobjdump."""
+    """{kernel: {op: count} for SASS_OPS} in the built library's SASS
+    (cuobjdump, beside nvcc), summed over the functions whose mangled name
+    holds ``kernel``; None without cuobjdump."""
     from tpdm_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -252,8 +270,36 @@ def sass_report(lib_path, kernels):
         name = section.split("\n", 1)[0]
         for kernel in kernels:
             if kernel in name:
-                counts[kernel] = tuple(section.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG"))
+                found = counts.setdefault(kernel, dict.fromkeys(SASS_OPS, 0))
+                for op in SASS_OPS:
+                    found[op] += len(re.findall(rf"\b{op}\b", section))
     return counts
+
+
+def wgmma_phase(lib_path):
+    """Phase 2's checks of the wgmma kernels: each instantiation's ptxas
+    registers and spills, and its wgmma and TMA instructions in the SASS.
+    Fails on a spill, or on an instantiation without wgmma or TMA loads."""
+    keys = [key for _, key in WGMMA_KERNELS]
+    sass = sass_report(lib_path, keys)
+    if sass is None:
+        fail("cuobjdump not found beside nvcc: the wgmma kernels' SASS cannot be read")
+    regs = {key: ptxas_report(key) for key in keys}
+    phase("ptxas", "; ".join(
+        f"{label}: " + ("not in build.log" if regs[key] is None else
+                        f"{regs[key][0]} registers, {regs[key][1]} bytes spill stores, "
+                        f"{regs[key][2]} bytes spill loads")
+        for label, key in WGMMA_KERNELS))
+    phase("sass", "; ".join(
+        f"{label}: " + ("not found" if key not in sass else
+                        ", ".join(f"{sass[key][op]} {op}" for op in SASS_OPS))
+        for label, key in WGMMA_KERNELS))
+    for label, key in WGMMA_KERNELS:
+        if regs[key] is None or regs[key][1] or regs[key][2]:
+            fail(f"{label} ({key}): ptxas reports a spill, or no report: {regs[key]}")
+        ops = sass.get(key)
+        if ops is None or ops["HGMMA"] + ops["IGMMA"] == 0 or ops["UTMALDG"] == 0:
+            fail(f"{label} ({key}): no wgmma or no TMA load in its SASS: {ops}")
 
 
 def kernel_phase(g, dev):
@@ -266,8 +312,6 @@ def kernel_phase(g, dev):
     )
     from torch.nn.functional import scaled_dot_product_attention
 
-    phase("ptxas", f"K1 flash_attn_sm90_kernel: {ptxas_report('flash_attn_sm90_kernel')}; "
-                   f"K5 bf16_gemm_kernel: {ptxas_report('bf16_gemm_kernel')}")
     rand = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     n_joint = 4480  # 4096 image + 333 text tokens, padded to a multiple of 128
     q, k, v = (rand(2, 24, n_joint, 64) for _ in range(3))
@@ -365,7 +409,7 @@ def gemm_phase(g, dev):
               f"{gap.max().item():.3e} (bound one bf16 step), {times['k4']:.4f} ms, plain "
               f"{times['k4_plain']:.4f} ms, torch._int_mm {times['k4_lib']:.4f} ms, bound "
               f"{k4_bound[0]:.4f} ms ({k4_bound[1]}), {2 * m * n * k / times['k4'] / 1e9:.1f} "
-              f"TOP/s; K5 {fmt_err(k5)}, {times['k5']:.4f} ms, plain {times['k5_plain']:.4f} ms, "
+              f"TOP/s, {100 * k4_bound[0] / times['k4']:.1f} % of bound; K5 {fmt_err(k5)}, {times['k5']:.4f} ms, plain {times['k5_plain']:.4f} ms, "
               f"torch.matmul {times['k5_lib']:.4f} ms, bound {k5_bound[0]:.4f} ms "
               f"({k5_bound[1]}), {2 * m * n * k / times['k5'] / 1e9:.1f} TFLOP/s, "
               f"{100 * k5_bound[0] / times['k5']:.1f} % of bound")
@@ -672,7 +716,8 @@ def quant_phase(seed, dev, modules):
 
 def k3_phase(g, dev, world):
     """Phase 7: K3 at the ring's per-rank shapes of 2048 px generation at
-    batch 1 (CFG 2): a 4-way ring, and this machine's ring of ``world``."""
+    batch 1 (CFG 2): a 4-way ring, a ring of one, and this machine's ring
+    of ``world``."""
     from tpdm_tpu_torch.ops.attention import flash_attention_with_stats
     from tpdm_tpu_torch.ops.attention import attention_reference_stats
 
@@ -710,31 +755,50 @@ def k3_phase(g, dev, world):
                 f"kv_len {N_CTX}: o {fmt_err(p_o_err)}, log2(l)+m {p_lse_err:.3e}; the same, "
                 f"strongly negative: o {fmt_err(n_o_err)}, log2(l)+m {n_lse_err:.3e} (o bound "
                 f"{KERNEL_REL_TOL} of max |o|, log2(l)+m atol {LSE_ATOL} rtol {LSE_RTOL}); "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"kernel {ms:.3f} ms, {4 * 48 * n_q4 * 4096 * 64 / ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * bound / ms:.1f} % of bound, plain {plain_ms:.3f} ms, "
                 f"_scaled_dot_product_flash_attention {lib_ms:.3f} ms (its lse vs K3's: max abs "
                 f"{lib_lse_err}), bound {bound:.3f} ms ({bound_by}); x text kv (2, 24, {N_CTX}, "
                 f"64): kernel {t_ms:.3f} ms, bound {t_bound:.3f} ms ({t_by})")
     del q, k, v, kt, vt, kt0, vt0, m, l, lib_lse, lse
     errs = [o_err, t_o_err, p_o_err, n_o_err]
-    if world != 4:
-        # this machine's ring: rank 0 holds N_IMG_2048 / world image rows and
-        # the text queries; the plain version runs on a subset of query rows
-        n_local = N_IMG_2048 // world
+    # a ring of one (one card at 2048 px): all 16717 queries against the
+    # whole image kv and the text kv, the plain version on a subset of the
+    # query rows (the full one's fp32 scores would not fit the card); the
+    # ring of this machine too where it is another size
+    ring1 = {}
+    for size in sorted({1, world} - {4}):
+        n_local = N_IMG_2048 // size
         q = rand(2, 24, n_local + N_CTX, 64)
         k, v = rand(2, 24, n_local, 64), rand(2, 24, n_local, 64)
         kt, vt = rand(2, 24, N_CTX, 64), rand(2, 24, N_CTX, 64)
         rows = torch.cat([torch.arange(1024), torch.arange(n_local, n_local + N_CTX)]).to(dev)
-        w_o_err, w_lse_err = check_k3(f"K3 ring of {world}", q, k, v, None, rows)
-        wt_o_err, wt_lse_err = check_k3(f"K3 ring of {world}, text", q, kt, vt, None, rows)
-        phase("K3", f"ring of {world}, plain version on {rows.numel()} query rows: q (2, 24, "
+        w_o_err, w_lse_err = check_k3(f"K3 ring of {size}", q, k, v, None, rows)
+        wt_o_err, wt_lse_err = check_k3(f"K3 ring of {size}, text", q, kt, vt, None, rows)
+        errs += [w_o_err, wt_o_err]
+        timing = ""
+        if size == 1:
+            n_q1 = n_local + N_CTX
+            ring1["ring1_ms"] = median_ms(lambda: flash_attention_with_stats(q, k, v))
+            ring1["ring1_library_ms"] = median_ms(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, k, v))
+            ring1["ring1_bound_ms"], by1 = attention_bound(48, n_q1, n_local, 64, stats=True)
+            ring1["ring1_text_ms"] = median_ms(lambda: flash_attention_with_stats(q, kt, vt))
+            flop = 4 * 48 * n_q1 * n_local * 64
+            timing = (f"; x image kv: kernel {ring1['ring1_ms']:.3f} ms, "
+                      f"{flop / ring1['ring1_ms'] / 1e9:.1f} TFLOP/s, "
+                      f"{100 * ring1['ring1_bound_ms'] / ring1['ring1_ms']:.1f} % of bound, "
+                      f"_scaled_dot_product_flash_attention {ring1['ring1_library_ms']:.3f} ms, "
+                      f"bound {ring1['ring1_bound_ms']:.3f} ms ({by1}); x text kv: kernel "
+                      f"{ring1['ring1_text_ms']:.3f} ms")
+        phase("K3", f"ring of {size}, plain version on {rows.numel()} query rows: q (2, 24, "
                     f"{n_local + N_CTX}, 64) x kv (2, 24, {n_local}, 64): o {fmt_err(w_o_err)}, "
                     f"log2(l)+m {w_lse_err:.3e}; x text kv (2, 24, {N_CTX}, 64): o "
-                    f"{fmt_err(wt_o_err)}, log2(l)+m {wt_lse_err:.3e}")
-        errs += [w_o_err, wt_o_err]
+                    f"{fmt_err(wt_o_err)}, log2(l)+m {wt_lse_err:.3e}{timing}")
         del q, k, v, kt, vt
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms, **ring1)
 
 
 def merge_phase(g, dev):
@@ -1262,9 +1326,7 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     phase("build", f"{lib_path.name} ready in {time.perf_counter() - t0:.2f} s")
-    sass = sass_report(lib_path, ("flash_attn_sm90_kernel", "bf16_gemm_kernel"))
-    phase("sass", "cuobjdump not found beside nvcc" if sass is None else "; ".join(
-        f"{name}: {h} HGMMA, {ld} UTMALDG, {st} UTMASTG" for name, (h, ld, st) in sass.items()))
+    wgmma_phase(lib_path)
 
     if args.seq_parallel_only:
         seq_parallel_phase(args.seed, world)
@@ -1282,8 +1344,7 @@ def main() -> int:
 
         src = "tpdm_tpu_torch/csrc/flash_attn_fwd.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
-        gemm_src = "tpdm_tpu_torch/csrc/gemm.cu"
-        k5_src = "tpdm_tpu_torch/csrc/gemm_sm90.cu"
+        gemm_src = "tpdm_tpu_torch/csrc/gemm_sm90.cu"
         studies_src = "tpdm_tpu_torch/csrc/attn_studies.cu"
         sites = lambda script, lines: "; ".join(f"experiments/{script}.py:{n}" for n in lines)
         print(json.dumps({"kernels": [
@@ -1292,13 +1353,13 @@ def main() -> int:
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": src,
              "replaces": "tpdm_tpu/ops/attention.py:193", "launches": k2_total,
              **kernels["K2"]},
-            {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": src,
+            {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,
              **kernels["K3"]},
             {"name": "int8_gemm (K4)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:301", "launches": k4_total,
              **kernels["K4"]},
-            {"name": "bf16_gemm (K5)", "route": "cuda", "source": k5_src,
+            {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:266", "launches": k5_total,
              **kernels["K5"]},
             {"name": "attention_strided (K6)", "route": "cuda", "source": studies_src,

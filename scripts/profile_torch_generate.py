@@ -45,11 +45,11 @@ from chip_smoke import (  # noqa: E402
 
 # kernel-name patterns, first match wins
 GROUPS = (
-    ("K3 flash_attn_fwd_kernel<64> stats", r"flash_attn_fwd_kernel<64,.*true>"),
-    ("K1 flash_attn_sm90_kernel", r"flash_attn_sm90_kernel"),
+    ("K3 flash_attn_sm90_kernel<true>", r"flash_attn_sm90_kernel<true"),
+    ("K1 flash_attn_sm90_kernel<false>", r"flash_attn_sm90_kernel"),
     ("K2 flash_attn_fwd_kernel<512>", r"flash_attn_fwd_kernel<512,"),
-    ("K5 bf16_gemm_kernel", r"bf16_gemm_kernel"),
-    ("K4 gemm_kernel<int8>", r"gemm_kernel<"),
+    ("K5 gemm_sm90_kernel<bf16>", r"gemm_sm90_kernel<__nv_bfloat16"),
+    ("K4 gemm_sm90_kernel<int8>", r"gemm_sm90_kernel<"),
     ("NCCL", r"nccl"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|Kernel2"),
     ("convolution (cuDNN)", r"conv|cudnn|implicit|winograd|fft"),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Design variants of the two wgmma kernels, K1 and K5, timed on the card.
+"""Design variants of the two wgmma kernels' instantiations, timed on the card.
 
 Each variant is the checked-in source (``tpdm_tpu_torch/csrc/attn_sm90.cu``
 or ``gemm_sm90.cu``) with one constant or line replaced, built by nvcc into
@@ -10,17 +10,25 @@ inputs:
 - K1: two or three consumer warp groups (BQ 128 or 192), two or three ring
   stages, at the 1024 px shape (2, 24, 4480, 64) kv_len 4429 and at a
   2048 px joint sequence with two heads (1, 2, 16768, 64) kv_len 16717;
-- K5: the kernel as built (TMA-store epilogue); the accumulators stored
-  directly from registers (the path for N not a multiple of 8); and two
-  probes that compute wrong values to price a part: ``no_store`` drops the
-  epilogue's stores, ``no_b_reload`` loads each ring stage's B tile once
-  and never again (two thirds of a stage's operand bytes gone). At FF
+- K3: two or three consumer warp groups at the two ring shapes of 2048 px
+  generation, q (2, 24, 16717, 64) x kv (2, 24, 16384, 64) (a ring of one)
+  and q (2, 24, 4429, 64) x kv (2, 24, 4096, 64) (rank 0 of four), beside
+  ``_scaled_dot_product_flash_attention``; o and log2(l) + m checked on
+  one head (atol 1e-3 / rtol 1e-4, as ``chip_smoke.py`` holds K3);
+- K5 and K4 (its dequant epilogue), the two instantiations of one
+  persistent kernel: as built (TMA-store epilogue); the accumulators
+  stored directly from registers (the path for N not a multiple of 8); and
+  two probes that compute wrong values to price a part: ``no_store`` drops
+  the epilogue's stores, ``no_b_reload`` loads each ring stage's B tile
+  once and never again (two thirds of a stage's operand bytes gone). At FF
   proj_in (8192, 1536) x (6144, 1536) and the text rows (666, 1536) x
-  (6144, 1536).
+  (6144, 1536), beside ``torch.matmul`` and ``torch._int_mm``.
 
 Every variant that computes the function is checked against the plain
-version (max error within 2e-2 of the output's largest magnitude, as
-``chip_smoke.py`` holds the kernels). Needs an sm_90a card:
+version as ``chip_smoke.py`` holds the kernels: max error within 2e-2 of
+the output's largest magnitude (K1, K3's o, K5), log2(l) + m within atol
+1e-3 / rtol 1e-4 (K3), one bf16 step at every element (K4). Needs an
+sm_90a card:
 
     python3 scripts/sm90_variants.py
 """
@@ -39,10 +47,14 @@ sys.path.insert(0, str(REPO))
 
 from tpdm_tpu_torch.experiments._common import median_ms  # noqa: E402
 from tpdm_tpu_torch.ops import _build  # noqa: E402
-from tpdm_tpu_torch.ops.attention import attention_reference  # noqa: E402
-from tpdm_tpu_torch.ops.gemm import bf16_gemm_reference  # noqa: E402
+from tpdm_tpu_torch.ops.attention import (  # noqa: E402
+    attention_reference,
+    attention_reference_stats,
+)
+from tpdm_tpu_torch.ops.gemm import bf16_gemm_reference, int8_gemm_reference  # noqa: E402
 
 TOL = 2e-2
+LSE_ATOL, LSE_RTOL = 1e-3, 1e-4
 
 
 def _sub(text: str, old: str, new: str) -> str:
@@ -53,34 +65,44 @@ def _sub(text: str, old: str, new: str) -> str:
 
 def k1_variants(src: str) -> dict:
     out = {}
-    for consumers, regs in ((2, 240), (3, 160)):
+    for consumers in (2, 3):
         for stages in (2, 3):
-            s = _sub(src, "kConsumers = 3;", f"kConsumers = {consumers};")
-            s = _sub(s, "kConsumerRegs = 160;", f"kConsumerRegs = {regs};")
+            s = _sub(src, "kK1Consumers = 3;", f"kK1Consumers = {consumers};")
             out[f"consumers {consumers}, stages {stages}"] = _sub(
                 s, "constexpr int kStages = 2;", f"constexpr int kStages = {stages};")
     return out
 
 
-def k5_variants(src: str) -> dict:
-    no_store = _sub(src, "      if (tma_store) {\n", "      if (tma_store && m < 0) {\n")
-    direct = "for (int half = 0; half < 2; ++half) {\n          const int row = tile.m0"
+def k3_variants(src: str) -> dict:
+    return {f"consumers {c}": _sub(src, "kK3Consumers = 3;", f"kK3Consumers = {c};")
+            for c in (2, 3)}
+
+
+def gemm_variants(src: str) -> dict:
+    no_store = _sub(src, "      } else if (tma_store) {\n",
+                    "      } else if (tma_store && m < 0) {\n")
+    direct = "stored directly\n#pragma unroll\n        for (int half = 0; half < 2; ++half) {"
     no_store = _sub(no_store, direct, direct.replace("half < 2;", "half < 2 * (m < 0);"))
-    load_b = "          sm90::tma_load_2d(stage + kTileA, &map_b, &full[s], kb * kBK, tile.n0);\n"
+    k4_direct = "                        if (row < m) {\n                          store_pair("
+    no_store = _sub(no_store, k4_direct, k4_direct.replace("row < m", "row < m && m < 0"))
+    load_b = ("          sm90::tma_load_2d(stage + kTileA, &map_b, &full[s], kb * kBK<T>, "
+              "tile.n0);\n")
     expect = "          sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);\n"
     no_b = _sub(src, load_b, "          if (it < kStages) " + load_b.lstrip())
     no_b = _sub(no_b, expect, "          sm90::mbar_arrive_expect_tx(&full[s], "
                               "it < kStages ? kStageBytes : kTileA);\n")
     return {
         "as built (TMA-store epilogue)": src,
-        "direct stores": _sub(src, "const int tma_store = n % 8 == 0;", "const int tma_store = 0;"),
+        "direct stores": _sub(src, "const int tma_store = kEpi != kInt32 && n % 8 == 0;",
+                              "const int tma_store = 0;"),
         "probe no_store": no_store,
         "probe no_b_reload": no_b,
     }
 
 
-def build(variants: dict, stem: str, entry: str) -> dict:
-    """{name: ctypes function} of each variant's C entry."""
+def build(variants: dict, stem: str, *entries: str) -> dict:
+    """{name: ctypes function} of each variant's C entry, or with several
+    entries {name: {entry: ctypes function}}."""
     root = _build.BUILD_DIR / "variants"
     root.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
@@ -100,10 +122,15 @@ def build(variants: dict, stem: str, entry: str) -> dict:
         report = [line.strip() for line in (out + err).splitlines()
                   if "registers" in line or "spill" in line or "C75" in line]
         print(f"[build] {stem} {name}: {' | '.join(report)}", flush=True)
-        fn = getattr(ctypes.CDLL(str(root / f"{stem}_{i}.so")), entry)
-        fn.argtypes = _build.ENTRIES[entry]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(str(root / f"{stem}_{i}.so"))
+        fns[name] = {}
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = _build.ENTRIES[entry]
+            fn.restype = ctypes.c_int
+            fns[name][entry] = fn
+        if len(entries) == 1:
+            fns[name] = fns[name][entries[0]]
     return fns
 
 
@@ -112,12 +139,19 @@ def rel_err(out, ref):
     return ((out.float() - ref).abs().max() / ref.abs().max()).item()
 
 
-def time_in_turns(calls: dict) -> dict:
-    """Median ms of each call, timed in the order given and then reversed."""
+def time_in_turns(calls: dict, rounds: int = 2) -> dict:
+    """(median, lowest, highest) of each call's per-round median ms over
+    ``rounds`` rounds, the calls timed in the order given, then reversed,
+    and so on."""
     times = {name: [] for name in calls}
-    for name in list(calls) + list(calls)[::-1]:
-        times[name].append(median_ms(calls[name], reps=20))
-    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+    for r in range(rounds):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            times[name].append(median_ms(calls[name], reps=20))
+    return {name: (sorted(t)[len(t) // 2], min(t), max(t)) for name, t in times.items()}
+
+
+def spread(t) -> str:
+    return f"{t[0]:.4f} ms (rounds {t[1]:.4f}-{t[2]:.4f})"
 
 
 def main() -> int:
@@ -130,7 +164,10 @@ def main() -> int:
     csrc = _build.CSRC_DIR
     k1 = build(k1_variants((csrc / "attn_sm90.cu").read_text()), "k1",
                "tpdm_flash_attention_d64")
-    k5 = build(k5_variants((csrc / "gemm_sm90.cu").read_text()), "k5", "tpdm_bf16_gemm")
+    k3 = build(k3_variants((csrc / "attn_sm90.cu").read_text()), "k3",
+               "tpdm_flash_attention_stats_d64")
+    gemm = build(gemm_variants((csrc / "gemm_sm90.cu").read_text()), "gemm", "tpdm_bf16_gemm",
+                 "tpdm_int8_gemm")
     g = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
@@ -154,20 +191,52 @@ def main() -> int:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k[:, :, :kv_len], v[:, :, :kv_len]))
         flop = 4 * b * h * n * kv_len * 64
-        for name, ms in time_in_turns(calls).items():
-            print(f"[K1] {(b, h, n, 64)} kv_len {kv_len}, {name}: {ms:.4f} ms, "
-                  f"{flop / ms / 1e9:.1f} TFLOP/s", flush=True)
+        for name, t in time_in_turns(calls).items():
+            print(f"[K1] {(b, h, n, 64)} kv_len {kv_len}, {name}: {spread(t)}, "
+                  f"{flop / t[0] / 1e9:.1f} TFLOP/s", flush=True)
         del q, k, v, ref
+
+    # K3 at the ring's shapes: the plain version on head 0 of each batch
+    for n_q, n_kv in ((16717, 16384), (4429, 4096)):
+        q = torch.randn(2, 24, n_q, 64, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(2, 24, n_kv, 64, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        o_ref, m_ref, l_ref = attention_reference_stats(q[:, :1], k[:, :1], v[:, :1])
+        lse_ref = torch.log2(l_ref) + m_ref
+        calls = {}
+        for name, fn in k3.items():
+            o = torch.empty_like(q)
+            m = torch.empty(2, 24, n_q, device=dev)
+            l = torch.empty_like(m)
+            call = (lambda fn=fn, o=o, m=m, l=l: fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
+                l.data_ptr(), 48, n_q, n_kv, n_kv, stream()))
+            if call() != 0:
+                raise SystemExit(f"sm90_variants: K3 {name} launch failed")
+            torch.cuda.synchronize()
+            err = rel_err(o[:, :1], o_ref)
+            lse = torch.log2(l[:, :1]) + m[:, :1]
+            if not (err <= TOL and torch.allclose(lse, lse_ref, atol=LSE_ATOL, rtol=LSE_RTOL)):
+                raise SystemExit(f"sm90_variants: K3 {name} disagrees: o {err}, log2(l)+m "
+                                 f"{(lse - lse_ref).abs().max().item()}")
+            calls[name] = call
+        calls["_scaled_dot_product_flash_attention"] = (
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, k, v))
+        flop = 4 * 48 * n_q * n_kv * 64
+        for name, t in time_in_turns(calls, rounds=8).items():
+            print(f"[K3] q (2, 24, {n_q}, 64) x kv (2, 24, {n_kv}, 64), {name}: {spread(t)}, "
+                  f"{flop / t[0] / 1e9:.1f} TFLOP/s", flush=True)
+        del q, k, v, o_ref, m_ref, l_ref, lse_ref, calls
 
     for m, kk, n in ((8192, 1536, 6144), (666, 1536, 6144)):
         a = torch.randn(m, kk, generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn(n, kk, generator=g, device=dev) * 0.02).to(torch.bfloat16)
         ref = bf16_gemm_reference(a, w)
         calls = {}
-        for name, fn in k5.items():
+        for name, fns in gemm.items():
             c = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
-            call = (lambda fn=fn, c=c: fn(a.data_ptr(), w.data_ptr(), c.data_ptr(), m, n, kk,
-                                          stream()))
+            call = (lambda fn=fns["tpdm_bf16_gemm"], c=c: fn(a.data_ptr(), w.data_ptr(),
+                                                              c.data_ptr(), m, n, kk, stream()))
             if call() != 0:
                 raise SystemExit(f"sm90_variants: K5 {name} launch failed")
             torch.cuda.synchronize()
@@ -175,9 +244,34 @@ def main() -> int:
                 raise SystemExit(f"sm90_variants: K5 {name} disagrees: {rel_err(c, ref)}")
             calls[name] = call
         calls["torch.matmul"] = lambda: torch.matmul(a, w.t())
-        for name, ms in time_in_turns(calls).items():
-            print(f"[K5] ({m}, {kk}) x ({n}, {kk}), {name}: {ms:.4f} ms, "
-                  f"{2 * m * n * kk / ms / 1e9:.1f} TFLOP/s", flush=True)
+        for name, t in time_in_turns(calls).items():
+            print(f"[K5] ({m}, {kk}) x ({n}, {kk}), {name}: {spread(t)}, "
+                  f"{2 * m * n * kk / t[0] / 1e9:.1f} TFLOP/s", flush=True)
+        # K4's dequant epilogue on int8 operands: its output is one bf16
+        # step from the plain version's at most
+        ai = torch.randint(-127, 128, (m, kk), generator=g, device=dev, dtype=torch.int8)
+        wi = torch.randint(-127, 128, (n, kk), generator=g, device=dev, dtype=torch.int8)
+        xs = torch.rand(m, generator=g, device=dev) * 1e-2 + 1e-3
+        ws = torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3
+        bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+        ref = int8_gemm_reference(ai, wi, xs, ws, bias).float()
+        calls = {}
+        for name, fns in gemm.items():
+            c = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+            call = (lambda fn=fns["tpdm_int8_gemm"], c=c: fn(
+                ai.data_ptr(), wi.data_ptr(), c.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                bias.data_ptr(), m, n, kk, stream()))
+            if call() != 0:
+                raise SystemExit(f"sm90_variants: K4 {name} launch failed")
+            torch.cuda.synchronize()
+            if not name.startswith("probe") and not (
+                    (c.float() - ref).abs() <= ref.abs() * 2.0**-8).all():
+                raise SystemExit(f"sm90_variants: K4 {name} disagrees")
+            calls[name] = call
+        calls["torch._int_mm (int32, no epilogue)"] = lambda: torch._int_mm(ai, wi.t())
+        for name, t in time_in_turns(calls).items():
+            print(f"[K4] ({m}, {kk}) x ({n}, {kk}), {name}: {spread(t)}, "
+                  f"{2 * m * n * kk / t[0] / 1e9:.1f} TOP/s", flush=True)
     return 0
 
 

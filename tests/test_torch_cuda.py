@@ -18,7 +18,9 @@ K3's statistics are compared in the frame log2(l) + m, which does not
 depend on where each version puts m: atol 1e-3 / rtol 1e-4. The scores are
 exact products of bf16 values summed in fp32 in another order (relative
 ~1e-6) and the sums l are fp32 in both, so on values of order 10 (or -170
-for the strongly negative case) the two agree to a few 1e-4.
+for the strongly negative case) the two agree to a few 1e-4. Where q is
+long (the ring of one at 2048 px), the plain version runs over blocks of
+query rows, which are independent, so its fp32 scores fit the card.
 
 The GEMMs: K4's int32 accumulator is exact, so it must equal its plain
 version bit for bit; its dequant epilogue rounds each fp32 operation as the
@@ -144,6 +146,13 @@ def test_k1_mask_with_strongly_negative_scores(device):
     _assert_close(out, ref)
 
 
+def _reference_stats(q, k, v, kv_len, rows=1024):
+    """attention_reference_stats over blocks of ``rows`` query rows."""
+    parts = [attention_reference_stats(q[:, :, i:i + rows], k, v, kv_len)
+             for i in range(0, q.shape[2], rows)]
+    return tuple(torch.cat(x, dim=2) for x in zip(*parts))
+
+
 def _assert_stats_close(got, ref):
     (o, m, l), (o_ref, m_ref, l_ref) = got, ref
     _assert_close(o, o_ref)
@@ -160,6 +169,7 @@ def _assert_stats_close(got, ref):
         ((2, 24, 4096, 333), None),  # another rank vs the text tokens
         ((1, 2, 333, 437), 400),  # ragged on both axes
         ((1, 1, 200, 256), 1),  # a single valid kv column
+        ((2, 24, 16717, 16384), None),  # 2048 px, a ring of one: the whole image kv
     ],
 )
 def test_k3_matches_plain(device, shape, kv_len):
@@ -169,7 +179,25 @@ def test_k3_matches_plain(device, shape, kv_len):
     got = flash_attention_with_stats(q, k, v, kv_len)
     torch.cuda.synchronize()
     assert flash_attention_with_stats.launches == before + 1
-    _assert_stats_close(got, attention_reference_stats(q, k, v, kv_len))
+    _assert_stats_close(got, _reference_stats(q, k, v, kv_len))
+
+
+@pytest.mark.parametrize("n_kv", [64, 128, 129, 256, 4480])
+@pytest.mark.parametrize("n_q", [1, 127, 128, 129, 192, 193])
+def test_k3_tile_edges(device, n_q, n_kv):
+    """K1's tile grid for the statistics: query tiles of one or two blocks,
+    a last block with one row or one warp group (m and l of rows >= n_q
+    are not written), kv walks of one, two and 35 tiles whose last tile
+    reads past n_kv into TMA's zero fill, masked by the bias."""
+    q, k, v = _qkv(device, 1, 2, n_q, n_kv, 64, seed=n_q * 7 + n_kv)
+    _assert_stats_close(flash_attention_with_stats(q, k, v), attention_reference_stats(q, k, v))
+
+
+@pytest.mark.parametrize("kv_len", [1, 127, 128, 129])
+def test_k3_kv_len_at_tile_edges(device, kv_len):
+    q, k, v = _qkv(device, 1, 2, 200, 256, 64, seed=kv_len)
+    _assert_stats_close(flash_attention_with_stats(q, k, v, kv_len),
+                        attention_reference_stats(q, k, v, kv_len))
 
 
 def test_k3_mask_with_strongly_negative_scores(device):
@@ -281,6 +309,34 @@ def test_k4_matches_plain(device, m, k, n):
         assert out.dtype == torch.bfloat16
         bound = ref.float().abs() * 2.0**-8
         assert ((out.float() - ref.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("n", [256, 257])
+def test_k4_extreme_operands(device, n):
+    """Every operand +-127 at K 6144: rows of a and b of one sign give the
+    accumulator's largest magnitude, 127^2 * 6144 > 2^24, where its float
+    conversion rounds; rows of random signs give the rest. N 256 stores the
+    dequant through TMA, N 257 directly."""
+    m, k = 300, 6144
+    g = torch.Generator(device=device).manual_seed(n)
+    sign = lambda *shape: torch.randint(0, 2, shape, generator=g, device=device) * 2 - 1
+    a = (127 * sign(m, k)).to(torch.int8)
+    b_t = (127 * sign(n, k)).to(torch.int8)
+    a[:64] = (127 * sign(64, 1)).to(torch.int8)
+    b_t[:64] = (127 * sign(64, 1)).to(torch.int8)
+    acc = int8_gemm(a, b_t)
+    ref = int8_gemm_reference(a, b_t)
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.int32 and torch.equal(acc, ref)
+    assert ref.abs().max().item() == 127 * 127 * k
+    x_scale = torch.rand(m, generator=g, device=device) * 0.01 + 1e-3
+    w_scale = torch.rand(n, generator=g, device=device) * 0.01 + 1e-3
+    bias = torch.randn(n, generator=g, device=device).to(torch.bfloat16)
+    for b in (bias, None):
+        out = int8_gemm(a, b_t, x_scale, w_scale, b)
+        deq = int8_gemm_reference(a, b_t, x_scale, w_scale, b)
+        assert out.dtype == torch.bfloat16
+        assert ((out.float() - deq.float()).abs() <= deq.float().abs() * 2.0**-8).all()
 
 
 @pytest.mark.parametrize("m,k,n", GEMM_SHAPES)

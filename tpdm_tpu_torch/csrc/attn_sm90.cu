@@ -1,33 +1,54 @@
-// K1, the MMDiT joint attention, for Hopper (sm_90a): wgmma fed by TMA
-// through an mbarrier ring, with a producer warp.
+// K1, the MMDiT joint attention, and K3, the same attention with each query
+// row's softmax statistics, for Hopper (sm_90a): one kernel template, wgmma
+// fed by TMA through an mbarrier ring, with a producer warp.
 //
 //   K1  tpdm_flash_attention_d64 replaces tpdm_tpu/ops/attention.py
 //       _flash_kernel (+ _chunk_walk): softmax(Q K^T / sqrt(d)) V for each
 //       batch*head at d = 64, q/k/v (2b, 24, 4480, 64) with kv_len = 4429
 //       at 1024 px, 24 calls a step.
+//   K3  tpdm_flash_attention_stats_d64 replaces tpdm_tpu/ops/attention.py
+//       _flash_kernel_stats: K1 plus each query row's m and l, the local
+//       step of the sequence-parallel ring (parallel/sp_attention.py). At
+//       2048 px a ring of one runs q (2b, 24, 16717, 64) against the image
+//       kv (2b, 24, 16384, 64) and the 333 text tokens; rank 0 of four runs
+//       q (2b, 24, 4429, 64) against kv shards of 4096 rows and the text.
 //
-// The function is K1's as the mma.sync template (flash_attn_fwd.cu, which
-// keeps K2 and K3) computes it: scores in the exp2 domain, scaled by
-// log2(e)/sqrt(d) in fp32; columns >= kv_len biased to -1e30, never
-// zero-filled (see that file's note); p = exp2(s - m) in fp32, the running
+// The function: scores in the exp2 domain, scaled by log2(e)/sqrt(d) in
+// fp32; columns >= kv_len biased to -1e30, never zero-filled (a zero fill
+// would pull the running max up to 0, and when every valid score is
+// strongly negative all valid exp2(s - 0) underflow and the row becomes
+// 0/0; tile 0 always holds a valid column, so the running max is a real
+// score from the first tile on); p = exp2(s - m) in fp32, the running
 // denominator l summed from the fp32 p, P rounded to bf16 for the PV
-// product; O / l written once in bf16.
+// product; O / l written once in bf16. K3 (kStats) also writes, as fp32,
+// m = the largest exp2-domain score over the columns < kv_len (the running
+// max, identical across the 4 threads of a quad after the shuffles) and
+// l = sum exp2(s - m) over them, summed from the fp32 p and reduced over
+// the quad exactly as the O epilogue reduces it before dividing. These are
+// the statistics that the ring's merge and merge_attention_shards combine.
 //
-// What bounds it on the H100: compute (246 GFLOP over 110 MB at the shape
-// above), so the tensor cores and how well they are fed. The design:
-// - one block a (192 query rows, batch*head), one block an SM; four warp
-//   groups: three consumers own 64 query rows each (registers up to 160),
-//   and one producer (registers down to 24) whose one thread issues every
-//   TMA load. Three consumers beat two at the 1024 px shape (0.618 against
-//   0.686 ms on an H100 80GB HBM3 at 700 W, scripts/sm90_variants.py);
-//   with few heads a long sequence fills the card's 132 SMs better with
-//   two (BQ 128);
+// What bounds it on the H100: compute. K1: 246 GFLOP over 110 MB at the
+// shape above. K3: 3.37 TFLOP in the ring of one's image call (3.40 ms at
+// 989 TFLOP/s), and its statistics add 8 bytes a query row to the bytes
+// moved. So the tensor cores and how well they are fed. The design:
+// - one block a (64 x kConsumers query rows, batch*head), one block an SM;
+//   kConsumers + 1 warp groups: each consumer owns 64 query rows (registers
+//   up to 160 with three consumers, 240 with two), and one producer
+//   (registers down to 24) whose one thread issues every TMA load. Three
+//   consumers beat two at the 1024 px shape (0.618 against 0.686 ms on an
+//   H100 80GB HBM3 at 700 W, scripts/sm90_variants.py); with few heads a
+//   long sequence fills the card's 132 SMs better with two (BQ 128). K3
+//   keeps three at both ring shapes: they beat two at rank 0 of four
+//   (0.621 against 0.662 ms, the same card and script) and at the ring of
+//   one within the spread of rounds (8.47 against 8.83 ms median), so one
+//   instantiation serves every n_q;
 // - q, k, v and o through 3-D tensor maps (64, n, b*h), so a tile never
 //   reads the next head's rows: TMA zero-fills rows past n. Q is loaded
 //   once a block; K and V come as 128 x 64 tiles through a 2-stage ring,
 //   each stage with a full barrier for K, one for V, and an empty barrier
 //   that every consumer thread arrives on. Only the tiles below kv_len
-//   are loaded;
+//   are loaded, and the last of them is masked by the bias: the ring's
+//   text call (n_kv 333) reads past n_kv there, into TMA's zero fill;
 // - S = Q K^T: wgmma m64n128k16 from shared memory (both K-major), four
 //   k16 steps; the 64 x 128 fp32 S stays in registers (64 a thread, two
 //   rows a thread), the row max and sum reduce over the 4 threads of a
@@ -38,7 +59,8 @@
 //   and B = V from shared memory, MN-major through the transpose bit;
 // - the epilogue writes O / l as bf16 into the warp group's own Q rows
 //   (128-byte swizzled, conflict free) and stores the 64 x 64 tile with
-//   one TMA store, which drops rows >= n_q.
+//   one TMA store, which drops rows >= n_q. K3's m and l are plain stores
+//   from one thread of each quad (rows g and g + 8), guarded by n_q.
 // Overlap: each warp group issues S of tile t before P V of tile t - 1
 // and runs tile t's softmax while that product is in flight (two wgmma
 // groups in flight, waited in order), and the consumer warp groups, on
@@ -57,25 +79,33 @@
 namespace {
 
 constexpr int kD = 64;  // 128 bytes a row: one swizzle row
-constexpr int kConsumers = 3;
+// consumer warp groups of each instantiation (see the note at the top)
+constexpr int kK1Consumers = 3;
+constexpr int kK3Consumers = 3;
 // registers a thread after setmaxnreg: the producer gives its share to the
-// consumers (65,536 an SM; two consumer warp groups could take 240)
+// consumers (65,536 an SM)
 constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 160;
-constexpr int kBQ = 64 * kConsumers;
 constexpr int kBKV = 128;
 constexpr int kStages = 2;
-constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kTileQ = kBQ * kD * 2;
 constexpr int kTileKV = kBKV * kD * 2;
-constexpr int kOffK = kTileQ;
-constexpr int kOffV = kOffK + kStages * kTileKV;
-constexpr int kOffBar = kOffV + kStages * kTileKV;
-constexpr int kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskedScore = -1e30f;
-static_assert(128 * (kConsumers * kConsumerRegs + kProducerRegs) <= 65536, "register file");
-static_assert(kSmemBytes <= 232448, "Hopper allows 227 KB of shared memory a block");
+
+// The layout of a block with kConsumers consumer warp groups.
+template <int kConsumers>
+struct Cfg {
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr int kBQ = 64 * kConsumers;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kTileQ = kBQ * kD * 2;
+  static constexpr int kOffK = kTileQ;
+  static constexpr int kOffV = kOffK + kStages * kTileKV;
+  static constexpr int kOffBar = kOffV + kStages * kTileKV;
+  static constexpr int kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+  static_assert(kConsumers == 2 || kConsumers == 3, "two or three consumer warp groups");
+  static_assert(128 * (kConsumers * kConsumerRegs + kProducerRegs) <= 65536, "register file");
+  static_assert(kSmemBytes <= 232448, "Hopper allows 227 KB of shared memory a block");
+};
 
 // S (64 x 128) = Q K^T for one warp group: both operands K-major, four k16
 // steps of +32 bytes (2 in the descriptor's 16-byte address units).
@@ -161,20 +191,23 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&sc)[64])
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// m_out, l_out: (bh, n_q) fp32, written by K3 (kStats) only.
+template <bool kStats, int kConsumers>
+__global__ void __launch_bounds__(128 * (kConsumers + 1), 1)
     flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
-                           const __grid_constant__ CUtensorMap map_o, int n_q, int kv_len,
-                           float scale_log2) {
+                           const __grid_constant__ CUtensorMap map_o, float* __restrict__ m_out,
+                           float* __restrict__ l_out, int n_q, int kv_len, float scale_log2) {
+  using C = Cfg<kConsumers>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
   uint64_t* kv_empty = v_full + kStages;
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * C::kBQ;
   const int bh = blockIdx.y;
   const int n_tiles = (kv_len + kBKV - 1) / kBKV;
   const int wg = threadIdx.x / 128;
@@ -197,19 +230,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::tma_prefetch_map(&map_q);
       sm90::tma_prefetch_map(&map_k);
       sm90::tma_prefetch_map(&map_v);
-      sm90::mbar_arrive_expect_tx(q_full, kTileQ);
+      sm90::mbar_arrive_expect_tx(q_full, C::kTileQ);
       sm90::tma_load_3d(smem, &map_q, q_full, 0, q0, bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         sm90::mbar_wait(&kv_empty[s], ((t / kStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&k_full[s], kTileKV);
-        sm90::tma_load_3d(smem + kOffK + s * kTileKV, &map_k, &k_full[s], 0, t * kBKV, bh);
+        sm90::tma_load_3d(smem + C::kOffK + s * kTileKV, &map_k, &k_full[s], 0, t * kBKV, bh);
         sm90::mbar_arrive_expect_tx(&v_full[s], kTileKV);
-        sm90::tma_load_3d(smem + kOffV + s * kTileKV, &map_v, &v_full[s], 0, t * kBKV, bh);
+        sm90::tma_load_3d(smem + C::kOffV + s * kTileKV, &map_v, &v_full[s], 0, t * kBKV, bh);
       }
     }
   } else {
-    sm90::setmaxnreg_inc<kConsumerRegs>();
+    sm90::setmaxnreg_inc<C::kConsumerRegs>();
     const int lane = threadIdx.x & 31;
     const int warp = (threadIdx.x / 32) & 3;
     const int g = lane >> 2;
@@ -231,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::mbar_wait(q_full, 0);
     sm90::mbar_wait(&k_full[0], 0);
     sm90::wgmma_fence();
-    issue_qk(sc, desc_q, smem + kOffK);
+    issue_qk(sc, desc_q, smem + C::kOffK);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
@@ -247,9 +280,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::mbar_wait(&k_full[s], (t / kStages) & 1);
       sm90::mbar_wait(&v_full[prev], ((t - 1) / kStages) & 1);
       sm90::wgmma_fence();
-      issue_qk(sc, desc_q, smem + kOffK + s * kTileKV);
+      issue_qk(sc, desc_q, smem + C::kOffK + s * kTileKV);
       sm90::wgmma_commit();
-      issue_pv(o, p, smem + kOffV + prev * kTileKV);
+      issue_pv(o, p, smem + C::kOffV + prev * kTileKV);
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();  // S_t is in
       sm90::fence_regs(sc);
@@ -264,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int last = (n_tiles - 1) % kStages;
     sm90::mbar_wait(&v_full[last], ((n_tiles - 1) / kStages) & 1);
     sm90::wgmma_fence();
-    issue_pv(o, p, smem + kOffV + last * kTileKV);
+    issue_pv(o, p, smem + C::kOffV + last * kTileKV);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o);
@@ -272,7 +305,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::mbar_arrive(&kv_empty[last]);
 
     // O / l into this warp group's Q rows (its last S product is done),
-    // 128-byte swizzled as the o map expects, then one TMA store
+    // 128-byte swizzled as the o map expects, then one TMA store; K3's m
+    // and l (the quad's reduced l) from one thread of the quad
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = l_run[r];
@@ -285,6 +319,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<uint32_t*>(s_q + row * 128 + ((j ^ g) * 16) + 4 * q) =
             sm90::pack_bf16x2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       }
+      if constexpr (kStats) {
+        const int row_q = q0 + 64 * wg + row;
+        if (q == 0 && row_q < n_q) {
+          const size_t at = static_cast<size_t>(bh) * n_q + row_q;
+          m_out[at] = m_run[r];
+          l_out[at] = l;
+        }
+      }
     }
     sm90::fence_proxy_async();
     sm90::named_barrier(1 + wg, 128);
@@ -296,13 +338,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-}  // namespace
-
 // q, o: (bh, n_q, 64); k, v: (bh, n_kv, 64); bf16, contiguous, 16-byte
-// aligned. Columns at or past kv_len (1 <= kv_len <= n_kv) are masked.
-// Returns a cudaError_t.
-extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void* v, void* o,
-                                        int bh, int n_q, int n_kv, int kv_len, void* stream) {
+// aligned; m, l (kStats): (bh, n_q) fp32. Columns at or past kv_len
+// (1 <= kv_len <= n_kv) are masked. Returns a cudaError_t.
+template <bool kStats, int kConsumers>
+int launch(const void* q, const void* k, const void* v, void* o, void* m, void* l, int bh,
+           int n_q, int n_kv, int kv_len, void* stream) {
+  using C = Cfg<kConsumers>;
   for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
     if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorMisalignedAddress);
   }
@@ -312,7 +354,7 @@ extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void
   const uint64_t dims_kv[3] = {kD, static_cast<uint64_t>(n_kv), static_cast<uint64_t>(bh)};
   const uint64_t strides_q[2] = {row, row * n_q};
   const uint64_t strides_kv[2] = {row, row * n_kv};
-  const uint32_t box_q[3] = {kD, kBQ, 1};
+  const uint32_t box_q[3] = {kD, C::kBQ, 1};
   const uint32_t box_kv[3] = {kD, kBKV, 1};
   const uint32_t box_o[3] = {kD, 64, 1};
   int err = sm90::make_tensor_map(&map_q, q, 3, dims_q, strides_q, box_q);
@@ -320,11 +362,32 @@ extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void
   if (err == 0) err = sm90::make_tensor_map(&map_v, v, 3, dims_kv, strides_kv, box_kv);
   if (err == 0) err = sm90::make_tensor_map(&map_o, o, 3, dims_q, strides_q, box_o);
   if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_sm90_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  auto kernel = flash_attn_sm90_kernel<kStats, kConsumers>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((n_q + kBQ - 1) / kBQ, bh);
-  flash_attn_sm90_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_k, map_v, map_o, n_q, kv_len, kLog2e / sqrtf(static_cast<float>(kD)));
+  const dim3 grid((n_q + C::kBQ - 1) / C::kBQ, bh);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, map_o, static_cast<float*>(m), static_cast<float*>(l), n_q, kv_len,
+      kLog2e / sqrtf(static_cast<float>(kD)));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1. q, o: (bh, n_q, 64); k, v: (bh, n_kv, 64); bf16, contiguous, 16-byte
+// aligned. Columns at or past kv_len (1 <= kv_len <= n_kv) are masked.
+// Returns a cudaError_t.
+extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void* v, void* o,
+                                        int bh, int n_q, int n_kv, int kv_len, void* stream) {
+  return launch<false, kK1Consumers>(q, k, v, o, nullptr, nullptr, bh, n_q, n_kv, kv_len,
+                                     stream);
+}
+
+// K3: K1, and also m, l: (bh, n_q) fp32, the row statistics in the exp2
+// domain (see the note at the top).
+extern "C" int tpdm_flash_attention_stats_d64(const void* q, const void* k, const void* v,
+                                              void* o, void* m, void* l, int bh, int n_q,
+                                              int n_kv, int kv_len, void* stream) {
+  return launch<true, kK3Consumers>(q, k, v, o, m, l, bh, n_q, n_kv, kv_len, stream);
 }

@@ -1,25 +1,17 @@
-// Non-causal flash-attention forward for Hopper (sm_90a), bf16 in and out.
-//
-// One mma.sync kernel template serves two attention kernels of the SD3
-// generation paths of the JAX package (K1, the MMDiT joint attention
-// tpdm_flash_attention_d64, is a wgmma + TMA kernel of its own in
-// attn_sm90.cu; K3 is K1's function plus statistics):
+// Non-causal flash-attention forward for Hopper (sm_90a), bf16 in and out,
+// on mma.sync: K2, the VAE mid-block attention. (K1, the MMDiT joint
+// attention, and K3, K1 plus each row's softmax statistics, are wgmma + TMA
+// kernels of their own in attn_sm90.cu.)
 //
 //   K2  tpdm_flash_attention_d512 replaces tpdm_tpu/ops/attention.py
 //       _flash_kernel_streaming: VAE mid-block attention, (b, 1, 16384, 512)
 //       at 1024 px and (b, 1, 65536, 512) at 2048 px, once a decode.
-//   K3  tpdm_flash_attention_stats_d64 replaces tpdm_tpu/ops/attention.py
-//       _flash_kernel_stats: K1 plus each query row's softmax statistics,
-//       the local step of the sequence-parallel ring. At 2048 px over a
-//       4-way ring a rank runs q (2b, 24, 4429, 64) against each image kv
-//       shard (2b, 24, 4096, 64) and against the 333 text tokens, so
-//       P + 1 calls a layer.
 //
-// The TPU kernels differ in where K/V live (resident in VMEM, or streamed
-// over a sequential grid axis with (m, acc) carried in scratch). On Hopper
-// blocks run in parallel and carry nothing between them, so both become the
-// same loop inside one block: a block owns BQ query rows of one batch*head
-// and walks the kv axis in BKV-row tiles held in shared memory.
+// The TPU kernel streams K/V over a sequential grid axis with (m, acc)
+// carried in VMEM scratch. On Hopper blocks run in parallel and carry
+// nothing between them, so that becomes a loop inside one block: a block
+// owns BQ query rows of one batch*head and walks the kv axis in BKV-row
+// tiles held in shared memory.
 //
 // Per kv tile:
 //   1. all threads copy the K and V tiles into shared memory (16-byte loads,
@@ -32,14 +24,7 @@
 //      the running denominator l, all in fp32;
 //   4. O = alpha * O + P V on the tensor cores; O stays in registers, each
 //      warp owning a 16-row by D/WARPS_N-column slice of it.
-// After the walk O / l is written as bf16. K3 (kStats) also writes each
-// row's final m and l as fp32: m is the largest exp2-domain score
-// s2 = q.k * log2(e)/sqrt(d) over the columns < kv_len, and
-// l = sum exp2(s2 - m) over them, summed from the fp32 p (the bf16 copy of
-// p feeds only the PV product). These are the statistics that
-// merge_attention_shards and the ring's running merge combine across kv
-// shards; every thread of a row holds the same m_run and l_run after the
-// shuffle reductions, so one of them stores the pair.
+// After the walk O / l is written as bf16.
 //
 // Masking is a bias, never a zero fill: a masked score is -1e30, so it can
 // never raise the running max. Zero-filling masked scores would pull the
@@ -49,14 +34,13 @@
 // running max is a real score from the first tile on.
 //
 // What bounds it on the H100: at the shapes above the work is compute
-// bound (K2 550 GFLOP over 67 MB of operands, K3
-// 223 GFLOP over 106 MB a ring step, the stats 8 bytes a row of it), so
-// the limit is the tensor cores and how well they are fed. This first
-// version is the simple, correct shape of the algorithm: synchronous tile
-// copies, S and P staged through shared memory, four barriers a tile, and
-// mma.sync rather than wgmma. Row strides are padded by 8 bf16 / 4 fp32
-// elements so the fragment loads hit distinct shared-memory banks. TMA,
-// wgmma, a copy pipeline and keeping P in registers are later work.
+// bound (550 GFLOP over 67 MB of operands at 1024 px), so the limit is the
+// tensor cores and how well they are fed. This first version is the
+// simple, correct shape of the algorithm: synchronous tile copies, S and P
+// staged through shared memory, four barriers a tile, and mma.sync rather
+// than wgmma. Row strides are padded by 8 bf16 / 4 fp32 elements so the
+// fragment loads hit distinct shared-memory banks. TMA, wgmma, a copy
+// pipeline and keeping P in registers are later work.
 //
 // K2's head is 512 wide: a 64 x 512 fp32 accumulator (128 KB) cannot live in
 // one warp group's registers. Its blocks split the dv axis across warps
@@ -140,12 +124,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N, bool kStats>
+template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
     flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ m_out, float* __restrict__ l_out, int n_q,
-                          int n_kv, int kv_len, float scale_log2) {
+                          const bf16* __restrict__ v, bf16* __restrict__ o, int n_q, int n_kv,
+                          int kv_len, float scale_log2) {
   using C = Cfg<D, BQ, BKV, WARPS_M, WARPS_N>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -294,12 +277,6 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
   }
 
   if (sm_part == 0) sL[sm_row] = l_run;
-  if constexpr (kStats) {
-    if (sm_part == 0 && q0 + sm_row < n_q) {
-      m_out[bh * n_q + q0 + sm_row] = m_run;
-      l_out[bh * n_q + q0 + sm_row] = l_run;
-    }
-  }
   __syncthreads();
 
   const float inv_lo = 1.f / sL[o_row0 + g];
@@ -320,36 +297,26 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
   }
 }
 
-template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N, bool kStats = false>
+template <int D, int BQ, int BKV, int WARPS_M, int WARPS_N>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int n_q, int n_kv,
-           int kv_len, void* stream, void* m = nullptr, void* l = nullptr) {
+           int kv_len, void* stream) {
   using C = Cfg<D, BQ, BKV, WARPS_M, WARPS_N>;
-  auto kernel = flash_attn_fwd_kernel<D, BQ, BKV, WARPS_M, WARPS_N, kStats>;
+  auto kernel = flash_attn_fwd_kernel<D, BQ, BKV, WARPS_M, WARPS_N>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n_q + BQ - 1) / BQ, bh);
   kernel<<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(m), static_cast<float*>(l), n_q, n_kv, kv_len,
-      kLog2e / sqrtf(static_cast<float>(D)));
+      static_cast<bf16*>(o), n_q, n_kv, kv_len, kLog2e / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o: (bh, n_q, D); k, v: (bh, n_kv, D); bf16, contiguous. Columns at or
-// past kv_len (1 <= kv_len <= n_kv) are masked. Each entry returns a
+// K2. q, o: (bh, n_q, 512); k, v: (bh, n_kv, 512); bf16, contiguous.
+// Columns at or past kv_len (1 <= kv_len <= n_kv) are masked. Returns a
 // cudaError_t.
-//
-// K3: the attention, and also m, l: (bh, n_q) fp32, the row statistics in
-// the exp2 domain (see the note at the top).
-extern "C" int tpdm_flash_attention_stats_d64(const void* q, const void* k, const void* v,
-                                              void* o, void* m, void* l, int bh, int n_q,
-                                              int n_kv, int kv_len, void* stream) {
-  return launch<64, 64, 64, 4, 1, true>(q, k, v, o, bh, n_q, n_kv, kv_len, stream, m, l);
-}
-
 extern "C" int tpdm_flash_attention_d512(const void* q, const void* k, const void* v, void* o,
                                          int bh, int n_q, int n_kv, int kv_len, void* stream) {
   return launch<512, 64, 32, 4, 4>(q, k, v, o, bh, n_q, n_kv, kv_len, stream);

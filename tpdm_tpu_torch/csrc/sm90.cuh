@@ -3,25 +3,26 @@
 // register reallocation, as inline PTX (no CUTLASS include path needed).
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzling: a tile of
-// 64 bf16 columns (128 bytes a row) is stored row after row, and the 16-byte
-// chunk c of row r lands at chunk c ^ (r % 8). Eight rows form a 1024-byte
-// atom, so every tile starts 1024-byte aligned. wgmma reads such a tile
-// through a matrix descriptor (make_smem_desc): its start address, the
-// 1024-byte stride between 8-row groups (SBO) and the swizzle mode. A K-major
-// operand (K contiguous, as Q, K, A and B are) steps along K by moving the
-// start address 32 bytes a k16 step inside the atom; its LBO is unused. An
-// MN-major operand (V in O += P V: the kv axis is K, d is contiguous) reads
-// 64 MN columns of 8 K rows per atom and steps 16 K rows (2048 bytes) a k16
-// step; its LBO would be the stride to the next 64 MN columns, which a
-// 64-wide operand never takes, so both offsets are set to the 1024-byte
-// atom stride.
+// 64 bf16 or 128 int8 columns (128 bytes a row) is stored row after row,
+// and the 16-byte chunk c of row r lands at chunk c ^ (r % 8). Eight rows
+// form a 1024-byte atom, so every tile starts 1024-byte aligned. wgmma
+// reads such a tile through a matrix descriptor (make_smem_desc): its start
+// address, the 1024-byte stride between 8-row groups (SBO) and the swizzle
+// mode. A K-major operand (K contiguous, as Q, K, A and B are) steps along
+// K by moving the start address 32 bytes a k16 step (bf16) or k32 step
+// (int8) inside the atom; its LBO is unused. An MN-major operand (V in
+// O += P V: the kv axis is K, d is contiguous) reads 64 MN columns of 8 K
+// rows per atom and steps 16 K rows (2048 bytes) a k16 step; its LBO would
+// be the stride to the next 64 MN columns, which a 64-wide operand never
+// takes, so both offsets are set to the 1024-byte atom stride.
 //
-// wgmma accumulators (m64nN, fp32): thread t of the warp group holds, for
-// each n8 column block j, d[4j + 0..1] at row 16 (t / 32) + g, columns
-// 8j + 2q and 8j + 2q + 1, and d[4j + 2..3] at row + 8, with g = lane / 4
-// and q = lane % 4: mma.sync's C fragment, repeated. A register A operand
-// (m64k16) is mma.sync's A fragment, so an fp32 accumulator converted
-// pairwise to bf16x2 is the A operand of the next product.
+// wgmma accumulators (m64nN, fp32 or int32): thread t of the warp group
+// holds, for each n8 column block j, d[4j + 0..1] at row 16 (t / 32) + g,
+// columns 8j + 2q and 8j + 2q + 1, and d[4j + 2..3] at row + 8, with
+// g = lane / 4 and q = lane % 4: mma.sync's C fragment, repeated. A
+// register A operand (m64k16) is mma.sync's A fragment, so an fp32
+// accumulator converted pairwise to bf16x2 is the A operand of the next
+// product.
 
 #pragma once
 
@@ -55,16 +56,18 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 or 3 with 128-byte swizzling: dims innermost
-// first (the innermost holds 64 elements a box, 128 bytes), strides in bytes
+// A tensor map of rank 2 or 3 with 128-byte swizzling, bf16 unless `type`
+// says otherwise (int8 travels as UINT8): dims innermost first (the
+// innermost holds 128 bytes a box: 64 bf16 or 128 int8), strides in bytes
 // of dims 1.., box in elements. Rows past a dim are zero-filled on load and
 // dropped on store. Returns a cudaError_t.
 inline int make_tensor_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+                           const uint64_t* strides, const uint32_t* box,
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+  CUresult res = fn(map, type, rank, const_cast<void*>(ptr), dims,
                     strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -229,6 +232,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -268,6 +277,49 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
           "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
           "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 256, int32) (+)= A (64 x 32, int8, shared, K-major) . B (256 x 32,
+// int8, shared, K-major); scale_d 0 overwrites D. The integer form takes no
+// scale-a/scale-b or transpose immediates (s8 operands are K-major only),
+// and a k32 step reads 32 bytes of K, as the bf16 k16 step does. The
+// accumulator's fragment layout is the fp32 one.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]),
+        "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
+        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

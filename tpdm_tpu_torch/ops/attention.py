@@ -1,11 +1,12 @@
 """Attention for the joint image+text sequence and the VAE mid block.
 
-Three hand-written Hopper kernels (K1 in ``csrc/attn_sm90.cu``, K2 and K3
-in ``csrc/flash_attn_fwd.cu``) and their plain PyTorch versions,
-``attention_reference`` and ``attention_reference_stats``. The wrappers dispatch on the tensor's device:
-a CUDA tensor launches the kernel (or the wrapper raises on what the kernel
-does not take), a CPU tensor runs the plain version. There is no flag that
-picks the plain version on CUDA.
+Three hand-written Hopper kernels (K1 and K3, two instantiations of the
+wgmma + TMA kernel of ``csrc/attn_sm90.cu``; K2 in
+``csrc/flash_attn_fwd.cu``) and their plain PyTorch versions,
+``attention_reference`` and ``attention_reference_stats``. The wrappers
+dispatch on the tensor's device: a CUDA tensor launches the kernel (or the
+wrapper raises on what the kernel does not take), a CPU tensor runs the
+plain version. There is no flag that picks the plain version on CUDA.
 
 Layouts follow the JAX package: q, k, v and the output are (b, h, n, d).
 """
@@ -107,7 +108,7 @@ def flash_attention(
     masked by a -1e30 bias. On the H100 the SD3 1024 px shape
     (2, 24, 4480, 64) is compute bound; the kernel runs its two products as
     wgmma (bf16, fp32 accumulate) on K and V tiles that a producer warp
-    brings by TMA through a shared-memory ring, 128 query rows a block.
+    brings by TMA through a shared-memory ring, 192 query rows a block.
     ``csrc/attn_sm90.cu`` holds the design note.
 
     CUDA: bf16, contiguous (b, h, n, 64) tensors, or it raises. CPU: the
@@ -135,8 +136,8 @@ def flash_attention_streaming(
     Replaces ``tpdm_tpu/ops/attention.py:_flash_kernel_streaming`` (driven
     by ``_flash_attention_streaming_impl``), which streamed kv blocks over a
     sequential grid axis with (m, acc) in VMEM scratch. On the H100 the
-    1024 px shape (b, 1, 16384, 512) is compute bound; the same kernel
-    template as K1 walks kv in 32-row tiles inside each block, and splits
+    1024 px shape (b, 1, 16384, 512) is compute bound; an mma.sync kernel
+    walks kv in 32-row tiles inside each block, and splits
     the 512-wide accumulator across four warp columns (it cannot fit one
     warp group's registers) that share one set of row statistics.
 
@@ -212,9 +213,10 @@ def flash_attention_with_stats(
     ``attention_reference_stats``). q and kv may differ in length. The JAX
     version refuses kv longer than 8192, a bound set by the TPU's VMEM; the
     CUDA kernel walks kv in tiles through shared memory and has no such
-    limit. The kernel is the mma.sync template of ``csrc/flash_attn_fwd.cu``
-    that K2 shares, and writes m and l from its running statistics, l summed from the fp32
-    probabilities.
+    limit. The kernel is K1's wgmma + TMA kernel (``csrc/attn_sm90.cu``)
+    with a statistics epilogue: m is the running max, l the denominator
+    summed from the fp32 probabilities and reduced over the threads that
+    share a row, both written once per row.
 
     CUDA: bf16, contiguous (b, h, n, 64) tensors and 1 <= kv_len <= n_kv, or
     it raises. CPU: the plain version ``attention_reference_stats``.

@@ -1,10 +1,12 @@
 """Matrix products of the quantised dense layers.
 
-Two hand-written Hopper kernels (K4 in ``csrc/gemm.cu``, K5 in
-``csrc/gemm_sm90.cu``) and their plain PyTorch versions, ``int8_gemm_reference`` and ``bf16_gemm_reference``. The wrappers
-dispatch on the tensor's device: a CUDA tensor launches the kernel (or the
-wrapper raises on what the kernel does not take), a CPU tensor runs the
-plain version. There is no flag that picks the plain version on CUDA.
+Two hand-written Hopper kernels, K4 (int8) and K5 (bf16), both
+instantiations of the persistent wgmma + TMA kernel of
+``csrc/gemm_sm90.cu``, and their plain PyTorch versions,
+``int8_gemm_reference`` and ``bf16_gemm_reference``. The wrappers dispatch
+on the tensor's device: a CUDA tensor launches the kernel (or the wrapper
+raises on what the kernel does not take), a CPU tensor runs the plain
+version. There is no flag that picks the plain version on CUDA.
 
 Both take the second operand as ``b_t`` (N, K), ``nn.Linear``'s (out, in)
 weight, and compute ``a @ b_t.T``.
@@ -18,7 +20,8 @@ import torch
 
 from tpdm_tpu_torch.ops import _build
 
-_MAX_ROW_TILES = 65535  # K4's grid y extent, in 128-row tiles
+# the kernels count their 128 x 256 output tiles in 32-bit ints
+_MAX_TILES = 2**31 - 1
 
 
 def int8_gemm_reference(
@@ -80,8 +83,8 @@ def _check_operands(name: str, a, b_t, dtype: torch.dtype, k_multiple: int):
         raise ValueError(f"{name}: K = {k} is not a positive multiple of {k_multiple}")
     if m == 0 or n == 0:
         raise ValueError(f"{name}: empty product {m} x {n}")
-    if -(-m // 128) > _MAX_ROW_TILES:
-        raise ValueError(f"{name}: M = {m} exceeds the grid's {128 * _MAX_ROW_TILES} rows")
+    if -(-m // 128) * -(-n // 256) > _MAX_TILES:
+        raise ValueError(f"{name}: {m} x {n} is more than {_MAX_TILES} output tiles")
     return m, n, k
 
 
@@ -115,7 +118,9 @@ def int8_gemm(
     x_scale (M,) and w_scale (N,) fp32 and an optional bias (N,) the
     kernel's epilogue returns the dequantised product, formed exactly as
     ``int8_gemm_reference`` forms it. On the H100 the path's shapes are
-    compute bound; ``csrc/gemm.cu`` holds the design note.
+    compute bound: the s8 instantiation of the persistent wgmma kernel fed
+    by TMA (``wgmma`` m64n256k32 with an int32 accumulator;
+    ``csrc/gemm_sm90.cu`` holds the design note).
 
     CUDA: contiguous, 16-byte aligned int8 operands with K a multiple of 32,
     a bf16 bias and a bf16 output (the bf16 model's), or it raises. CPU:
@@ -159,8 +164,8 @@ def bf16_gemm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
     Replaces ``experiments/attn_round3.py:_mm_kernel``: the product of
     ``tpdm_tpu/ops/quant.py:w4_matmul`` (and ``w8_matmul``) once the weight
-    is dequantised. A persistent wgmma kernel fed by TMA
-    (``csrc/gemm_sm90.cu`` holds the design note).
+    is dequantised. The bf16 instantiation of the persistent wgmma kernel
+    fed by TMA (``csrc/gemm_sm90.cu`` holds the design note).
 
     CUDA: contiguous, 16-byte aligned bf16 operands with K a multiple of 16,
     or it raises. CPU: the plain version ``bf16_gemm_reference``.
