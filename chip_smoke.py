@@ -9,13 +9,17 @@ Phases, one line each, and any failure exits non-zero:
 
 1. the device: its name and power limit as nvidia-smi reports them;
 2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc;
-   for each instantiation of the two wgmma kernels (K1 and K3 of
-   attn_sm90.cu, K4 and K5 of gemm_sm90.cu) the registers and spills
+   for each instantiation of the wgmma kernels (K1 and K3 of attn_sm90.cu,
+   K2 of attn_d512_sm90.cu, K4 and K5 of gemm_sm90.cu) the registers and spills
    ptxas reported and the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG)
    instructions that cuobjdump finds in it; it fails on a spill or on a
    kernel without wgmma or TMA loads;
 3. each kernel against its plain PyTorch version at the main path's
-   shapes, with errors and median times (CUDA events): K1, K2, and the
+   shapes, with errors and median times (CUDA events): K1, K2 (at the
+   1024 px decode's (1, 1, 16384, 512) and (2, 1, 16384, 512), at 2048 px's
+   (1, 1, 65536, 512) against the plain version in 4096-row query blocks,
+   every 64-column block of O held on its own, and with strongly negative
+   scores), and the
    GEMMs K4 (int8, bit for bit on its int32 accumulator) and K5 (bf16) at
    every matmul shape of the batch 1 and batch 2 requests, beside
    torch._int_mm and cuBLAS's bf16 product; K1's, K4's and K5's TFLOP/s
@@ -133,11 +137,14 @@ TIMED_GEMM = (8192, 1536, 6144)
 # hold the kernels and layouts
 QUANT_REL_BOUND = {8: 0.15, 4: 1.0}
 N_IMG_2048 = 16384  # 2048 px: 256 x 256 latents, 128 x 128 tokens
+N_VAE_2048 = 65536  # 2048 px: the VAE mid block's 256 x 256 tokens
 # the wgmma kernels' instantiations, each by a piece of its mangled name
 # (template arguments between I and E: Lb0 / Lb1 kStats off / on; 'a'
-# int8_t, then the epilogue: Li0 bf16 rounding, Li1 dequant, Li2 int32)
+# int8_t, then the epilogue: Li0 bf16 rounding, Li1 dequant, Li2 int32;
+# K2's kernel is not a template: E closes its name)
 WGMMA_KERNELS = (
     ("K1", "flash_attn_sm90_kernelILb0E"),
+    ("K2", "flash_attn_d512_kernelE"),
     ("K3", "flash_attn_sm90_kernelILb1E"),
     ("K4", "gemm_sm90_kernelIaLi1E"),
     ("K4 int32", "gemm_sm90_kernelIaLi2E"),
@@ -224,6 +231,28 @@ def check_k3(name, q, k, v, kv_len, rows=None):
     return o_err, lse_err
 
 
+def block_error(name, out, ref):
+    """The largest share, over the 64-column blocks of the head, of a
+    block's max abs error in its own max |ref|; fails beyond KERNEL_REL_TOL.
+    (K2's 512 columns are eight TMA boxes: a wrong stride between them would
+    spoil whole blocks and could hide behind one global maximum.)"""
+    err = (out.float() - ref.float()).abs().flatten(0, -2).amax(0).view(-1, 64).amax(1)
+    share = err / ref.float().abs().flatten(0, -2).amax(0).view(-1, 64).amax(1)
+    if not bool((share <= KERNEL_REL_TOL).all()):
+        fail(f"{name} disagrees with its plain version in a 64-column block: max abs err over "
+             f"max |plain| of each block {[round(x, 4) for x in share.tolist()]}")
+    return share.max().item()
+
+
+def k2_blocked_reference(q, k, v, kv_len=None, rows=4096):
+    """attention_reference over blocks of ``rows`` query rows (rows are
+    independent), for K2 at 2048 px."""
+    from tpdm_tpu_torch.ops.attention import attention_reference
+
+    return torch.cat([attention_reference(q[:, :, i:i + rows], k, v, kv_len)
+                      for i in range(0, q.shape[2], rows)], dim=2)
+
+
 def check_kernel(name, kernel, plain, q, k, v, kv_len):
     out = kernel(q, k, v, kv_len)
     ref = plain(q, k, v, kv_len)
@@ -302,9 +331,10 @@ def wgmma_phase(lib_path):
             fail(f"{label} ({key}): no wgmma or no TMA load in its SASS: {ops}")
 
 
-def kernel_phase(g, dev):
+def kernel_phase(g, dev, seed):
     """Phase 3: K1 and K2 against their plain versions at the 1024 px
-    path's shapes, with their times, bounds and PyTorch's own call."""
+    path's shapes (K2 also at 2048 px's), with their times, bounds and
+    PyTorch's own call."""
     from tpdm_tpu_torch.ops.attention import (
         attention_reference,
         flash_attention,
@@ -336,23 +366,53 @@ def kernel_phase(g, dev):
                 f"scaled_dot_product_attention {k1_lib_ms:.3f} ms, bound {k1_bound:.3f} ms "
                 f"({k1_by})")
     del q, k, v, qn, kn, k_v, v_v
-    q, k, v = (rand(1, 1, 16384, 512) for _ in range(3))
-    k2_err = check_kernel("K2", flash_attention_streaming, attention_reference, q, k, v, None)
-    k2_ms = median_ms(lambda: flash_attention_streaming(q, k, v))
-    k2_plain_ms = median_ms(lambda: attention_reference(q, k, v))
-    k2_lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k, v))
-    k2_bound, k2_by = attention_bound(1, 16384, 16384, 512)
-    phase("K2", f"(1, 1, 16384, 512) bf16: {fmt_err(k2_err)} (bound {KERNEL_REL_TOL} of max "
-                f"|o|); kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
-                f"scaled_dot_product_attention {k2_lib_ms:.3f} ms, bound {k2_bound:.3f} ms "
-                f"({k2_by})")
-    del q, k, v
-    torch.cuda.empty_cache()
+    # K2 at the decode's shapes: 1024 px at batch 1 (the kernels line) and
+    # 2, and 2048 px, where the plain version runs over 4096-row query
+    # blocks (its fp32 scores would take 17 GB). The last two draw from a
+    # generator of their own, so every later phase keeps the inputs that it
+    # had before they were added
+    k2 = {}
+    g_k2 = torch.Generator(device=dev).manual_seed(seed + 7)
+    for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048)):
+        gen = g if (b, n) == (1, 16384) else g_k2
+        q, k, v = (torch.randn(b, 1, n, 512, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        plain = attention_reference if n == 16384 else k2_blocked_reference
+        out, ref = flash_attention_streaming(q, k, v), plain(q, k, v)
+        torch.cuda.synchronize()
+        err = output_error(f"K2 ({b}, 1, {n}, 512)", out, ref)
+        block = block_error(f"K2 ({b}, 1, {n}, 512)", out, ref)
+        del out, ref
+        reps = 10 if n == 16384 else 3
+        ms = median_ms(lambda: flash_attention_streaming(q, k, v))
+        plain_ms = median_ms(lambda: plain(q, k, v), reps=reps)
+        lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k, v), reps=reps)
+        bound, by = attention_bound(b, n, n, 512)
+        phase("K2", f"({b}, 1, {n}, 512) bf16: {fmt_err(err)}; worst 64-column block "
+                    f"{block:.3e} of its max |o| (bound {KERNEL_REL_TOL}); kernel {ms:.3f} ms, "
+                    f"{4 * b * n * n * 512 / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f} % of "
+                    f"bound; plain {plain_ms:.3f} ms"
+                    f"{'' if n == 16384 else ' (4096-row query blocks)'}, "
+                    f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+        k2[(b, n)] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, library_ms=lib_ms)
+        if (b, n) == (1, 16384):
+            # every valid score ~ -120 (34 * -80 / sqrt(512)), kv_len < n_kv
+            qn, kn = q.clone(), k.clone()
+            qn[..., 0] += 34.0
+            kn[..., 0] = -80.0
+            neg = check_kernel("K2 (strongly negative)", flash_attention_streaming,
+                               attention_reference, qn, kn, v, 16000)
+            phase("K2", f"(1, 1, 16384, 512) bf16 kv_len 16000, every valid score ~ -120: "
+                        f"{fmt_err(neg)} (bound {KERNEL_REL_TOL} of max |o|)")
+            k2[(b, n)]["max_abs_err"] = max(err[0], neg[0])
+            del qn, kn
+        del q, k, v
+        torch.cuda.empty_cache()
     return {
         "K1": dict(max_abs_err=max(k1_err[0], k1n_err[0]), ms=k1_ms, plain_ms=k1_plain_ms,
                    bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib_ms),
-        "K2": dict(max_abs_err=k2_err[0], ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
-                   bound_by=k2_by, library_ms=k2_lib_ms),
+        "K2": dict(**k2[(1, 16384)], batch_2=k2[(2, 16384)], at_2048px=k2[(1, N_VAE_2048)]),
     }
 
 
@@ -1332,7 +1392,7 @@ def main() -> int:
         seq_parallel_phase(args.seed, world)
     else:
         g = torch.Generator(device=dev).manual_seed(args.seed)
-        kernels = kernel_phase(g, dev)  # 3
+        kernels = kernel_phase(g, dev, args.seed)  # 3
         kernels.update(gemm_phase(g, dev))
         reference_phase(args.seed, dev)  # 4
         k1_total, k2_total, modules = slice_1024_phase(args.seed, dev)  # 5
@@ -1342,7 +1402,7 @@ def main() -> int:
         k3_total = seq_parallel_phase(args.seed, world)  # 9
         studies = studies_phase(g, dev)  # 10
 
-        src = "tpdm_tpu_torch/csrc/flash_attn_fwd.cu"
+        k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
         gemm_src = "tpdm_tpu_torch/csrc/gemm_sm90.cu"
         studies_src = "tpdm_tpu_torch/csrc/attn_studies.cu"
@@ -1350,7 +1410,7 @@ def main() -> int:
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total, **kernels["K1"]},
-            {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": src,
+            {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193", "launches": k2_total,
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,

@@ -47,7 +47,7 @@ from chip_smoke import (  # noqa: E402
 GROUPS = (
     ("K3 flash_attn_sm90_kernel<true>", r"flash_attn_sm90_kernel<true"),
     ("K1 flash_attn_sm90_kernel<false>", r"flash_attn_sm90_kernel"),
-    ("K2 flash_attn_fwd_kernel<512>", r"flash_attn_fwd_kernel<512,"),
+    ("K2 flash_attn_d512_kernel", r"flash_attn_d512_kernel"),
     ("K5 gemm_sm90_kernel<bf16>", r"gemm_sm90_kernel<__nv_bfloat16"),
     ("K4 gemm_sm90_kernel<int8>", r"gemm_sm90_kernel<"),
     ("NCCL", r"nccl"),

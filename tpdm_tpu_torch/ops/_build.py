@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdm_tpu_torch"
-SOURCES = ("flash_attn_fwd.cu", "attn_sm90.cu", "gemm_sm90.cu", "attn_studies.cu")
+SOURCES = ("attn_d512_sm90.cu", "attn_sm90.cu", "gemm_sm90.cu", "attn_studies.cu")
 HEADERS = ("mma.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,8 +1,8 @@
 """Attention for the joint image+text sequence and the VAE mid block.
 
 Three hand-written Hopper kernels (K1 and K3, two instantiations of the
-wgmma + TMA kernel of ``csrc/attn_sm90.cu``; K2 in
-``csrc/flash_attn_fwd.cu``) and their plain PyTorch versions,
+wgmma + TMA kernel of ``csrc/attn_sm90.cu``; K2, a wgmma + TMA kernel of
+its own in ``csrc/attn_d512_sm90.cu``) and their plain PyTorch versions,
 ``attention_reference`` and ``attention_reference_stats``. The wrappers
 dispatch on the tensor's device: a CUDA tensor launches the kernel (or the
 wrapper raises on what the kernel does not take), a CPU tensor runs the
@@ -135,14 +135,14 @@ def flash_attention_streaming(
 
     Replaces ``tpdm_tpu/ops/attention.py:_flash_kernel_streaming`` (driven
     by ``_flash_attention_streaming_impl``), which streamed kv blocks over a
-    sequential grid axis with (m, acc) in VMEM scratch. On the H100 the
-    1024 px shape (b, 1, 16384, 512) is compute bound; an mma.sync kernel
-    walks kv in 32-row tiles inside each block, and splits
-    the 512-wide accumulator across four warp columns (it cannot fit one
-    warp group's registers) that share one set of row statistics.
+    sequential grid axis with (m, acc) in VMEM scratch. On the H100 a block
+    of 64 query rows walks kv in tiles that a producer warp brings by TMA,
+    and runs both products as wgmma; the 512-wide fp32 accumulator does not
+    fit one warp group's registers, so two consumer warp groups own 256
+    columns each. ``csrc/attn_d512_sm90.cu`` holds the design note.
 
-    CUDA: bf16, contiguous (b, h, n, 512) tensors, or it raises. CPU: the
-    plain version ``attention_reference``.
+    CUDA: bf16, contiguous (b, h, n, 512) tensors, 16-byte aligned, or it
+    raises. CPU: the plain version ``attention_reference``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_len)
