@@ -10,10 +10,12 @@ Phases, one line each, and any failure exits non-zero:
 1. the device: its name and power limit as nvidia-smi reports them;
 2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc;
    for each instantiation of the wgmma kernels (K1 and K3 of attn_sm90.cu,
-   K2 of attn_d512_sm90.cu, K4 and K5 of gemm_sm90.cu) the registers and spills
-   ptxas reported and the wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UTMASTG)
-   instructions that cuobjdump finds in it; it fails on a spill or on a
-   kernel without wgmma or TMA loads;
+   K2 of attn_d512_sm90.cu, K4 and K5 of gemm_sm90.cu, the 16 K6 and 2 K8
+   instantiations of attn_studies_sm90.cu) the registers and spills
+   ptxas reported and the wgmma (HGMMA, IGMMA), TMA (UTMALDG, UTMASTG) and
+   mma.sync (HMMA, IMMA) instructions that cuobjdump finds in it; it fails
+   on a spill, on a kernel without wgmma or TMA loads, or on one with
+   mma.sync;
 3. each kernel against its plain PyTorch version at the main path's
    shapes, with errors and median times (CUDA events): K1, K2 (at the
    1024 px decode's (1, 1, 16384, 512) and (2, 1, 16384, 512), at 2048 px's
@@ -55,9 +57,10 @@ Phases, one line each, and any failure exits non-zero:
    at the SD3 1024 px study shape (2, 24, 4480, 64): every study function
    and three attention blocks at width 1536 once, with the launch counts
    read around them, each against the same function with the plain
-   versions swapped in; then each one's median time, each kernel mode's
-   alone, and K6-K9 beside their plain versions and
-   scaled_dot_product_attention.
+   versions swapped in (the K9 noexp probe against its plain version in
+   fp64); then each one's median time, each kernel mode's alone with its
+   bound, share of the bound and (K6, K8) load routes, and K6-K9 beside
+   their plain versions and scaled_dot_product_attention.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -71,6 +74,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -150,7 +154,16 @@ WGMMA_KERNELS = (
     ("K4 int32", "gemm_sm90_kernelIaLi2E"),
     ("K5", "gemm_sm90_kernelI13__nv_bfloat16Li0E"),
 )
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")
+# K6 and K8, one template in attn_studies_sm90.cu: its boolean arguments are
+# q^T, K^T, V^T, int8 QK^T, two streams
+STUDIES_KERNELS = tuple(
+    (f"K6 {'q^T' if qt else 'q'}/{'K^T' if kt else 'K'}/{'V^T' if vt else 'V'}"
+     f"{' two streams' if two else ''}",
+     f"studies_sm90_kernelILb{qt}ELb{kt}ELb{vt}ELb0ELb{two}E")
+    for qt in (0, 1) for kt in (0, 1) for vt in (0, 1) for two in (0, 1)
+) + tuple((f"K8 {'V^T' if vt else 'V'}", f"studies_sm90_kernelILb0ELb0ELb{vt}ELb1ELb0E")
+          for vt in (0, 1))
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
 
 
 def phase(name: str, msg: str) -> None:
@@ -307,28 +320,31 @@ def sass_report(lib_path, kernels):
 
 def wgmma_phase(lib_path):
     """Phase 2's checks of the wgmma kernels: each instantiation's ptxas
-    registers and spills, and its wgmma and TMA instructions in the SASS.
-    Fails on a spill, or on an instantiation without wgmma or TMA loads."""
-    keys = [key for _, key in WGMMA_KERNELS]
-    sass = sass_report(lib_path, keys)
+    registers and spills, and its wgmma, TMA and mma.sync instructions in
+    the SASS. Fails on a spill, on an instantiation without wgmma or TMA
+    loads, or on one with mma.sync."""
+    groups = (("ptxas", "sass", WGMMA_KERNELS), ("ptxas K6/K8", "sass K6/K8", STUDIES_KERNELS))
+    sass = sass_report(lib_path, [key for *_, kernels in groups for _, key in kernels])
     if sass is None:
         fail("cuobjdump not found beside nvcc: the wgmma kernels' SASS cannot be read")
-    regs = {key: ptxas_report(key) for key in keys}
-    phase("ptxas", "; ".join(
-        f"{label}: " + ("not in build.log" if regs[key] is None else
-                        f"{regs[key][0]} registers, {regs[key][1]} bytes spill stores, "
-                        f"{regs[key][2]} bytes spill loads")
-        for label, key in WGMMA_KERNELS))
-    phase("sass", "; ".join(
-        f"{label}: " + ("not found" if key not in sass else
-                        ", ".join(f"{sass[key][op]} {op}" for op in SASS_OPS))
-        for label, key in WGMMA_KERNELS))
-    for label, key in WGMMA_KERNELS:
-        if regs[key] is None or regs[key][1] or regs[key][2]:
-            fail(f"{label} ({key}): ptxas reports a spill, or no report: {regs[key]}")
-        ops = sass.get(key)
-        if ops is None or ops["HGMMA"] + ops["IGMMA"] == 0 or ops["UTMALDG"] == 0:
-            fail(f"{label} ({key}): no wgmma or no TMA load in its SASS: {ops}")
+    for ptxas_name, sass_name, kernels in groups:
+        regs = {key: ptxas_report(key) for _, key in kernels}
+        phase(ptxas_name, "; ".join(
+            f"{label}: " + ("not in build.log" if regs[key] is None else
+                            f"{regs[key][0]} registers, {regs[key][1]} bytes spill stores, "
+                            f"{regs[key][2]} bytes spill loads")
+            for label, key in kernels))
+        phase(sass_name, "; ".join(
+            f"{label}: " + ("not found" if key not in sass else
+                            ", ".join(f"{sass[key][op]} {op}" for op in SASS_OPS))
+            for label, key in kernels))
+        for label, key in kernels:
+            if regs[key] is None or regs[key][1] or regs[key][2]:
+                fail(f"{label} ({key}): ptxas reports a spill, or no report: {regs[key]}")
+            ops = sass.get(key)
+            if (ops is None or ops["HGMMA"] + ops["IGMMA"] == 0 or ops["UTMALDG"] == 0
+                    or ops["HMMA"] + ops["IMMA"]):
+                fail(f"{label} ({key}): no wgmma, no TMA load, or mma.sync in its SASS: {ops}")
 
 
 def kernel_phase(g, dev, seed):
@@ -1057,12 +1073,12 @@ def seq_parallel_phase(seed, world):
 
 
 @contextlib.contextmanager
-def plain_studies():
+def plain_studies(probe_dtype=torch.float32):
     """Inside: every study module of tpdm_tpu_torch.experiments calls the
-    plain versions (on the card, in fp32) where it calls K1 and K6-K9. The
-    kernels' counts are set to 0 on entry, and it fails if any moved, so a
-    study that reaches a kernel by another name cannot pass as its own
-    plain version."""
+    plain versions (on the card, in fp32; K9's in ``probe_dtype``) where it
+    calls K1 and K6-K9. The kernels' counts are set to 0 on entry, and it
+    fails if any moved, so a study that reaches a kernel by another name
+    cannot pass as its own plain version."""
     import pkgutil
 
     from tpdm_tpu_torch import experiments
@@ -1073,7 +1089,7 @@ def plain_studies():
         "attention_strided": lambda *a, streams=1, **kw: st.attention_strided_reference(*a, **kw),
         "attention_maxfree": st.attention_maxfree_reference,
         "attention_int8qk": st.attention_int8qk_reference,
-        "attention_probe": st.attention_probe_reference,
+        "attention_probe": functools.partial(st.attention_probe_reference, dtype=probe_dtype),
         "flash_attention": attention_reference,
     }
     kernels = (st.attention_strided, st.attention_maxfree, st.attention_int8qk,
@@ -1150,7 +1166,9 @@ def studies_phase(g, dev):
                       st.attention_probe)
     # (row of the study table, name, kernel, call). Row 7, the noexp probe,
     # divides by acc[:, 64] + 1, which comes near zero on some rows: it is
-    # held by its RMS error instead of its max error
+    # held by its RMS error instead of its max error, and against its plain
+    # version in fp64, since in fp32 that plain version moves by up to 0.025
+    # of the RMS with the order of its sums (scripts/k9_noexp_conditioning.py)
     rows = [
         (1, "attn_variants.attn_v1", K6, lambda: attn_variants.attn_v1(qr, kr, vr)),
         (2, "attn_variants.attn_v2", K6, lambda: attn_variants.attn_v2(qr, kr, vr)),
@@ -1208,16 +1226,17 @@ def studies_phase(g, dev):
     errs = {fn: 0.0 for fn in counters}
     lines = []
     for (row, name, kernel, call), out in zip(rows, outs):
-        with plain_studies():
+        with plain_studies(torch.float64 if row == 7 else torch.float32):
             ref = call()
         torch.cuda.synchronize()
         if row == 7:
             gap = rel_rms(out, ref)
             if not (bool(torch.isfinite(out.float()).all()) and gap <= KERNEL_REL_TOL):
-                fail(f"{name} disagrees with its plain version: RMS err {gap} of the plain "
-                     f"output's RMS (bound {KERNEL_REL_TOL})")
+                fail(f"{name} disagrees with its plain version in fp64: RMS err {gap} of the "
+                     f"plain output's RMS (bound {KERNEL_REL_TOL})")
             err = (out.float() - ref.float()).abs().max().item()
-            check = f"RMS err {gap:.3e} of RMS |o| (bound {KERNEL_REL_TOL}), max abs err {err:.3e}"
+            check = (f"against the fp64 plain version RMS err {gap:.3e} of RMS |o| (bound "
+                     f"{KERNEL_REL_TOL}), max abs err {err:.3e}")
         else:
             e = output_error(name, out, ref)
             err, check = e[0], fmt_err(e)
@@ -1278,40 +1297,51 @@ def studies_phase(g, dev):
     noexp = study_bound([(2 * bh * n * n * d, PEAK_BF16_FLOPS),
                          (2 * bh * n * n * (d + 1), PEAK_BF16_FLOPS)],
                         2 * bh * (3 * n * d + n * (d + 1)))
+    o_nat = torch.empty_like(q)  # the output a call without out= allocates
+    # (name, call, bound, K6's or K8's (q, k, v, o) views for its load routes)
     modes = [
-        ("K6 natural, V 64 wide, kv_len (vsum)", lambda: K6(qs, k, v, kv_len), bf16_nat),
+        ("K6 natural, V 64 wide, kv_len (vsum)", lambda: K6(qs, k, v, kv_len), bf16_nat,
+         (qs, k, v, o_nat)),
         ("K6 natural, V_ext 65, kv_len (v1, v2, prefetch)",
-         lambda: K6(qs, k, v65, kv_len), bf16_ext),
-        ("K6 natural, V_ext 65, no mask (v4)", lambda: K6(qs, k, v65), bf16_all),
-        ("K6 K^T, V_ext 65, kv_len (kt)", lambda: K6(qs, k_t, v65, kv_len), bf16_ext),
+         lambda: K6(qs, k, v65, kv_len), bf16_ext, (qs, k, v65, o_nat)),
+        ("K6 natural, V_ext 65, no mask (v4)", lambda: K6(qs, k, v65), bf16_all,
+         (qs, k, v65, o_nat)),
+        ("K6 K^T, V_ext 65, kv_len (kt)", lambda: K6(qs, k_t, v65, kv_len), bf16_ext,
+         (qs, k_t, v65, o_nat)),
         ("K6 packed (b, n, h*d), kv_len (packed2)",
-         lambda: K6(qs_p, k_p, v_p, kv_len, out=o_p), bf16_nat),
+         lambda: K6(qs_p, k_p, v_p, kv_len, out=o_p), bf16_nat, (qs_p, k_p, v_p, o_p)),
         ("K6 q^T, V^T_ext 80, o^T (vT, round4, kernel_floor)",
-         lambda: K6(qs_t, k, v80t, out=ot), bf16_all),
+         lambda: K6(qs_t, k, v80t, out=ot), bf16_all, (qs_t, k, v80t, ot)),
         ("K6 q^T, V^T_ext 80, o^T, bf16 scores (vTb, vTc)",
-         lambda: K6(qs_t, k, v80t, score_bf16=True, out=ot), bf16_all),
+         lambda: K6(qs_t, k, v80t, score_bf16=True, out=ot), bf16_all, (qs_t, k, v80t, ot)),
         ("K6 q^T, V^T_ext 80, o^T, two streams (split)",
-         lambda: K6(qs_t, k, v80t, streams=2, out=ot), bf16_all),
-        ("K6 natural, V_ext 80, o^T (nat)", lambda: K6(qs, k, v80, out=ot), bf16_all),
-        ("K6 q natural, V^T_ext 80, o^T (inT)", lambda: K6(qs, k, v80t, out=ot), bf16_all),
-        ("K7 natural, V_ext 65, kv_len (v3)", lambda: K7(qs, k, v65, rb, kv_len), k7_ext),
-        ("K7 q^T, V^T_ext 80, o^T (vTm)", lambda: K7(qs_t, k, v80t, rb, out=ot), k7_all),
+         lambda: K6(qs_t, k, v80t, streams=2, out=ot), bf16_all, (qs_t, k, v80t, ot)),
+        ("K6 natural, V_ext 80, o^T (nat)", lambda: K6(qs, k, v80, out=ot), bf16_all,
+         (qs, k, v80, ot)),
+        ("K6 q natural, V^T_ext 80, o^T (inT)", lambda: K6(qs, k, v80t, out=ot), bf16_all,
+         (qs, k, v80t, ot)),
+        ("K7 natural, V_ext 65, kv_len (v3)", lambda: K7(qs, k, v65, rb, kv_len), k7_ext, None),
+        ("K7 q^T, V^T_ext 80, o^T (vTm)", lambda: K7(qs_t, k, v80t, rb, out=ot), k7_all, None),
         ("K7 q^T, V^T_ext 80, o^T, bf16 softmax (vTmc)",
-         lambda: K7(qs_t, k, v80t, rb, soft_bf16=True, out=ot), k7_all),
-        ("K8 natural, V_ext 65, kv_len (vI)", lambda: K8(qi, ki, v65, sq, sk, kv_len), k8_ext),
+         lambda: K7(qs_t, k, v80t, rb, soft_bf16=True, out=ot), k7_all, None),
+        ("K8 natural, V_ext 65, kv_len (vI)", lambda: K8(qi, ki, v65, sq, sk, kv_len), k8_ext,
+         (qi, ki, v65, o_nat)),
         ("K8 q^T, V^T_ext 80, o^T (vTI)",
-         lambda: K8(qi_t, ki, v80t, sq, sk, k_scale_first=True, out=ot), k8_all),
-        ("K9 qk_only, chunk 640 (qk_only)", lambda: K9(qs, k, v65, "qk_only"), qk_only),
+         lambda: K8(qi_t, ki, v80t, sq, sk, k_scale_first=True, out=ot), k8_all,
+         (qi_t, ki, v80t, ot)),
+        ("K9 qk_only, chunk 640 (qk_only)", lambda: K9(qs, k, v65, "qk_only"), qk_only, None),
         ("K9 qk_only, K^T, chunk 640 (kt_qkonly)",
-         lambda: K9(qs, k_t, v65, "qk_only"), qk_only),
-        ("K9 noexp, chunk 640 (noexp)", lambda: K9(qs, k, v65, "noexp"), noexp),
+         lambda: K9(qs, k_t, v65, "qk_only"), qk_only, None),
+        ("K9 noexp, chunk 640 (noexp)", lambda: K9(qs, k, v65, "noexp"), noexp, None),
     ]
-    for name, call, bound in modes:
+    for name, call, bound, views in modes:
         ms = median_ms(call)
         work_s = (f"; the probe's work (every chunk's whole QK^T) {probe_work[0]:.4f} ms, "
                   f"{probe_work[0] / ms * 100:.1f} % of it" if bound is qk_only else "")
+        routes = ("" if views is None else "; load routes " + ", ".join(
+            f"{op} {route}" for op, route in st.studies_routes(*views).items()))
         phase("study mode", f"{name}: {ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
-                            f"{bound[0] / ms * 100:.1f} % of it{work_s}")
+                            f"{bound[0] / ms * 100:.1f} % of it{work_s}{routes}")
 
     # K6-K9 beside their plain versions and PyTorch's attention: natural
     # operands at kv_len 4429, V 64 wide (K9: its qk_only probe)
@@ -1338,7 +1368,8 @@ def studies_phase(g, dev):
                    f"{fmt_err(e)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                    f"scaled_dot_product_attention "
                    f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound {bound[0]:.4f} ms "
-                   f"({bound[1]}){k9_work if key == 'K9' else ''}; launches on the studies' path "
+                   f"({bound[1]}), {bound[0] / ms * 100:.1f} % of it"
+                   f"{k9_work if key == 'K9' else ''}; launches on the studies' path "
                    f"{launches[fn]}")
         res[key] = dict(launches=launches[fn], max_abs_err=max(errs[fn], e[0]), ms=ms,
                         plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
@@ -1406,6 +1437,7 @@ def main() -> int:
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
         gemm_src = "tpdm_tpu_torch/csrc/gemm_sm90.cu"
         studies_src = "tpdm_tpu_torch/csrc/attn_studies.cu"
+        studies_sm90_src = "tpdm_tpu_torch/csrc/attn_studies_sm90.cu"
         sites = lambda script, lines: "; ".join(f"experiments/{script}.py:{n}" for n in lines)
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
@@ -1422,7 +1454,7 @@ def main() -> int:
             {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:266", "launches": k5_total,
              **kernels["K5"]},
-            {"name": "attention_strided (K6)", "route": "cuda", "source": studies_src,
+            {"name": "attention_strided (K6)", "route": "cuda", "source": studies_sm90_src,
              "replaces": "; ".join([
                  sites("attn_variants", (36, 54, 190)), sites("attn_overlap", (64,)),
                  sites("attn_layout", (35,)), sites("attn_nocopy", (56, 103)),
@@ -1434,7 +1466,7 @@ def main() -> int:
             {"name": "attention_maxfree (K7)", "route": "cuda", "source": studies_src,
              "replaces": f"{sites('attn_variants', (86,))}; {sites('attn_round3b', (63,))}",
              **studies["K7"]},
-            {"name": "attention_int8qk (K8)", "route": "cuda", "source": studies_src,
+            {"name": "attention_int8qk (K8)", "route": "cuda", "source": studies_sm90_src,
              "replaces": sites("attn_round3", (117, 195)), **studies["K8"]},
             {"name": "attention_probe (K9)", "route": "cuda", "source": studies_src,
              "replaces": f"{sites('attn_overlap', (97, 109))}; {sites('attn_layout', (59,))}",

@@ -15,6 +15,16 @@ inputs:
   and q (2, 24, 4429, 64) x kv (2, 24, 4096, 64) (rank 0 of four), beside
   ``_scaled_dot_product_flash_attention``; o and log2(l) + m checked on
   one head (atol 1e-3 / rtol 1e-4, as ``chip_smoke.py`` holds K3);
+- K6 and K8 (``attn_studies_sm90.cu``): two or three consumer warp groups,
+  and three probes of K8's extra work (``no_scale`` replaces its two scale
+  products by x + 0 * sk, ``no_convert`` drops its int32 conversion too,
+  ``no_sk`` leaves K's full barrier to its TMA load alone, with sk
+  staged as zeros by the producer threads that no longer arrive), at the
+  studies' shape (2, 24, 4480, 64) kv_len 4429 on five of their modes (natural
+  with V 64 wide or V_ext 65, q^T / V^T_ext 80 / o^T, K8 natural with V 64
+  wide or V_ext 65), beside ``scaled_dot_product_attention`` and K1; each
+  variant that computes the function checked on one head against its
+  plain version;
 - K5 and K4 (its dequant epilogue), the two instantiations of one
   persistent kernel: as built (TMA-store epilogue); the accumulators
   stored directly from registers (the path for N not a multiple of 8); and
@@ -26,9 +36,9 @@ inputs:
 
 Every variant that computes the function is checked against the plain
 version as ``chip_smoke.py`` holds the kernels: max error within 2e-2 of
-the output's largest magnitude (K1, K3's o, K5), log2(l) + m within atol
-1e-3 / rtol 1e-4 (K3), one bf16 step at every element (K4). Needs an
-sm_90a card:
+the output's largest magnitude (K1, K3's o, K5, K6, K8), log2(l) + m
+within atol 1e-3 / rtol 1e-4 (K3), one bf16 step at every element (K4).
+Needs an sm_90a card:
 
     python3 scripts/sm90_variants.py
 """
@@ -47,9 +57,12 @@ sys.path.insert(0, str(REPO))
 
 from tpdm_tpu_torch.experiments._common import median_ms  # noqa: E402
 from tpdm_tpu_torch.ops import _build  # noqa: E402
+from tpdm_tpu_torch.experiments.attn_round3 import _quant_rows  # noqa: E402
+from tpdm_tpu_torch.ops import attention_studies as st  # noqa: E402
 from tpdm_tpu_torch.ops.attention import (  # noqa: E402
     attention_reference,
     attention_reference_stats,
+    flash_attention,
 )
 from tpdm_tpu_torch.ops.gemm import bf16_gemm_reference, int8_gemm_reference  # noqa: E402
 
@@ -76,6 +89,26 @@ def k1_variants(src: str) -> dict:
 def k3_variants(src: str) -> dict:
     return {f"consumers {c}": _sub(src, "kK3Consumers = 3;", f"kK3Consumers = {c};")
             for c in (2, 3)}
+
+
+def studies_variants(src: str) -> dict:
+    out = {f"consumers {c}": _sub(src, "kStudiesConsumers = 2;", f"kStudiesConsumers = {c};")
+           for c in (2, 3)}
+    # probes that price K8's per-score work (they compute wrong values):
+    # without the two scale products, and without the conversion too
+    scale = ("        put(si[i], p.k_scale_first ? __fmul_rn(__fmul_rn(x, s), sq[r])\n"
+             "                                   : __fmul_rn(__fmul_rn(x, sq[r]), s));\n")
+    out["probe no_scale"] = _sub(src, scale, "        put(si[i], x + 0.f * s);\n")
+    out["probe no_convert"] = _sub(
+        out["probe no_scale"], "const float x = static_cast<float>(si[i]);",
+        "const float x = __int_as_float(si[i] & 0x007fffff);")
+    # and a probe of K8's sk staging: the producer stages no sk, so K's full
+    # barrier waits for its TMA load alone, as K6's does
+    no_sk = _sub(src, "const bool all_k = !(prm.tma >> kK & 1) || kInt8;",
+                 "const bool all_k = !(prm.tma >> kK & 1);")
+    out["probe no_sk"] = _sub(no_sk, "        const int col = kv0 + pt;\n",
+                              "        const int col = kv0 + pt + (1 << 30);\n")
+    return out
 
 
 def gemm_variants(src: str) -> dict:
@@ -154,6 +187,75 @@ def spread(t) -> str:
     return f"{t[0]:.4f} ms (rounds {t[1]:.4f}-{t[2]:.4f})"
 
 
+def studies_section(g, dev, stream, fns):
+    """K6 and K8 with two or three consumer warp groups at the studies'
+    shape, on the views the studies pass."""
+    b, h, n, kv_len = 2, 24, 4480, 4429
+    bf = torch.bfloat16
+    tok = lambda t: t.transpose(-1, -2).contiguous().transpose(-1, -2)
+    q, k, v = (torch.randn(b, h, n, 64, generator=g, device=dev).to(bf) for _ in range(3))
+    qs = (q.float() * (1.4426950408889634 / 8.0)).to(bf)
+    ones = (torch.arange(n, device=dev) < kv_len).to(bf).expand(b, h, n)[..., None]
+    v65 = torch.cat([v, ones], dim=-1)
+    extra = torch.zeros(b, h, n, 16, dtype=bf, device=dev)
+    extra[..., 0] = 1
+    v80t = tok(torch.cat([v, extra], dim=-1))
+    qi, sq = _quant(qs)
+    ki, sk = _quant(k)
+    o, ot = torch.empty_like(q), tok(torch.empty_like(q))
+    modes = [  # name, K8?, (q, k, v, o), kv_len, the plain version
+        ("K6 natural, V 64 wide", False, (qs, k, v, o), kv_len,
+         lambda sl: st.attention_strided_reference(*(x[sl] for x in (qs, k, v)), kv_len)),
+        ("K6 natural, V_ext 65", False, (qs, k, v65, o), kv_len,
+         lambda sl: st.attention_strided_reference(*(x[sl] for x in (qs, k, v65)), kv_len)),
+        ("K6 q^T, V^T_ext 80, o^T", False, (tok(qs), k, v80t, ot), n,
+         lambda sl: st.attention_strided_reference(*(x[sl] for x in (qs, k, v80t)))),
+        ("K8 natural, V_ext 65", True, (qi, ki, v65, o), kv_len,
+         lambda sl: st.attention_int8qk_reference(*(x[sl] for x in (qi, ki, v65, sq, sk)),
+                                                  kv_len)),
+        ("K8 natural, V 64 wide", True, (qi, ki, v, o), kv_len,
+         lambda sl: st.attention_int8qk_reference(*(x[sl] for x in (qi, ki, v, sq, sk)), kv_len)),
+    ]
+    sl = (slice(0, 1), slice(0, 1))
+    for name, int8, (qq, kk, vv, oo), kvl, plain in modes:
+        strides = st._strides(qq, kk, vv, oo)
+        calls = {}
+        for variant, entries in fns.items():
+            if int8:
+                call = (lambda fn=entries["tpdm_attention_int8qk_d64"], qq=qq, kk=kk, vv=vv, oo=oo,
+                        strides=strides, kvl=kvl: fn(
+                            qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), oo.data_ptr(),
+                            sq.data_ptr(), sk.data_ptr(), None, strides, b, h, n, n, kvl,
+                            vv.shape[-1], 0, stream()))
+            else:
+                call = (lambda fn=entries["tpdm_attention_strided_d64"], qq=qq, kk=kk, vv=vv,
+                        oo=oo, strides=strides, kvl=kvl: fn(
+                            qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), oo.data_ptr(), strides,
+                            b, h, n, n, kvl, vv.shape[-1], 0, 1, stream()))
+            if call() != 0:
+                raise SystemExit(f"sm90_variants: {name} {variant} launch failed")
+            torch.cuda.synchronize()
+            err = rel_err(oo[sl], plain(sl))
+            if not variant.startswith("probe") and not err <= TOL:
+                raise SystemExit(f"sm90_variants: {name} {variant} disagrees: {err}")
+            calls[variant] = call
+        calls["scaled_dot_product_attention"] = (
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k[:, :, :kv_len], v[:, :, :kv_len]))
+        calls["K1 flash_attention (q unscaled)"] = lambda: flash_attention(q, k, v, kv_len)
+        flop = 4 * b * h * n * kvl * 64
+        for variant, t in time_in_turns(calls, rounds=4).items():
+            print(f"[K6/K8] {(b, h, n, 64)} {name}, {variant}: {spread(t)}, "
+                  f"{flop / t[0] / 1e9:.1f} TFLOP/s", flush=True)
+
+
+def _quant(x):
+    """Per-row symmetric int8 of x (b, h, n, 64) and its scales (b, h, n),
+    as attn_round3._quant_rows."""
+    xi, s = _quant_rows(x)
+    return xi, s[..., 0].contiguous()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("sm90_variants: needs a CUDA card")
@@ -168,6 +270,8 @@ def main() -> int:
                "tpdm_flash_attention_stats_d64")
     gemm = build(gemm_variants((csrc / "gemm_sm90.cu").read_text()), "gemm", "tpdm_bf16_gemm",
                  "tpdm_int8_gemm")
+    studies = build(studies_variants((csrc / "attn_studies_sm90.cu").read_text()), "studies",
+                    "tpdm_attention_strided_d64", "tpdm_attention_int8qk_d64")
     g = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
@@ -272,6 +376,7 @@ def main() -> int:
         for name, t in time_in_turns(calls).items():
             print(f"[K4] ({m}, {kk}) x ({n}, {kk}), {name}: {spread(t)}, "
                   f"{2 * m * n * kk / t[0] / 1e9:.1f} TOP/s", flush=True)
+    studies_section(g, dev, stream, studies)
     return 0
 
 

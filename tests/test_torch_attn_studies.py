@@ -12,6 +12,7 @@ take exp2 in bf16 as exp(x * ln 2), at maxima taken over other chunks),
 and ``_quant_rows`` bit for bit.
 """
 
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +45,7 @@ from tpdm_tpu_torch.experiments import (
     attn_transpose_cost,
     attn_variants,
 )
+from tpdm_tpu_torch.ops.attention_studies import attention_probe_reference
 
 B, H, D = 1, 2, 64
 N = 256  # the transposed studies' n (a multiple of 128)
@@ -243,3 +245,14 @@ def test_probe_chunk_is_part_of_the_function(data):
         attn_overlap.make_runner("exp")
     with pytest.raises(ValueError, match="kernel"):
         attn_layout.attn_kt(q, k, v, kernel="kv")
+
+
+def test_noexp_plain_version_in_fp64_matches_jax(data, jax_out, monkeypatch):
+    """The noexp probe's plain version evaluated in fp64 (the one the card
+    holds K9's noexp to) computes the JAX probe's function."""
+    monkeypatch.setattr(attn_overlap, "attention_probe",
+                        functools.partial(attention_probe_reference, dtype=torch.float64))
+    q, k, v = (t(data[n]) for n in ("q", "k", "v"))
+    ours = attn_overlap.make_runner("noexp", 128)(q, k, v)
+    assert ours.dtype == torch.float32
+    close(ours, jax_out["noexp"])

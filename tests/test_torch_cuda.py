@@ -37,9 +37,15 @@ the output's largest magnitude, as chip_smoke.py holds it.
 The studies' kernels K6-K9 (``ops/attention_studies.py``): every layout and
 mode against its plain version on the same views, the output's max error
 within 2e-2 of its largest magnitude (bf16 P and output, as K1). K8's int32
-scores are exact. The noexp probe divides by acc[:, 64] + 1, which can
-come near zero on some rows, so it is held by RMS: within 2e-2 of the
-plain output's RMS.
+scores are exact. K6 and K8 load each operand through TMA, a 65-wide V
+staged through TMA, or, where the view allows neither, with the
+producer's plain loads: the routes are tested for each operand, with the
+route asserted. The sm90.cuh helpers they add are tested alone: the
+64-byte-swizzled s8 product is exact, and the transposed-A bf16 product
+is held to fp32 torch.matmul at 1e-4 (exact bf16 products summed in fp32
+in another order, on sums of order 10). The noexp probe divides by
+acc[:, 64] + 1, which can come near zero on some rows, so it is held by
+RMS: within 2e-2 of the plain output's RMS.
 """
 
 import pytest
@@ -62,6 +68,7 @@ from tpdm_tpu_torch.ops.attention_studies import (
     attention_strided,
     attention_strided_reference,
     int8_scores,
+    studies_routes,
 )
 from tpdm_tpu_torch.ops.attention import (
     attention_reference,
@@ -537,6 +544,146 @@ def test_k6_mask_with_strongly_negative_scores(device):
         # K1's plain softmax on the same (rounded) exp2-domain q, in fp32
         q_nat = qs.float() * (8.0 / 1.4426950408889634)
         _rel_close(got, attention_reference(q_nat, k[:, :, :200], v[:, :, :200]))
+
+
+def _misaligned(t):
+    """The same values as t, with t's strides (a permutation of a
+    contiguous layout), in a view whose storage offset is 2 bytes (one
+    bf16, or two int8) past a 16-byte boundary."""
+    n = 1 if t.dtype == torch.bfloat16 else 2
+    flat = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    view = flat.as_strided(t.shape, t.stride(), n)
+    view.copy_(t)
+    return view
+
+
+# (case, the views' layouts and what is misaligned, the routes K6 takes)
+K6_ROUTES = [
+    ("transposed, n 333", ("T", "T", "T", "T"), (), "plain plain plain plain"),
+    ("V_ext 65 natural", ("nat", "nat", "nat", "nat"), (), "tma tma staged tma"),
+    ("V_ext 65 natural, n_kv 437", ("nat", "nat", "nat", "nat"), (), "tma tma plain tma"),
+    ("q misaligned", ("nat", "nat", "nat", "nat"), ("q",), "plain tma tma tma"),
+    ("k misaligned", ("nat", "nat", "nat", "nat"), ("k",), "tma plain tma tma"),
+    ("v misaligned", ("nat", "nat", "nat", "nat"), ("v",), "tma tma plain tma"),
+    ("o misaligned", ("nat", "nat", "nat", "nat"), ("o",), "tma tma tma plain"),
+    ("q^T, K^T misaligned", ("T", "T", "nat", "nat"), ("q", "k"), "plain plain tma tma"),
+    ("V^T, o^T misaligned", ("nat", "nat", "T", "T"), ("v", "o"), "tma tma plain plain"),
+]
+
+
+@pytest.mark.parametrize("case,layouts,misaligned,routes", K6_ROUTES,
+                         ids=[c[0] for c in K6_ROUTES])
+def test_k6_load_routes_match_plain(device, case, layouts, misaligned, routes):
+    """Each operand through each load route: a 333-token transposed view
+    (666-byte strides), V_ext 65 natural (130-byte rows) at n_kv 437 and
+    views 2 bytes off 16-byte alignment take the plain loads; V_ext 65 at
+    n_kv 448 (a multiple of 8) is staged through TMA; the rest TMA."""
+    n_q, n_kv = (333, 437) if "333" in case or "437" in case else (320, 448)
+    q, k, v = _qkv(device, 1, 2, n_q, n_kv, 64, seed=30)
+    q = _prescaled(q)
+    if "65" in case:
+        v = _ones_column(v, 400)
+    ops = dict(q=_layout(q, layouts[0]), k=_layout(k, layouts[1]), v=_layout(v, layouts[2]),
+               o=_layout(torch.empty_like(q), layouts[3]))
+    for name in misaligned:
+        ops[name] = _misaligned(ops[name])
+    assert studies_routes(ops["q"], ops["k"], ops["v"], ops["o"]) == dict(
+        zip("qkvo", routes.split()))
+    got = attention_strided(ops["q"], ops["k"], ops["v"], 400, out=ops["o"])
+    _rel_close(got, attention_strided_reference(q, k, v, 400))
+
+
+def test_k6_study_shape_views_take_tma(device):
+    """The study's views at (2, 24, 4480, 64): natural, packed (b, n, h*d),
+    K^T, q^T / V^T_ext 80 / o^T and V_ext 80 all load through TMA."""
+    q, k, v = _qkv(device, 2, 24, 4480, 4480, 64, seed=31)
+    q = _prescaled(q)
+    v80 = _ones_column(v, 4429, 80)
+    o = torch.empty_like(q)
+    for views in ((q, k, v, o), (q, _layout(k, "T"), v80, o),
+                  tuple(_layout(x, "packed") for x in (q, k, v, o)),
+                  (_layout(q, "T"), k, _layout(v80, "T"), _layout(o, "T"))):
+        assert set(studies_routes(*views).values()) == {"tma"}, [x.stride() for x in views]
+    got = attention_strided(_layout(q, "T"), k, _layout(v80, "T"), 4429, out=_layout(o, "T"))
+    _rel_close(got, attention_strided_reference(q, k, v80, 4429))
+
+
+@pytest.mark.parametrize("out_layout", ["nat", "T"])
+@pytest.mark.parametrize("score_bf16", [False, True])
+@pytest.mark.parametrize("streams", [1, 2])
+def test_k6_streams_soft_and_out_layout(device, streams, score_bf16, out_layout):
+    q, k, v = _qkv(device, 2, 3, 333, 700, 64, seed=32)
+    q, v = _prescaled(q), _ones_column(v, 650, 80)
+    out = _layout(torch.empty_like(q), out_layout)
+    for kv_len in (650, 100):  # six tiles (even and odd streams), one tile
+        got = attention_strided(_layout(q, "T"), k, _layout(v, "T"), kv_len,
+                                score_bf16=score_bf16, streams=streams, out=out)
+        _rel_close(got, attention_strided_reference(q, k, v, kv_len, score_bf16=score_bf16))
+
+
+@pytest.mark.parametrize("k_scale_first", [False, True])
+@pytest.mark.parametrize("q_layout", ["nat", "T"])
+def test_k8_study_shape_both_q_layouts(device, q_layout, k_scale_first):
+    """K8 at the study shape (2, 24, 4480, 64), kv_len 4429, with q natural
+    (TMA) or q^T (transposed into shared memory), either scale order."""
+    q, k, v = _qkv(device, 2, 24, 4480, 4480, 64, seed=33)
+    qi, sq = _quant_rows(_prescaled(q).float())
+    ki, sk = _quant_rows(k)
+    sq, sk = sq[..., 0].contiguous(), sk[..., 0].contiguous()
+    v = _ones_column(v, 4429)
+    qv = _layout(qi, q_layout)
+    out = torch.empty(2, 24, 4480, 64, dtype=torch.bfloat16, device=device)
+    assert studies_routes(qv, ki, v, out) == dict(
+        q="tma" if q_layout == "nat" else "plain", k="tma", v="staged", o="tma")
+    got = attention_int8qk(qv, ki, v, sq, sk, 4429, k_scale_first=k_scale_first, out=out)
+    _rel_close(got, attention_int8qk_reference(qi, ki, v, sq, sk, 4429,
+                                               k_scale_first=k_scale_first))
+
+
+@pytest.mark.parametrize("misaligned", ["q", "k"])
+def test_k8_plain_load_route_is_exact(device, misaligned):
+    """int8 q or k 2 bytes off 16-byte alignment: the producer copies it
+    into the 64-byte-swizzled tile with plain loads; S stays exact."""
+    q, k, v = _qkv(device, 1, 2, 333, 437, 64, seed=34)
+    qi, sq = _quant_rows(_prescaled(q).float())
+    ki, sk = _quant_rows(k)
+    sq, sk = sq[..., 0].contiguous(), sk[..., 0].contiguous()
+    v = _ones_column(v, 400)
+    ops = dict(q=qi, k=ki)
+    ops[misaligned] = _misaligned(ops[misaligned])
+    out = torch.empty(1, 2, 333, 64, dtype=torch.bfloat16, device=device)
+    assert studies_routes(ops["q"], ops["k"], v, out)[misaligned] == "plain"
+    scores = torch.empty(1, 2, 333, 437, dtype=torch.int32, device=device)
+    got = attention_int8qk(ops["q"], ops["k"], v, sq, sk, 400, scores_out=scores, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(scores, int8_scores(qi, ki))
+    _rel_close(got, attention_int8qk_reference(qi, ki, v, sq, sk, 400))
+
+
+def test_sm90_helpers_alone(device):
+    """sm90.cuh's new pieces on one 64-row product each: int8 tiles through
+    64-byte-swizzled TMA boxes into wgmma m64n128k32 s8 (exact), and an
+    MN-major (transposed) A into wgmma m64n128k16 bf16 against torch.matmul
+    in fp32."""
+    from tpdm_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    g = torch.Generator(device=device).manual_seed(35)
+    a8 = torch.randint(-128, 128, (64, 64), generator=g, device=device).to(torch.int8)
+    b8 = torch.randint(-128, 128, (128, 64), generator=g, device=device).to(torch.int8)
+    out8 = torch.empty(64, 128, dtype=torch.int32, device=device)
+    assert lib.tpdm_sm90_helper_check(0, a8.data_ptr(), b8.data_ptr(), out8.data_ptr(),
+                                      stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out8, a8.double().matmul(b8.double().t()).to(torch.int32))
+    at = torch.randn(64, 64, generator=g, device=device).to(torch.bfloat16)  # A^T: (K, M)
+    b = torch.randn(128, 64, generator=g, device=device).to(torch.bfloat16)
+    out = torch.empty(64, 128, dtype=torch.float32, device=device)
+    assert lib.tpdm_sm90_helper_check(1, at.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                      stream) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, at.float().t().matmul(b.float().t()), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("soft_bf16", [False, True])

@@ -1,22 +1,10 @@
-// The attention layout and tuning studies of the JAX package
-// (experiments/attn_*.py), as four kernels for Hopper (sm_90a), head dim 64.
+// Two of the K1 layout and tuning studies' kernels (experiments/attn_*.py)
+// for Hopper (sm_90a), head dim 64, on mma.sync: K7 and K9. K6 and K8 are
+// the wgmma kernel of attn_studies_sm90.cu.
 //
-//   K6  tpdm_attention_strided_d64: online-softmax attention over operands
-//       in any of the studies' layouts. Replaces attn_variants.py _kernel_v1,
-//       _kernel_v2, _kernel_v4; attn_overlap.py _kernel_prefetch;
-//       attn_layout.py _kernel_kt; attn_nocopy.py _kernel_vsum,
-//       _kernel_packed2; attn_round3.py _kernel_T; attn_round3b.py
-//       _kernel_T; attn_natural_operands.py _kernel_nat; attn_round4.py
-//       kernel_call and _split_kernel (two streams); attn_block_layout.py
-//       _kernel_call; attn_transpose_cost.py kernel_only;
-//       attn_kernel_floor.py kernel_call and _kernel_inT (the last five run
-//       tpdm_tpu/ops/attention.py _flash_kernel on pre-transposed operands).
 //   K7  tpdm_attention_maxfree_d64: p = exp2(s - rb) against a given bound
 //       rb per query row, no running max and no rescale. Replaces
 //       attn_variants.py _kernel_v3 and attn_round3b.py _kernel_Tm.
-//   K8  tpdm_attention_int8qk_d64: S = q k^T of per-row int8 q and k on the
-//       int8 tensor cores, s = (float(S) * sq) * sk, then as K6. Replaces
-//       attn_round3.py _kernel_I and _kernel_TI.
 //   K9  tpdm_attention_probe_d64: the studies' floor probes, the functions
 //       of attn_overlap.py _kernel_qk_only and _kernel_noexp and
 //       attn_layout.py _kernel_kt_qkonly.
@@ -32,34 +20,28 @@
 // transposed. So Q^T and K^T reach the tensor cores through ldmatrix.trans,
 // V^T needs no transpose (it is already PV's K-major B operand) and natural
 // V takes .trans, and O^T is staged through shared memory so that its
-// stores stay 16 bytes along tokens. int8 q^T is the one exception: the s8
-// mma is .row.col only and ldmatrix moves 16-bit elements, so its tile is
-// transposed byte by byte on its way into shared memory (once a block).
+// stores stay 16 bytes along tokens.
 //
 // The walk. A block owns 64 query rows of one (b, h), four warps of 16 rows,
-// and walks kv in 64-row tiles: S = Q K^T (mma.sync m16n8k16 bf16, or
-// m16n8k32 s8 for K8) stays in registers, the online softmax runs on the
-// accumulator fragments (row statistics over the four lanes of a row
-// group), P is repacked from those registers as the A operand of PV, and O
-// accumulates in registers; two barriers a tile. Scores are in the exp2
-// domain: q arrives scaled by log2(e)/sqrt(d), as every study scales it
-// outside its kernel. Columns at or past kv_len get a -1e30
-// bias, never a zero fill. The denominator is the fp32 row sum of p when V
-// is 64 wide, else V's column 64 (the ones column, zeroed by the caller
-// where it masks) accumulated in a ninth n8 tile and divided by; columns
-// 65.. are never read. bf16-soft mode rounds s, s - m and m - m_new to bf16
-// where the studies' bf16 score or softmax dtype does, and takes exp2 of a
-// bf16 value as JAX does, exp(x * ln 2) in bf16 steps. Two streams
-// (K6): even and odd tiles carry their own (m, l, acc), merged exactly at
-// the end.
+// and walks kv in 64-row tiles: S = Q K^T (mma.sync m16n8k16 bf16) stays in
+// registers, the softmax runs on the accumulator fragments (row statistics
+// over the four lanes of a row group), P is repacked from those registers
+// as the A operand of PV, and O accumulates in registers; two barriers a
+// tile. Scores are in the exp2 domain: q arrives scaled by
+// log2(e)/sqrt(d), as every study scales it outside its kernel. K7's
+// columns at or past kv_len get a -1e30 bias, never a zero fill. The
+// denominator is the fp32 row sum of p when V is 64 wide, else V's column
+// 64 (the ones column, zeroed by the caller where it masks) accumulated in
+// a ninth n8 tile and divided by; columns 65.. are never read. K7's
+// bf16-soft mode rounds s, rb and s - rb to bf16 where the studies' bf16
+// softmax dtype does, and takes exp2 of a bf16 value as JAX does,
+// exp(x * ln 2) in bf16 steps.
 //
 // What bounds it on the H100: at the study shape (48 heads of 4480 x 4480
 // at d 64) the 246 GFLOP of the two products against 110 MB of operands
-// make it compute bound; K8's QK half runs at the int8 rate. This first
-// version is the simple shape of the algorithm: synchronous tile copies,
-// mma.sync rather than wgmma, 128 threads a block. It keeps S and P out of
-// shared memory (K1 stages both there), which is the first change the K1
-// redesign will want. TMA, wgmma and a copy pipeline are later work.
+// make it compute bound. This is the simple shape of the algorithm:
+// synchronous tile copies, mma.sync rather than wgmma, 128 threads a block.
+// K7 and K9 are to move onto attn_studies_sm90.cu's template.
 //
 // K9 computes exactly the JAX probes' functions. qk_only: for each chunk of
 // `chunk` kv rows it runs the whole chunk's QK^T (as the probe did) but
@@ -88,7 +70,6 @@ constexpr int kThreads = 128;
 constexpr int kLd = 72;       // bf16 row stride of a 64-wide tile (144 B, conflict-free)
 constexpr int kLdVN = 88;     // bf16 row stride of a natural V tile, 80 columns held
 constexpr int kVRows = 80;    // V^T rows held: 64, the ones row, zeros to 80
-constexpr int kLd8 = 80;      // byte row stride of an int8 tile
 constexpr int kOffK = kBQ * kLd * 2;
 constexpr int kOffV = kOffK + kBKV * kLd * 2;
 constexpr int kSmemBytes = kOffV + kVRows * kLd * 2;  // >= 64 * kLdVN * 2
@@ -98,7 +79,6 @@ static_assert(kSmemBytes <= 48 * 1024, "static shared memory");
 constexpr float kMaskedScore = -1e30f;
 constexpr float kLn2Bf16 = 0.69140625f;  // log(2) rounded to bf16
 
-enum Kind { kOnline = 0, kTwoStream = 1, kMaxFree = 2, kInt8 = 3 };
 enum ProbeMode { kQkOnly = 0, kNoExp = 1 };
 
 struct View {  // element strides of a (b, h, token, dim) view
@@ -111,16 +91,12 @@ struct Params {
   const void* v;
   void* o;
   const float* rb;  // K7: (b, h, n_q) with strides rb_s
-  const float* sq;  // K8: (b*h, n_q), contiguous
-  const float* sk;  // K8: (b*h, n_kv), contiguous
-  int* s_out;       // K8: raw int32 scores (b*h, n_q, n_kv), or null
   View qs, ks, vs, os;
   long long rb_sb, rb_sh, rb_sn;
   int heads, n_q, n_kv, kv_len;
   int ones;           // V's column 64 is the denominator
-  int soft_bf16;      // round the softmax's values to bf16 (K6 score_bf16, K7 soft_bf16)
-  int k_scale_first;  // K8: (float(S) * sk) * sq, _kernel_TI's order
-  int chunk;          // K9
+  int soft_bf16;  // K7: round the softmax's values to bf16
+  int chunk;      // K9
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -161,18 +137,6 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long lon
         d[e] = (o < outer_valid && i + e < inner_valid) ? s[e] : T(0);
       }
     }
-  }
-}
-
-// As load_tile, element (o, i) of the source going to dst[i * ld + o].
-template <typename T, int OUTER, int INNER>
-__device__ __forceinline__ void load_tile_transposed(T* dst, int ld, const T* src,
-                                                     long long s_outer, int outer_valid,
-                                                     int inner_valid, int tid) {
-  for (int c = tid; c < OUTER * INNER; c += kThreads) {
-    const int o = c / INNER;
-    const int i = c % INNER;
-    dst[i * ld + o] = (o < outer_valid && i < inner_valid) ? src[o * s_outer + i] : T(0);
   }
 }
 
@@ -349,46 +313,6 @@ __device__ __forceinline__ void init_state(RowState& st) {
   st.l[0] = st.l[1] = 0.f;
 }
 
-// One online-softmax step of a kv tile: s (scores, exp2 domain) becomes p.
-__device__ __forceinline__ void online_step(RowState& st, float (&s)[8][4], const bf16* sV,
-                                            const Params& p, const Block& b) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-  }
-  float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_new[r] = fmaxf(st.m[r], quad_max(mx[r]));
-    const float dm = st.m[r] - m_new[r];  // -inf on the first tile: alpha 0
-    alpha[r] = exp2f(p.soft_bf16 ? round_bf16(dm) : dm);
-    st.m[r] = m_new[r];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      float x = s[j][e] - m_new[r];
-      x = p.soft_bf16 ? exp2_bf16(round_bf16(x)) : exp2f(x);
-      s[j][e] = x;
-      sum[r] += x;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 9; ++j) {
-    st.acc[j][0] *= alpha[0];
-    st.acc[j][1] *= alpha[0];
-    st.acc[j][2] *= alpha[1];
-    st.acc[j][3] *= alpha[1];
-  }
-  st.l[0] = st.l[0] * alpha[0] + sum[0];
-  st.l[1] = st.l[1] * alpha[1] + sum[1];
-  pv_bf16(st.acc, s, sV, p.ones, b);
-}
-
 // K7's step: p = exp2(s - rb), plain accumulation.
 __device__ __forceinline__ void maxfree_step(RowState& st, float (&s)[8][4], const float (&rb)[2],
                                              const bf16* sV, const Params& p, const Block& b) {
@@ -453,22 +377,6 @@ __device__ __forceinline__ void write_out(float (&acc)[9][4], const float (&den)
   }
 }
 
-// Exact merge of two streams' (m, l, acc) into a.
-__device__ __forceinline__ void merge_streams(RowState& a, const RowState& c) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m = fmaxf(a.m[r], c.m[r]);
-    const float wa = exp2f(a.m[r] - m), wc = exp2f(c.m[r] - m);  // wc 0 for an empty stream
-#pragma unroll
-    for (int j = 0; j < 9; ++j) {
-      a.acc[j][2 * r] = a.acc[j][2 * r] * wa + c.acc[j][2 * r] * wc;
-      a.acc[j][2 * r + 1] = a.acc[j][2 * r + 1] * wa + c.acc[j][2 * r + 1] * wc;
-    }
-    a.l[r] = a.l[r] * wa + c.l[r] * wc;
-    a.m[r] = m;
-  }
-}
-
 // Copies the kv tile at kv0 of K and V into shared memory (bf16).
 __device__ __forceinline__ void load_kv_tile(bf16* sK, bf16* sV, const Params& p, const Block& b,
                                              int kv0, bool with_k, bool with_v) {
@@ -487,8 +395,8 @@ __device__ __forceinline__ void load_kv_tile(bf16* sK, bf16* sV, const Params& p
   }
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(kThreads) studies_attn_kernel(const Params p) {
+// K7: p = exp2(s - rb) against the bound rb of each query row.
+__global__ void __launch_bounds__(kThreads) maxfree_kernel(const Params p) {
   __shared__ __align__(16) unsigned char smem[kSmemBytes];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = reinterpret_cast<bf16*>(smem + kOffK);
@@ -496,120 +404,38 @@ __global__ void __launch_bounds__(kThreads) studies_attn_kernel(const Params p) 
   const Block b = make_block(p);
   const int row0 = b.q0 + b.warp * 16 + b.g;
 
-  // Q: bf16 fragments, or int8 fragments (K8) with each row's scale
   uint32_t qa[4][4];
-  uint32_t qa8[2][4];
-  float sq[2] = {0.f, 0.f};
-  if constexpr (KIND == kInt8) {
-    uint8_t* sQ8 = reinterpret_cast<uint8_t*>(smem);
-    const uint8_t* qb = static_cast<const uint8_t*>(p.q) + b.q_off + b.q0 * p.qs.sn;
-    if (b.q_tok) {
-      load_tile_transposed<uint8_t, 64, 64>(sQ8, kLd8, qb, p.qs.sd, kD, p.n_q - b.q0, b.tid);
-    } else {
-      load_tile<uint8_t, 64, 64>(sQ8, kLd8, qb, p.qs.sn, p.n_q - b.q0, kD, b.tid);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const uint8_t* qp = sQ8 + (b.warp * 16 + b.g) * kLd8 + kk * 32 + 4 * b.t;
-      qa8[kk][0] = *reinterpret_cast<const uint32_t*>(qp);
-      qa8[kk][1] = *reinterpret_cast<const uint32_t*>(qp + 8 * kLd8);
-      qa8[kk][2] = *reinterpret_cast<const uint32_t*>(qp + 16);
-      qa8[kk][3] = *reinterpret_cast<const uint32_t*>(qp + 8 * kLd8 + 16);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (row0 + 8 * r < p.n_q) sq[r] = p.sq[b.bh * p.n_q + row0 + 8 * r];
-    }
-  } else {
-    load_operand<64>(sQ, kLd, static_cast<const bf16*>(p.q) + b.q_off, p.qs, b.q_tok, b.q0,
-                     p.n_q, kD, b.tid);
-    __syncthreads();
-    load_q_frags(qa, sQ, b);
-  }
+  load_operand<64>(sQ, kLd, static_cast<const bf16*>(p.q) + b.q_off, p.qs, b.q_tok, b.q0, p.n_q,
+                   kD, b.tid);
+  __syncthreads();
+  load_q_frags(qa, sQ, b);
   float rb[2] = {0.f, 0.f};
-  if constexpr (KIND == kMaxFree) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row < p.n_q) {
-        const long long bi = blockIdx.y / p.heads, hi = blockIdx.y % p.heads;
-        rb[r] = p.rb[bi * p.rb_sb + hi * p.rb_sh + row * p.rb_sn];
-      }
-      if (p.soft_bf16) rb[r] = round_bf16(rb[r]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < p.n_q) {
+      const long long bi = blockIdx.y / p.heads, hi = blockIdx.y % p.heads;
+      rb[r] = p.rb[bi * p.rb_sb + hi * p.rb_sh + row * p.rb_sn];
     }
+    if (p.soft_bf16) rb[r] = round_bf16(rb[r]);
   }
 
-  RowState st0, st1;
-  init_state(st0);
-  if constexpr (KIND == kTwoStream) init_state(st1);
-
+  RowState st;
+  init_state(st);
   const int n_tiles = (p.kv_len + kBKV - 1) / kBKV;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int kv0 = tile * kBKV;
     __syncthreads();  // the previous tile's reads are done
-    if constexpr (KIND == kInt8) {
-      load_tile<uint8_t, 64, 64>(reinterpret_cast<uint8_t*>(sK), kLd8,
-                                 static_cast<const uint8_t*>(p.k) + b.k_off + kv0 * p.ks.sn,
-                                 p.ks.sn, p.n_kv - kv0, kD, b.tid);
-      load_kv_tile(sK, sV, p, b, kv0, false, true);
-    } else {
-      load_kv_tile(sK, sV, p, b, kv0, true, true);
-    }
+    load_kv_tile(sK, sV, p, b, kv0, true, true);
     __syncthreads();
-
     float s[8][4];
-    if constexpr (KIND == kInt8) {
-      const uint8_t* sK8 = reinterpret_cast<const uint8_t*>(sK);
-      int s32[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s32[j][0] = s32[j][1] = s32[j][2] = s32[j][3] = 0;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint8_t* kp = sK8 + (j * 8 + b.g) * kLd8 + kk * 32 + 4 * b.t;
-          mma_s8_16832(s32[j], qa8[kk], *reinterpret_cast<const uint32_t*>(kp),
-                       *reinterpret_cast<const uint32_t*>(kp + 16));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + j * 8 + 2 * b.t + (e & 1);
-          const int row = row0 + 8 * (e >> 1);
-          const float sk = col < p.n_kv ? p.sk[b.bh * p.n_kv + col] : 0.f;
-          const float sqr = sq[e >> 1];
-          const float x = static_cast<float>(s32[j][e]);
-          s[j][e] = p.k_scale_first ? __fmul_rn(__fmul_rn(x, sk), sqr)
-                                    : __fmul_rn(__fmul_rn(x, sqr), sk);
-          if (p.s_out != nullptr && row < p.n_q && col < p.n_kv) {
-            p.s_out[(b.bh * p.n_q + row) * static_cast<size_t>(p.n_kv) + col] = s32[j][e];
-          }
-        }
-      }
-    } else {
-      qk_bf16(s, qa, sK, b);
-    }
+    qk_bf16(s, qa, sK, b);
     finish_scores(s, p, kv0, b);
-
-    if constexpr (KIND == kTwoStream) {
-      if (tile & 1) {
-        online_step(st1, s, sV, p, b);
-      } else {
-        online_step(st0, s, sV, p, b);
-      }
-    } else if constexpr (KIND == kMaxFree) {
-      maxfree_step(st0, s, rb, sV, p, b);
-    } else {
-      online_step(st0, s, sV, p, b);
-    }
+    maxfree_step(st, s, rb, sV, p, b);
   }
-  if constexpr (KIND == kTwoStream) merge_streams(st0, st1);
   float den[2];
-  denominators(den, st0, p.ones, b.lane);
-  write_out(st0.acc, den, sQ, p, b);
+  denominators(den, st, p.ones, b.lane);
+  write_out(st.acc, den, sQ, p, b);
 }
 
 template <int MODE>
@@ -725,23 +551,12 @@ int launch(Kernel kernel, const Params& p, int bh, void* stream) {
 
 }  // namespace
 
-// Every entry takes bf16 (K8: int8 q and k) views of shape (b, h, n, 64)
-// given by `strides`, 16 element strides (b, h, token, dim) for q, k, v, o
-// in that order (K7 adds rb's (b, h, token) strides after them); q k^T is
-// the score in the exp2 domain (q already carries log2(e)/sqrt(64)). v is
-// (b, h, n_kv, v_cols) with v_cols 64 (row-sum denominator) or 65..80 (the
-// ones column at 64). 1 <= kv_len <= n_kv. Each returns a cudaError_t.
-
-// K6: streams 1 or 2; score_bf16 rounds the softmax's values to bf16.
-extern "C" int tpdm_attention_strided_d64(const void* q, const void* k, const void* v, void* o,
-                                          const long long* strides, int b, int h, int n_q,
-                                          int n_kv, int kv_len, int v_cols, int score_bf16,
-                                          int streams, void* stream) {
-  Params p = make_params(q, k, v, o, strides, h, n_q, n_kv, kv_len, v_cols);
-  p.soft_bf16 = score_bf16;
-  return streams == 2 ? launch(studies_attn_kernel<kTwoStream>, p, b * h, stream)
-                      : launch(studies_attn_kernel<kOnline>, p, b * h, stream);
-}
+// Both entries take bf16 views of shape (b, h, n, 64) given by `strides`,
+// 16 element strides (b, h, token, dim) for q, k, v, o in that order (K7
+// adds rb's (b, h, token) strides after them); q k^T is the score in the
+// exp2 domain (q already carries log2(e)/sqrt(64)). v is (b, h, n_kv,
+// v_cols) with v_cols 64 (row-sum denominator) or 65..80 (the ones column
+// at 64). Each returns a cudaError_t.
 
 // K7: rb (b, h, n_q) fp32, the bound subtracted in the exp2 domain.
 extern "C" int tpdm_attention_maxfree_d64(const void* q, const void* k, const void* v, void* o,
@@ -754,23 +569,7 @@ extern "C" int tpdm_attention_maxfree_d64(const void* q, const void* k, const vo
   p.rb_sh = strides[17];
   p.rb_sn = strides[18];
   p.soft_bf16 = soft_bf16;
-  return launch(studies_attn_kernel<kMaxFree>, p, b * h, stream);
-}
-
-// K8: q, k int8 (k d-contiguous), sq (b*h, n_q) and sk (b*h, n_kv) fp32
-// contiguous; s_out, if not null, receives the raw int32 scores
-// (b*h, n_q, n_kv).
-extern "C" int tpdm_attention_int8qk_d64(const void* q, const void* k, const void* v, void* o,
-                                         const void* sq, const void* sk, void* s_out,
-                                         const long long* strides, int b, int h, int n_q,
-                                         int n_kv, int kv_len, int v_cols, int k_scale_first,
-                                         void* stream) {
-  Params p = make_params(q, k, v, o, strides, h, n_q, n_kv, kv_len, v_cols);
-  p.sq = static_cast<const float*>(sq);
-  p.sk = static_cast<const float*>(sk);
-  p.s_out = static_cast<int*>(s_out);
-  p.k_scale_first = k_scale_first;
-  return launch(studies_attn_kernel<kInt8>, p, b * h, stream);
+  return launch(maxfree_kernel, p, b * h, stream);
 }
 
 // K9: mode 0 qk_only, 1 noexp (v_cols >= 65); chunk a positive multiple of

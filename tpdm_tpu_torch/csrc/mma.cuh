@@ -1,12 +1,12 @@
 // Tensor-core helpers shared by the kernels in this directory (sm_90a).
 //
 // mma.sync fragments, as the PTX ISA lays them out for one warp: g = lane / 4
-// is the fragment row, t = lane % 4 the thread in its group. For both
-// products below an A fragment covers 16 rows by 32 bytes of K (16 bf16 or
-// 32 int8 values) and a B fragment 32 bytes of K by 8 columns, and the
-// registers hold the same bytes: a[0] row g, bytes 4t..4t+3; a[1] row g + 8;
-// a[2] row g, bytes 16 + 4t; a[3] row g + 8, bytes 16 + 4t; b0 column g,
-// bytes 4t; b1 column g, bytes 16 + 4t. The accumulator c[0], c[1] is row g,
+// is the fragment row, t = lane % 4 the thread in its group. For the bf16
+// product below an A fragment covers 16 rows by 32 bytes of K (16 values)
+// and a B fragment 32 bytes of K by 8 columns, and the registers hold:
+// a[0] row g, bytes 4t..4t+3; a[1] row g + 8; a[2] row g, bytes 16 + 4t;
+// a[3] row g + 8, bytes 16 + 4t; b0 column g, bytes 4t; b1 column g,
+// bytes 16 + 4t. The accumulator c[0], c[1] is row g,
 // columns 2t and 2t + 1; c[2], c[3] the same columns of row g + 8.
 
 #pragma once
@@ -22,17 +22,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// int8 x int8 -> int32; Hopper has the integer product only as .row.col, so
-// both operands are K-major
-__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -11,12 +11,19 @@
 // mode. A K-major operand (K contiguous, as Q, K, A and B are) steps along
 // K by moving the start address 32 bytes a k16 step (bf16) or k32 step
 // (int8) inside the atom; its LBO is unused. An MN-major operand (V in
-// O += P V: the kv axis is K, d is contiguous) reads 64 MN columns of 8 K
-// rows per atom and steps 16 K rows (2048 bytes) a k16 step; its LBO is
-// the byte stride from one 64-column box to the next. A 64-wide operand
-// never takes it (K1 sets it to the atom stride); a 256-wide one (K2's V,
-// four TMA boxes of 64 columns, each box's rows stored together) does, and
-// a wrong LBO gives wrong columns 64-255 without a fault.
+// O += P V: the kv axis is K, d is contiguous; a token-contiguous Q^T as
+// A or K^T as B in Q K^T) reads 64 MN columns of 8 K rows per atom and
+// steps 16 K rows (2048 bytes) a k16 step; its LBO is the byte stride from
+// one 64-column box to the next. A 64-wide operand never takes it (K1 sets
+// it to the atom stride); a wider one (K2's 256-wide V, four TMA boxes of
+// 64 columns, each box's rows stored together; the studies' 128-token
+// K^T, two boxes) does, and a wrong LBO gives wrong columns past 64
+// without a fault. The transpose bits are immediates of the instruction,
+// so an operand's orientation is fixed where its kernel is compiled. int8
+// tiles 64 columns wide (64 bytes a row, d 64) take 64-byte swizzling:
+// chunk c of row r lands at chunk c ^ ((r / 2) % 4), eight rows form a
+// 512-byte atom (SBO 512, layout type 2), and the second k32 step starts
+// 32 bytes into the row. s8 wgmma takes K-major operands only.
 //
 // wgmma accumulators (m64nN, fp32 or int32): thread t of the warp group
 // holds, for each n8 column block j, d[4j + 0..1] at row 16 (t / 32) + g,
@@ -58,20 +65,24 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map of rank 2 or 3 with 128-byte swizzling, bf16 unless `type`
-// says otherwise (int8 travels as UINT8): dims innermost first (the
-// innermost holds 128 bytes a box: 64 bf16 or 128 int8), strides in bytes
-// of dims 1.., box in elements. Rows past a dim are zero-filled on load and
-// dropped on store. Returns a cudaError_t.
+// A tensor map of rank 2 to 4, bf16 unless `type` says otherwise (int8
+// travels as UINT8): dims innermost first, strides in bytes of dims 1..
+// (each a multiple of 16, in any order: a packed (b, n, h*64) view has its
+// head stride below its token stride), box in elements. The swizzle is
+// 128 bytes (the innermost box dim holds 128 bytes: 64 bf16 or 128 int8),
+// 64 bytes (64 int8 a box row: chunk c of row r lands at chunk
+// c ^ ((r / 2) % 4), and a tile starts 512-byte aligned) or none (rows
+// packed as they come, any multiple of 16 bytes). Rows past a dim are
+// zero-filled on load and dropped on store. Returns a cudaError_t.
 inline int make_tensor_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
                            const uint64_t* strides, const uint32_t* box,
-                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult res = fn(map, type, rank, const_cast<void*>(ptr), dims,
-                    strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  CUresult res = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -102,6 +113,13 @@ __device__ __forceinline__ void fence_barrier_init() {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// Adds `bytes` to the transaction count of the barrier's current phase
+// without arriving: the phase completes after its arrivals and those bytes.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
                : "memory");
 }
 
@@ -149,6 +167,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // Bulk tensor store from shared memory; the writers' generic-proxy stores
 // must be fenced (fence_proxy_async) and synchronised before it.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
@@ -157,6 +185,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -198,13 +235,15 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// wgmma descriptor of a 128-byte-swizzled shared-memory operand (see the
-// note at the top): start address, LBO and SBO in 16-byte units, mode 1.
+// wgmma descriptor of a swizzled shared-memory operand (see the note at the
+// top): start address, LBO and SBO in 16-byte units, and the layout type:
+// 1 for 128-byte swizzling (the default), 2 for 64-byte (SBO then 512, the
+// 8-row atom of 64-byte rows).
 __device__ __forceinline__ uint64_t make_smem_desc(const void* p, uint32_t lbo_bytes,
-                                                   uint32_t sbo_bytes) {
+                                                   uint32_t sbo_bytes, uint32_t layout = 1) {
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4) |
          (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -325,47 +364,92 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128], uint64_t d
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// D (64 x 128, fp32) (+)= A (64 x 16, shared, K-major) . B (128 x 16, shared,
-// K-major); scale_d 0 overwrites D.
+// D (64 x 128, int32) (+)= A (64 x 32, int8, shared, K-major) . B (128 x 32,
+// int8, shared, K-major); scale_d 0 overwrites D. As the N = 256 form: no
+// transpose immediates, a k32 step reads 32 bytes of K. With 64-wide int8
+// rows (d 64) the operands are 64-byte swizzled: SBO 512, layout 2, and the
+// second k32 step starts 32 bytes into the row.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16, shared) . B (128 x 16, shared); scale_d 0
+// overwrites D. kTransA / kTransB 0: the operand is K-major; 1: MN-major
+// (the transpose bit), so a token-contiguous Q^T is A and K^T is B as they
+// lie: an MN-major operand steps 16 K rows (2048 bytes) a k16 step, and
+// B's two 64-column boxes sit LBO bytes apart.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
                                                     uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
-      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-          "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // D (64 x 64, fp32) += A (64 x 16, registers, the accumulator's fragment
-// layout) . B (64 x 16, shared, MN-major: the transpose bit); scale_d 0
-// overwrites D.
-__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
-                                                     uint64_t desc_b, int scale_d) {
+// layout) . B (64 x 16, shared); scale_d 0 overwrites D. kTransB 1: B is
+// MN-major (a natural V in P V, d contiguous); 0: K-major (V^T, the kv
+// axis contiguous).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
       " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
-      "p, 1, 1, 1;\n}\n"
+      "p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// The MN-major B form of the above (K1's P V).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k16_rs<1>(d, a, desc_b, scale_d);
 }
 
 // D (64 x 32, fp32) (+)= A (64 x 16, shared, K-major) . B (32 x 16, shared,

@@ -1,7 +1,9 @@
 """Attention kernels of the K1 layout and tuning studies (K6-K9).
 
-Four hand-written Hopper kernels (``csrc/attn_studies.cu``) and their plain
-PyTorch versions, at head dim 64. They are what the study modules of
+Four hand-written Hopper kernels and their plain PyTorch versions, at head
+dim 64: K6 and K8 are one wgmma + TMA kernel template
+(``csrc/attn_studies_sm90.cu``), K7 and K9 ``mma.sync`` kernels
+(``csrc/attn_studies.cu``). They are what the study modules of
 ``tpdm_tpu_torch.experiments`` run; no path of the pipeline calls them.
 
 - K6 ``attention_strided``: online-softmax attention over q, k, v and the
@@ -176,30 +178,33 @@ def attention_probe_reference(
     chunk: int = 640,
     *,
     out: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain K9, the functions of ``attn_overlap.py``'s floor probes over
-    kv chunks of ``chunk`` rows (no mask):
+    kv chunks of ``chunk`` rows (no mask), computed in ``dtype`` (fp32, or
+    fp64 to hold the ill-conditioned noexp division to the function itself):
 
     - "qk_only": sum over chunks c0 of S[:, c0:c0+64] (in v's dtype)
       . V[c0:c0+64, :64], undivided;
     - "noexp": the online walk with exp2(s - m) replaced by s - m and the
       rescale alpha by m_old - m_new, m updated once a chunk, V carrying
-      its ones column: acc[:, :64] / (acc[:, 64] + 1).
+      its ones column: acc[:, :64] / (acc[:, 64] + 1), with s - m in v's
+      dtype for the PV product.
     """
-    s_all = _scores(q, k)
+    s_all = torch.matmul(q.to(dtype), k.to(dtype).transpose(-1, -2))
     n_kv = k.shape[2]
     acc = m = None
     for lo in range(0, n_kv, chunk):
         if mode == "qk_only":
-            pv = torch.matmul(s_all[..., lo:lo + _D].to(v.dtype).float(),
-                              v[:, :, lo:lo + _D, :_D].float())
+            pv = torch.matmul(s_all[..., lo:lo + _D].to(v.dtype).to(dtype),
+                              v[:, :, lo:lo + _D, :_D].to(dtype))
             acc = pv if acc is None else acc + pv
             continue
         s = s_all[..., lo:min(lo + chunk, n_kv)]
-        vv = v[:, :, lo:lo + s.shape[-1], : _D + 1].float()
+        vv = v[:, :, lo:lo + s.shape[-1], : _D + 1].to(dtype)
         m_new = s.amax(dim=-1, keepdim=True) if m is None else torch.maximum(
             m, s.amax(dim=-1, keepdim=True))
-        pv = torch.matmul((s - m_new).to(v.dtype).float(), vv)
+        pv = torch.matmul((s - m_new).to(v.dtype).to(dtype), vv)
         acc = pv if m is None else acc * (m - m_new) + pv
         m = m_new
     o = acc if mode == "qk_only" else acc[..., :_D] / (acc[..., _D:] + 1.0)
@@ -260,6 +265,26 @@ def _strides(*views: torch.Tensor, extra=()) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def studies_routes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor) -> dict:
+    """{"q", "k", "v", "o": "tma", "staged" or "plain"}: the load (o:
+    store) route that K6 (bf16 q, k) or K8 (int8 q, k) takes for these CUDA
+    views, as its launch fixes it: TMA where the view's base is 16-byte
+    aligned and every stride but the contiguous one a multiple of 16 bytes;
+    "staged" for a natural V 65..80 wide whose rows are not (V_ext 65): its
+    raw rows through TMA into a staging buffer, reformatted in shared
+    memory (n_kv a multiple of 8); else the producer's plain loads (K8's
+    q^T always, to transpose it)."""
+    b, h, n_q, _ = q.shape
+    bits = _build.load_library().tpdm_attention_studies_routes(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, out), b, h,
+        n_q, k.shape[2], int(q.dtype == torch.int8))
+    routes = {name: "tma" if bits >> i & 1 else "plain" for i, name in enumerate("qkvo")}
+    if bits >> 4 & 1:
+        routes["v"] = "staged"
+    return routes
+
+
 def _launch(entry: str, q: torch.Tensor, *args) -> None:
     lib = _build.load_library()
     with torch.cuda.device(q.device):
@@ -293,8 +318,8 @@ def attention_strided(
     ``tpdm_tpu/ops/attention.py`` ``_flash_kernel`` as ``attn_round4.py``,
     ``attn_block_layout.py``, ``attn_transpose_cost.py`` and
     ``attn_kernel_floor.py`` call it on pre-transposed operands. Compute
-    bound at the study shape; ``csrc/attn_studies.cu`` holds the design
-    note. kv columns >= kv_len get a -1e30 bias. ``score_bf16`` rounds
+    bound at the study shape; ``csrc/attn_studies_sm90.cu`` holds the
+    design note. kv columns >= kv_len get a -1e30 bias. ``score_bf16`` rounds
     the softmax's values to bf16 as ``attn_round3.py`` vTb and
     ``attn_round3b.py`` vTc do.
 
