@@ -10,8 +10,8 @@ Phases, one line each, and any failure exits non-zero:
 1. the device: its name and power limit as nvidia-smi reports them;
 2. build: the hand-written kernels from tpdm_tpu_torch/csrc with nvcc;
    for each instantiation of the wgmma kernels (K1 and K3 of attn_sm90.cu,
-   K2 of attn_d512_sm90.cu, K4 and K5 of gemm_sm90.cu, the 16 K6 and 2 K8
-   instantiations of attn_studies_sm90.cu) the registers and spills
+   K2 of attn_d512_sm90.cu, K4 and K5 of gemm_sm90.cu, the 16 K6, 2 K8, 3
+   K7 and 4 K9 instantiations of attn_studies_sm90.cu) the registers and spills
    ptxas reported and the wgmma (HGMMA, IGMMA), TMA (UTMALDG, UTMASTG) and
    mma.sync (HMMA, IMMA) instructions that cuobjdump finds in it; it fails
    on a spill, on a kernel without wgmma or TMA loads, or on one with
@@ -59,7 +59,7 @@ Phases, one line each, and any failure exits non-zero:
    read around them, each against the same function with the plain
    versions swapped in (the K9 noexp probe against its plain version in
    fp64); then each one's median time, each kernel mode's alone with its
-   bound, share of the bound and (K6, K8) load routes, and K6-K9 beside
+   bound, share of the bound and load routes, and K6-K9 beside
    their plain versions and scaled_dot_product_attention.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
@@ -154,15 +154,22 @@ WGMMA_KERNELS = (
     ("K4 int32", "gemm_sm90_kernelIaLi2E"),
     ("K5", "gemm_sm90_kernelI13__nv_bfloat16Li0E"),
 )
-# K6 and K8, one template in attn_studies_sm90.cu: its boolean arguments are
-# q^T, K^T, V^T, int8 QK^T, two streams
+# K6-K9, one template in attn_studies_sm90.cu: its arguments are q^T, K^T,
+# V^T (booleans), the kind (an int: 0 K6's online softmax, 1 K8's int8
+# QK^T, 2 K7's max-free softmax, 3 K9 qk_only, 4 K9 noexp) and two streams
+_STUDIES_FORMS = (
+    [("K6", qt, kt, vt, 0, two) for qt in (0, 1) for kt in (0, 1) for vt in (0, 1)
+     for two in (0, 1)]
+    + [("K8", 0, 0, vt, 1, 0) for vt in (0, 1)]
+    + [("K7", qt, 0, vt, 2, 0) for qt, vt in ((0, 0), (0, 1), (1, 1))]
+    + [(f"K9 {mode}", 0, kt, 0, kind, 0) for kind, mode in ((3, "qk_only"), (4, "noexp"))
+       for kt in (0, 1)]
+)
 STUDIES_KERNELS = tuple(
-    (f"K6 {'q^T' if qt else 'q'}/{'K^T' if kt else 'K'}/{'V^T' if vt else 'V'}"
+    (f"{name} {'q^T' if qt else 'q'}/{'K^T' if kt else 'K'}/{'V^T' if vt else 'V'}"
      f"{' two streams' if two else ''}",
-     f"studies_sm90_kernelILb{qt}ELb{kt}ELb{vt}ELb0ELb{two}E")
-    for qt in (0, 1) for kt in (0, 1) for vt in (0, 1) for two in (0, 1)
-) + tuple((f"K8 {'V^T' if vt else 'V'}", f"studies_sm90_kernelILb0ELb0ELb{vt}ELb1ELb0E")
-          for vt in (0, 1))
+     f"studies_sm90_kernelILb{qt}ELb{kt}ELb{vt}ELi{kind}ELb{two}E")
+    for name, qt, kt, vt, kind, two in _STUDIES_FORMS)
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
 
 
@@ -323,7 +330,7 @@ def wgmma_phase(lib_path):
     registers and spills, and its wgmma, TMA and mma.sync instructions in
     the SASS. Fails on a spill, on an instantiation without wgmma or TMA
     loads, or on one with mma.sync."""
-    groups = (("ptxas", "sass", WGMMA_KERNELS), ("ptxas K6/K8", "sass K6/K8", STUDIES_KERNELS))
+    groups = (("ptxas", "sass", WGMMA_KERNELS), ("ptxas K6-K9", "sass K6-K9", STUDIES_KERNELS))
     sass = sass_report(lib_path, [key for *_, kernels in groups for _, key in kernels])
     if sass is None:
         fail("cuobjdump not found beside nvcc: the wgmma kernels' SASS cannot be read")
@@ -1298,7 +1305,7 @@ def studies_phase(g, dev):
                          (2 * bh * n * n * (d + 1), PEAK_BF16_FLOPS)],
                         2 * bh * (3 * n * d + n * (d + 1)))
     o_nat = torch.empty_like(q)  # the output a call without out= allocates
-    # (name, call, bound, K6's or K8's (q, k, v, o) views for its load routes)
+    # (name, call, bound, the (q, k, v, o) views for its load routes)
     modes = [
         ("K6 natural, V 64 wide, kv_len (vsum)", lambda: K6(qs, k, v, kv_len), bf16_nat,
          (qs, k, v, o_nat)),
@@ -1320,26 +1327,32 @@ def studies_phase(g, dev):
          (qs, k, v80, ot)),
         ("K6 q natural, V^T_ext 80, o^T (inT)", lambda: K6(qs, k, v80t, out=ot), bf16_all,
          (qs, k, v80t, ot)),
-        ("K7 natural, V_ext 65, kv_len (v3)", lambda: K7(qs, k, v65, rb, kv_len), k7_ext, None),
-        ("K7 q^T, V^T_ext 80, o^T (vTm)", lambda: K7(qs_t, k, v80t, rb, out=ot), k7_all, None),
+        ("K7 natural, V_ext 65, kv_len (v3)", lambda: K7(qs, k, v65, rb, kv_len), k7_ext,
+         (qs, k, v65, o_nat)),
+        ("K7 q^T, V^T_ext 80, o^T (vTm)", lambda: K7(qs_t, k, v80t, rb, out=ot), k7_all,
+         (qs_t, k, v80t, ot)),
         ("K7 q^T, V^T_ext 80, o^T, bf16 softmax (vTmc)",
-         lambda: K7(qs_t, k, v80t, rb, soft_bf16=True, out=ot), k7_all, None),
+         lambda: K7(qs_t, k, v80t, rb, soft_bf16=True, out=ot), k7_all, (qs_t, k, v80t, ot)),
+        ("K7 q natural, V^T_ext 80 (attn_round3b.attn_Tm's views)",
+         lambda: K7(qs, k, v80t, rb), k7_all, (qs, k, v80t, o_nat)),
         ("K8 natural, V_ext 65, kv_len (vI)", lambda: K8(qi, ki, v65, sq, sk, kv_len), k8_ext,
          (qi, ki, v65, o_nat)),
         ("K8 q^T, V^T_ext 80, o^T (vTI)",
          lambda: K8(qi_t, ki, v80t, sq, sk, k_scale_first=True, out=ot), k8_all,
          (qi_t, ki, v80t, ot)),
-        ("K9 qk_only, chunk 640 (qk_only)", lambda: K9(qs, k, v65, "qk_only"), qk_only, None),
+        ("K9 qk_only, chunk 640 (qk_only)", lambda: K9(qs, k, v65, "qk_only"), qk_only,
+         (qs, k, v65, o_nat)),
         ("K9 qk_only, K^T, chunk 640 (kt_qkonly)",
-         lambda: K9(qs, k_t, v65, "qk_only"), qk_only, None),
-        ("K9 noexp, chunk 640 (noexp)", lambda: K9(qs, k, v65, "noexp"), noexp, None),
+         lambda: K9(qs, k_t, v65, "qk_only"), qk_only, (qs, k_t, v65, o_nat)),
+        ("K9 noexp, chunk 640 (noexp)", lambda: K9(qs, k, v65, "noexp"), noexp,
+         (qs, k, v65, o_nat)),
     ]
     for name, call, bound, views in modes:
         ms = median_ms(call)
         work_s = (f"; the probe's work (every chunk's whole QK^T) {probe_work[0]:.4f} ms, "
                   f"{probe_work[0] / ms * 100:.1f} % of it" if bound is qk_only else "")
-        routes = ("" if views is None else "; load routes " + ", ".join(
-            f"{op} {route}" for op, route in st.studies_routes(*views).items()))
+        routes = "; load routes " + ", ".join(
+            f"{op} {route}" for op, route in st.studies_routes(*views).items())
         phase("study mode", f"{name}: {ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
                             f"{bound[0] / ms * 100:.1f} % of it{work_s}{routes}")
 
@@ -1436,8 +1449,7 @@ def main() -> int:
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
         gemm_src = "tpdm_tpu_torch/csrc/gemm_sm90.cu"
-        studies_src = "tpdm_tpu_torch/csrc/attn_studies.cu"
-        studies_sm90_src = "tpdm_tpu_torch/csrc/attn_studies_sm90.cu"
+        studies_src = "tpdm_tpu_torch/csrc/attn_studies_sm90.cu"
         sites = lambda script, lines: "; ".join(f"experiments/{script}.py:{n}" for n in lines)
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
@@ -1454,7 +1466,7 @@ def main() -> int:
             {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:266", "launches": k5_total,
              **kernels["K5"]},
-            {"name": "attention_strided (K6)", "route": "cuda", "source": studies_sm90_src,
+            {"name": "attention_strided (K6)", "route": "cuda", "source": studies_src,
              "replaces": "; ".join([
                  sites("attn_variants", (36, 54, 190)), sites("attn_overlap", (64,)),
                  sites("attn_layout", (35,)), sites("attn_nocopy", (56, 103)),
@@ -1466,7 +1478,7 @@ def main() -> int:
             {"name": "attention_maxfree (K7)", "route": "cuda", "source": studies_src,
              "replaces": f"{sites('attn_variants', (86,))}; {sites('attn_round3b', (63,))}",
              **studies["K7"]},
-            {"name": "attention_int8qk (K8)", "route": "cuda", "source": studies_sm90_src,
+            {"name": "attention_int8qk (K8)", "route": "cuda", "source": studies_src,
              "replaces": sites("attn_round3", (117, 195)), **studies["K8"]},
             {"name": "attention_probe (K9)", "route": "cuda", "source": studies_src,
              "replaces": f"{sites('attn_overlap', (97, 109))}; {sites('attn_layout', (59,))}",

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Design variants of the two wgmma kernels' instantiations, timed on the card.
+"""Design variants of the wgmma kernels' instantiations, timed on the card.
 
-Each variant is the checked-in source (``tpdm_tpu_torch/csrc/attn_sm90.cu``
-or ``gemm_sm90.cu``) with one constant or line replaced, built by nvcc into
-``build/tpdm_tpu_torch/variants/`` (one nvcc a variant, started together)
-and called through its own C entry beside the others, in turns, on the same
-inputs:
+Each variant is the checked-in source (``tpdm_tpu_torch/csrc/attn_sm90.cu``,
+``gemm_sm90.cu`` or ``attn_studies_sm90.cu``) with one constant or line
+replaced, built by nvcc into ``build/tpdm_tpu_torch/variants/`` (one nvcc a
+variant, started together) and called through its own C entry beside the
+others, in turns, on the same inputs:
 
 - K1: two or three consumer warp groups (BQ 128 or 192), two or three ring
   stages, at the 1024 px shape (2, 24, 4480, 64) kv_len 4429 and at a
@@ -15,16 +15,17 @@ inputs:
   and q (2, 24, 4429, 64) x kv (2, 24, 4096, 64) (rank 0 of four), beside
   ``_scaled_dot_product_flash_attention``; o and log2(l) + m checked on
   one head (atol 1e-3 / rtol 1e-4, as ``chip_smoke.py`` holds K3);
-- K6 and K8 (``attn_studies_sm90.cu``): two or three consumer warp groups,
-  and three probes of K8's extra work (``no_scale`` replaces its two scale
-  products by x + 0 * sk, ``no_convert`` drops its int32 conversion too,
-  ``no_sk`` leaves K's full barrier to its TMA load alone, with sk
-  staged as zeros by the producer threads that no longer arrive), at the
-  studies' shape (2, 24, 4480, 64) kv_len 4429 on five of their modes (natural
-  with V 64 wide or V_ext 65, q^T / V^T_ext 80 / o^T, K8 natural with V 64
-  wide or V_ext 65), beside ``scaled_dot_product_attention`` and K1; each
-  variant that computes the function checked on one head against its
-  plain version;
+- K6-K9 (``attn_studies_sm90.cu``): two or three consumer warp groups at
+  the studies' shape (2, 24, 4480, 64) on twelve of their modes: K6 natural
+  with V 64 wide or V_ext 65 and q^T / V^T_ext 80 / o^T (kv_len 4429 but
+  there), K8 natural with V 64 wide or V_ext 65, K7's v3, vTm and vTmc, K9
+  qk_only with V 64 wide, V_ext 65 or K^T and noexp (chunk 640); and three
+  probes of K8's extra work (on K6's and K8's modes) (``no_scale`` replaces
+  its two scale products by x + 0 * sk, ``no_convert`` drops its int32
+  conversion too, ``no_sk`` leaves K's full barrier to its TMA load alone,
+  with sk staged as zeros by the producer threads that no longer arrive); beside
+  ``scaled_dot_product_attention`` and K1; each variant that computes the
+  function checked on one head against its plain version;
 - K5 and K4 (its dequant epilogue), the two instantiations of one
   persistent kernel: as built (TMA-store epilogue); the accumulators
   stored directly from registers (the path for N not a multiple of 8); and
@@ -36,9 +37,10 @@ inputs:
 
 Every variant that computes the function is checked against the plain
 version as ``chip_smoke.py`` holds the kernels: max error within 2e-2 of
-the output's largest magnitude (K1, K3's o, K5, K6, K8), log2(l) + m
-within atol 1e-3 / rtol 1e-4 (K3), one bf16 step at every element (K4).
-Needs an sm_90a card:
+the output's largest magnitude (K1, K3's o, K5, K6-K9; the K9 noexp probe
+by its RMS error against its plain version in fp64), log2(l) + m within
+atol 1e-3 / rtol 1e-4 (K3), one bf16 step at every element (K4). Needs an
+sm_90a card:
 
     python3 scripts/sm90_variants.py
 """
@@ -68,6 +70,8 @@ from tpdm_tpu_torch.ops.gemm import bf16_gemm_reference, int8_gemm_reference  # 
 
 TOL = 2e-2
 LSE_ATOL, LSE_RTOL = 1e-3, 1e-4
+STUDIES_ENTRIES = ("tpdm_attention_strided_d64", "tpdm_attention_int8qk_d64",
+                   "tpdm_attention_maxfree_d64", "tpdm_attention_probe_d64")
 
 
 def _sub(text: str, old: str, new: str) -> str:
@@ -188,8 +192,8 @@ def spread(t) -> str:
 
 
 def studies_section(g, dev, stream, fns):
-    """K6 and K8 with two or three consumer warp groups at the studies'
-    shape, on the views the studies pass."""
+    """K6-K9 with two or three consumer warp groups at the studies' shape,
+    on the views the studies pass; K8's probes on K8's modes."""
     b, h, n, kv_len = 2, 24, 4480, 4429
     bf = torch.bfloat16
     tok = lambda t: t.transpose(-1, -2).contiguous().transpose(-1, -2)
@@ -202,51 +206,78 @@ def studies_section(g, dev, stream, fns):
     v80t = tok(torch.cat([v, extra], dim=-1))
     qi, sq = _quant(qs)
     ki, sk = _quant(k)
+    rb = (torch.linalg.vector_norm(qs.float(), dim=-1)
+          * torch.linalg.vector_norm(k.float(), dim=-1).amax(-1)[..., None])
     o, ot = torch.empty_like(q), tok(torch.empty_like(q))
-    modes = [  # name, K8?, (q, k, v, o), kv_len, the plain version
-        ("K6 natural, V 64 wide", False, (qs, k, v, o), kv_len,
-         lambda sl: st.attention_strided_reference(*(x[sl] for x in (qs, k, v)), kv_len)),
-        ("K6 natural, V_ext 65", False, (qs, k, v65, o), kv_len,
-         lambda sl: st.attention_strided_reference(*(x[sl] for x in (qs, k, v65)), kv_len)),
-        ("K6 q^T, V^T_ext 80, o^T", False, (tok(qs), k, v80t, ot), n,
-         lambda sl: st.attention_strided_reference(*(x[sl] for x in (qs, k, v80t)))),
-        ("K8 natural, V_ext 65", True, (qi, ki, v65, o), kv_len,
-         lambda sl: st.attention_int8qk_reference(*(x[sl] for x in (qi, ki, v65, sq, sk)),
-                                                  kv_len)),
-        ("K8 natural, V 64 wide", True, (qi, ki, v, o), kv_len,
-         lambda sl: st.attention_int8qk_reference(*(x[sl] for x in (qi, ki, v, sq, sk)), kv_len)),
-    ]
     sl = (slice(0, 1), slice(0, 1))
-    for name, int8, (qq, kk, vv, oo), kvl, plain in modes:
-        strides = st._strides(qq, kk, vv, oo)
+    one = lambda *xs: [x[sl] for x in xs]
+    # name, the variants' prefix it runs on ("" all), its entry, its
+    # arguments after the four views' pointers and strides, the (q, k, v,
+    # o) views, kv_len, the plain version on head 0 and how it is held
+    # ("max": 2e-2 of max |plain|; "rms": 2e-2 of the RMS, against fp64)
+    modes = [
+        ("K6 natural, V 64 wide", "", "strided", (0, 1), (qs, k, v, o), kv_len,
+         lambda: st.attention_strided_reference(*one(qs, k, v), kv_len), "max"),
+        ("K6 natural, V_ext 65", "", "strided", (0, 1), (qs, k, v65, o), kv_len,
+         lambda: st.attention_strided_reference(*one(qs, k, v65), kv_len), "max"),
+        ("K6 q^T, V^T_ext 80, o^T", "", "strided", (0, 1), (tok(qs), k, v80t, ot), n,
+         lambda: st.attention_strided_reference(*one(qs, k, v80t)), "max"),
+        ("K8 natural, V_ext 65", "", "int8qk", (0,), (qi, ki, v65, o), kv_len,
+         lambda: st.attention_int8qk_reference(*one(qi, ki, v65, sq, sk), kv_len), "max"),
+        ("K8 natural, V 64 wide", "", "int8qk", (0,), (qi, ki, v, o), kv_len,
+         lambda: st.attention_int8qk_reference(*one(qi, ki, v, sq, sk), kv_len), "max"),
+        ("K7 natural, V_ext 65 (v3)", "consumers", "maxfree", (0,), (qs, k, v65, o), kv_len,
+         lambda: st.attention_maxfree_reference(*one(qs, k, v65, rb), kv_len), "max"),
+        ("K7 q^T, V^T_ext 80, o^T (vTm)", "consumers", "maxfree", (0,), (tok(qs), k, v80t, ot),
+         n, lambda: st.attention_maxfree_reference(*one(qs, k, v80t, rb)), "max"),
+        ("K7 q^T, V^T_ext 80, o^T, bf16 softmax (vTmc)", "consumers", "maxfree", (1,),
+         (tok(qs), k, v80t, ot), n,
+         lambda: st.attention_maxfree_reference(*one(qs, k, v80t, rb), soft_bf16=True), "max"),
+        ("K9 qk_only, V 64 wide, chunk 640", "consumers", "probe", (0, 640), (qs, k, v, o), n,
+         lambda: st.attention_probe_reference(*one(qs, k, v), "qk_only"), "max"),
+        ("K9 qk_only, chunk 640", "consumers", "probe", (0, 640), (qs, k, v65, o), n,
+         lambda: st.attention_probe_reference(*one(qs, k, v65), "qk_only"), "max"),
+        ("K9 qk_only, K^T, chunk 640", "consumers", "probe", (0, 640), (qs, tok(k), v65, o), n,
+         lambda: st.attention_probe_reference(*one(qs, k, v65), "qk_only"), "max"),
+        ("K9 noexp, chunk 640", "consumers", "probe", (1, 640), (qs, k, v65, o), n,
+         lambda: st.attention_probe_reference(*one(qs, k, v65), "noexp", dtype=torch.float64),
+         "rms"),
+    ]
+    rms = lambda x: x.double().pow(2).mean().sqrt().item()
+    for name, prefix, entry, flags, (qq, kk, vv, oo), kvl, plain, held in modes:
+        strides = st._strides(qq, kk, vv, oo, extra=rb.stride() if entry == "maxfree" else ())
+        ptrs = (qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), oo.data_ptr())
+        sizes = {"strided": (b, h, n, n, kvl, vv.shape[-1]),
+                 "int8qk": (b, h, n, n, kvl, vv.shape[-1]),
+                 "maxfree": (b, h, n, n, kvl, vv.shape[-1]),
+                 "probe": (b, h, n, n, vv.shape[-1])}[entry]
+        extra_ptrs = {"int8qk": (sq.data_ptr(), sk.data_ptr(), None),
+                      "maxfree": (rb.data_ptr(),)}.get(entry, ())
+        ref = plain()
         calls = {}
         for variant, entries in fns.items():
-            if int8:
-                call = (lambda fn=entries["tpdm_attention_int8qk_d64"], qq=qq, kk=kk, vv=vv, oo=oo,
-                        strides=strides, kvl=kvl: fn(
-                            qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), oo.data_ptr(),
-                            sq.data_ptr(), sk.data_ptr(), None, strides, b, h, n, n, kvl,
-                            vv.shape[-1], 0, stream()))
-            else:
-                call = (lambda fn=entries["tpdm_attention_strided_d64"], qq=qq, kk=kk, vv=vv,
-                        oo=oo, strides=strides, kvl=kvl: fn(
-                            qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), oo.data_ptr(), strides,
-                            b, h, n, n, kvl, vv.shape[-1], 0, 1, stream()))
+            if not variant.startswith(prefix):
+                continue
+            fn = entries[f"tpdm_attention_{entry}_d64"]
+            call = (lambda fn=fn, args=(*ptrs, *extra_ptrs, strides, *sizes, *flags):
+                    fn(*args, stream()))
             if call() != 0:
                 raise SystemExit(f"sm90_variants: {name} {variant} launch failed")
             torch.cuda.synchronize()
-            err = rel_err(oo[sl], plain(sl))
-            if not variant.startswith("probe") and not err <= TOL:
+            out = oo[sl].float()
+            err = (rms(out - ref) / rms(ref) if held == "rms" else rel_err(out, ref))
+            if not variant.startswith("probe") and not (err <= TOL and out.isfinite().all()):
                 raise SystemExit(f"sm90_variants: {name} {variant} disagrees: {err}")
             calls[variant] = call
+        del ref
         calls["scaled_dot_product_attention"] = (
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k[:, :, :kv_len], v[:, :, :kv_len]))
         calls["K1 flash_attention (q unscaled)"] = lambda: flash_attention(q, k, v, kv_len)
         flop = 4 * b * h * n * kvl * 64
         for variant, t in time_in_turns(calls, rounds=4).items():
-            print(f"[K6/K8] {(b, h, n, 64)} {name}, {variant}: {spread(t)}, "
-                  f"{flop / t[0] / 1e9:.1f} TFLOP/s", flush=True)
+            print(f"[K6-K9] {(b, h, n, 64)} {name}, {variant}: {spread(t)}, "
+                  f"{flop / t[0] / 1e9:.1f} TFLOP/s of a whole attention", flush=True)
 
 
 def _quant(x):
@@ -271,7 +302,7 @@ def main() -> int:
     gemm = build(gemm_variants((csrc / "gemm_sm90.cu").read_text()), "gemm", "tpdm_bf16_gemm",
                  "tpdm_int8_gemm")
     studies = build(studies_variants((csrc / "attn_studies_sm90.cu").read_text()), "studies",
-                    "tpdm_attention_strided_d64", "tpdm_attention_int8qk_d64")
+                    *STUDIES_ENTRIES)
     g = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 

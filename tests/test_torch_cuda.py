@@ -37,11 +37,11 @@ the output's largest magnitude, as chip_smoke.py holds it.
 The studies' kernels K6-K9 (``ops/attention_studies.py``): every layout and
 mode against its plain version on the same views, the output's max error
 within 2e-2 of its largest magnitude (bf16 P and output, as K1). K8's int32
-scores are exact. K6 and K8 load each operand through TMA, a 65-wide V
-staged through TMA, or, where the view allows neither, with the
-producer's plain loads: the routes are tested for each operand, with the
-route asserted. The sm90.cuh helpers they add are tested alone: the
-64-byte-swizzled s8 product is exact, and the transposed-A bf16 product
+scores are exact. The four are one kernel template, which loads each
+operand through TMA, a 65-wide V staged through TMA, or, where the view
+allows neither, with the producer's plain loads: the routes are tested for
+each operand, with the route asserted. The sm90.cuh helpers they add are
+tested alone: the 64-byte-swizzled s8 product is exact, and the transposed-A bf16 product
 is held to fp32 torch.matmul at 1e-4 (exact bf16 products summed in fp32
 in another order, on sums of order 10). The noexp probe divides by
 acc[:, 64] + 1, which can come near zero on some rows, so it is held by
@@ -687,7 +687,8 @@ def test_sm90_helpers_alone(device):
 
 
 @pytest.mark.parametrize("soft_bf16", [False, True])
-@pytest.mark.parametrize("layouts", [("nat", "nat", "nat", "nat"), ("T", "nat", "T", "T")])
+@pytest.mark.parametrize("layouts", [("nat", "nat", "nat", "nat"), ("T", "nat", "T", "T"),
+                                     ("nat", "nat", "T", "nat")])
 def test_k7_matches_plain(device, soft_bf16, layouts):
     q, k, v = _qkv(device, 2, 3, 333, 437, 64, seed=9)
     q, v = _prescaled(q), _ones_column(v, 400)
@@ -701,6 +702,30 @@ def test_k7_matches_plain(device, soft_bf16, layouts):
     torch.cuda.synchronize()
     assert attention_maxfree.launches == before + 1
     _rel_close(got, attention_maxfree_reference(q, k, v, rb, 400, soft_bf16=soft_bf16))
+
+
+@pytest.mark.parametrize("soft_bf16", [False, True])
+@pytest.mark.parametrize("layouts,kv_len,v_width,routes", [
+    (("nat", "nat", "nat", "nat"), 4429, 65, "tma tma staged tma"),  # v3
+    (("T", "nat", "T", "T"), None, 80, "tma tma tma tma"),  # vTm, vTmc on q^T
+    (("nat", "nat", "T", "nat"), None, 80, "tma tma tma tma"),  # attn_round3b.attn_Tm's views
+], ids=["natural", "transposed", "V^T"])
+def test_k7_study_shape(device, soft_bf16, layouts, kv_len, v_width, routes):
+    """K7 at the study shape (2, 24, 4480, 64) on the layouts the studies
+    pass: v3's natural views with V_ext 65 (staged) and kv_len 4429; q^T /
+    V^T_ext 80 / o^T; and attn_Tm's, whose q^T arrives as a view of a
+    natural q, with V^T_ext 80; each with the fp32 and the bf16 softmax."""
+    q, k, v = _qkv(device, 2, 24, 4480, 4480, 64, seed=36)
+    q = _prescaled(q)
+    v = _ones_column(v, kv_len or 4480, v_width)
+    rb = torch.linalg.vector_norm(q.float(), dim=-1) * torch.linalg.vector_norm(
+        k.float(), dim=-1).amax(-1)[..., None]
+    lq, lk, lv, lo = layouts
+    views = (_layout(q, lq), _layout(k, lk), _layout(v, lv),
+             _layout(torch.empty_like(q), lo))
+    assert studies_routes(*views) == dict(zip("qkvo", routes.split()))
+    got = attention_maxfree(*views[:3], rb, kv_len, soft_bf16=soft_bf16, out=views[3])
+    _rel_close(got, attention_maxfree_reference(q, k, v, rb, kv_len, soft_bf16=soft_bf16))
 
 
 @pytest.mark.parametrize("q_layout", ["nat", "T"])
@@ -742,6 +767,28 @@ def test_k9_matches_plain(device, k_layout, mode, n_kv, chunk):
         assert rms(got.float() - ref.float()) <= RTOL * rms(ref)
 
 
+@pytest.mark.parametrize("mode", ["qk_only", "noexp"])
+@pytest.mark.parametrize("n_kv,k_layout,v_route", [
+    (4429, "nat", "plain"), (4480, "nat", "staged"), (4429, "T", "plain")])
+def test_k9_chunks_start_mid_tile(device, mode, n_kv, k_layout, v_route):
+    """chunk 192: every other chunk starts in the middle of a 128-token
+    tile, so a tile's columns belong to two chunks (noexp loads such a
+    tile in both chunks' passes); n_kv 4429 leaves the last tile ragged.
+    V_ext 65 is staged at n_kv 4480 and takes the plain loads at 4429."""
+    q, k, v = _qkv(device, 1, 4, 333, n_kv, 64, seed=37)
+    q, v = _prescaled(q), _ones_column(v, n_kv)
+    kv = _layout(k, k_layout)
+    assert studies_routes(q, kv, v, torch.empty_like(q))["v"] == v_route
+    got = attention_probe(q, kv, v, mode, 192)
+    ref = attention_probe_reference(q, k, v, mode, 192, dtype=torch.float64)
+    if mode == "qk_only":
+        _rel_close(got, ref)
+    else:
+        assert torch.isfinite(got.float()).all()
+        rms = lambda x: x.float().pow(2).mean().sqrt()
+        assert rms(got.float() - ref.float()) <= RTOL * rms(ref)
+
+
 def test_study_wrappers_raise_on_what_the_kernels_do_not_take(device):
     q, k, v = _qkv(device, 1, 2, 64, 64, 64, seed=12)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -759,6 +806,11 @@ def test_study_wrappers_raise_on_what_the_kernels_do_not_take(device):
                                                    dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="rb"):
         attention_maxfree(q, k, v, torch.zeros(1, 2, 63, device=device))
+    rb = torch.zeros(1, 2, 64, device=device)
+    with pytest.raises(ValueError, match=r"\(q, k\^T, v\) are not instantiated"):
+        attention_maxfree(q, _layout(k, "T"), v, rb)
+    with pytest.raises(ValueError, match=r"\(q\^T, k, v\) are not instantiated"):
+        attention_maxfree(_layout(q, "T"), k, v, rb)
     qi, ki = q.to(torch.int8), k.to(torch.int8)
     sq = torch.ones(1, 2, 64, device=device)
     with pytest.raises(ValueError, match="dim axis"):
@@ -771,3 +823,7 @@ def test_study_wrappers_raise_on_what_the_kernels_do_not_take(device):
         attention_probe(q, k, v, "noexp", 64)
     with pytest.raises(ValueError, match="mode"):
         attention_probe(q, k, v, "exp", 64)
+    with pytest.raises(ValueError, match=r"\(q\^T, k, v\) are not instantiated"):
+        attention_probe(_layout(q, "T"), k, v, "qk_only", 64)
+    with pytest.raises(ValueError, match=r"\(q, k\^T, v\^T\) are not instantiated"):
+        attention_probe(q, _layout(k, "T"), _layout(v, "T"), "noexp", 64)

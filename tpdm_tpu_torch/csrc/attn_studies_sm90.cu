@@ -1,7 +1,9 @@
-// K6, attention over the K1 studies' strided views, and K8, the same
-// attention with an int8 QK^T, for Hopper (sm_90a): one kernel template,
-// wgmma fed by TMA (or by the producer's plain loads) through an mbarrier
-// ring, with a producer warp group.
+// The K1 layout and tuning studies' four kernels for Hopper (sm_90a), one
+// kernel template, wgmma fed by TMA (or by the producer's plain loads)
+// through an mbarrier ring, with a producer warp group. Its Kind template
+// argument picks what a tile's scores become: K6's online softmax, K8's
+// int8 QK^T then K6's softmax, K7's max-free softmax, or one of K9's two
+// floor probes.
 //
 //   K6  tpdm_attention_strided_d64 replaces experiments/attn_variants.py
 //       _kernel_v1, _kernel_v2, _kernel_v4; attn_overlap.py
@@ -15,6 +17,12 @@
 //   K8  tpdm_attention_int8qk_d64 replaces attn_round3.py _kernel_I and
 //       _kernel_TI: S = q k^T of per-row int8 q and k on the int8 tensor
 //       cores, s = (float(S) * sq) * sk, then as K6.
+//   K7  tpdm_attention_maxfree_d64 replaces attn_variants.py _kernel_v3
+//       and attn_round3b.py _kernel_Tm: p = exp2(s - rb[row]) against a
+//       given bound rb per query row; no running max, no alpha, no rescale.
+//   K9  tpdm_attention_probe_d64 replaces the floor probes, attn_overlap.py
+//       _kernel_qk_only and _kernel_noexp and attn_layout.py
+//       _kernel_kt_qkonly (see probe_walk).
 //
 // The function. Every operand is a 4-D view (b, h, token, dim) given by
 // four element strides, its dim or its token axis contiguous. Scores are in
@@ -31,7 +39,10 @@
 // steps. Two streams: even and odd kv tiles carry their own (m, l, O),
 // merged exactly at the end. K8: S in int32 (exact), then
 // s = (float(S) * sq[row]) * sk[col], each product rounded alone (sk first
-// with k_scale_first); scores_out, when not null, receives S.
+// with k_scale_first); scores_out, when not null, receives S. K7 masks and
+// divides as K6; its soft_bf16 rounds s, rb and s - rb to bf16 and takes
+// exp2_bf16. K9 has no kv_len mask; it excludes columns at or past n_kv
+// itself (TMA's zero fill would give them a score of 0).
 //
 // What bounds it on the H100: compute. At the study shape (48 heads of
 // 4480 x 4429) the two products are 246 GFLOP (0.249 ms at 989 TFLOP/s)
@@ -57,12 +68,16 @@
 //   dims of 64 tokens, and a k16 step moves 16 dim rows (2048 bytes); K^T
 //   is an MN-major B of two 64-token boxes, LBO the box stride. The
 //   transpose bits are immediates, so the orientations are template
-//   arguments. K8: wgmma m64n128k32 s8 on 64-byte-swizzled tiles (d 64 is
-//   64 bytes a row), two k32 steps; s8 operands are K-major only, so an
-//   int8 q^T is transposed once a block on its way into shared memory. The
-//   int32 S is converted and scaled in its own registers. (Converting by
-//   adding 1.5 * 2^23 as float bits instead of the conversion instruction
-//   was slower: 0.921 against 0.842 ms, PERF.md section 6.)
+//   arguments, instantiated where the studies pass them: K6 every one of
+//   q, K, V natural or transposed; K8 V or V^T; K7 (q, K, V), (q, K, V^T)
+//   or (q^T, K, V^T); K9 K or K^T beside natural q and V. K8: wgmma
+//   m64n128k32 s8 on
+//   64-byte-swizzled tiles (d 64 is 64 bytes a row), two k32 steps; s8
+//   operands are K-major only, so an int8 q^T is transposed once a block
+//   on its way into shared memory. The int32 S is converted and scaled in
+//   its own registers. (Converting by adding 1.5 * 2^23 as float bits
+//   instead of the conversion instruction was slower: 0.921 against 0.842
+//   ms, PERF.md section 6.)
 // - O += P V: wgmma m64n64k16 with P from registers (the S accumulator
 //   converted pairwise to bf16x2). A natural V is an MN-major B (the
 //   transpose bit); V^T is a K-major B of two 64-token boxes, no transpose.
@@ -89,7 +104,8 @@
 //   own orientation (o^T staged transposed: 64 dims of 64 tokens), and
 //   stores it with one TMA store, or with plain stores on the plain route.
 // Overlap as K1: each warp group issues S of tile t before P V of tile
-// t - 1 and runs tile t's softmax while that product is in flight.
+// t - 1 and runs tile t's softmax while that product is in flight. K9
+// walks its own schedule of K and V tiles the same way (probe_walk).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +129,9 @@ constexpr int kTileKV = 2 * kBox;  // a K or V stage: 128 tokens
 constexpr float kMaskedScore = -1e30f;
 constexpr float kLn2Bf16 = 0.69140625f;  // log(2) rounded to bf16
 
+// What a tile's scores become (the template's Kind argument)
+enum Kind { kOnline = 0, kInt8Qk = 1, kMaxFree = 2, kQkOnly = 3, kNoExp = 4 };
+
 enum Operand { kQ = 0, kK = 1, kV = 2, kO = 3 };
 constexpr int kVStaged = 4;  // route bit: V's raw rows through TMA, reformatted
 // a staging buffer: 128 raw V rows of up to 80 columns, + 128 bytes slack
@@ -130,13 +149,16 @@ struct Params {
   const float* sq;  // K8: (b*h, n_q), contiguous
   const float* sk;  // K8: (b*h, n_kv), contiguous
   int* s_out;       // K8: raw int32 scores (b*h, n_q, n_kv), or null
+  const float* rb;  // K7: (b, h, n_q) with element strides rb_sb, rb_sh, rb_sn
+  long long rb_sb, rb_sh, rb_sn;
   View qs, ks, vs, os;
   int heads, n_q, n_kv, kv_len, n_tiles;
+  int chunk;          // K9: kv columns a chunk, a multiple of 64
   int q_t, o_t;       // q, o token-contiguous (runtime for K8's q and for o)
   int tma;            // bit Operand: through its tensor map, else plain loads;
                       // bit kVStaged: V's raw rows through TMA (see the note)
   int ones;           // V's column 64 is the denominator
-  int soft_bf16;      // K6 score_bf16
+  int soft_bf16;      // K6 score_bf16, K7 soft_bf16
   int k_scale_first;  // K8: (float(S) * sk) * sq
 };
 
@@ -448,6 +470,33 @@ __device__ __forceinline__ void softmax_tile(T (&sc)[64], RowState& st, float (&
   }
 }
 
+// K7's tile, in place: masked (and in soft_bf16 rounded) scores to
+// p = exp2(s - rb[row]) against the row's bound (rounded to bf16 already in
+// soft_bf16); no max, so nothing to rescale.
+__device__ __forceinline__ void maxfree_tile(float (&sc)[64], RowState& st, const float (&rb)[2],
+                                             int kv0, const Params& p, int q) {
+  if (kv0 + kBKV > p.kv_len) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (kv0 + 8 * (i / 4) + 2 * q + (i & 1) >= p.kv_len) sc[i] = kMaskedScore;
+    }
+  }
+  // one loop a mode: a select inside the loop would compute both
+  if (p.soft_bf16) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      sc[i] = exp2_bf16(round_bf16(round_bf16(sc[i]) - rb[(i >> 1) & 1]));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = exp2f(sc[i] - rb[(i >> 1) & 1]);
+  }
+  if (!p.ones) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) st.l[(i >> 1) & 1] += sc[i];
+  }
+}
+
 __device__ __forceinline__ void rescale(float (&o)[32], const float (&alpha)[2]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -522,7 +571,8 @@ __device__ __forceinline__ void scale_scores(int (&si)[64], const float* sk, con
 struct Walk {
   unsigned char* smem;  // the barriers sit at Cfg::kOffBar
   uint64_t desc_q;
-  float sq[2];
+  float sq[2];  // K8's row scales
+  float rb[2];  // K7's row bounds
   size_t bh;
   int row0;
   int q;
@@ -531,11 +581,11 @@ struct Walk {
 // Tile t >= 1 of the walk: S_t is issued before P_{t-1} V_{t-1} (into
 // o_pv), tile t's softmax runs while that product is in flight (into st,
 // whose O is o_cur), then P_t replaces P_{t-1}.
-template <bool kQT, bool kKT, bool kVT, int kConsumers, typename T>
+template <bool kQT, bool kKT, bool kVT, int kKind, int kConsumers, typename T>
 __device__ __forceinline__ void walk_tile(int t, float (&o_pv)[32], float (&o_cur)[32],
                                           RowState& st, T (&sc)[64], uint32_t (&p)[32],
                                           const Walk& w, const Params& prm) {
-  constexpr bool kInt8 = std::is_same<T, int>::value;
+  constexpr bool kInt8 = kKind == kInt8Qk;
   using C = Cfg<kConsumers>;
   uint64_t* k_full = reinterpret_cast<uint64_t*>(w.smem + C::kOffBar) + 1;
   uint64_t* v_full = k_full + kStages;
@@ -560,12 +610,16 @@ __device__ __forceinline__ void walk_tile(int t, float (&o_pv)[32], float (&o_cu
     scale_scores(sc, reinterpret_cast<const float*>(w.smem + C::kOffSk + s * 512), w.sq, prm,
                  w.bh, w.row0, t * kBKV, w.q);
   }
-  softmax_tile(sc, st, alpha, t * kBKV, prm, w.q);
+  if constexpr (kKind == kMaxFree) {
+    maxfree_tile(sc, st, w.rb, t * kBKV, prm, w.q);
+  } else {
+    softmax_tile(sc, st, alpha, t * kBKV, prm, w.q);
+  }
   sm90::wgmma_wait<0>();  // P_{t-1} V_{t-1} is in: stage prev is free
   sm90::fence_regs(o_pv);
   sm90::fence_regs(p);
   sm90::mbar_arrive(&kv_empty[prev]);
-  rescale(o_cur, alpha);
+  if constexpr (kKind != kMaxFree) rescale(o_cur, alpha);
   pack_p(p, sc);
   if (prm.ones) {
     sm90::mbar_wait(&v_full[s], (t / kStages) & 1);
@@ -573,7 +627,208 @@ __device__ __forceinline__ void walk_tile(int t, float (&o_pv)[32], float (&o_cu
   }
 }
 
-template <bool kQT, bool kKT, bool kVT, bool kInt8, bool kTwo>
+// The walk's schedule of steps, which the producer and the consumers both
+// follow: step i loads kv tile t's K into stage i % kStages, and its V
+// where the step's P V needs it (pv()).
+// - K6-K8: every tile below kv_len once, each with its P V.
+// - K9 qk_only: every tile once; P V on a tile where a chunk starts
+//   (halves(): bit 0 at its first 64 columns, bit 1 at its second; a chunk
+//   is a multiple of 64 columns, so its first 64 lie in one half).
+// - K9 noexp: chunk [c0, c1) by chunk, the tiles that hold it twice:
+//   pass 0 (its row max, no P V), then pass 1 (its P V); the last step of
+//   a chunk's pass 1 moves on to the next chunk's pass 0.
+template <int kKind>
+struct Schedule {
+  int t = 0;  // this step's kv tile; n_tiles past the last step
+  int c0 = 0, c1;
+  int pass = 0;
+  int cs = 0;  // qk_only: the first chunk start at or past column t * kBKV
+
+  __device__ explicit Schedule(const Params& p) : c1(min(p.chunk, p.n_kv)) {}
+  __device__ bool more(const Params& p) const { return t < p.n_tiles; }
+  __device__ int halves(const Params& p) const {
+    const int c = t * kBKV;
+    return (cs == c ? 1 : 0) |
+           ((cs == c + 64 || (cs == c && p.chunk == 64)) && c + 64 < p.n_kv ? 2 : 0);
+  }
+  __device__ bool pv(const Params& p) const {
+    if constexpr (kKind == kQkOnly) {
+      return halves(p) != 0;
+    } else if constexpr (kKind == kNoExp) {
+      return pass == 1;
+    } else {
+      return true;
+    }
+  }
+  __device__ void next(const Params& p) {
+    if constexpr (kKind == kNoExp) {
+      if (t < (c1 - 1) / kBKV) {
+        ++t;
+      } else if (pass == 0) {
+        pass = 1;
+        t = c0 / kBKV;
+      } else {
+        pass = 0;
+        c0 = c1;
+        c1 = min(c0 + p.chunk, p.n_kv);
+        t = c0 < p.n_kv ? c0 / kBKV : p.n_tiles;
+      }
+    } else {
+      ++t;
+      if constexpr (kKind == kQkOnly) {
+        while (cs < t * kBKV) cs += p.chunk;
+      }
+    }
+  }
+  __device__ void next_v(const Params& p) {  // on to the next step that loads V
+    do {
+      next(p);
+    } while (more(p) && !pv(p));
+  }
+};
+
+// K9's walk, the floor probes, in steps through the ring: a step issues
+// one K tile's S before the P V that the previous step owes (as walk_tile
+// does) and works on S while that product is in flight. The producer walks
+// the same steps (Schedule).
+// - qk_only: every tile's S, as the probe runs it; a tile that starts a
+//   chunk feeds that chunk's first 64 columns of S, unexponentiated and
+//   rounded to bf16, into P V (P zero elsewhere and at or past n_kv). The
+//   output is O, undivided.
+// - noexp: chunk by chunk, the chunk's tiles twice. Pass 1 takes the row
+//   max m_new over the chunk's columns; then O and the ones column's sum l
+//   are multiplied by m_old - m_new (not on the first chunk); pass 2 feeds
+//   P = s - m_new (zero outside the chunk) into P V, l += P . V[:, 64]. The
+//   output is O / (l + 1). A 640-column chunk of S does not fit in
+//   registers, so its QK^T runs twice.
+template <bool kKT, int kKind, int kConsumers>
+__device__ __forceinline__ void probe_walk(float (&o)[32], RowState& st, float (&sc)[64],
+                                           uint32_t (&p)[32], const Walk& w, const Params& prm) {
+  using C = Cfg<kConsumers>;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(w.smem + C::kOffBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* kv_empty = v_full + kStages;
+  const int q = w.q;
+  int i = 0;           // the step: its K (and V) tile sits in stage i % kStages
+  bool owed = false;   // step i - 1's P waits for its P V
+  // one step on tile t: `work(kv0)` turns S into what the step needs; `pv`,
+  // the step's P V is owed to the next step. `owes` (std::true_type or
+  // false_type) says whether this step issues the previous step's P V, so
+  // that no wgmma wait is conditional (ptxas serializes the products
+  // where it cannot tell which groups are in flight)
+  auto step = [&](int t, auto work, bool pv, auto owes) {
+    constexpr bool kOwes = decltype(owes)::value;
+    const int s = i % kStages;
+    const int prev = (i + kStages - 1) % kStages;
+    sm90::mbar_wait(&k_full[s], (i / kStages) & 1);
+    if constexpr (kOwes) sm90::mbar_wait(&v_full[prev], ((i - 1) / kStages) & 1);
+    sm90::wgmma_fence();
+    issue_qk<false, kKT>(sc, w.desc_q, w.smem + C::kOffK + s * kTileKV);
+    sm90::wgmma_commit();
+    if constexpr (kOwes) {
+      issue_pv<false>(o, p, w.smem + C::kOffV + prev * kTileKV);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+    } else {
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(sc);
+    work(t * kBKV);
+    if constexpr (kOwes) {
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::fence_regs(p);
+    }
+    if (i > 0) sm90::mbar_arrive(&kv_empty[prev]);
+    if (pv) {
+      pack_p(p, sc);
+      if constexpr (kKind == kNoExp) {
+        sm90::mbar_wait(&v_full[s], (i / kStages) & 1);
+        ones_dot(st, p, w.smem + C::kOffV64 + s * 256, q);
+      }
+    }
+    owed = pv;
+    ++i;
+  };
+  auto issue = [&](int t, auto work, bool pv) {
+    if (owed) {
+      step(t, work, pv, std::true_type());
+    } else {
+      step(t, work, pv, std::false_type());
+    }
+  };
+
+  sm90::mbar_wait(q_full, 0);
+  if constexpr (kKind == kQkOnly) {
+    for (Schedule<kKind> at(prm); at.more(prm); at.next(prm)) {
+      const int halves = at.halves(prm);
+      issue(at.t, [&](int kv0) {
+        if (halves == 0) return;
+#pragma unroll
+        for (int j = 0; j < 64; ++j) {
+          const int col = 8 * (j / 4) + 2 * q + (j & 1);
+          if (!(halves >> (col / 64) & 1) || kv0 + col >= prm.n_kv) sc[j] = 0.f;
+        }
+      }, halves != 0);
+    }
+  } else {
+    for (Schedule<kKind> at(prm); at.more(prm);) {  // one chunk an iteration
+      const int c0 = at.c0, c1 = at.c1;
+      float mx[2] = {-INFINITY, -INFINITY};
+      do {  // pass 0: the chunk's row max
+        issue(at.t, [&](int kv0) {
+#pragma unroll
+          for (int j = 0; j < 64; ++j) {
+            const int col = kv0 + 8 * (j / 4) + 2 * q + (j & 1);
+            if (col >= c0 && col < c1) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+          }
+        }, false);
+        at.next(prm);
+      } while (at.pass == 0);
+      // every P V so far is in (pass 0 owes none): rescale O and l
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = c0 == 0 ? mx[r] : fmaxf(st.m[r], mx[r]);
+        if (c0 > 0) {
+          const float f = st.m[r] - m_new;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            o[4 * j + 2 * r] *= f;
+            o[4 * j + 2 * r + 1] *= f;
+          }
+          st.l[r] *= f;
+        }
+        st.m[r] = m_new;
+      }
+      do {  // pass 1: P = s - m_new, P V
+        issue(at.t, [&](int kv0) {
+#pragma unroll
+          for (int j = 0; j < 64; ++j) {
+            const int col = kv0 + 8 * (j / 4) + 2 * q + (j & 1);
+            sc[j] = col >= c0 && col < c1 ? sc[j] - st.m[(j >> 1) & 1] : 0.f;
+          }
+        }, true);
+        at.next(prm);
+      } while (at.pass == 1);
+    }
+  }
+  const int last = (i - 1) % kStages;
+  if (owed) {
+    sm90::mbar_wait(&v_full[last], ((i - 1) / kStages) & 1);
+    sm90::wgmma_fence();
+    issue_pv<false>(o, p, w.smem + C::kOffV + last * kTileKV);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::fence_regs(p);
+  }
+  sm90::mbar_arrive(&kv_empty[last]);
+}
+
+template <bool kQT, bool kKT, bool kVT, int kKind, bool kTwo>
 __global__ void __launch_bounds__(128 * (kStudiesConsumers + 1), 1)
     studies_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -581,6 +836,8 @@ __global__ void __launch_bounds__(128 * (kStudiesConsumers + 1), 1)
                         const __grid_constant__ CUtensorMap map_o,
                         const __grid_constant__ Params prm) {
   constexpr int kConsumers = kStudiesConsumers;
+  constexpr bool kInt8 = kKind == kInt8Qk;
+  constexpr bool kProbe = kKind == kQkOnly || kKind == kNoExp;
   using C = Cfg<kConsumers>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
@@ -670,24 +927,31 @@ __global__ void __launch_bounds__(128 * (kStudiesConsumers + 1), 1)
 
     // the staged route: V's raw rows (row stride not a multiple of 16
     // bytes), 16 groups of 8 rows a tile, through TMA into two staging
-    // buffers, each refilled two tiles ahead once reformatted
+    // buffers, each refilled two V loads ahead once reformatted (`ahead`:
+    // the schedule's step of the next V load to issue, kept by thread 0)
     const bool staged = prm.tma >> kVStaged & 1;
     const int row_bytes = 2 * static_cast<int>(prm.vs.sn);
+    Schedule<kKind> ahead(prm);
+    if (!ahead.pv(prm)) ahead.next_v(prm);
     if (staged && pt == 0) {
       sm90::tma_prefetch_map(&map_v);
-      for (int j = 0; j < 2 && j < n_tiles; ++j) {
+      for (int j = 0; j < 2 && ahead.more(prm); ++j, ahead.next_v(prm)) {
         sm90::mbar_arrive_expect_tx(&stage_full[j], kBKV * row_bytes);
         sm90::tma_load_4d(smem + C::kOffStage + j * kStageBytes, &map_v, &stage_full[j], 0,
-                          j * kBKV / 8, hi, bi);
+                          ahead.t * kBKV / 8, hi, bi);
       }
     }
 
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kStages;
+    int u = 0;  // V loads so far
+    // step i of the walk: kv tile t's K into stage i % kStages, and its V
+    // where the step's P V needs it; the V full barrier is arrived on
+    // either way, so every stage's barriers keep one phase a step
+    auto produce = [&](int i, int t, bool with_v) {
+      const int s = i % kStages;
       const int kv0 = t * kBKV;
       unsigned char* s_k = smem + C::kOffK + s * kTileKV;
       unsigned char* s_v = smem + C::kOffV + s * kTileKV;
-      sm90::mbar_wait(&kv_empty[s], ((t / kStages) & 1) ^ 1);
+      sm90::mbar_wait(&kv_empty[s], ((i / kStages) & 1) ^ 1);
       // K (and K8's sk)
       if (tma_k) {
         if (pt == 0) {
@@ -718,47 +982,54 @@ __global__ void __launch_bounds__(128 * (kStudiesConsumers + 1), 1)
       }
       if (pt == 0 || all_k) sm90::mbar_arrive(&k_full[s]);
       // V (and its column 64)
-      if (tma_v) {
-        if (pt == 0) {
-          sm90::mbar_expect_tx(&v_full[s], kTileKV);
-          if (kVT) {
-            sm90::tma_load_4d(s_v, &map_v, &v_full[s], kv0, 0, hi, bi);
-            sm90::tma_load_4d(s_v + kBox, &map_v, &v_full[s], kv0 + 64, 0, hi, bi);
-          } else {
-            sm90::tma_load_4d(s_v, &map_v, &v_full[s], 0, kv0, hi, bi);
+      if (with_v) {
+        if (tma_v) {
+          if (pt == 0) {
+            sm90::mbar_expect_tx(&v_full[s], kTileKV);
+            if (kVT) {
+              sm90::tma_load_4d(s_v, &map_v, &v_full[s], kv0, 0, hi, bi);
+              sm90::tma_load_4d(s_v + kBox, &map_v, &v_full[s], kv0 + 64, 0, hi, bi);
+            } else {
+              sm90::tma_load_4d(s_v, &map_v, &v_full[s], 0, kv0, hi, bi);
+            }
           }
-        }
-      } else if (!kVT && staged) {
-        const int b = t & 1;
-        unsigned char* stg = smem + C::kOffStage + b * kStageBytes;
-        sm90::mbar_wait(&stage_full[b], (t >> 1) & 1);
-        reformat_v(s_v, reinterpret_cast<unsigned short*>(smem + C::kOffV64 + s * 256), stg,
-                   row_bytes, prm.ones, pt);
-        sm90::fence_proxy_async();
-        sm90::named_barrier(8, 128);  // every read of this buffer is done
-        if (pt == 0 && t + 2 < n_tiles) {
-          sm90::mbar_arrive_expect_tx(&stage_full[b], kBKV * row_bytes);
-          sm90::tma_load_4d(stg, &map_v, &stage_full[b], 0, (kv0 + 2 * kBKV) / 8, hi, bi);
-        }
-      } else {
-        if constexpr (kVT) {
-          copy_box<64, 128, 2, true>(s_v, vb + 2 * kv0 * prm.vs.sn, 2 * prm.vs.sd, 64,
-                                     2 * (prm.n_kv - kv0), pt);
+        } else if (!kVT && staged) {
+          const int b = u & 1;
+          unsigned char* stg = smem + C::kOffStage + b * kStageBytes;
+          sm90::mbar_wait(&stage_full[b], (u >> 1) & 1);
+          reformat_v(s_v, reinterpret_cast<unsigned short*>(smem + C::kOffV64 + s * 256), stg,
+                     row_bytes, prm.ones, pt);
+          sm90::fence_proxy_async();
+          sm90::named_barrier(8, 128);  // every read of this buffer is done
+          if (pt == 0 && ahead.more(prm)) {
+            sm90::mbar_arrive_expect_tx(&stage_full[b], kBKV * row_bytes);
+            sm90::tma_load_4d(stg, &map_v, &stage_full[b], 0, ahead.t * kBKV / 8, hi, bi);
+            ahead.next_v(prm);
+          }
         } else {
-          copy_box<128, 128, 2>(s_v, vb + 2 * kv0 * prm.vs.sn, 2 * prm.vs.sn, prm.n_kv - kv0,
-                                128, pt);
+          if constexpr (kVT) {
+            copy_box<64, 128, 2, true>(s_v, vb + 2 * kv0 * prm.vs.sn, 2 * prm.vs.sd, 64,
+                                       2 * (prm.n_kv - kv0), pt);
+          } else {
+            copy_box<128, 128, 2>(s_v, vb + 2 * kv0 * prm.vs.sn, 2 * prm.vs.sn, prm.n_kv - kv0,
+                                  128, pt);
+          }
+          sm90::fence_proxy_async();
         }
-        sm90::fence_proxy_async();
-      }
-      if (prm.ones && !staged) {
-        const int row = kv0 + pt;
-        reinterpret_cast<unsigned short*>(smem + C::kOffV64 + s * 256)[pt] =
-            row < prm.n_kv ? __ldg(reinterpret_cast<const unsigned short*>(
-                                 vb + 2 * (row * prm.vs.sn + kD * prm.vs.sd)))
-                           : static_cast<unsigned short>(0);
+        if (prm.ones && !staged) {
+          const int row = kv0 + pt;
+          reinterpret_cast<unsigned short*>(smem + C::kOffV64 + s * 256)[pt] =
+              row < prm.n_kv ? __ldg(reinterpret_cast<const unsigned short*>(
+                                   vb + 2 * (row * prm.vs.sn + kD * prm.vs.sd)))
+                             : static_cast<unsigned short>(0);
+        }
+        ++u;
       }
       if (pt == 0 || all_v) sm90::mbar_arrive(&v_full[s]);
-    }
+    };
+
+    int i = 0;
+    for (Schedule<kKind> at(prm); at.more(prm); at.next(prm)) produce(i++, at.t, at.pv(prm));
   } else {
     sm90::setmaxnreg_inc<C::kConsumerRegs>();
     const int lt = threadIdx.x & 127;
@@ -779,6 +1050,11 @@ __global__ void __launch_bounds__(128 * (kStudiesConsumers + 1), 1)
     for (int r = 0; r < 2; ++r) {
       const int row = w.row0 + 8 * r;
       w.sq[r] = kInt8 && row < prm.n_q ? prm.sq[w.bh * prm.n_q + row] : 0.f;
+      w.rb[r] = 0.f;
+      if (kKind == kMaxFree && row < prm.n_q) {
+        w.rb[r] = prm.rb[bi * prm.rb_sb + hi * prm.rb_sh + row * prm.rb_sn];
+        if (prm.soft_bf16) w.rb[r] = round_bf16(w.rb[r]);
+      }
     }
 
     float o0[32], o1[32];
@@ -791,57 +1067,65 @@ __global__ void __launch_bounds__(128 * (kStudiesConsumers + 1), 1)
     std::conditional_t<kInt8, int, float> sc[64];
     uint32_t p[32];  // bf16 P of the previous tile, the A operand of PV
 
-    // tile 0: S alone
-    sm90::mbar_wait(q_full, 0);
-    sm90::mbar_wait(&k_full[0], 0);
-    sm90::wgmma_fence();
-    if constexpr (kInt8) {
-      issue_qk(sc, w.desc_q, smem + C::kOffK);
+    if constexpr (kProbe) {
+      probe_walk<kKT, kKind, kConsumers>(o0, st0, sc, p, w, prm);
     } else {
-      issue_qk<kQT, kKT>(sc, w.desc_q, smem + C::kOffK);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(sc);
-    if constexpr (kInt8) {
-      scale_scores(sc, reinterpret_cast<const float*>(smem + C::kOffSk), w.sq, prm, w.bh,
-                   w.row0, 0, q);
-    }
-    float alpha[2];
-    softmax_tile(sc, st0, alpha, 0, prm, q);
-    pack_p(p, sc);
-    if (prm.ones) {
-      sm90::mbar_wait(&v_full[0], 0);
-      ones_dot(st0, p, smem + C::kOffV64, q);
-    }
+      // tile 0: S alone
+      sm90::mbar_wait(q_full, 0);
+      sm90::mbar_wait(&k_full[0], 0);
+      sm90::wgmma_fence();
+      if constexpr (kInt8) {
+        issue_qk(sc, w.desc_q, smem + C::kOffK);
+      } else {
+        issue_qk<kQT, kKT>(sc, w.desc_q, smem + C::kOffK);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      if constexpr (kInt8) {
+        scale_scores(sc, reinterpret_cast<const float*>(smem + C::kOffSk), w.sq, prm, w.bh,
+                     w.row0, 0, q);
+      }
+      if constexpr (kKind == kMaxFree) {
+        maxfree_tile(sc, st0, w.rb, 0, prm, q);
+      } else {
+        float alpha[2];
+        softmax_tile(sc, st0, alpha, 0, prm, q);
+      }
+      pack_p(p, sc);
+      if (prm.ones) {
+        sm90::mbar_wait(&v_full[0], 0);
+        ones_dot(st0, p, smem + C::kOffV64, q);
+      }
 
-    if constexpr (kTwo) {  // even tiles in (st0, o0), odd in (st1, o1)
-      for (int t = 1; t < n_tiles; t += 2) {
-        walk_tile<kQT, kKT, kVT, kConsumers>(t, o0, o1, st1, sc, p, w, prm);
-        if (t + 1 < n_tiles) {
-          walk_tile<kQT, kKT, kVT, kConsumers>(t + 1, o1, o0, st0, sc, p, w, prm);
+      if constexpr (kTwo) {  // even tiles in (st0, o0), odd in (st1, o1)
+        for (int t = 1; t < n_tiles; t += 2) {
+          walk_tile<kQT, kKT, kVT, kKind, kConsumers>(t, o0, o1, st1, sc, p, w, prm);
+          if (t + 1 < n_tiles) {
+            walk_tile<kQT, kKT, kVT, kKind, kConsumers>(t + 1, o1, o0, st0, sc, p, w, prm);
+          }
+        }
+      } else {
+        for (int t = 1; t < n_tiles; ++t) {
+          walk_tile<kQT, kKT, kVT, kKind, kConsumers>(t, o0, o0, st0, sc, p, w, prm);
         }
       }
-    } else {
-      for (int t = 1; t < n_tiles; ++t) {
-        walk_tile<kQT, kKT, kVT, kConsumers>(t, o0, o0, st0, sc, p, w, prm);
+      const int last = (n_tiles - 1) % kStages;
+      const unsigned char* s_v = smem + C::kOffV + last * kTileKV;
+      sm90::mbar_wait(&v_full[last], ((n_tiles - 1) / kStages) & 1);
+      sm90::wgmma_fence();
+      if (kTwo && (n_tiles - 1) % 2) {
+        issue_pv<kVT>(o1, p, s_v);
+      } else {
+        issue_pv<kVT>(o0, p, s_v);
       }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o0);
+      if constexpr (kTwo) sm90::fence_regs(o1);
+      sm90::fence_regs(p);
+      sm90::mbar_arrive(&kv_empty[last]);
     }
-    const int last = (n_tiles - 1) % kStages;
-    const unsigned char* s_v = smem + C::kOffV + last * kTileKV;
-    sm90::mbar_wait(&v_full[last], ((n_tiles - 1) / kStages) & 1);
-    sm90::wgmma_fence();
-    if (kTwo && (n_tiles - 1) % 2) {
-      issue_pv<kVT>(o1, p, s_v);
-    } else {
-      issue_pv<kVT>(o0, p, s_v);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(o0);
-    if constexpr (kTwo) sm90::fence_regs(o1);
-    sm90::fence_regs(p);
-    sm90::mbar_arrive(&kv_empty[last]);
 
     if constexpr (kTwo) {  // the exact merge; an empty stream weighs 0
 #pragma unroll
@@ -857,14 +1141,15 @@ __global__ void __launch_bounds__(128 * (kStudiesConsumers + 1), 1)
       }
     }
 
-    // O / l into this warp group's Q box (its last S product is done), in
-    // O's orientation and 128-byte swizzled as the o map expects
+    // O / l (K9 qk_only: O; noexp: O / (l + 1)) into this warp group's Q
+    // box (its last S product is done), in O's orientation and 128-byte
+    // swizzled as the o map expects
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = st0.l[r];
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = 1.f / l;
+      const float inv = kKind == kQkOnly ? 1.f : 1.f / (kKind == kNoExp ? l + 1.f : l);
       const int row = 16 * warp + g + 8 * r;  // row % 8 == g
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -1020,10 +1305,10 @@ void map_operands(Launch& l, int b, bool int8) {
   if (map_view(&l.maps[kO], p.o, p.os, 2, b, h, p.n_q, 64, false) == 0) p.tma |= 1 << kO;
 }
 
-template <bool kQT, bool kKT, bool kVT, bool kInt8, bool kTwo>
+template <bool kQT, bool kKT, bool kVT, int kKind, bool kTwo>
 int launch(const Launch& l) {
   using C = Cfg<kStudiesConsumers>;
-  auto kernel = studies_sm90_kernel<kQT, kKT, kVT, kInt8, kTwo>;
+  auto kernel = studies_sm90_kernel<kQT, kKT, kVT, kKind, kTwo>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1035,10 +1320,40 @@ int launch(const Launch& l) {
 
 using LaunchFn = int (*)(const Launch&);
 
+// K7's and K9's orientations, a bit (4 q^T + 2 K^T + V^T) each: the ones
+// the studies pass (see the note at the top). The entries launch these
+// alone and tpdm_attention_studies_layouts reports them.
+template <int kKind>
+constexpr unsigned kLayouts = kKind == kMaxFree ? (1u << 0b000) | (1u << 0b001) | (1u << 0b101)
+                                                : (1u << 0b000) | (1u << 0b010);
+
+template <int kKind, size_t I>
+constexpr LaunchFn layout_launch() {
+  if constexpr ((kLayouts<kKind> >> I & 1) != 0) {
+    return &launch<(I & 4) != 0, (I & 2) != 0, (I & 1) != 0, kKind, false>;
+  } else {
+    return nullptr;
+  }
+}
+
+template <int kKind, size_t... I>
+constexpr std::array<LaunchFn, 8> layout_table(std::index_sequence<I...>) {
+  return {{layout_launch<kKind, I>()...}};
+}
+
+template <int kKind>
+int launch_layout(const Launch& l) {
+  static constexpr std::array<LaunchFn, 8> kTable =
+      layout_table<kKind>(std::make_index_sequence<8>());
+  const LaunchFn fn =
+      kTable[(l.prm.q_t << 2) | ((l.prm.ks.sd != 1) << 1) | (l.prm.vs.sd != 1)];
+  return fn != nullptr ? fn(l) : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // K6's instantiations by index: bit 3 q^T, 2 K^T, 1 V^T, 0 two streams.
 template <size_t I>
 int launch_bf16(const Launch& l) {
-  return launch<((I >> 3) & 1) != 0, ((I >> 2) & 1) != 0, ((I >> 1) & 1) != 0, false,
+  return launch<((I >> 3) & 1) != 0, ((I >> 2) & 1) != 0, ((I >> 1) & 1) != 0, kOnline,
                 (I & 1) != 0>(l);
 }
 
@@ -1106,7 +1421,7 @@ __global__ void __launch_bounds__(128) helper_check_kernel(const __grid_constant
 
 }  // namespace
 
-// Both entries take (b, h, n, 64) views given by `strides`, 16 element
+// The entries take (b, h, n, 64) views given by `strides`, 16 element
 // strides (b, h, token, dim) for q, k, v, o in that order, each with its dim
 // or its token axis contiguous; q k^T is the score in the exp2 domain (q
 // already carries log2(e)/sqrt(64)). v is (b, h, n_kv, v_cols) bf16 with
@@ -1148,14 +1463,69 @@ extern "C" int tpdm_attention_int8qk_d64(const void* q, const void* k, const voi
   l.bh = b * h;
   l.stream = static_cast<cudaStream_t>(stream);
   map_operands(l, b, true);
-  return l.prm.vs.sd != 1 ? launch<false, false, true, true, false>(l)
-                          : launch<false, false, false, true, false>(l);
+  return l.prm.vs.sd != 1 ? launch<false, false, true, kInt8Qk, false>(l)
+                          : launch<false, false, false, kInt8Qk, false>(l);
 }
 
-// The load routes K6 (int8 0) or K8 (int8 1) takes for these views: bit
-// 0 q, 1 k, 2 v, 3 o set where the operand goes through TMA, clear where
-// it takes the plain-load (or, for o, plain-store) route; bit 4 set where
-// V's raw rows go through TMA into staging and are reformatted there.
+// K7: rb (b, h, n_q) fp32 with element strides strides[16..18], the bound
+// subtracted in the exp2 domain; soft_bf16 as the studies' bf16 softmax.
+// q, k and v in an orientation of kLayouts<kMaxFree>; o either way.
+extern "C" int tpdm_attention_maxfree_d64(const void* q, const void* k, const void* v, void* o,
+                                          const void* rb, const long long* strides, int b, int h,
+                                          int n_q, int n_kv, int kv_len, int v_cols,
+                                          int soft_bf16, void* stream) {
+  Launch l;
+  l.prm = make_params(q, k, v, o, strides, h, n_q, n_kv, kv_len, v_cols);
+  l.prm.rb = static_cast<const float*>(rb);
+  l.prm.rb_sb = strides[16];
+  l.prm.rb_sh = strides[17];
+  l.prm.rb_sn = strides[18];
+  l.prm.soft_bf16 = soft_bf16;
+  l.bh = b * h;
+  l.stream = static_cast<cudaStream_t>(stream);
+  map_operands(l, b, false);
+  return launch_layout<kMaxFree>(l);
+}
+
+// K9: mode 0 qk_only, 1 noexp (v_cols >= 65); chunk a positive multiple of
+// 64; no kv_len mask (the probes have none). q, k and v in an orientation
+// of kLayouts<kQkOnly> or kLayouts<kNoExp>; o either way.
+extern "C" int tpdm_attention_probe_d64(const void* q, const void* k, const void* v, void* o,
+                                        const long long* strides, int b, int h, int n_q,
+                                        int n_kv, int v_cols, int mode, int chunk, void* stream) {
+  if (chunk <= 0 || chunk % 64 || (mode == 1 && v_cols <= kD) || (mode != 0 && mode != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Launch l;
+  l.prm = make_params(q, k, v, o, strides, h, n_q, n_kv, n_kv, v_cols);
+  l.prm.chunk = chunk;
+  l.prm.ones = mode == 1;  // qk_only's output is undivided
+  l.bh = b * h;
+  l.stream = static_cast<cudaStream_t>(stream);
+  map_operands(l, b, false);
+  return mode == 0 ? launch_layout<kQkOnly>(l) : launch_layout<kNoExp>(l);
+}
+
+// The orientations K7 (kind 2) and K9 (3 qk_only, 4 noexp) are instantiated
+// for, a bit (4 q^T + 2 K^T + V^T) each; 0 for another kind.
+extern "C" int tpdm_attention_studies_layouts(int kind) {
+  switch (kind) {
+    case kMaxFree:
+      return kLayouts<kMaxFree>;
+    case kQkOnly:
+      return kLayouts<kQkOnly>;
+    case kNoExp:
+      return kLayouts<kNoExp>;
+    default:
+      return 0;
+  }
+}
+
+// The load routes K6, K7 and K9 (int8 0) or K8 (int8 1) take for these
+// views: bit 0 q, 1 k, 2 v, 3 o set where the operand goes through TMA,
+// clear where it takes the plain-load (or, for o, plain-store) route; bit
+// 4 set where V's raw rows go through TMA into staging and are reformatted
+// there.
 extern "C" int tpdm_attention_studies_routes(const void* q, const void* k, const void* v,
                                              void* o, const long long* strides, int b, int h,
                                              int n_q, int n_kv, int int8) {

@@ -24,11 +24,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdm_tpu_torch"
-SOURCES = (
-    "attn_d512_sm90.cu", "attn_sm90.cu", "gemm_sm90.cu", "attn_studies.cu",
-    "attn_studies_sm90.cu",
-)
-HEADERS = ("mma.cuh", "sm90.cuh")
+SOURCES = ("attn_d512_sm90.cu", "attn_sm90.cu", "gemm_sm90.cu", "attn_studies_sm90.cu")
+HEADERS = ("sm90.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -42,11 +39,13 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 #   tpdm_int8_gemm (a, b, out, x_scale, w_scale, bias, m, n, k, stream), the
 #   int32 epilogue when x_scale is null; tpdm_bf16_gemm (a, b, out, m, n, k,
 #   stream)
-#   the studies' kernels (attn_studies.cu, attn_studies_sm90.cu): q, k, v,
-#   o (K7 adds rb, K8 sq, sk, scores), a pointer to the views' int64
-#   strides, then sizes and flags (b, h, n_q, n_kv[, kv_len], v_cols, ...),
-#   stream; tpdm_attention_studies_routes (q, k, v, o, strides, b, h, n_q,
-#   n_kv, int8) returns K6's or K8's load routes without launching;
+#   the studies' kernels (attn_studies_sm90.cu): q, k, v, o (K7 adds rb,
+#   K8 sq, sk, scores), a pointer to the views' int64 strides, then sizes
+#   and flags (b, h, n_q, n_kv[, kv_len], v_cols, ...), stream;
+#   tpdm_attention_studies_routes (q, k, v, o, strides, b, h, n_q, n_kv,
+#   int8) returns the studies' load routes without launching;
+#   tpdm_attention_studies_layouts (kind) the orientations K7 and K9 are
+#   instantiated for;
 #   tpdm_sm90_helper_check (which, a, b, out, stream) runs sm90.cuh's
 #   64-byte-swizzled s8 and transposed-A products alone
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
@@ -61,6 +60,7 @@ ENTRIES = {
     "tpdm_attention_int8qk_d64": [_P] * 7 + [_S] + [_I] * 7 + [_P],
     "tpdm_attention_probe_d64": [_P] * 4 + [_S] + [_I] * 7 + [_P],
     "tpdm_attention_studies_routes": [_P] * 4 + [_S] + [_I] * 5,
+    "tpdm_attention_studies_layouts": [_I],
     "tpdm_sm90_helper_check": [_I] + [_P] * 4,
 }
 

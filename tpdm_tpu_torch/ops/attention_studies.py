@@ -1,9 +1,8 @@
 """Attention kernels of the K1 layout and tuning studies (K6-K9).
 
 Four hand-written Hopper kernels and their plain PyTorch versions, at head
-dim 64: K6 and K8 are one wgmma + TMA kernel template
-(``csrc/attn_studies_sm90.cu``), K7 and K9 ``mma.sync`` kernels
-(``csrc/attn_studies.cu``). They are what the study modules of
+dim 64, all instantiations of one wgmma + TMA kernel template
+(``csrc/attn_studies_sm90.cu``). They are what the study modules of
 ``tpdm_tpu_torch.experiments`` run; no path of the pipeline calls them.
 
 - K6 ``attention_strided``: online-softmax attention over q, k, v and the
@@ -37,6 +36,7 @@ the studies round them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -260,6 +260,30 @@ def _check_operands(name, q, k, v, out, kv_len, qk_dtype=torch.bfloat16,
     return kv_len, out
 
 
+@functools.lru_cache(maxsize=None)
+def _instantiated(kind: int) -> tuple:
+    """The (q^T, k^T, v^T) orientations the kernel template is instantiated
+    for with ``kind`` (its Kind: 2 K7, 3 K9 qk_only, 4 noexp), as the
+    library reports them."""
+    bits = _build.load_library().tpdm_attention_studies_layouts(kind)
+    return tuple(tuple(bool(i >> (2 - j) & 1) for j in range(3))
+                 for i in range(8) if bits >> i & 1)
+
+
+def _check_layouts(name: str, kind: int, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+    """Raise unless the orientations of q, k and v (transposed: the token
+    axis contiguous) are instantiated for ``kind``."""
+    views = {"q": q, "k": k, "v": v}
+    allowed = _instantiated(kind)
+    got = tuple(t.stride(-1) != 1 for t in views.values())
+    if got not in allowed:
+        label = lambda flags: ", ".join(
+            f"{n}^T" if f else n for n, f in zip(views, flags))
+        raise ValueError(f"{name}: views ({label(got)}) are not instantiated; the kernel takes "
+                         + " or ".join(f"({label(a)})" for a in allowed))
+
+
 def _strides(*views: torch.Tensor, extra=()) -> ctypes.Array:
     vals = [s for t in views for s in t.stride()] + list(extra)
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -268,13 +292,13 @@ def _strides(*views: torch.Tensor, extra=()) -> ctypes.Array:
 def studies_routes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor) -> dict:
     """{"q", "k", "v", "o": "tma", "staged" or "plain"}: the load (o:
-    store) route that K6 (bf16 q, k) or K8 (int8 q, k) takes for these CUDA
-    views, as its launch fixes it: TMA where the view's base is 16-byte
-    aligned and every stride but the contiguous one a multiple of 16 bytes;
-    "staged" for a natural V 65..80 wide whose rows are not (V_ext 65): its
-    raw rows through TMA into a staging buffer, reformatted in shared
-    memory (n_kv a multiple of 8); else the producer's plain loads (K8's
-    q^T always, to transpose it)."""
+    store) route that K6, K7 and K9 (bf16 q, k) or K8 (int8 q, k) take for
+    these CUDA views, as the launch fixes it: TMA where the view's base is
+    16-byte aligned and every stride but the contiguous one a multiple of
+    16 bytes; "staged" for a natural V 65..80 wide whose rows are not
+    (V_ext 65): its raw rows through TMA into a staging buffer, reformatted
+    in shared memory (n_kv a multiple of 8); else the producer's plain
+    loads (K8's q^T always, to transpose it)."""
     b, h, n_q, _ = q.shape
     bits = _build.load_library().tpdm_attention_studies_routes(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, out), b, h,
@@ -362,13 +386,17 @@ def attention_maxfree(
     The studies' rb is a per-row Cauchy-Schwarz bound, |q_i| max_j |k_j|;
     an rb below a row's max overflows, as theirs does.
 
-    CUDA: views as ``attention_strided``, rb any fp32 (b, h, n_q) view,
-    or it raises. CPU: the plain version ``attention_maxfree_reference``.
+    CUDA: bf16 views as ``attention_strided`` takes them, q, k and v with
+    their dim axes contiguous, or with V^T, or with q^T and V^T (the
+    layouts the studies pass), the output either way; rb any fp32
+    (b, h, n_q) view; or it raises. CPU: the plain version
+    ``attention_maxfree_reference``.
     """
     if q.device.type == "cpu":
         return attention_maxfree_reference(q, k, v, rb, kv_len, soft_bf16=soft_bf16, out=out)
     name = "attention_maxfree"
     kv_len, out = _check_operands(name, q, k, v, out, kv_len)
+    _check_layouts(name, 2, q, k, v)
     b, h, n_q, _ = q.shape
     if rb.device != q.device or rb.dtype != torch.float32 or rb.shape != (b, h, n_q):
         raise ValueError(f"{name}: rb must be a ({b}, {h}, {n_q}) float32 tensor on "
@@ -463,8 +491,10 @@ def attention_probe(
     is carried over. qk_only runs every chunk's whole QK^T, as the probe
     did; noexp runs QK^T twice a chunk (its chunk max, then its PV).
 
-    CUDA: views as ``attention_strided``, chunk a positive multiple of 64,
-    v with its ones column (at least 65 wide) for noexp, or it raises.
+    CUDA: bf16 views as ``attention_strided`` takes them, q and v with
+    their dim axes contiguous, k or k^T, the output either way; chunk a
+    positive multiple of 64; v with its ones column (at least 65 wide) for
+    noexp; or it raises.
     CPU: the plain version ``attention_probe_reference``.
     """
     if mode not in _PROBE_MODES:
@@ -475,6 +505,7 @@ def attention_probe(
     if chunk <= 0 or chunk % 64:
         raise ValueError(f"{name}: chunk {chunk} is not a positive multiple of 64")
     _, out = _check_operands(name, q, k, v, out, None)
+    _check_layouts(name, 3 + _PROBE_MODES[mode], q, k, v)
     if mode == "noexp" and v.shape[-1] == _D:
         raise ValueError(f"{name}: noexp divides by V's ones column: v must be at least 65 wide")
     b, h, n_q, _ = q.shape
