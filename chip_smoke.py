@@ -18,7 +18,8 @@ Phases, one line each, and any failure exits non-zero:
    mma.sync;
 3. each kernel against its plain PyTorch version at the main path's
    shapes, with errors and median times (CUDA events): K1, K2 (at the
-   1024 px decode's (1, 1, 16384, 512) and (2, 1, 16384, 512), at 2048 px's
+   1024 px decode's (1, 1, 16384, 512), (2, 1, 16384, 512) and the RLOO
+   reward's (4, 1, 16384, 512), at 2048 px's
    (1, 1, 65536, 512) against the plain version in 4096-row query blocks,
    every 64-column block of O held on its own, and with strongly negative
    scores), and the
@@ -60,7 +61,20 @@ Phases, one line each, and any failure exits non-zero:
    versions swapped in (the K9 noexp probe against its plain version in
    fp64); then each one's median time, each kernel mode's alone with its
    bound, share of the bound and load routes, and K6-K9 beside
-   their plain versions and scaled_dot_product_attention.
+   their plain versions and scaled_dot_product_attention;
+11. RLOO training (tpdm_tpu_torch.train): two updates of RLOOTrainer at
+   the full width of SD3-medium (phase 5's MMDiT and VAE, frozen), a TPM
+   with fp32 parameters computing in bf16, and a random-weight ImageReward
+   (ViT-L + BERT-med, fp32) with a WordPiece vocabulary of the example
+   prompts written to a temporary directory. Each update rolls out 2
+   prompts x rloo_k 2 (CFG batch 8, up to 28 steps, the activations
+   cached), decodes the 4 final latents (K2), scores them, and runs one PPO
+   epoch of 2 micro-batches with gradient accumulation 2 (one Adam step);
+   its metrics, seconds (rollout, reward, PPO), peak memory and K1/K2
+   launches are printed and checked. Then the checkpoint of update 2 is
+   restored against the trained TPM, and update 2's rollout is replayed in
+   the recompute mode (the backbone re-run with K1) against the cached
+   replay.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -79,6 +93,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -140,6 +155,22 @@ TIMED_GEMM = (8192, 1536, 6144)
 # (about 12 % weight error a matmul) and the bit-exact and reference checks
 # hold the kernels and layouts
 QUANT_REL_BOUND = {8: 0.15, 4: 1.0}
+# RLOO training (phase 11): the paper's learning rate; update 1 replays the
+# rollout's own policy, so its ratio is one up to the TPM's bf16 rounding
+# at micro-batch 2 against the rollout's batch 4 (the JAX trainer's own
+# invariant, tests/test_rloo.py:218-224); Adam moves a parameter by at
+# most about lr a step (|m_hat| / sqrt(v_hat) <= 1 up to the bias
+# corrections), so 1.5 lr a step bounds it
+RLOO_LR = 1e-6
+RATIO_TOL = 1e-2
+ADAM_STEP_FACTOR = 1.5
+# recompute replay against cached replay, per valid step: the backbone
+# re-runs at CFG batch 4 where the rollout ran 8, so its bf16 activations
+# could round apart, yet on the H100 both readings so far were 0 (the
+# kernels and GEMMs give batch-independent rows). The bound stays well under
+# the 7e-3 that one Adam step at lr 1e-6 moves the log-probs, so a replay
+# fed the wrong activations cannot pass as one that rounds apart
+RECOMPUTE_LP_TOL = 1e-3
 N_IMG_2048 = 16384  # 2048 px: 256 x 256 latents, 128 x 128 tokens
 N_VAE_2048 = 65536  # 2048 px: the VAE mid block's 256 x 256 tokens
 # the wgmma kernels' instantiations, each by a piece of its mangled name
@@ -264,9 +295,10 @@ def block_error(name, out, ref):
     return share.max().item()
 
 
-def k2_blocked_reference(q, k, v, kv_len=None, rows=4096):
+def blocked_reference(q, k, v, kv_len=None, rows=4096):
     """attention_reference over blocks of ``rows`` query rows (rows are
-    independent), for K2 at 2048 px."""
+    independent), where the whole fp32 score matrix would not fit: K2 at
+    2048 px, K1 at the RLOO rollout's CFG batch."""
     from tpdm_tpu_torch.ops.attention import attention_reference
 
     return torch.cat([attention_reference(q[:, :, i:i + rows], k, v, kv_len)
@@ -356,8 +388,8 @@ def wgmma_phase(lib_path):
 
 def kernel_phase(g, dev, seed):
     """Phase 3: K1 and K2 against their plain versions at the 1024 px
-    path's shapes (K2 also at 2048 px's), with their times, bounds and
-    PyTorch's own call."""
+    path's shapes and the RLOO training's (K2 also at 2048 px's), with
+    their times, bounds and PyTorch's own call."""
     from tpdm_tpu_torch.ops.attention import (
         attention_reference,
         flash_attention,
@@ -389,18 +421,45 @@ def kernel_phase(g, dev, seed):
                 f"scaled_dot_product_attention {k1_lib_ms:.3f} ms, bound {k1_bound:.3f} ms "
                 f"({k1_by})")
     del q, k, v, qn, kn, k_v, v_v
-    # K2 at the decode's shapes: 1024 px at batch 1 (the kernels line) and
-    # 2, and 2048 px, where the plain version runs over 4096-row query
-    # blocks (its fp32 scores would take 17 GB). The last two draw from a
-    # generator of their own, so every later phase keeps the inputs that it
-    # had before they were added
+    # K1 at the RLOO training's shapes: the rollout's CFG batch 8 and the
+    # recompute replay's 4 (2 samples a micro-batch). They draw from a
+    # generator of their own, so every later phase keeps its inputs; the
+    # plain version runs over 1120-row query blocks (its fp32 scores would
+    # take 15 GB at batch 8)
+    k1_train = {}
+    g_k1 = torch.Generator(device=dev).manual_seed(seed + 8)
+    for b in (8, 4):
+        q, k, v = (torch.randn(b, 24, n_joint, 64, generator=g_k1, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        plain = lambda q, k, v, kv_len: blocked_reference(q, k, v, kv_len, rows=1120)
+        err = check_kernel(f"K1 ({b}, 24, {n_joint}, 64)", flash_attention, plain, q, k, v, 4429)
+        ms = median_ms(lambda: flash_attention(q, k, v, 4429))
+        plain_ms = median_ms(lambda: plain(q, k, v, 4429), reps=3)
+        lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k[:, :, :4429],
+                                                                v[:, :, :4429]))
+        bound, by = attention_bound(24 * b, n_joint, n_joint, 64, 4429)
+        phase("K1", f"({b}, 24, {n_joint}, 64) bf16 kv_len 4429: {fmt_err(err)} (bound "
+                    f"{KERNEL_REL_TOL} of max |o|); kernel {ms:.3f} ms, "
+                    f"{4 * 24 * b * n_joint * 4429 * 64 / ms / 1e9:.1f} TFLOP/s, "
+                    f"{100 * bound / ms:.1f} % of bound; plain {plain_ms:.3f} ms (1120-row "
+                    f"query blocks), scaled_dot_product_attention {lib_ms:.3f} ms, bound "
+                    f"{bound:.3f} ms ({by})")
+        k1_train[b] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, library_ms=lib_ms)
+        del q, k, v
+        torch.cuda.empty_cache()
+    # K2 at the decode's shapes: 1024 px at batch 1 (the kernels line), 2
+    # and 4 (the RLOO reward's decode), and 2048 px, where the plain version
+    # runs over 4096-row query blocks (its fp32 scores would take 17 GB).
+    # All but the first draw from a generator of their own, so every later
+    # phase keeps the inputs that it had before they were added
     k2 = {}
     g_k2 = torch.Generator(device=dev).manual_seed(seed + 7)
-    for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048)):
+    for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048), (4, 16384)):
         gen = g if (b, n) == (1, 16384) else g_k2
         q, k, v = (torch.randn(b, 1, n, 512, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
-        plain = attention_reference if n == 16384 else k2_blocked_reference
+        plain = attention_reference if n == 16384 else blocked_reference
         out, ref = flash_attention_streaming(q, k, v), plain(q, k, v)
         torch.cuda.synchronize()
         err = output_error(f"K2 ({b}, 1, {n}, 512)", out, ref)
@@ -434,8 +493,10 @@ def kernel_phase(g, dev, seed):
         torch.cuda.empty_cache()
     return {
         "K1": dict(max_abs_err=max(k1_err[0], k1n_err[0]), ms=k1_ms, plain_ms=k1_plain_ms,
-                   bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib_ms),
-        "K2": dict(**k2[(1, 16384)], batch_2=k2[(2, 16384)], at_2048px=k2[(1, N_VAE_2048)]),
+                   bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib_ms,
+                   batch_8=k1_train[8], batch_4=k1_train[4]),
+        "K2": dict(**k2[(1, 16384)], batch_2=k2[(2, 16384)], at_2048px=k2[(1, N_VAE_2048)],
+                   batch_4=k2[(4, 16384)]),
     }
 
 
@@ -574,7 +635,8 @@ def build_models(dev, seed, mmdit_config):
     with torch.device(dev):
         mmdit = MMDiT(mmdit_config)
         tpm = TimePredictor(conv_out_channels=128, in_channels=3072, temb_dim=1536,
-                            init_alpha=TPM_HEAD_BIAS[0], init_beta=TPM_HEAD_BIAS[1])
+                            init_alpha=TPM_HEAD_BIAS[0], init_beta=TPM_HEAD_BIAS[1],
+                            dtype=torch.bfloat16)
         vae = VAE(VAEConfig.sd3())
     for module in (mmdit, tpm, vae):
         module.init_weights(gen, WEIGHT_STD)
@@ -1395,6 +1457,184 @@ def studies_phase(g, dev):
     return res
 
 
+def write_vocab(path, prompts):
+    """A WordPiece vocab.txt for ``prompts``: BERT's special tokens, their
+    lower-cased words and every ASCII letter, digit and punctuation mark
+    alone and as a "##" piece, so no word of them is unknown."""
+    import string
+
+    from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
+
+    special = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    basic = BertTokenizer({t: i for i, t in enumerate(special)})
+    words = sorted({w for p in prompts for w in basic.basic_tokenize(p)})
+    chars = string.ascii_lowercase + string.digits + string.punctuation
+    vocab = special + [w for w in words if w not in special]
+    vocab += [c for c in chars if c not in words] + ["##" + c for c in chars]
+    Path(path).write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    return len(vocab)
+
+
+class UpdateRecorder:
+    """Timers around the agent's rollout and the reward, and a trainer
+    callback that closes each update: its metrics, seconds (rollout, reward
+    and PPO, each ended by a synchronize), peak memory and the K1/K2
+    launches counted since the previous update. Keeps the last rollout and
+    its batch."""
+
+    def __init__(self, agent, reward_fn, dev):
+        from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+
+        self.dev, self.rows, self.last = dev, [], None
+        self.counters = (flash_attention, flash_attention_streaming)
+        self.seen = [0, 0]
+        self.sample, self.reward = agent.sample, reward_fn
+        agent.sample = self._sample
+        self.reward_fn = self._reward
+
+    def _sample(self, tpm, batch, generator, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.t0 = time.perf_counter()
+        out = self.sample(tpm, batch, generator, **kw)
+        torch.cuda.synchronize()
+        self.t1 = time.perf_counter()
+        self.last = (batch, out)
+        return out
+
+    def _reward(self, prompts, outputs):
+        scores, last = self.reward(prompts, outputs)
+        torch.cuda.synchronize()
+        self.t2 = time.perf_counter()
+        return scores, last
+
+    def on_step_end(self, trainer, update, metrics, eval_state):
+        torch.cuda.synchronize()
+        now = [fn.launches for fn in self.counters]
+        k1, k2 = (n - s for n, s in zip(now, self.seen))
+        self.seen = now
+        self.rows.append(dict(
+            update=update, metrics=metrics, steps=self.last[1].num_steps, k1=k1, k2=k2,
+            rollout_s=self.t1 - self.t0, reward_s=self.t2 - self.t1,
+            ppo_s=time.perf_counter() - self.t2,
+            peak_gib=torch.cuda.max_memory_allocated(self.dev) / 2**30))
+
+
+def rloo_phase(seed, dev):
+    """Phase 11: two RLOO updates at full width; returns the K1 and K2
+    launches of the training run."""
+    from tpdm_tpu_torch.models.mmdit import MMDiTConfig
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+    from tpdm_tpu_torch.rewards import ImageRewardModel
+    from tpdm_tpu_torch.train import RLOOConfig, RLOOTrainer, TPDMAgent
+    from tpdm_tpu_torch.train import checkpoint as ckpt
+    from tpdm_tpu_torch.train.builders import build_image_reward_fn, make_prompt_encoder
+    from tpdm_tpu_torch.train.rloo import subset_inputs, subset_outputs
+    from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
+
+    t0 = time.perf_counter()
+    mmdit, _, vae = build_models(dev, seed, MMDiTConfig.sd3_medium())
+    reward_model = ImageRewardModel.create(seed=seed + 30, device=dev)
+    n_reward = sum(p.numel() for p in reward_model.net.parameters())
+    with open(REPO / "example" / "prompts.jsonl") as f:
+        prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+    with tempfile.TemporaryDirectory() as tmp:
+        n_vocab = write_vocab(Path(tmp) / "vocab.txt", prompts)
+        tokenizer = BertTokenizer.from_pretrained(tmp)
+        config = RLOOConfig(
+            per_device_train_batch_size=2, gradient_accumulation_steps=2, rloo_k=2,
+            num_ppo_epochs=1, num_mini_batches=1, total_episodes=8,
+            max_inference_steps=T_MAX, guidance_scale=7.0, learning_rate=RLOO_LR,
+            kl_coef=0.05, gamma=0.9, save_steps=1, save_total_limit=1,
+            output_dir=str(Path(tmp) / "run"), seed=seed)
+        agent = TPDMAgent(mmdit, config)
+        # the latents of every step too, for the recompute replay below
+        agent.sampler_cfg = dataclasses.replace(agent.sampler_cfg, keep_history=True)
+        recorder = UpdateRecorder(agent, build_image_reward_fn(vae, reward_model, tokenizer),
+                                  dev)
+        trainer = RLOOTrainer(config, agent, recorder.reward_fn,
+                              [{"prompt": p} for p in prompts],
+                              collate_fn=make_prompt_encoder(agent, n_txt=N_CTX, seed=seed),
+                              callbacks=[recorder])
+        tpm = agent.init_tpm_params(torch.Generator(device=dev).manual_seed(seed + 31))
+        p0 = {k: v.clone() for k, v in tpm.state_dict().items()}
+        torch.cuda.synchronize()
+        phase("rloo models", f"SD3-medium MMDiT (frozen) + SD3 VAE decoder bf16, TPM "
+              f"{sum(v.numel() for v in p0.values()) / 1e6:.3f} M params fp32 computing in "
+              f"{tpm.dtype}, ImageReward ViT-L/16 + BERT-med {n_reward / 1e9:.3f} B params fp32, "
+              f"all from seed {seed}; {len(prompts)} prompts, vocab {n_vocab} entries, "
+              f"{trainer.sizes['num_total_batches']} updates of {trainer.sizes['batch_size']} "
+              f"samples; {time.perf_counter() - t0:.1f} s")
+
+        flash_attention.launches = flash_attention_streaming.launches = 0
+        tpm, optimizer = trainer.train(tpm=tpm)
+        launches = flash_attention.launches, flash_attention_streaming.launches
+        keys = ("policy/steps_avg", "objective/scores", "objective/kl", "loss/policy_avg",
+                "policy/grad_norm_avg", "policy/approxkl_avg", "val/ratio", "val/num_skipped")
+        for row in recorder.rows:
+            m = row["metrics"]
+            phase(f"rloo update {row['update']}", ", ".join(f"{k} {m[k]:.6g}" for k in keys)
+                  + f"; rollout {row['steps']} steps {row['rollout_s']:.3f} s, reward (decode + "
+                  f"score) {row['reward_s']:.3f} s, PPO {row['ppo_s']:.3f} s, total "
+                  f"{row['rollout_s'] + row['reward_s'] + row['ppo_s']:.3f} s; peak memory "
+                  f"{row['peak_gib']:.2f} GiB; K1 launches {row['k1']}, K2 launches {row['k2']}")
+            if not all(math.isfinite(v) for v in m.values()):
+                fail(f"update {row['update']} has non-finite metrics: {m}")
+            if m["val/num_skipped"] != 0:
+                fail(f"update {row['update']} skipped a PPO step")
+            if row["k1"] != mmdit.config.num_layers * row["steps"] or row["k2"] != 1:
+                fail(f"update {row['update']}: K1 {row['k1']}, K2 {row['k2']} launches for "
+                     f"{row['steps']} rollout steps and one decode")
+        ratio = recorder.rows[0]["metrics"]["val/ratio"]
+        if not abs(ratio - 1.0) < RATIO_TOL:
+            fail(f"update 1's val/ratio {ratio} is not within {RATIO_TOL} of 1: the replay "
+                 "does not reproduce the rollout's log-probs")
+        moved = max((tpm.state_dict()[k] - v).abs().max().item() for k, v in p0.items())
+        bound = ADAM_STEP_FACTOR * RLOO_LR * optimizer.count
+        phase("rloo params", f"TPM {next(tpm.parameters()).dtype} after {optimizer.count} Adam "
+              f"steps: largest move {moved:.4e} (bound {bound:.4e} = {ADAM_STEP_FACTOR} x lr x "
+              f"steps); update 1 val/ratio {ratio:.6f} (bound |val/ratio - 1| < {RATIO_TOL})")
+        if not 0 < moved <= bound or optimizer.count != 2:
+            fail(f"the TPM moved {moved} in {optimizer.count} Adam steps (bound {bound})")
+        path = ckpt.latest_checkpoint(config.output_dir)
+        if path is None or not path.endswith("checkpoint-2"):
+            fail(f"the last checkpoint is {path}, expected checkpoint-2")
+        saved = ckpt.restore_checkpoint(path)["tpm"]
+        if not all(torch.equal(saved[k].to(dev), v) for k, v in tpm.state_dict().items()):
+            fail(f"{path} does not restore to the trained TPM")
+        phase("rloo checkpoint", f"{Path(path).name} ({sorted(os.listdir(path))}) restores to "
+                                 "the trained TPM bit for bit")
+
+        # update 2's rollout replayed with the trained TPM: the backbone
+        # re-run on the recorded chain (recompute) against the cached
+        # activations, one micro-batch of 2 at a time
+        batch, out = recorder.last
+        rec_agent = TPDMAgent(mmdit, config, replay_mode="recompute")
+        gap = rollout_gap = 0.0
+        flash_attention.launches = 0
+        active = 0
+        for inds in ([0, 1], [2, 3]):
+            mo = subset_outputs(out, inds)
+            valid = ~mo.prob_masks
+            lp_c = agent.logprobs(tpm, mo)
+            lp_r = rec_agent.logprobs(tpm, mo, subset_inputs(batch, inds))
+            gap = max(gap, (lp_r - lp_c)[valid].abs().max().item())
+            rollout_gap = max(rollout_gap, (lp_c - mo.logprobs)[valid].abs().max().item())
+            active += int((~mo.prob_masks).any(dim=0).sum())
+        k1_rec = flash_attention.launches
+        phase("rloo recompute", f"update 2's rollout ({out.num_steps} steps), replayed with the "
+              f"trained TPM: recompute vs cached largest |log-prob gap| {gap:.4e} (bound "
+              f"{RECOMPUTE_LP_TOL}); cached replay vs the rollout's log-probs {rollout_gap:.4e}; "
+              f"K1 launches {k1_rec} ({mmdit.config.num_layers} x {active} active steps)")
+        if not gap < RECOMPUTE_LP_TOL or k1_rec != mmdit.config.num_layers * active:
+            fail(f"recompute replay: log-prob gap {gap} (bound {RECOMPUTE_LP_TOL}), K1 "
+                 f"launches {k1_rec} for {active} active steps")
+    del agent, rec_agent, trainer, recorder, mmdit, vae, reward_model, batch, out, tpm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1445,6 +1685,7 @@ def main() -> int:
         merge_phase(g, dev)  # 8
         k3_total = seq_parallel_phase(args.seed, world)  # 9
         studies = studies_phase(g, dev)  # 10
+        k1_train, k2_train = rloo_phase(args.seed, dev)  # 11
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -1453,9 +1694,10 @@ def main() -> int:
         sites = lambda script, lines: "; ".join(f"experiments/{script}.py:{n}" for n in lines)
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
-             "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total, **kernels["K1"]},
+             "replaces": "tpdm_tpu/ops/attention.py:58", "launches": k1_total + k1_train,
+             **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
-             "replaces": "tpdm_tpu/ops/attention.py:193", "launches": k2_total,
+             "replaces": "tpdm_tpu/ops/attention.py:193", "launches": k2_total + k2_train,
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

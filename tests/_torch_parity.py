@@ -52,6 +52,25 @@ def perturb(variables, seed: int, scale: float = 0.05):
     return {**variables, "params": noisy}
 
 
+def random_variables(init, seed: int, *args, scale: float = 0.05, kernel_std=None):
+    """Variables of the tree that a Flax ``init(key, *args)`` returns, drawn
+    from seeded numpy without compiling the init (``jax.eval_shape`` only
+    traces it): every norm "scale" 1 and every "bias" 0, each plus N(0,
+    scale²) noise as ``perturb`` adds, and every other leaf N(0,
+    kernel_std²), by default N(0, 1/fan_in) with fan_in the product of all
+    but its last dimension (the input side of a Dense or Conv kernel)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name in ("scale", "bias"):
+            return float(name == "scale") + scale * rng.standard_normal(leaf.shape, np.float32)
+        std = kernel_std or 1.0 / np.sqrt(max(1, int(np.prod(leaf.shape[:-1]))))
+        return np.float32(std) * rng.standard_normal(leaf.shape, np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, jax.eval_shape(init, jax.random.PRNGKey(0), *args))
+
+
 def toy_mmdit(seed: int = 0, **cfg_kw):
     """Toy JAX MMDiT, its perturbed variables and the port's copy;
     ``cfg_kw`` overrides fields of both toy configs."""

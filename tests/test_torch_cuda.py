@@ -105,6 +105,13 @@ def _assert_close(out, ref):
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
 
 
+def _blocked_plain(q, k, v, kv_len=None, rows=4096):
+    """attention_reference over blocks of ``rows`` query rows (rows are
+    independent; the whole fp32 score matrix may not fit the card)."""
+    return torch.cat([attention_reference(q[:, :, i:i + rows], k, v, kv_len)
+                      for i in range(0, q.shape[2], rows)], dim=2)
+
+
 @pytest.mark.parametrize(
     "shape,kv_len",
     [
@@ -112,6 +119,8 @@ def _assert_close(out, ref):
         ((1, 2, 333, 437), None),  # ragged on both axes
         ((2, 3, 64, 64), None),  # one tile
         ((1, 1, 200, 256), 1),  # a single valid kv column
+        ((8, 24, 4480, 4480), 4429),  # 1024 px, the RLOO rollout's CFG batch
+        ((4, 24, 4480, 4480), 4429),  # ... the recompute replay's
     ],
 )
 def test_k1_matches_plain(device, shape, kv_len):
@@ -121,7 +130,7 @@ def test_k1_matches_plain(device, shape, kv_len):
     out = flash_attention(q, k, v, kv_len)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    _assert_close(out, attention_reference(q, k, v, kv_len))
+    _assert_close(out, _blocked_plain(q, k, v, kv_len, rows=1120))
 
 
 @pytest.mark.parametrize("n_kv", [64, 128, 129, 256, 4480])
@@ -241,12 +250,6 @@ def _assert_blocks_close(out, ref, tol=RTOL):
     assert (err <= tol * scale).all(), (err / scale).tolist()
 
 
-def _k2_plain(q, k, v, kv_len=None, rows=4096):
-    """attention_reference over blocks of ``rows`` query rows."""
-    return torch.cat([attention_reference(q[:, :, i:i + rows], k, v, kv_len)
-                      for i in range(0, q.shape[2], rows)], dim=2)
-
-
 @pytest.mark.parametrize(
     "shape,kv_len",
     [
@@ -254,6 +257,7 @@ def _k2_plain(q, k, v, kv_len=None, rows=4096):
         ((1, 1, 300, 450), None),
         ((2, 1, 128, 512), 300),
         ((2, 1, 16384, 16384), None),  # ... batch 2
+        ((4, 1, 16384, 16384), None),  # ... batch 4: the RLOO reward's decode
         ((1, 1, 65536, 65536), None),  # 2048 px, the plain version in query blocks
     ],
 )
@@ -264,7 +268,7 @@ def test_k2_matches_plain(device, shape, kv_len):
     out = flash_attention_streaming(q, k, v, kv_len)
     torch.cuda.synchronize()
     assert flash_attention_streaming.launches == before + 1
-    ref = _k2_plain(q, k, v, kv_len)
+    ref = _blocked_plain(q, k, v, kv_len)
     _assert_close(out, ref)
     _assert_blocks_close(out, ref)
 
@@ -336,6 +340,45 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_with_stats(q[..., :32].contiguous(), k[..., :32].contiguous(),
                                    v[..., :32].contiguous())
+
+
+def test_kernels_refuse_operands_that_require_grad(device):
+    """No kernel has a backward: with grad mode on, an operand that requires
+    grad makes every wrapper raise (its output would silently carry no
+    gradient); under torch.no_grad() the same call launches."""
+    q, k, v = _qkv(device, 1, 2, 64, 128, 64, seed=40)
+    q5, k5, v5 = _qkv(device, 1, 1, 64, 128, 512, seed=41)
+    g = torch.Generator(device=device).manual_seed(42)
+    a, b_t = _int8(g, device, 64, 64), _int8(g, device, 32, 64)
+    x_scale, w_scale = torch.ones(64, device=device), torch.ones(32, device=device)
+    abf, bbf = a.to(torch.bfloat16), b_t.to(torch.bfloat16)
+    qi, sq = _quant_rows(q.float())
+    ki, sk = _quant_rows(k)
+    sq, sk = sq[..., 0].contiguous(), sk[..., 0].contiguous()
+    rb = torch.linalg.vector_norm(q.float(), dim=-1) * torch.linalg.vector_norm(
+        k.float(), dim=-1).amax(-1)[..., None]
+    calls = [
+        (flash_attention, lambda x: flash_attention(x, k, v), q),
+        (flash_attention_streaming, lambda x: flash_attention_streaming(q5, k5, x), v5),
+        (flash_attention_with_stats, lambda x: flash_attention_with_stats(q, x, v), k),
+        (int8_gemm, lambda x: int8_gemm(a, b_t, x, w_scale), x_scale),
+        (bf16_gemm, lambda x: bf16_gemm(x, bbf), abf),
+        (attention_strided, lambda x: attention_strided(x, k, v), q),
+        (attention_maxfree, lambda x: attention_maxfree(q, k, v, x), rb),
+        (attention_int8qk, lambda x: attention_int8qk(qi, ki, x, sq, sk), v),
+        (attention_probe, lambda x: attention_probe(q, k, x, "qk_only"), v),
+    ]
+    for wrapper, call, operand in calls:
+        leaf = operand.clone().requires_grad_()
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="no backward.*ROADMAP queue 1, item 9"):
+            call(leaf)
+        assert wrapper.launches == before
+        with torch.no_grad():
+            call(leaf)
+        call(operand)  # an operand without grad launches with grad mode on
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2, wrapper.__name__
 
 
 # (M, K, N): the SD3 1024 px image rows (batch 1, CFG 2) against the qkv/out,

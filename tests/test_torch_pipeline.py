@@ -159,11 +159,12 @@ def test_not_ported_options_raise(world):
 
 
 def test_port_imports_without_jax():
-    """Every tpdm_tpu_torch module imports with JAX, Flax, the JAX
-    package and the JAX study scripts (``experiments``) blocked."""
+    """Every tpdm_tpu_torch module imports with JAX, Flax, optax, PIL, the
+    JAX package and the JAX study scripts (``experiments``) blocked: the card
+    machine has none of them but the scripts."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'flax', 'tpdm_tpu', 'experiments'):\n"
+        "for m in ('jax', 'flax', 'optax', 'PIL', 'tpdm_tpu', 'experiments'):\n"
         "    sys.modules[m] = None\n"
         "import tpdm_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(tpdm_tpu_torch.__path__, 'tpdm_tpu_torch.')]\n"
@@ -177,6 +178,9 @@ def test_port_imports_without_jax():
     names = set(proc.stdout.split())
     assert len(names) >= 18
     assert {"tpdm_tpu_torch.parallel.mesh", "tpdm_tpu_torch.parallel.sp_attention"} <= names
+    assert {f"tpdm_tpu_torch.train.{n}" for n in ("config", "rloo", "checkpoint", "builders")} \
+        | {f"tpdm_tpu_torch.rewards.{n}" for n in ("vit", "bert", "image_reward")} \
+        | {"tpdm_tpu_torch.ops.schedules", "tpdm_tpu_torch.utils.bert_tokenizer"} <= names
     studies = ("attn_variants", "attn_overlap", "attn_layout", "attn_nocopy", "attn_round3",
                "attn_round3b", "attn_round4", "attn_natural_operands", "attn_block_layout",
                "attn_transpose_cost", "attn_kernel_floor")

@@ -4,6 +4,13 @@ Counterpart of ``tpdm_tpu/models/tpm.py``: two 3x3 convs (stride 1, then
 2) with a temb-conditioned single-group GroupNorm between them, adaptive
 average pool to 16x16, global max pool, then a 2-layer MLP whose
 exp() + epsilon output gives Beta parameters (alpha, beta) > epsilon.
+
+As the Flax module, it computes in ``dtype`` whatever its parameters' dtype:
+each forward casts the weights and the input of every conv and linear to
+``dtype``. Training keeps fp32 parameters with a bf16 ``dtype``: at a
+learning rate of 1e-6 an Adam step on bf16 parameters (2^-8 relative)
+would round away. ``torch.autocast`` is not the same: it picks per op
+which ones run in the lower precision.
 """
 
 from __future__ import annotations
@@ -30,16 +37,27 @@ def reshape_tokens_to_2d(
     return x.permute(0, 5, 1, 3, 2, 4).reshape(b, c, height, width)
 
 
-class AdaGroupNormZeroSingle(nn.Module):
-    """GroupNorm(1 group) with temb-conditioned (shift, scale); NCHW."""
+def _linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), m.weight.to(dtype), m.bias.to(dtype))
 
-    def __init__(self, input_dim: int, embedding_dim: int):
+
+def _conv(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.conv2d(x.to(dtype), m.weight.to(dtype), m.bias.to(dtype), m.stride, m.padding)
+
+
+class AdaGroupNormZeroSingle(nn.Module):
+    """GroupNorm(1 group) with temb-conditioned (shift, scale); NCHW. The
+    linear runs in ``dtype``; the norm keeps fp32 statistics and returns
+    its input's dtype."""
+
+    def __init__(self, input_dim: int, embedding_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.linear = nn.Linear(input_dim, 2 * embedding_dim)
         self.norm = GroupNorm(1, embedding_dim)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        shift, scale = self.linear(F.silu(emb)).chunk(2, dim=-1)
+        shift, scale = _linear(self.linear, F.silu(emb), self.dtype).chunk(2, dim=-1)
         return self.norm(x) * (1.0 + scale[:, :, None, None]) + shift[:, :, None, None]
 
 
@@ -47,7 +65,8 @@ class TimePredictor(nn.Module):
     """Predicts Beta(alpha, beta) decay-ratio parameters from activations.
 
     ``param_cap`` (None = exp() as the reference) bounds alpha and beta
-    smoothly at epsilon + param_cap.
+    smoothly at epsilon + param_cap. ``dtype`` is the compute dtype (see the
+    module docstring).
     """
 
     def __init__(
@@ -60,13 +79,15 @@ class TimePredictor(nn.Module):
         init_beta: float = 0.5,
         epsilon: float = 1.0,
         param_cap: Optional[float] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.init_alpha, self.init_beta = init_alpha, init_beta
+        self.dtype = dtype
         self.epsilon = epsilon
         self.param_cap = param_cap
         self.conv1 = nn.Conv2d(in_channels, conv_out_channels, 3, padding=1)
-        self.norm1 = AdaGroupNormZeroSingle(temb_dim, conv_out_channels)
+        self.norm1 = AdaGroupNormZeroSingle(temb_dim, conv_out_channels, dtype)
         self.conv2 = nn.Conv2d(conv_out_channels, conv_out_channels, 3, stride=2, padding=1)
         self.fc1 = nn.Linear(conv_out_channels, 128)
         self.fc2 = nn.Linear(128, projection_dim)
@@ -81,11 +102,12 @@ class TimePredictor(nn.Module):
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         """x: (b, in_channels, H, W); temb: (b, temb_dim). Returns (b, 2)
         fp32 (alpha, beta), each > epsilon."""
-        x = self.conv1(x)
+        dt = self.dtype
+        x = _conv(self.conv1, x, dt)
         x = F.silu(self.norm1(x, temb))
-        x = self.conv2(x)
+        x = _conv(self.conv2, x, dt)
         x = F.adaptive_avg_pool2d(x, (16, 16)).amax(dim=(2, 3))
-        x = self.fc2(F.silu(self.fc1(x))).float()
+        x = _linear(self.fc2, F.silu(_linear(self.fc1, x, dt)), dt).float()
         if self.param_cap is not None:
             cap = float(self.param_cap)
             return self.epsilon + cap * torch.sigmoid(x - math.log(cap))

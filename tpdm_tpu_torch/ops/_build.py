@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdm_tpu_torch"
 SOURCES = ("attn_d512_sm90.cu", "attn_sm90.cu", "gemm_sm90.cu", "attn_studies_sm90.cu")
@@ -136,3 +138,18 @@ def load_library() -> ctypes.CDLL:
     lib.tpdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def refuse_grad(name: str, *operands) -> None:
+    """Raise if autograd would need a gradient through a kernel launch.
+
+    The kernels write into tensors that ctypes knows only as pointers, so
+    their outputs carry no ``grad_fn``: a backward through one would drop
+    the gradient silently. None of them has a backward yet (ROADMAP queue 1,
+    item 9(e)): run them under ``torch.no_grad()`` or on operands that do not
+    require grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, and the CUDA kernel has no backward "
+            "(ROADMAP queue 1, item 9(e): the K1/K2 backward); run it under torch.no_grad()")

@@ -5,8 +5,9 @@ wgmma + TMA kernel of ``csrc/attn_sm90.cu``; K2, a wgmma + TMA kernel of
 its own in ``csrc/attn_d512_sm90.cu``) and their plain PyTorch versions,
 ``attention_reference`` and ``attention_reference_stats``. The wrappers
 dispatch on the tensor's device: a CUDA tensor launches the kernel (or the
-wrapper raises on what the kernel does not take), a CPU tensor runs the
-plain version. There is no flag that picks the plain version on CUDA.
+wrapper raises on what the kernel does not take, operands that require
+grad included: no kernel has a backward), a CPU tensor runs the plain
+version. There is no flag that picks the plain version on CUDA.
 
 Layouts follow the JAX package: q, k, v and the output are (b, h, n, d).
 """
@@ -46,6 +47,7 @@ def attention_reference(
 
 def _check_kernel_operands(name: str, q, k, v, head_dim: int, kv_len) -> int:
     """Validate CUDA operands for a kernel; returns the effective kv_len."""
+    _build.refuse_grad(name, q, k, v)
     for label, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {label} is on {t.device}, expected cuda")
@@ -111,8 +113,9 @@ def flash_attention(
     brings by TMA through a shared-memory ring, 192 query rows a block.
     ``csrc/attn_sm90.cu`` holds the design note.
 
-    CUDA: bf16, contiguous (b, h, n, 64) tensors, or it raises. CPU: the
-    plain version ``attention_reference``.
+    CUDA: bf16, contiguous (b, h, n, 64) tensors, none requiring grad
+    while grad mode is on, or it raises. CPU: the plain version
+    ``attention_reference``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_len)
@@ -141,8 +144,9 @@ def flash_attention_streaming(
     fit one warp group's registers, so two consumer warp groups own 256
     columns each. ``csrc/attn_d512_sm90.cu`` holds the design note.
 
-    CUDA: bf16, contiguous (b, h, n, 512) tensors, 16-byte aligned, or it
-    raises. CPU: the plain version ``attention_reference``.
+    CUDA: bf16, contiguous (b, h, n, 512) tensors, 16-byte aligned, none
+    requiring grad while grad mode is on, or it raises. CPU: the plain
+    version ``attention_reference``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_len)
@@ -218,8 +222,9 @@ def flash_attention_with_stats(
     summed from the fp32 probabilities and reduced over the threads that
     share a row, both written once per row.
 
-    CUDA: bf16, contiguous (b, h, n, 64) tensors and 1 <= kv_len <= n_kv, or
-    it raises. CPU: the plain version ``attention_reference_stats``.
+    CUDA: bf16, contiguous (b, h, n, 64) tensors, none requiring grad while
+    grad mode is on, and 1 <= kv_len <= n_kv, or it raises. CPU: the plain
+    version ``attention_reference_stats``.
     """
     if q.device.type == "cpu":
         return attention_reference_stats(q, k, v, kv_len)

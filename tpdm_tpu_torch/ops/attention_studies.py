@@ -25,8 +25,9 @@ column 64 the denominator (the studies' ones column, zeroed where they
 mask); V's columns past 64 are not read.
 
 The wrappers dispatch on the tensor's device: a CUDA tensor launches the
-kernel (or the wrapper raises on what the kernel does not take), a CPU
-tensor runs the plain version. There is no flag that picks the plain
+kernel (or the wrapper raises on what the kernel does not take, operands
+that require grad included: no kernel has a backward), a CPU tensor runs
+the plain version. There is no flag that picks the plain
 version on CUDA. The plain versions compute the same functions in fp32,
 with p rounded to v's dtype before PV (bf16 on the card) and, in the bf16
 softmax modes, the scores and the softmax's steps rounded to bf16 where
@@ -232,6 +233,7 @@ def _check_view(name: str, label: str, t: torch.Tensor, dtype, dims=(_D,)) -> No
 def _check_operands(name, q, k, v, out, kv_len, qk_dtype=torch.bfloat16,
                     v_dims=tuple(range(_D, _D + 17))):
     """Validate CUDA views; returns (kv_len, the output view)."""
+    _build.refuse_grad(name, q, k, v, out)
     _check_view(name, "q", q, qk_dtype)
     _check_view(name, "k", k, qk_dtype)
     _check_view(name, "v", v, torch.bfloat16, v_dims)
@@ -398,6 +400,7 @@ def attention_maxfree(
     kv_len, out = _check_operands(name, q, k, v, out, kv_len)
     _check_layouts(name, 2, q, k, v)
     b, h, n_q, _ = q.shape
+    _build.refuse_grad(name, rb)
     if rb.device != q.device or rb.dtype != torch.float32 or rb.shape != (b, h, n_q):
         raise ValueError(f"{name}: rb must be a ({b}, {h}, {n_q}) float32 tensor on "
                          f"{q.device}, got {tuple(rb.shape)} {rb.dtype} on {rb.device}")
@@ -451,6 +454,7 @@ def attention_int8qk(
         raise ValueError(f"{name}: k's dim axis must be contiguous (the s8 mma is K-major)")
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
+    _build.refuse_grad(name, sq, sk)
     for label, s, n in (("sq", sq, n_q), ("sk", sk, n_kv)):
         if (s.device != q.device or s.dtype != torch.float32 or s.shape != (b, h, n)
                 or not s.is_contiguous()):

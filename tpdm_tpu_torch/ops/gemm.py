@@ -63,6 +63,7 @@ def bf16_gemm_reference(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 def _check_operands(name: str, a, b_t, dtype: torch.dtype, k_multiple: int):
     """Validate CUDA operands of a GEMM kernel; returns (M, N, K)."""
+    _build.refuse_grad(name, a, b_t)
     for label, t in (("a", a), ("b_t", b_t)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {label} is on {t.device}, expected cuda")
@@ -123,12 +124,14 @@ def int8_gemm(
     ``csrc/gemm_sm90.cu`` holds the design note).
 
     CUDA: contiguous, 16-byte aligned int8 operands with K a multiple of 32,
-    a bf16 bias and a bf16 output (the bf16 model's), or it raises. CPU:
+    a bf16 bias and a bf16 output (the bf16 model's), no scale or bias
+    requiring grad while grad mode is on, or it raises. CPU:
     the plain version ``int8_gemm_reference``, in any ``out_dtype``.
     """
     if a.device.type == "cpu":
         return int8_gemm_reference(a, b_t, x_scale, w_scale, bias, out_dtype)
     name = "int8_gemm"
+    _build.refuse_grad(name, x_scale, w_scale, bias)
     m, n, k = _check_operands(name, a, b_t, torch.int8, 32)
     if (x_scale is None) != (w_scale is None):
         raise ValueError(f"{name}: pass both x_scale and w_scale, or neither")
@@ -168,7 +171,7 @@ def bf16_gemm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     fed by TMA (``csrc/gemm_sm90.cu`` holds the design note).
 
     CUDA: contiguous, 16-byte aligned bf16 operands with K a multiple of 16,
-    or it raises. CPU: the plain version ``bf16_gemm_reference``.
+    neither requiring grad while grad mode is on, or it raises. CPU: the plain version ``bf16_gemm_reference``.
     """
     if a.device.type == "cpu":
         return bf16_gemm_reference(a, b_t)

@@ -40,6 +40,14 @@ class GenerationResult(NamedTuple):
     history_images: Optional[np.ndarray]  # not ported yet: always None
 
 
+def decode_latents(vae: VAE, latents: torch.Tensor) -> torch.Tensor:
+    """Final latents -> the VAE's images in [-1, 1]: z = latents /
+    scaling_factor + shift_factor, decoded in the VAE's dtype (bf16 with K2
+    on the card)."""
+    cfg = vae.config
+    return vae.decode(latents.float() / cfg.scaling_factor + cfg.shift_factor)
+
+
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tpdm_tpu_torch yet (ROADMAP queue 1: {slice_name})"
@@ -77,9 +85,7 @@ class TPDMPipeline:
         self.prediction_type = prediction_type
 
     def _decode_impl(self, latents: torch.Tensor) -> torch.Tensor:
-        cfg = self.vae.config
-        z = latents.float() / cfg.scaling_factor + cfg.shift_factor
-        return self.vae.decode(z)
+        return decode_latents(self.vae, latents)
 
     @torch.no_grad()
     def generate(

@@ -17,9 +17,13 @@ the sigmas and (since the MMDiT's outputs are gathered whole) the latents
 are then the same on every rank, whatever bits the TPM or the Beta draw
 give on each card.
 
+``replay_logprobs`` recomputes the rollout's log-probs from its cached
+activations with the current TPM (the PPO replay): only the TPM runs, and
+it is differentiable with respect to the TPM.
+
 Not ported yet: the Δ-cache (``cache_interval``/``cache_tau``), the
-guidance interval, AB2, the inpainting projection, the host offload,
-``replay_logprobs`` and the fixed-schedule samplers.
+guidance interval, AB2, the inpainting projection, the host offload and
+the fixed-schedule samplers.
 """
 
 from __future__ import annotations
@@ -209,3 +213,52 @@ def adaptive_sample(
         temb_cache=temb_cache,
         history_latents=history,
     )
+
+
+def replay_logprobs(
+    tpm_fn: TpmFn,
+    h_cache: torch.Tensor,  # (T, b, 2*inner, gh, gw)
+    temb_cache: torch.Tensor,  # (T, b, inner)
+    fix_sigmas: torch.Tensor,  # (b, T), the rollout's recorded sigmas
+    cfg: SamplerConfig,
+    init_sigma: Optional[torch.Tensor] = None,  # (b,) rollout starting sigmas
+) -> torch.Tensor:
+    """Per-step log-probs of the recorded ratios under the current TPM.
+
+    Counterpart of ``tpdm_tpu/pipeline/sampler.py:replay_logprobs``: the
+    TPM runs on each step's cached activations and the ratio is rebuilt
+    from the recorded sigma chain. Returns (b, T), INVALID_LOGPROB where a
+    sample was done. Differentiable with respect to the TPM: run it with
+    grad mode on. Steps after the rollout's last carry sigma == 0, which
+    ``replay_step_logprob`` masks without a NaN in the gradient.
+    """
+    b, T = fix_sigmas.shape
+    sigma = (
+        torch.ones(b, dtype=torch.float32, device=fix_sigmas.device)
+        if init_sigma is None
+        else torch.as_tensor(init_sigma, device=fix_sigmas.device).to(torch.float32).reshape(b)
+    )
+    logprobs = []
+    for step in range(T):
+        sigma_next = fix_sigmas[:, step]
+        raw = tpm_fn(h_cache[step], temb_cache[step])
+        logprobs.append(replay_step_logprob(raw, sigma, sigma_next, cfg))
+        sigma = sigma_next
+    return torch.stack(logprobs, dim=1)
+
+
+def replay_step_logprob(raw: torch.Tensor, sigma: torch.Tensor, sigma_next: torch.Tensor,
+                        cfg: SamplerConfig) -> torch.Tensor:
+    """(b,) log-prob of the recorded step sigma -> sigma_next under the TPM
+    output ``raw``, INVALID_LOGPROB where the sample was already done. A
+    done sample's sigma is made safe before the division and the log-prob,
+    since ``torch.where`` alone would let a NaN of the masked branch into
+    the gradient."""
+    alpha, beta = _raw_to_alpha_beta(raw.float(), cfg.prediction_type)
+    done = sigma < cfg.min_sigma
+    safe_sigma = torch.where(done, torch.ones_like(sigma), sigma)
+    ratio = sigma_next / safe_sigma if cfg.relative else sigma - sigma_next
+    ratio = torch.clamp(ratio, cfg.epsilon, 1.0 - cfg.epsilon)
+    ratio = torch.where(done, torch.full_like(ratio, 0.5), ratio)
+    logprob = beta_log_prob(alpha, beta, ratio)
+    return torch.where(done, torch.full_like(logprob, INVALID_LOGPROB), logprob)

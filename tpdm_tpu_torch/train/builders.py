@@ -1,0 +1,118 @@
+"""Component builders for training: agents, rewards and the prompt
+embedder that stands in for the text towers.
+
+Counterpart of ``tpdm_tpu/train/builders.py``'s ``build_toy_agent``,
+``build_toy_reward``, ``build_image_reward_fn`` and
+``make_prompt_encoder``. ``build_toy_agent`` takes ``device`` ("cuda" by
+default, which raises without a card; the tests pass "cpu"); the others
+run where the modules they are given live. Not ported yet: the
+pretrained SD3 agent and the checkpoint loading of the reward and the VAE
+(ROADMAP queue 1, item 7).
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+from typing import Callable
+
+import torch
+
+from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+from tpdm_tpu_torch.models.tpm import TimePredictor
+from tpdm_tpu_torch.models.vae import VAE
+from tpdm_tpu_torch.pipeline.pipeline import decode_latents
+from tpdm_tpu_torch.rewards.image_reward import ImageRewardModel
+from tpdm_tpu_torch.train.config import RLOOConfig
+from tpdm_tpu_torch.train.rloo import TPDMAgent
+from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
+from tpdm_tpu_torch.utils.image import uint8_images
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return device
+
+
+def build_toy_agent(config: RLOOConfig, seed: int = 0, device="cuda") -> TPDMAgent:
+    """Random-weight toy agent (the toy MMDiT, a 4-channel TPM), fp32."""
+    device = _device(device)
+    with torch.device(device):
+        mmdit = MMDiT(MMDiTConfig.toy())
+    mmdit.init_weights(torch.Generator(device=device).manual_seed(seed)).eval()
+    mcfg = mmdit.config
+    tpm = functools.partial(TimePredictor, conv_out_channels=4, in_channels=2 * mcfg.inner_dim,
+                            temb_dim=mcfg.inner_dim, init_alpha=config.init_alpha,
+                            init_beta=config.init_beta)
+    return TPDMAgent(mmdit, config, tpm=tpm)
+
+
+def build_toy_reward() -> Callable:
+    """Deterministic latent-statistic reward: tanh of each sample's mean
+    final latent."""
+
+    def reward_fn(prompts, outputs):
+        s = torch.tanh(outputs.final_latents.float().mean(dim=(1, 2, 3)))
+        return s, s
+
+    return reward_fn
+
+
+def build_image_reward_fn(
+    vae: VAE,
+    reward_model: ImageRewardModel,
+    tokenizer: BertTokenizer,
+    max_length: int = 35,
+) -> Callable:
+    """ImageReward as the trainer's reward: each sample's final latents
+    decoded by ``pipeline.decode_latents`` (the VAE in its own dtype: bf16
+    with K2 on the card), turned into uint8 images on the same device, and
+    scored with the prompts tokenized by ``tokenizer`` at ``max_length``.
+    The whole batch decodes in one call and scores in one call."""
+
+    def reward_fn(prompts, outputs):
+        with torch.no_grad():
+            images = uint8_images(decode_latents(vae, outputs.final_latents))
+        enc = tokenizer(list(prompts), padding="max_length", truncation=True,
+                        max_length=max_length, return_tensors="np")
+        scores = reward_model.score(enc["input_ids"], images,
+                                    text_mask=enc["attention_mask"].astype(bool))
+        return scores, scores
+
+    return reward_fn
+
+
+def _strip_prefix(prompt: str) -> str:
+    """The reference collator drops a leading "The image shows "."""
+    prefix = "The image shows "
+    return prompt[len(prefix):] if prompt.startswith(prefix) else prompt
+
+
+def make_prompt_encoder(agent: TPDMAgent, n_txt: int = 8, seed: int = 1234) -> Callable:
+    """A collate function for toy and random-weight runs without text
+    towers: rows {"prompt": str} -> {"prompt": [...], "prompt_embeds" (b,
+    n_txt, joint_dim), "pooled_prompt_embeds" (b, pooled_dim), and zero
+    negatives}, in the MMDiT's dtype on its device. Every distinct prompt
+    maps to a fixed N(0, 1) embedding, drawn from a ``torch.Generator`` on
+    that device seeded by the md5 digest of "prompt|seed" (stable across
+    processes, unlike ``hash()``). The embeddings differ from the JAX
+    package's, which come from ``jax.random`` under the same digest."""
+    mcfg = agent.mmdit.config
+    device, dtype = agent.device, agent.dtype
+
+    def collate_with_embeds(rows):
+        prompts = [_strip_prefix(r["prompt"]) for r in rows]
+        pe, pp = [], []
+        for p in prompts:
+            digest = hashlib.md5(f"{p}|{seed}".encode()).digest()
+            g = torch.Generator(device=device).manual_seed(int.from_bytes(digest[:4], "little"))
+            pe.append(torch.randn((n_txt, mcfg.joint_attention_dim), generator=g, device=device))
+            pp.append(torch.randn((mcfg.pooled_projection_dim,), generator=g, device=device))
+        pe, pp = torch.stack(pe).to(dtype), torch.stack(pp).to(dtype)
+        return {"prompt": prompts, "prompt_embeds": pe, "pooled_prompt_embeds": pp,
+                "negative_prompt_embeds": torch.zeros_like(pe),
+                "negative_pooled_prompt_embeds": torch.zeros_like(pp)}
+
+    return collate_with_embeds

@@ -6,7 +6,10 @@ maps one to one: ``transformer_blocks_3/attn/to_q/kernel`` becomes
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - Conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
-- GroupNorm / RMSNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
+- GroupNorm / RMSNorm / LayerNorm ``scale`` -> ``weight``; ``bias`` stays
+  ``bias``; Embed ``embedding`` -> ``weight``; a module's own parameters
+  (the ViT's ``cls_token`` and ``pos_embed``, BERT's
+  ``position_embeddings``) keep their names and layouts;
 - a prequantised Dense (``tpdm_tpu/ops/quant.py:prequantize_params``): an
   int8 ``kernel`` -> int8 ``weight`` (out, in); an int4 ``kernel`` ->
   ``weight`` packed two to a byte (uint8 (out, in/2), ``ops/quant.py``);
@@ -32,8 +35,13 @@ import torch
 from tpdm_tpu_torch.ops.quant import pack_int4
 
 # Flax names that index lists of submodules:
-# "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1"
-_INDEXED = re.compile(r"(transformer_blocks|up_blocks|resnets|attentions|upsamplers)_(\d+)_?")
+# "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1"; the ViT's "blocks_3"
+# and BERT's "layer_3" (leftmost match first, so "transformer_blocks_3"
+# stays whole)
+_INDEXED = re.compile(
+    r"(transformer_blocks|up_blocks|resnets|attentions|upsamplers|blocks|layer)_(\d+)_?")
+# parameters that a module declares itself, carried over as they are
+_RAW_LEAVES = ("cls_token", "pos_embed", "position_embeddings")
 
 
 def _leaves(tree: Mapping, prefix: str = ""):
@@ -67,9 +75,9 @@ def _flax_to_state_dict(tree: Mapping, drop_prefixes=()) -> Dict[str, torch.Tens
             leaf, value = "weight", value.transpose(3, 2, 0, 1)
         elif leaf == "kernel_scale":
             leaf = "weight_scale"
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf != "bias" and leaf not in _RAW_LEAVES:
             raise ValueError(f"unexpected Flax parameter {path} {value.shape}")
         mods = [_INDEXED.sub(r"\1.\2.", m).rstrip(".") for m in mods]
         name = ".".join(mods + [leaf])
@@ -97,3 +105,9 @@ def vae_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for ``models.vae.VAE`` (decoder only) from the JAX VAE's
     params; the encoder's parameters are dropped, it is not ported yet."""
     return _flax_to_state_dict(flax_params, drop_prefixes=("encoder/",))
+
+
+def image_reward_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``rewards.image_reward.ImageRewardNet`` from the JAX
+    ``ImageRewardNet``'s params (the ViT, BERT-med and MLP trees)."""
+    return _flax_to_state_dict(flax_params)
