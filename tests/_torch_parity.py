@@ -114,3 +114,38 @@ def toy_vae(latent_channels: int, seed: int = 2):
     tv = VAE(VAEConfig.toy(latent_channels=latent_channels))
     tv.load_state_dict(vae_from_jax(variables))
     return jv, variables, tv.eval()
+
+
+def drawn_models(seed: int = 0, vae: bool = True, tpm: bool = True, **cfg_kw):
+    """The toy JAX MMDiT (``cfg_kw`` overrides fields of both toy configs),
+    TPM and VAE with parameters drawn by ``random_variables`` (no init
+    compile), and the port's copies: a dict of (JAX module, variables,
+    torch module) triples under "mmdit", "tpm" and "vae"."""
+    jm = JMMDiT(JMMDiTConfig.toy(**cfg_kw))
+    c = jm.config
+    mvars = random_variables(
+        jm.init, seed, jnp.zeros((1, c.in_channels, c.sample_size, c.sample_size)),
+        jnp.ones((1,)), jnp.zeros((1, 5, c.joint_attention_dim)),
+        jnp.zeros((1, c.pooled_projection_dim)))
+    cfg = MMDiTConfig.toy(**cfg_kw)
+    tm = MMDiT(cfg)
+    tm.load_state_dict(mmdit_from_jax(mvars, cfg))
+    # the sincos table is a constant, not a parameter: the port's own copy
+    mvars["constants"]["pos_embed"]["pos_embed"] = tm.pos_embed.pos_embed.numpy()
+    out = {"mmdit": (jm, mvars, tm.eval())}
+    if tpm:
+        kw = dict(in_channels=2 * c.inner_dim, temb_dim=c.inner_dim, **TPM_KW)
+        jt = JTimePredictor(**kw)
+        tvars = random_variables(jt.init, seed + 1, jnp.zeros((1, 2 * c.inner_dim, 8, 8)),
+                                 jnp.zeros((1, c.inner_dim)))
+        tt = TimePredictor(**kw)
+        tt.load_state_dict(tpm_from_jax(tvars))
+        out["tpm"] = (jt, tvars, tt.eval())
+    if vae:
+        jv = JVAE(JVAEConfig.toy(latent_channels=c.in_channels))
+        vvars = random_variables(jv.init, seed + 2, jnp.zeros((1, c.in_channels, 8, 8)),
+                                 jnp.zeros((1, 3, 16, 16)))
+        tv = VAE(VAEConfig.toy(latent_channels=c.in_channels))
+        tv.load_state_dict(vae_from_jax(vvars))
+        out["vae"] = (jv, vvars, tv.eval())
+    return out

@@ -121,6 +121,7 @@ def _blocked_plain(q, k, v, kv_len=None, rows=4096):
         ((1, 1, 200, 256), 1),  # a single valid kv column
         ((8, 24, 4480, 4480), 4429),  # 1024 px, the RLOO rollout's CFG batch
         ((4, 24, 4480, 4480), 4429),  # ... the recompute replay's
+        ((1, 24, 4480, 4480), 4429),  # ... a conditional-only step outside a guidance window
     ],
 )
 def test_k1_matches_plain(device, shape, kv_len):
@@ -131,6 +132,39 @@ def test_k1_matches_plain(device, shape, kv_len):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     _assert_close(out, _blocked_plain(q, k, v, kv_len, rows=1120))
+
+
+def test_mmdit_cache_modes_match_cpu_fp32(device):
+    """The Δ-cache forward of a 2-layer SD3-width MMDiT (4 heads of 64, one
+    front block): "record", then "reuse" of its Δ at half the timestep, in
+    bf16 through K1 against the same weights in fp32 on the CPU through
+    the plain version. Velocity, temb, h1 and h2 of both within 5e-2 of
+    their range (bf16 rounding of every activation, chip_smoke.py's module
+    bound); Δ, a difference of two bf16 residual-stream values, is held
+    through the reuse forward that takes it."""
+    from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+
+    cfg = MMDiTConfig.sd3_medium(num_layers=2, num_attention_heads=4, caption_projection_dim=256,
+                                 sample_size=16, cache_front_blocks=1)
+    g = torch.Generator().manual_seed(0)
+    m_cpu = MMDiT(cfg).init_weights(g, 0.02).to(torch.bfloat16).float()
+    m_card = MMDiT(cfg).to(device)
+    m_card.load_state_dict(m_cpu.state_dict())
+    m_card.to(torch.bfloat16)
+    inputs = (torch.randn(2, 16, 16, 16, generator=g), torch.tensor([1000.0, 420.0]),
+              torch.randn(2, 77, 4096, generator=g), torch.randn(2, 2048, generator=g))
+    outs = {}
+    before = flash_attention.launches
+    with torch.no_grad():
+        for name, model, xs in (("cpu", m_cpu, inputs),
+                                ("card", m_card, [x.to(device, torch.bfloat16) for x in inputs])):
+            rec = model(*xs, cache_mode="record")
+            later = (xs[0], xs[1] * 0.5, *xs[2:])
+            outs[name] = (*rec[:4], *model(*later, delta=rec[4], cache_mode="reuse")[:4])
+    assert flash_attention.launches == before + 3  # 2 layers, then 1 front layer
+    for card, cpu in zip(outs["card"], outs["cpu"]):
+        err = (card.float().cpu() - cpu).abs().max() / cpu.abs().max()
+        assert torch.isfinite(card.float()).all() and err < 5e-2
 
 
 @pytest.mark.parametrize("n_kv", [64, 128, 129, 256, 4480])

@@ -151,9 +151,9 @@ def test_generate_options_size_caps_and_raw_latents(world):
 def test_not_ported_options_raise(world):
     _, tpipe, x = world
     args = (t(x["pe"]), t(x["pp"]), t(x["npe"]), t(x["npp"]))
-    for kw in (dict(cache_interval=3), dict(cache_tau=0.1), dict(solver="ab2"),
-               dict(guidance_interval=(0.2, 0.8)), dict(return_full_process_images=True),
-               dict(init_image=np.zeros((2, 16, 16, 3), np.uint8))):
+    for kw in (dict(init_image=np.zeros((2, 16, 16, 3), np.uint8)),
+               dict(mask=np.ones((2, 16, 16), np.float32)),
+               dict(clip_ids=np.zeros((2, 77), np.int32))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.generate(*args, latents=t(x["lat"]), **kw)
 
@@ -180,7 +180,8 @@ def test_port_imports_without_jax():
     assert {"tpdm_tpu_torch.parallel.mesh", "tpdm_tpu_torch.parallel.sp_attention"} <= names
     assert {f"tpdm_tpu_torch.train.{n}" for n in ("config", "rloo", "checkpoint", "builders")} \
         | {f"tpdm_tpu_torch.rewards.{n}" for n in ("vit", "bert", "image_reward")} \
-        | {"tpdm_tpu_torch.ops.schedules", "tpdm_tpu_torch.utils.bert_tokenizer"} <= names
+        | {"tpdm_tpu_torch.ops.schedules", "tpdm_tpu_torch.utils.bert_tokenizer",
+           "tpdm_tpu_torch.ops.flow_solver"} <= names
     studies = ("attn_variants", "attn_overlap", "attn_layout", "attn_nocopy", "attn_round3",
                "attn_round3b", "attn_round4", "attn_natural_operands", "attn_block_layout",
                "attn_transpose_cost", "attn_kernel_floor")

@@ -523,8 +523,8 @@ def test_options_not_ported_raise():
                     (dict(report_to="tensorboard"), NotImplementedError)):
         with pytest.raises(err, match="ROADMAP|CUDA counterpart"):
             RLOOTrainer(dataclasses.replace(cfg, **kw), agent, reward_fn, rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rloo.TPDMAgent(agent.mmdit, dataclasses.replace(cfg, solver="ab2"))
+    with pytest.raises(ValueError, match="'euler' or 'ab2'"):
+        rloo.TPDMAgent(agent.mmdit, dataclasses.replace(cfg, solver="heun"))
 
 
 def test_tpm_bf16_compute_on_fp32_weights_equals_bf16_weights():

@@ -26,9 +26,15 @@ and ``proj_out`` linears stay ``nn.Linear``, as in JAX. Load the float
 weights, then ``prequantize_`` the model once (or load a prequantised
 state dict).
 
-Not ported yet: SD3.5's dual attention and qk RMSNorm, the Δ-cache
-``cache_mode``, the batch axis sharded beside the token axis
-(``seq_batch_axes``), and quantised matmuls under ``seq_group``.
+The Δ-cache (``forward``'s ``cache_mode``, ``MMDiTConfig.
+cache_front_blocks``): a "record" forward also returns the back blocks'
+residual Δ, and a "reuse" forward runs only the front blocks and adds a
+recorded Δ, so it skips the back blocks' work. The parameters are the same
+in every mode.
+
+Not ported yet: SD3.5's dual attention and qk RMSNorm, the batch axis
+sharded beside the token axis (``seq_batch_axes``), quantised matmuls under
+``seq_group`` and the Δ-cache under ``seq_group``.
 """
 
 from __future__ import annotations
@@ -78,6 +84,10 @@ class MMDiTConfig:
     seq_group: Optional[SeqGroup] = None
     quant_matmuls: bool = False  # W8A8-dynamic int8 for the qkv/out/FF matmuls
     quant_bits: int = 8  # 4 = group-int4 weight-only (capacity mode)
+    # Δ-cache (forward's cache_mode): "record" runs every block and returns
+    # Δ = x after all blocks - x after the first cache_front_blocks;
+    # "reuse" runs only those front blocks and adds a recorded Δ
+    cache_front_blocks: int = 4
 
     @property
     def inner_dim(self) -> int:
@@ -267,9 +277,30 @@ class MMDiT(nn.Module):
         timestep: torch.Tensor,  # (b,) continuous, sigma*1000
         encoder_hidden_states: torch.Tensor,  # (b, n_txt, joint_attention_dim)
         pooled_projections: torch.Tensor,  # (b, pooled_projection_dim)
+        delta: Optional[torch.Tensor] = None,  # (b, n_img, inner) cached Δ
+        cache_mode: Optional[str] = None,  # None | "record" | "reuse"
     ):
+        """cache_mode None returns (velocity, temb, h1, h2). "record" and
+        "reuse" return (velocity, temb, h1, h2, delta): "record" runs every
+        block and returns Δ over the back blocks, in the model's dtype;
+        "reuse" runs only the first ``config.cache_front_blocks`` blocks
+        and adds the given Δ in place of the rest. Only the image stream
+        needs a Δ: the text stream feeds nothing after the blocks."""
         cfg = self.config
         group = cfg.seq_group
+        if cache_mode is not None:
+            if cache_mode not in ("record", "reuse"):
+                raise ValueError(f"cache_mode must be None, 'record' or 'reuse'; got {cache_mode!r}")
+            if group is not None:
+                raise NotImplementedError(
+                    "cache_mode with seq_group has no parity check yet (ROADMAP queue 1, "
+                    "item 14(g))")
+            if not 1 <= cfg.cache_front_blocks < cfg.num_layers:
+                raise ValueError(
+                    "cache_front_blocks must be in [1, num_layers): got "
+                    f"{cfg.cache_front_blocks} of {cfg.num_layers}")
+            if cache_mode == "reuse" and delta is None:
+                raise ValueError("cache_mode='reuse' needs a delta")
         b, _, height, width = latents.shape
         p = cfg.patch_size
         x = self.pos_embed(latents)
@@ -283,10 +314,19 @@ class MMDiT(nn.Module):
             shard_valid = shard_valid_counts(n_local, group.size, n_img)
             x = x[:, group.rank * n_local : (group.rank + 1) * n_local]
             x = nn.functional.pad(x, (0, 0, 0, n_local - x.shape[1]))
-        for block in self.transformer_blocks:
+        blocks = self.transformer_blocks
+        if cache_mode == "reuse":
+            blocks = blocks[: cfg.cache_front_blocks]
+        for i, block in enumerate(blocks):
             x, ctx = block(x, ctx, temb, shard_valid)
             if group is not None and group.size > 1 and not block.context_pre_only:
                 dist.broadcast(ctx, src=group.global_rank(0), group=group.group)
+            if cache_mode == "record" and i == cfg.cache_front_blocks - 1:
+                x_front = x
+        if cache_mode == "record":
+            delta = x - x_front
+        elif cache_mode == "reuse":
+            x = x + delta.to(x.dtype)
         x = self.norm_out(x, temb)
         if group is not None:
             parts = [torch.empty_like(x) for _ in range(group.size)]
@@ -298,4 +338,6 @@ class MMDiT(nn.Module):
         gh, gw = height // p, width // p
         x = x.reshape(b, gh, gw, p, p, cfg.out_channels).permute(0, 5, 1, 3, 2, 4)
         velocity = x.reshape(b, cfg.out_channels, gh * p, gw * p)
+        if cache_mode is not None:
+            return velocity, temb, h1, h2, delta
         return velocity, temb, h1, h2

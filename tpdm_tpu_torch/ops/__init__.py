@@ -1,5 +1,5 @@
 """Ops of the port: attention and GEMM kernels and their plain versions,
-quantised dense layers, Beta math, the flow Euler step."""
+quantised dense layers, Beta math, the flow Euler, Heun and AB2 steps."""
 
 from tpdm_tpu_torch.ops.attention import (
     attention_reference,
@@ -10,6 +10,8 @@ from tpdm_tpu_torch.ops.attention import (
     joint_attention,
     merge_attention_shards,
 )
+from tpdm_tpu_torch.ops.flow_euler import flow_euler_step
+from tpdm_tpu_torch.ops.flow_solver import flow_ab2_step, flow_heun_combine
 from tpdm_tpu_torch.ops.gemm import (
     bf16_gemm,
     bf16_gemm_reference,

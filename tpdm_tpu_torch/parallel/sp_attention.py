@@ -23,7 +23,8 @@ would contribute m = -1e30 and l = 0, which leave the merge unchanged
 (the JAX ring's dead-shard guard).
 
 Forward only. ``_ring_backward`` (the JAX package's backward ring) comes
-with the RLOO training slice.
+with the trainers that differentiate through the backbone (ROADMAP queue
+1, item 9(e)).
 """
 
 from __future__ import annotations
@@ -129,7 +130,7 @@ def make_ring_attention(
     if differentiable:
         raise NotImplementedError(
             "the backward ring (_ring_backward) is not ported to tpdm_tpu_torch yet "
-            "(ROADMAP queue 1: RLOO training)"
+            "(ROADMAP queue 1, item 9(e))"
         )
 
     def ring_attention(q, k, v):

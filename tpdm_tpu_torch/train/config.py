@@ -81,8 +81,8 @@ class RLOOConfig:
     min_sigma: float = 0.01  # RLOO wrapper default (modeling_sd3_pnt.py:734)
     guidance_scale: Optional[float] = 7.0
     # Latent integrator for the rollout loop: "euler" (the reference's
-    # rule); the JAX package's "ab2" is not ported yet (ROADMAP queue 1,
-    # item 11) and the agent raises on it.
+    # rule) or "ab2" (two-step Adams–Bashforth at one model evaluation a
+    # step); the replays are the same for both
     solver: str = "euler"
 
     # --- activation-cache placement during PPO replay ---

@@ -50,6 +50,7 @@ from tpdm_tpu_torch.pipeline.sampler import (
     SampleOutput,
     SamplerConfig,
     adaptive_sample,
+    check_adaptive_solver,
     replay_logprobs,
     replay_step_logprob,
 )
@@ -222,6 +223,11 @@ class TPDMAgent:
             a sample a step at 1024 px in bf16) and replays the TPM alone;
             "recompute" keeps the latents of every step and re-runs the
             frozen backbone on the recorded chain before the TPM.
+
+    ``config.solver`` ("euler" or "ab2") is the rollout's integrator. Both
+    replays are solver-agnostic: the cached one rebuilds the ratios from
+    the recorded sigmas, the recompute one re-runs the backbone on the
+    recorded latents.
     """
 
     def __init__(
@@ -233,10 +239,7 @@ class TPDMAgent:
     ):
         if replay_mode not in ("cached", "recompute"):
             raise ValueError(replay_mode)
-        if config.solver != "euler":
-            raise NotImplementedError(
-                f"solver={config.solver!r} is not ported to tpdm_tpu_torch yet "
-                "(ROADMAP queue 1, item 11)")
+        check_adaptive_solver(config.solver)
         self.replay_mode = replay_mode
         self.mmdit = mmdit.requires_grad_(False)
         self.config = config
@@ -262,6 +265,7 @@ class TPDMAgent:
             predict=False,
             cache_activations=(replay_mode == "cached"),
             keep_history=(replay_mode == "recompute"),
+            solver=config.solver,
         )
         self.needs_inputs_for_replay = replay_mode == "recompute"
 
@@ -646,6 +650,13 @@ class RLOOTrainer:
         finally:
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
+            for cb in self.callbacks:
+                close = getattr(cb, "close", None)
+                if close is not None:
+                    try:
+                        close()
+                    except Exception:  # cleanup must not mask a training error
+                        logger.exception("callback close() raised")
         return tpm, optimizer
 
     def _train_loop(self, tpm, optimizer, loader, np_rng, generator, start_update,
