@@ -18,10 +18,11 @@ Phases, one line each, and any failure exits non-zero:
    mma.sync;
 3. each kernel against its plain PyTorch version at the main path's
    shapes, with errors and median times (CUDA events): K1 (at CFG batch
-   2, the RLOO rollout's 8 and replay's 4, and the conditional-only batch
-   1 of a guidance window), K2 (at the
-   1024 px decode's (1, 1, 16384, 512), (2, 1, 16384, 512) and the RLOO
-   reward's (4, 1, 16384, 512), at 2048 px's
+   2, the RLOO rollout's 8 and replay's 4, the conditional-only batch 1 of
+   a guidance window and phase 13's eval batch 20), K2 (at the
+   1024 px decode's (1, 1, 16384, 512), (2, 1, 16384, 512), the RLOO
+   reward's (4, 1, 16384, 512) and phase 13's eval decode's (10, 1, 16384,
+   512) against the plain version in 4096-row query blocks, at 2048 px's
    (1, 1, 65536, 512) against the plain version in 4096-row query blocks,
    every 64-column block of O held on its own, and with strongly negative
    scores), and the
@@ -88,7 +89,20 @@ Phases, one line each, and any failure exits non-zero:
    final latents; generate with ab2, each cache and the window; the
    history images (one decode a step, the last frame equal to the image);
    and the Δ-cache forward (record, then reuse) of phase 4's 2-layer MMDiT
-   on the card against fp32 on the CPU.
+   on the card against fp32 on the CPU;
+13. RLOO training from the command line: tpdm_tpu_torch.train.main.main
+   called in-process three times on phase 11's configuration (its models
+   built once from the seed by this file's cli_* builders, which YAMLs
+   written to a temporary directory name; the dataset YAML is
+   configs/torch/datasets/jsonl_prompts.yaml). Run A trains two updates
+   with TensorBoard, the eval at update 2 (10 prompts, up to 40 steps,
+   their image strip) and the profiler over update 2; it checks
+   metrics.jsonl against the event file, the eval record and PNG, the
+   trace's K1 and K2 kernels, and the K1 and K2 launches, and prints the
+   trace by kernel group. Run B resumes from run A's checkpoint-2 for
+   update 3. Run C runs update 1 again with offload_cache="host": its
+   metrics against run A's (1e-6), and the memory allocated at the reward
+   call against run A's, lower by at least 90 % of the cache moved.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -109,10 +123,12 @@ import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -438,13 +454,14 @@ def kernel_phase(g, dev, seed):
     del q, k, v, qn, kn, k_v, v_v
     # K1 at the RLOO training's shapes: the rollout's CFG batch 8 and the
     # recompute replay's 4 (2 samples a micro-batch); then batch 1, the
-    # conditional-only forward outside a guidance window (phase 12). They
+    # conditional-only forward outside a guidance window (phase 12), and
+    # batch 20, the CFG batch of phase 13's eval of 10 prompts. They
     # draw from a generator of their own, so every later phase keeps its
     # inputs; the plain version runs over 1120-row query blocks (its fp32
     # scores would take 15 GB at batch 8)
     k1_train = {}
     g_k1 = torch.Generator(device=dev).manual_seed(seed + 8)
-    for b in (8, 4, 1):
+    for b in (8, 4, 1, 20):
         q, k, v = (torch.randn(b, 24, n_joint, 64, generator=g_k1, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         plain = lambda q, k, v, kv_len: blocked_reference(q, k, v, kv_len, rows=1120)
@@ -465,23 +482,25 @@ def kernel_phase(g, dev, seed):
         del q, k, v
         torch.cuda.empty_cache()
     # K2 at the decode's shapes: 1024 px at batch 1 (the kernels line), 2
-    # and 4 (the RLOO reward's decode), and 2048 px, where the plain version
-    # runs over 4096-row query blocks (its fp32 scores would take 17 GB).
+    # and 4 (the RLOO reward's decode), 10 (phase 13's eval decode) and
+    # 2048 px; at the last two the plain version runs over 4096-row query
+    # blocks (its fp32 scores would take 11 and 17 GB).
     # All but the first draw from a generator of their own, so every later
     # phase keeps the inputs that it had before they were added
     k2 = {}
     g_k2 = torch.Generator(device=dev).manual_seed(seed + 7)
-    for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048), (4, 16384)):
+    for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048), (4, 16384), (10, 16384)):
         gen = g if (b, n) == (1, 16384) else g_k2
         q, k, v = (torch.randn(b, 1, n, 512, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
-        plain = attention_reference if n == 16384 else blocked_reference
+        whole = n == 16384 and b <= 4  # else the plain version's fp32 scores take 10+ GB
+        plain = attention_reference if whole else blocked_reference
         out, ref = flash_attention_streaming(q, k, v), plain(q, k, v)
         torch.cuda.synchronize()
         err = output_error(f"K2 ({b}, 1, {n}, 512)", out, ref)
         block = block_error(f"K2 ({b}, 1, {n}, 512)", out, ref)
         del out, ref
-        reps = 10 if n == 16384 else 3
+        reps = 10 if whole else 3
         ms = median_ms(lambda: flash_attention_streaming(q, k, v))
         plain_ms = median_ms(lambda: plain(q, k, v), reps=reps)
         lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k, v), reps=reps)
@@ -490,7 +509,7 @@ def kernel_phase(g, dev, seed):
                     f"{block:.3e} of its max |o| (bound {KERNEL_REL_TOL}); kernel {ms:.3f} ms, "
                     f"{4 * b * n * n * 512 / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f} % of "
                     f"bound; plain {plain_ms:.3f} ms"
-                    f"{'' if n == 16384 else ' (4096-row query blocks)'}, "
+                    f"{'' if whole else ' (4096-row query blocks)'}, "
                     f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
         k2[(b, n)] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=by, library_ms=lib_ms)
@@ -510,9 +529,10 @@ def kernel_phase(g, dev, seed):
     return {
         "K1": dict(max_abs_err=max(k1_err[0], k1n_err[0]), ms=k1_ms, plain_ms=k1_plain_ms,
                    bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib_ms,
-                   batch_8=k1_train[8], batch_4=k1_train[4], batch_1=k1_train[1]),
+                   batch_8=k1_train[8], batch_4=k1_train[4], batch_1=k1_train[1],
+                   batch_20=k1_train[20]),
         "K2": dict(**k2[(1, 16384)], batch_2=k2[(2, 16384)], at_2048px=k2[(1, N_VAE_2048)],
-                   batch_4=k2[(4, 16384)]),
+                   batch_4=k2[(4, 16384)], batch_10=k2[(10, 16384)]),
     }
 
 
@@ -1496,37 +1516,57 @@ def write_vocab(path, prompts):
 
 
 class UpdateRecorder:
-    """Timers around the agent's rollout and the reward, and a trainer
+    """Timers around an agent's rollouts and a reward, and a trainer
     callback that closes each update: its metrics, seconds (rollout, reward
-    and PPO, each ended by a synchronize), peak memory and the K1/K2
-    launches counted since the previous update. Keeps the last rollout and
-    its batch."""
+    and PPO, each ended by a synchronize), peak memory, the memory allocated
+    when the reward was called beside the bytes of the rollout's time-major
+    caches (and where they were), and the K1/K2 launches counted since the
+    previous update (the counters zeroed before the first). ``samples``
+    lists every rollout (batch, steps), an eval's too; with ``keep_last``
+    the last rollout and its batch are kept (which keeps its caches
+    alive)."""
 
-    def __init__(self, agent, reward_fn, dev):
+    def __init__(self, dev, keep_last=False):
         from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
 
-        self.dev, self.rows, self.last = dev, [], None
+        self.dev, self.keep_last = dev, keep_last
+        self.rows, self.samples, self.last, self.reward_calls = [], [], None, 0
         self.counters = (flash_attention, flash_attention_streaming)
-        self.seen = [0, 0]
-        self.sample, self.reward = agent.sample, reward_fn
-        agent.sample = self._sample
-        self.reward_fn = self._reward
+        self.seen = [0, 0]  # the caller zeroes the counters before training
 
-    def _sample(self, tpm, batch, generator, **kw):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(self.dev)
-        self.t0 = time.perf_counter()
-        out = self.sample(tpm, batch, generator, **kw)
-        torch.cuda.synchronize()
-        self.t1 = time.perf_counter()
-        self.last = (batch, out)
-        return out
+    def wrap_agent(self, agent):
+        sample = agent.sample
 
-    def _reward(self, prompts, outputs):
-        scores, last = self.reward(prompts, outputs)
-        torch.cuda.synchronize()
-        self.t2 = time.perf_counter()
-        return scores, last
+        def timed_sample(tpm, batch, generator, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            self.t0 = time.perf_counter()
+            out = sample(tpm, batch, generator, **kw)
+            torch.cuda.synchronize()
+            self.t1 = time.perf_counter()
+            self.samples.append((batch["prompt_embeds"].shape[0], out.num_steps))
+            if self.keep_last:
+                self.last = (batch, out)
+            return out
+
+        agent.sample = timed_sample
+        return agent
+
+    def wrap_reward(self, reward_fn):
+        def timed_reward(prompts, outputs):
+            self.reward_calls += 1
+            caches = [v for k, v in outputs._asdict().items()
+                      if k in ("h_cache", "temb_cache", "history_latents") and v is not None]
+            self.at_reward = dict(
+                allocated=torch.cuda.memory_allocated(self.dev),
+                cache_bytes=sum(v.numel() * v.element_size() for v in caches),
+                cache_on=sorted({v.device.type for v in caches}))
+            scores, last = reward_fn(prompts, outputs)
+            torch.cuda.synchronize()
+            self.t2 = time.perf_counter()
+            return scores, last
+
+        return timed_reward
 
     def on_step_end(self, trainer, update, metrics, eval_state):
         torch.cuda.synchronize()
@@ -1534,10 +1574,31 @@ class UpdateRecorder:
         k1, k2 = (n - s for n, s in zip(now, self.seen))
         self.seen = now
         self.rows.append(dict(
-            update=update, metrics=metrics, steps=self.last[1].num_steps, k1=k1, k2=k2,
+            update=update, metrics=metrics, steps=self.samples[-1][1], k1=k1, k2=k2,
             rollout_s=self.t1 - self.t0, reward_s=self.t2 - self.t1,
-            ppo_s=time.perf_counter() - self.t2,
+            ppo_s=time.perf_counter() - self.t2, at_reward=self.at_reward,
             peak_gib=torch.cuda.max_memory_allocated(self.dev) / 2**30))
+
+
+def print_update(label, row, layers):
+    """One UpdateRecorder row: its metrics, seconds, peak memory and K1/K2
+    launches, checked (finite metrics, no skipped step, one K1 a layer a
+    rollout step and one K2 decode)."""
+    keys = ("policy/steps_avg", "objective/scores", "objective/kl", "loss/policy_avg",
+            "policy/grad_norm_avg", "policy/approxkl_avg", "val/ratio", "val/num_skipped")
+    m = row["metrics"]
+    phase(label, ", ".join(f"{k} {m[k]:.6g}" for k in keys)
+          + f"; rollout {row['steps']} steps {row['rollout_s']:.3f} s, reward (decode + score) "
+          f"{row['reward_s']:.3f} s, PPO {row['ppo_s']:.3f} s, total "
+          f"{row['rollout_s'] + row['reward_s'] + row['ppo_s']:.3f} s; peak memory "
+          f"{row['peak_gib']:.2f} GiB; K1 launches {row['k1']}, K2 launches {row['k2']}")
+    if not all(math.isfinite(v) for v in m.values()):
+        fail(f"{label} has non-finite metrics: {m}")
+    if m["val/num_skipped"] != 0:
+        fail(f"{label} skipped a PPO step")
+    if row["k1"] != layers * row["steps"] or row["k2"] != 1:
+        fail(f"{label}: K1 {row['k1']}, K2 {row['k2']} launches for {row['steps']} rollout "
+             "steps and one decode")
 
 
 def rloo_phase(seed, dev):
@@ -1570,9 +1631,11 @@ def rloo_phase(seed, dev):
         agent = TPDMAgent(mmdit, config)
         # the latents of every step too, for the recompute replay below
         agent.sampler_cfg = dataclasses.replace(agent.sampler_cfg, keep_history=True)
-        recorder = UpdateRecorder(agent, build_image_reward_fn(vae, reward_model, tokenizer),
-                                  dev)
-        trainer = RLOOTrainer(config, agent, recorder.reward_fn,
+        recorder = UpdateRecorder(dev, keep_last=True)
+        recorder.wrap_agent(agent)
+        trainer = RLOOTrainer(config, agent,
+                              recorder.wrap_reward(build_image_reward_fn(vae, reward_model,
+                                                                         tokenizer)),
                               [{"prompt": p} for p in prompts],
                               collate_fn=make_prompt_encoder(agent, n_txt=N_CTX, seed=seed),
                               callbacks=[recorder])
@@ -1589,22 +1652,8 @@ def rloo_phase(seed, dev):
         flash_attention.launches = flash_attention_streaming.launches = 0
         tpm, optimizer = trainer.train(tpm=tpm)
         launches = flash_attention.launches, flash_attention_streaming.launches
-        keys = ("policy/steps_avg", "objective/scores", "objective/kl", "loss/policy_avg",
-                "policy/grad_norm_avg", "policy/approxkl_avg", "val/ratio", "val/num_skipped")
         for row in recorder.rows:
-            m = row["metrics"]
-            phase(f"rloo update {row['update']}", ", ".join(f"{k} {m[k]:.6g}" for k in keys)
-                  + f"; rollout {row['steps']} steps {row['rollout_s']:.3f} s, reward (decode + "
-                  f"score) {row['reward_s']:.3f} s, PPO {row['ppo_s']:.3f} s, total "
-                  f"{row['rollout_s'] + row['reward_s'] + row['ppo_s']:.3f} s; peak memory "
-                  f"{row['peak_gib']:.2f} GiB; K1 launches {row['k1']}, K2 launches {row['k2']}")
-            if not all(math.isfinite(v) for v in m.values()):
-                fail(f"update {row['update']} has non-finite metrics: {m}")
-            if m["val/num_skipped"] != 0:
-                fail(f"update {row['update']} skipped a PPO step")
-            if row["k1"] != mmdit.config.num_layers * row["steps"] or row["k2"] != 1:
-                fail(f"update {row['update']}: K1 {row['k1']}, K2 {row['k2']} launches for "
-                     f"{row['steps']} rollout steps and one decode")
+            print_update(f"rloo update {row['update']}", row, mmdit.config.num_layers)
         ratio = recorder.rows[0]["metrics"]["val/ratio"]
         if not abs(ratio - 1.0) < RATIO_TOL:
             fail(f"update 1's val/ratio {ratio} is not within {RATIO_TOL} of 1: the replay "
@@ -1889,6 +1938,290 @@ def fixed_phase(seed, dev, adaptive):
     return tuple(totals)
 
 
+# Phase 13's YAMLs name the builders below (chip_smoke.<name>, resolved by
+# the port's instantiate). The models are built on the first call and shared
+# by the phase's three runs; "recorder" is the UpdateRecorder of the run
+# under way and "decodes" counts the eval's image decodes
+_CLI: dict = {}
+
+
+def _cli_models(seed, dev):
+    """Phase 11's models from ``seed``, built once: the frozen SD3-medium
+    MMDiT and SD3 VAE decoder in bf16, the fp32 ImageReward and a tokenizer
+    over the example prompts' words."""
+    if "models" not in _CLI:
+        from tpdm_tpu_torch.models.mmdit import MMDiTConfig
+        from tpdm_tpu_torch.rewards import ImageRewardModel
+        from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
+
+        mmdit, _, vae = build_models(dev, seed, MMDiTConfig.sd3_medium())
+        reward_model = ImageRewardModel.create(seed=seed + 30, device=dev)
+        with open(REPO / "example" / "prompts.jsonl") as f:
+            prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+        with tempfile.TemporaryDirectory() as tmp:
+            write_vocab(Path(tmp) / "vocab.txt", prompts)
+            tokenizer = BertTokenizer.from_pretrained(tmp)
+        _CLI["models"] = (mmdit, vae, reward_model, tokenizer)
+    return _CLI["models"]
+
+
+def cli_agent(config, device="cuda", seed=0):
+    """The model YAML's builder: a TPDMAgent over the shared MMDiT (its TPM
+    from ``config``: fp32 weights, the paper's head bias, computing in
+    bf16), with a ``decode_fn`` for the eval's images; the current recorder
+    times its rollouts."""
+    from tpdm_tpu_torch.pipeline.pipeline import decode_latents
+    from tpdm_tpu_torch.train import TPDMAgent
+
+    mmdit, vae, _, _ = _cli_models(seed, torch.device(device))
+    agent = TPDMAgent(mmdit, config)
+
+    def decode_fn(latents):
+        _CLI["decodes"] += 1
+        return decode_latents(vae, latents)
+
+    agent.decode_fn = decode_fn
+    return _CLI["recorder"].wrap_agent(agent)
+
+
+def cli_reward(device="cuda", seed=0):
+    """The reward YAML's builder: phase 11's ImageReward over the shared
+    VAE's decode, timed by the current recorder."""
+    from tpdm_tpu_torch.train.builders import build_image_reward_fn
+
+    _, vae, reward_model, tokenizer = _cli_models(seed, torch.device(device))
+    return _CLI["recorder"].wrap_reward(build_image_reward_fn(vae, reward_model, tokenizer))
+
+
+def cli_collator(device="cuda", seed=0):
+    """The collator YAML's builder: phase 11's prompt embedder (333 tokens,
+    bf16, on the card) for the shared MMDiT."""
+    import types
+
+    from tpdm_tpu_torch.train.builders import make_prompt_encoder
+
+    mmdit = _cli_models(seed, torch.device(device))[0]
+    shape = types.SimpleNamespace(mmdit=mmdit, device=next(mmdit.parameters()).device,
+                                  dtype=torch.bfloat16)
+    return make_prompt_encoder(shape, n_txt=N_CTX, seed=seed)
+
+
+def png_shape(path):
+    """(height, width, channels) of an 8-bit PNG of one IDAT chunk, its
+    pixel data inflated and its length checked."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    chunks, pos = {}, 8
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        chunks[data[pos + 4:pos + 8]] = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    channels = {0: 1, 2: 3}[color]
+    if depth != 8 or len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + w * channels):
+        fail(f"{path}: bad pixel data")
+    return h, w, channels
+
+
+def trace_kernels(path):
+    """The device events (kernels, copies, fills) of a Chrome trace: (name,
+    start us, end us)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def cli_phase(seed, dev):
+    """Phase 13: RLOO training through the port's command line, in-process:
+    run A (two updates with the eval, TensorBoard and the profiler), run B
+    (resumed from A for update 3), run C (update 1 again, its cache
+    offloaded to the host). Returns the K1 and K2 launches of the three."""
+    import importlib.util
+
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+    from tpdm_tpu_torch.train import rloo
+    from tpdm_tpu_torch.train.callbacks import EvalVisualizationCallback, ProfilerCallback
+    from tpdm_tpu_torch.train.main import main as train_main
+    from tpdm_tpu_torch.utils.tb_writer import read_scalar_events
+
+    # chip_smoke.<builder> and the profile script's chip_smoke imports
+    # resolve to this module, not to a second copy of it
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_generate", REPO / "scripts" / "profile_torch_generate.py")
+    profile_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile_script)
+
+    t_phase = time.perf_counter()
+    counters = (flash_attention, flash_attention_streaming)
+    totals = [0, 0]
+
+    def run(argv):
+        recorder = UpdateRecorder(dev)
+        _CLI.update(recorder=recorder, decodes=0)
+        for fn in counters:
+            fn.launches = 0
+        with contextlib.chdir(REPO):  # the dataset YAML names example/prompts.jsonl
+            trainer = train_main(argv, callbacks=[recorder])
+        torch.cuda.synchronize()
+        got = [fn.launches for fn in counters]
+        totals[0], totals[1] = totals[0] + got[0], totals[1] + got[1]
+        return trainer, recorder, got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        yamls = {}
+        for name in ("agent", "reward", "collator"):
+            yamls[name] = tmp / f"{name}.yaml"
+            partial = "_partial_: true\n" if name == "agent" else ""
+            yamls[name].write_text(f"_target_: chip_smoke.cli_{name}\n{partial}seed: {seed}\n")
+        common = [
+            "--model_config", str(yamls["agent"]), "--reward_model_config", str(yamls["reward"]),
+            "--train_dataset", str(REPO / "configs" / "torch" / "datasets" / "jsonl_prompts.yaml"),
+            "--data_collator", str(yamls["collator"]),
+            "--per_device_train_batch_size", "2", "--gradient_accumulation_steps", "2",
+            "--rloo_k", "2", "--learning_rate", str(RLOO_LR), "--kl_coef", "0.05",
+            "--gamma", "0.9", "--max_inference_steps", str(T_MAX), "--guidance_scale", "7.0",
+            "--seed", str(seed), "--save_steps", "1", "--logging_steps", "1"]
+        out_a, out_c = tmp / "run_a", tmp / "run_c"
+
+        # run A: two updates, the eval at update 2, TensorBoard, update 2 profiled
+        trainer, rec_a, (k1_a, k2_a) = run(common + [
+            "--output_dir", str(out_a), "--total_episodes", "8", "--eval_steps", "2",
+            "--report_to", "tensorboard", "--profile_updates", "1", "--profile_start", "1"])
+        layers = _CLI["models"][0].config.num_layers
+        phase("cli models", f"phase 11's models from seed {seed}, built in run A; "
+                            f"{trainer.sizes['num_total_batches']} updates of "
+                            f"{trainer.sizes['batch_size']} samples")
+        for row in rec_a.rows:
+            print_update(f"cli A update {row['update']}", row, layers)
+        if [r["update"] for r in rec_a.rows] != [1, 2]:
+            fail(f"run A ran updates {[r['update'] for r in rec_a.rows]}, expected 1 and 2")
+        jsonl = [json.loads(line) for line in (out_a / "metrics.jsonl").read_text().splitlines()]
+        if [r["update"] for r in jsonl] != [1, 2]:
+            fail(f"run A's metrics.jsonl holds updates {[r['update'] for r in jsonl]}")
+        tb_files = sorted((out_a / "tb").glob("events.out.tfevents.*"))
+        events = [e for f in tb_files for e in read_scalar_events(str(f))]
+        for (step, scalars), row in zip(events, jsonl):
+            want = {k: np.float32(v) for k, v in row.items() if k != "update"}
+            if (step != row["update"] or scalars.keys() != want.keys()
+                    or any(np.float32(scalars[k]) != want[k] for k in want)):
+                fail(f"the TensorBoard event of update {step} differs from metrics.jsonl")
+        if len(events) != len(jsonl):
+            fail(f"{len(events)} TensorBoard events for {len(jsonl)} metrics.jsonl rows")
+        phase("cli tensorboard", f"{len(tb_files)} event file(s), {len(events)} events of "
+                                 f"{len(events[0][1])} tags, equal (float32) to metrics.jsonl")
+
+        ev = next(cb for cb in trainer.callbacks if isinstance(cb, EvalVisualizationCallback))
+        eval_b, eval_steps = rec_a.samples[-1]
+        if len(ev.history) != 1 or ev.history[0]["update"] != 2 or eval_b != 10:
+            fail(f"eval history {[r['update'] for r in ev.history]}, last rollout batch {eval_b}")
+        rec = ev.history[0]
+        img_shape = png_shape(out_a / "eval" / "eval_images_2.png")
+        phase("cli eval", f"update 2: {eval_b} prompts (CFG batch {2 * eval_b}), {eval_steps} "
+                          f"steps, NFE {rec['nfe'].tolist()} (mean {rec['nfe'].mean():.2f}), "
+                          f"rewards mean {rec['rewards'].mean():.4f}; image strip "
+                          f"{img_shape}; {rec['seconds']:.3f} s (rollout, reward, decode, PNG)")
+        if (not 1 <= rec["nfe"].min() <= rec["nfe"].max() <= 40
+                or rec["nfe"].max() != eval_steps
+                or rec["rewards"].shape != (eval_b,) or not np.isfinite(rec["rewards"]).all()):
+            fail(f"eval record: nfe {rec['nfe']}, {eval_steps} steps, rewards {rec['rewards']}")
+        if img_shape != (1024, eval_b * 1024, 3):
+            fail(f"the eval's image strip is {img_shape}, expected (1024, {eval_b * 1024}, 3)")
+        want_k1 = layers * (sum(r["steps"] for r in rec_a.rows) + eval_steps)
+        want_k2 = rec_a.reward_calls + _CLI["decodes"]
+        phase("cli launches", f"run A: K1 {k1_a} ({layers} x ({' + '.join(str(r['steps']) for r in rec_a.rows)}"
+                              f" rollout + {eval_steps} eval steps) = {want_k1}), K2 {k2_a} "
+                              f"({rec_a.reward_calls} reward decodes + {_CLI['decodes']} eval "
+                              f"image decode)")
+        if (k1_a, k2_a) != (want_k1, want_k2):
+            fail(f"run A launched K1 {k1_a} and K2 {k2_a} times, expected {want_k1} and {want_k2}")
+
+        prof = next(cb for cb in trainer.callbacks if isinstance(cb, ProfilerCallback))
+        kernels = trace_kernels(prof.trace_path)
+        groups, busy_ms, idle, _ = profile_script.summarise(kernels)
+        k1_trace = groups.get("K1 flash_attn_sm90_kernel<false>", (0.0, 0))[1]
+        k2_trace = groups.get("K2 flash_attn_d512_kernel", (0.0, 0))[1]
+        phase("cli profile", f"{Path(prof.trace_path).name}: {len(kernels)} device events, "
+                             f"{busy_ms:.1f} ms busy, idle share {idle:.4f}; K1 {k1_trace} "
+                             f"launches ({layers} x update 2's {rec_a.rows[1]['steps']} steps), K2 "
+                             f"{k2_trace}")
+        total_ms = sum(ms for ms, _ in groups.values())
+        for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            phase("cli profile", f"| {label} | {ms:.2f} | {100 * ms / total_ms:.2f} % | {n} |")
+        if k1_trace != layers * rec_a.rows[1]["steps"] or k2_trace != 1:
+            fail(f"the trace holds {k1_trace} K1 and {k2_trace} K2 kernels, not update 2's")
+        del trainer, ev, prof, kernels
+        gc.collect()
+
+        # run B: resumed from checkpoint-2 for update 3 alone
+        trainer, rec_b, _ = run(common + [
+            "--output_dir", str(out_a), "--total_episodes", "12", "--report_to", "tensorboard",
+            "--resume_from_checkpoint", "true"])
+        for row in rec_b.rows:
+            print_update(f"cli B update {row['update']}", row, layers)
+        jsonl = [json.loads(line) for line in (out_a / "metrics.jsonl").read_text().splitlines()]
+        if ([r["update"] for r in rec_b.rows] != [3] or [r["update"] for r in jsonl] != [1, 2, 3]
+                or not (out_a / "checkpoint-3").is_dir()):
+            fail(f"run B: updates {[r['update'] for r in rec_b.rows]}, metrics.jsonl "
+                 f"{[r['update'] for r in jsonl]}, checkpoints {sorted(os.listdir(out_a))}")
+        phase("cli resume", f"run B resumed from checkpoint-2: update 3 only; metrics.jsonl "
+                            f"{len(jsonl)} rows; {sorted(p.name for p in out_a.glob('checkpoint-*'))}")
+        del trainer
+        gc.collect()
+
+        # run C: update 1 again with the cache offloaded to the host, the
+        # offload timed on its own (it runs between the rollout and the reward)
+        offload = rloo.offload_outputs_to_host
+
+        def timed_offload(outputs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = offload(outputs)
+            torch.cuda.synchronize()
+            offload_s.append(time.perf_counter() - start)
+            return out
+
+        offload_s = []
+        rloo.offload_outputs_to_host = timed_offload
+        try:
+            trainer, rec_c, _ = run(common + [
+                "--output_dir", str(out_c), "--total_episodes", "4", "--offload_cache", "host"])
+        finally:
+            rloo.offload_outputs_to_host = offload
+        del trainer
+        row_a, row_c = rec_a.rows[0], rec_c.rows[0]
+        print_update("cli C update 1", row_c, layers)
+        ma, mc = row_a["metrics"], row_c["metrics"]
+        rel = max((0.0 if ma[k] == mc[k] else abs(ma[k] - mc[k]) / max(abs(ma[k]), abs(mc[k])))
+                  for k in ma if k != "eps")  # eps: episodes a second
+        at_a, at_c = row_a["at_reward"], row_c["at_reward"]
+        drop = at_a["allocated"] - at_c["allocated"]
+        cache = at_c["cache_bytes"]
+        phase("cli offload", f"update 1 with offload_cache host against run A's: largest "
+                             f"relative metric difference {rel:.3e} (bound 1e-6); at the reward "
+                             f"call {at_a['allocated'] / 2**30:.3f} GiB allocated (cache on "
+                             f"{at_a['cache_on']}) against {at_c['allocated'] / 2**30:.3f} GiB "
+                             f"(cache on {at_c['cache_on']}): {drop / 2**30:.3f} GiB less, the "
+                             f"cache {cache / 2**30:.3f} GiB; peaks {row_a['peak_gib']:.2f} / "
+                             f"{row_c['peak_gib']:.2f} GiB; update 1 {row_a['rollout_s'] + row_a['reward_s'] + row_a['ppo_s']:.3f}"
+                             f" / {row_c['rollout_s'] + row_c['reward_s'] + row_c['ppo_s']:.3f} s, "
+                             f"the offload {offload_s[0]:.3f} s of run C's reward time, PPO "
+                             f"{row_a['ppo_s']:.3f} / {row_c['ppo_s']:.3f} s")
+        if not rel <= 1e-6:
+            fail(f"the offloaded update 1 differs from run A's by {rel:.3e}")
+        if (len(offload_s) != 1 or at_a["cache_on"] != ["cuda"] or at_c["cache_on"] != ["cpu"]
+                or drop < 0.9 * cache):
+            fail(f"{len(offload_s)} offloads freed {drop} bytes of a {cache}-byte cache")
+    _CLI.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("cli phase", f"{time.perf_counter() - t_phase:.1f} s")
+    return tuple(totals)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1941,6 +2274,7 @@ def main() -> int:
         studies = studies_phase(g, dev)  # 10
         k1_train, k2_train = rloo_phase(args.seed, dev)  # 11
         k1_fixed, k2_fixed = fixed_phase(args.seed, dev, adaptive)  # 12
+        k1_cli, k2_cli = cli_phase(args.seed, dev)  # 13
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -1950,11 +2284,11 @@ def main() -> int:
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
-             "launches": k1_total + k1_train + k1_fixed,
+             "launches": k1_total + k1_train + k1_fixed + k1_cli,
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
-             "launches": k2_total + k2_train + k2_fixed,
+             "launches": k2_total + k2_train + k2_fixed + k2_cli,
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

@@ -69,17 +69,21 @@ def group_of(name: str) -> str:
 
 
 def device_table(prof, device_index: int):
-    """(rows by group, device busy ms, idle share, window ms) from the
-    profiler's device events on one card (their times are in us)."""
+    """``summarise`` over the profiler's device events on one card."""
+    return summarise([(ev.name, ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and ev.device_index == device_index])
+
+
+def summarise(events):
+    """(rows by group: (ms, launches), device busy ms, idle share, window
+    ms) from device events (name, start us, end us)."""
     rows, spans = {}, []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.device_index != device_index:
-            continue
-        t0, t1 = ev.time_range.start, ev.time_range.end
+    for name, t0, t1 in events:
         if t1 <= t0:
             continue
         spans.append((t0, t1))
-        label = group_of(ev.name)
+        label = group_of(name)
         ms, n = rows.get(label, (0.0, 0))
         rows[label] = (ms + (t1 - t0) / 1e3, n + 1)
     if not spans:

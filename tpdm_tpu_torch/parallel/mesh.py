@@ -93,3 +93,15 @@ def seq_group(
     if probe.item() != dist.get_world_size(group):
         raise RuntimeError(f"seq_group: all-reduce gave {probe.item()}, not the group's size")
     return SeqGroup(group, dev)
+
+
+def process_index() -> int:
+    """This process's rank in the default group; 0 when torch.distributed
+    is not initialised (the counterpart of ``jax.process_index()``)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The default group's size; 1 when torch.distributed is not initialised
+    (the counterpart of ``jax.process_count()``)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

@@ -31,7 +31,9 @@ activations with the current TPM (the PPO replay): only the TPM runs, and
 it is differentiable with respect to the TPM.
 
 Not ported yet: the inpainting projection (with the VAE encoder, ROADMAP
-queue 1 item 4) and the host offload of the activation cache (item 9(c)).
+queue 1 item 4). The JAX loop's pinned-host XLA placement of the cache
+(``offload_cache``) has no CUDA counterpart: the trainer moves the cache to
+the host after the rollout (``train/rloo.py``, ``offload_cache="host"``).
 """
 
 from __future__ import annotations

@@ -88,11 +88,11 @@ class RLOOConfig:
     # --- activation-cache placement during PPO replay ---
     # The rollout's replay cache (h_cache/temb_cache, ~25 MB a sample a step
     # in bf16) dominates training memory. "none": the cache stays on the
-    # card, the only mode ported. "host" (a device->host copy after the
-    # rollout, micro-batch slices shipped back per PPO step) waits for
-    # ROADMAP queue 1, item 9(c); the JAX package's "xla" (pinned-host XLA
-    # out_shardings) is a TPU workaround with no CUDA counterpart.
-    # RLOOTrainer raises on both.
+    # card. "host": one copy to pinned host memory right after the rollout
+    # (the card's copy freed before the reward's decode), and each PPO
+    # micro-step ships its slice back. The JAX package's "xla" (pinned-host
+    # XLA out_shardings) is a TPU workaround with no CUDA counterpart, and
+    # RLOOTrainer refuses it.
     offload_cache: str = "none"
 
     # --- bookkeeping ---
@@ -104,7 +104,7 @@ class RLOOConfig:
     # Trainer._rotate_checkpoints.
     save_total_limit: Optional[int] = None
     eval_steps: int = 0  # 0 = disabled
-    # "none"; "tensorboard" waits for the callbacks (ROADMAP queue 1, item 9(b))
+    # "none" | "tensorboard" (a TensorBoardCallback writing output_dir/tb)
     report_to: str = "none"
 
     # ------------------------------------------------------------------

@@ -18,9 +18,12 @@ Counterpart of ``tpdm_tpu/train/rloo.py`` on one card:
   parameters, Adam's moments and count, and the accumulator stay as they
   were.
 
-Not ported yet (ROADMAP queue 1, item 9(a)-(d)): ``main_train.py
---backend torch``, the callbacks (TensorBoard, eval, profiler), the "host"
-cache offload and data parallelism (DDP over NCCL).
+- ``offload_cache="host"`` moves the rollout's time-major caches to host
+  memory (pinned) right after the rollout; each PPO micro-step slices them
+  there and moves only its slice back to the card.
+
+The command-line entry point is ``tpdm_tpu_torch/train/main.py``. Not
+ported yet: data parallelism (DDP over NCCL; ROADMAP queue 1, item 9(d)).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from tpdm_tpu_torch.pipeline.sampler import (
     replay_step_logprob,
 )
 from tpdm_tpu_torch.train import checkpoint as ckpt
+from tpdm_tpu_torch.train.callbacks import TensorBoardCallback
 from tpdm_tpu_torch.train.config import RLOOConfig
 
 logger = logging.getLogger(__name__)
@@ -184,15 +188,48 @@ def subset_inputs(data: dict, inds) -> dict:
     return out
 
 
+def _host_rows_to(v: torch.Tensor, inds, device: torch.device) -> torch.Tensor:
+    """``v[:, inds]`` of a time-major cache in host memory, on ``device``:
+    one copy a (step, sample) block, each contiguous on both sides, so a
+    pinned cache goes to the card by DMA without a gather on the host."""
+    out = torch.empty((v.shape[0], len(inds)) + v.shape[2:], dtype=v.dtype, device=device)
+    for j, i in enumerate(np.asarray(inds).tolist()):
+        for step in range(v.shape[0]):
+            out[step, j].copy_(v[step, i], non_blocking=True)
+    return out
+
+
 def subset_outputs(outputs: SampleOutput, inds) -> SampleOutput:
     """Micro-batch view of a rollout: the time-major caches are indexed on
-    axis 1, ``num_steps`` passes through."""
+    axis 1, ``num_steps`` passes through. A cache offloaded to the host
+    (``offload_outputs_to_host``) is sliced there, and only the slice moves
+    to the rollout's device (that of its ``sigmas``)."""
     values = {}
+    device = outputs.sigmas.device
     for name, value in outputs._asdict().items():
         if value is None or name in _SCALAR_FIELDS:
             values[name] = value
+        elif name in _TIME_MAJOR_FIELDS and value.device != device:
+            values[name] = _host_rows_to(value, inds, device)
         else:
             values[name] = _rows(value, inds, 1 if name in _TIME_MAJOR_FIELDS else 0)
+    return type(outputs)(**values)
+
+
+def offload_outputs_to_host(outputs: SampleOutput) -> SampleOutput:
+    """The rollout with its time-major caches in host memory (pinned when
+    they come from a CUDA card, so the micro-batch slices copy back at full
+    rate); the caller's dropping the old record frees their device memory
+    before the reward's decode allocates. The other fields stay where they
+    are."""
+    values = {}
+    for name, value in outputs._asdict().items():
+        if name in _TIME_MAJOR_FIELDS and value is not None and value.device.type != "cpu":
+            host = torch.empty(value.shape, dtype=value.dtype, device="cpu",
+                               pin_memory=value.is_cuda)
+            values[name] = host.copy_(value)
+        else:
+            values[name] = value
     return type(outputs)(**values)
 
 
@@ -495,19 +532,11 @@ class RLOOTrainer:
             raise NotImplementedError(
                 f"world_size={config.world_size}: data parallelism (DDP over NCCL) is not "
                 "ported to tpdm_tpu_torch yet (ROADMAP queue 1, item 9(d))")
-        if config.report_to != "none":
-            raise NotImplementedError(
-                f"report_to={config.report_to!r}: the callbacks are not ported to "
-                "tpdm_tpu_torch yet (ROADMAP queue 1, item 9(b))")
-        if config.offload_cache == "host":
-            raise NotImplementedError(
-                "offload_cache='host' is not ported to tpdm_tpu_torch yet "
-                "(ROADMAP queue 1, item 9(c))")
-        if config.offload_cache != "none":
+        if config.offload_cache not in ("none", "host"):
             raise ValueError(
-                f"offload_cache={config.offload_cache!r}: the port takes 'none' ('xla' is "
-                "the JAX package's pinned-host XLA offload, a TPU workaround with no CUDA "
-                "counterpart)")
+                f"offload_cache={config.offload_cache!r}: the port takes 'none' or 'host' "
+                "('xla' is the JAX package's pinned-host XLA offload, a TPU workaround with "
+                "no CUDA counterpart)")
         if config.ema_decay and not 0.0 < config.ema_decay < 1.0:
             raise ValueError(f"ema_decay={config.ema_decay} must be in (0, 1)")
         self.config = config
@@ -516,6 +545,12 @@ class RLOOTrainer:
         self.dataset = dataset
         self.collate_fn = collate_fn or _default_collate
         self.callbacks = list(callbacks)
+        if config.report_to == "tensorboard":
+            self.callbacks.append(TensorBoardCallback(os.path.join(config.output_dir, "tb")))
+        elif config.report_to != "none":
+            raise ValueError(
+                f"report_to={config.report_to!r} (none|tensorboard; wandb attaches through "
+                "EvalVisualizationCallback when the wandb package is importable)")
         self.sizes = config.derive_batch_sizes(len(dataset))
         self.metrics_history: list[dict] = []
         # the rolling NaN-skip fraction (policy/skip_rate): a collapsed
@@ -669,6 +704,8 @@ class RLOOTrainer:
 
             # ---- experience collection (no grad) ----
             outputs = self.agent.sample(tpm, data, generator)
+            if cfg.offload_cache == "host":
+                outputs = offload_outputs_to_host(outputs)
             scores, last_image_scores = self.reward_fn(data.get("prompt"), outputs)
             dev = outputs.sigmas.device
             scores = discounted_rewards(torch.as_tensor(scores, device=dev).to(torch.float32),

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -57,3 +60,27 @@ def normalize_clip(images: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
     return ((x - mean) / std).permute(0, 3, 1, 2)
+
+
+def write_png(path, image: np.ndarray, level: int = 6) -> None:
+    """uint8 (H, W, 3) RGB or (H, W) grey -> an 8-bit PNG file, written with
+    zlib alone (no imaging library): one IDAT chunk of rows that each start
+    with filter byte 0 (None)."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3) or (
+            image.ndim == 3 and image.shape[2] != 3):
+        raise ValueError(f"write_png takes uint8 (H, W, 3) or (H, W), got {image.dtype} "
+                         f"{image.shape}")
+    h, w = image.shape[:2]
+    rows = image.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    color_type = 2 if image.ndim == 3 else 0
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b""))
