@@ -19,10 +19,12 @@ Phases, one line each, and any failure exits non-zero:
 3. each kernel against its plain PyTorch version at the main path's
    shapes, with errors and median times (CUDA events): K1 (at CFG batch
    2, the RLOO rollout's 8 and replay's 4, the conditional-only batch 1 of
-   a guidance window and phase 13's eval batch 20), K2 (at the
+   a guidance window, phase 13's eval batch 20 and phase 14's 512 px
+   request at CFG batch 4, (4, 24, 1408, 64)), K2 (at the
    1024 px decode's (1, 1, 16384, 512), (2, 1, 16384, 512), the RLOO
-   reward's (4, 1, 16384, 512) and phase 13's eval decode's (10, 1, 16384,
-   512) against the plain version in 4096-row query blocks, at 2048 px's
+   reward's (4, 1, 16384, 512), phase 14's 512 px decode's (2, 1, 4096,
+   512) and phase 13's eval decode's (10, 1, 16384, 512) against the
+   plain version in 4096-row query blocks, at 2048 px's
    (1, 1, 65536, 512) against the plain version in 4096-row query blocks,
    every 64-column block of O held on its own, and with strongly negative
    scores), and the
@@ -102,7 +104,23 @@ Phases, one line each, and any failure exits non-zero:
    trace by kernel group. Run B resumes from run A's checkpoint-2 for
    update 3. Run C runs update 1 again with offload_cache="host": its
    metrics against run A's (1e-6), and the memory allocated at the reward
-   call against run A's, lower by at least 90 % of the cache moved.
+   call against run A's, lower by at least 90 % of the cache moved;
+14. serving text prompts: a 2-layer CLIP-G and T5 at full width on the
+   card in bf16 against fp32 on the CPU; CLIP-L, CLIP-G and T5-XXL in
+   bf16 from the seed beside phase 5's models (rebuilt from the seed),
+   with toy CLIP and T5 vocabularies of the example prompts; generate
+   from token ids against generate from their embeds (equal to the bit);
+   a BatchingEngine (max_batch 2, 25 ms window, 35 steps, 512 px served
+   too) answering two concurrent prompts in one batch, the first again
+   (an embed-cache hit, the same image), steps=5, guidance 4.0 with a
+   negative prompt and a 512 px request, its batch of two against a
+   direct generate on the same latents and embeds (equal to the bit);
+   then tpdm_tpu_torch.serve's HTTP server: POST /generate (its PNG
+   against the engine's image), GET /stats, /metrics and /healthz, POST
+   /rank ranked by a random ImageReward, and a bad request's 400. K1 and
+   K2 launches are checked around every call; tokenize, encode (each
+   tower, the T5-XXL forward's TFLOP/s), request, PNG and round-trip
+   times and the engine's stats() are printed.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -114,6 +132,7 @@ kernels line.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import dataclasses
 import functools
@@ -204,6 +223,12 @@ ADAM_STEP_FACTOR = 1.5
 RECOMPUTE_LP_TOL = 1e-3
 N_IMG_2048 = 16384  # 2048 px: 256 x 256 latents, 128 x 128 tokens
 N_VAE_2048 = 65536  # 2048 px: the VAE mid block's 256 x 256 tokens
+# 512 px (phase 14's engine): 32 x 32 image tokens + 333 text tokens, the
+# joint sequence padded to a multiple of 128; the VAE mid block's 64 x 64
+N_TOK_512 = 1024 + N_CTX
+N_JOINT_512 = N_TOK_512 + (-N_TOK_512 % 128)
+N_VAE_512 = 4096
+SERVE_EXTRA_PX = 512  # phase 14's engine serves this resolution beside 1024 px
 # the wgmma kernels' instantiations, each by a piece of its mangled name
 # (template arguments between I and E: Lb0 / Lb1 kStats off / on; 'a'
 # int8_t, then the epilogue: Li0 bf16 rounding, Li1 dequant, Li2 int32;
@@ -481,19 +506,42 @@ def kernel_phase(g, dev, seed):
                            bound_by=by, library_ms=lib_ms)
         del q, k, v
         torch.cuda.empty_cache()
+    # K1 at phase 14's 512 px request: 1024 image + 333 text tokens padded
+    # to 1408, at the engine's CFG batch 4, from a generator of its own
+    g_512 = torch.Generator(device=dev).manual_seed(seed + 9)
+    q, k, v = (torch.randn(4, 24, N_JOINT_512, 64, generator=g_512, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    err = check_kernel(f"K1 (4, 24, {N_JOINT_512}, 64)", flash_attention, attention_reference,
+                       q, k, v, N_TOK_512)
+    ms = median_ms(lambda: flash_attention(q, k, v, N_TOK_512))
+    plain_ms = median_ms(lambda: attention_reference(q, k, v, N_TOK_512))
+    lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k[:, :, :N_TOK_512],
+                                                            v[:, :, :N_TOK_512]))
+    bound, by = attention_bound(96, N_JOINT_512, N_JOINT_512, 64, N_TOK_512)
+    phase("K1", f"(4, 24, {N_JOINT_512}, 64) bf16 kv_len {N_TOK_512} (512 px, CFG batch 4): "
+                f"{fmt_err(err)} (bound {KERNEL_REL_TOL} of max |o|); kernel {ms:.3f} ms, "
+                f"{4 * 96 * N_JOINT_512 * N_TOK_512 * 64 / ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * bound / ms:.1f} % of bound; plain {plain_ms:.3f} ms, "
+                f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+    k1_train["512px"] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=lib_ms)
+    del q, k, v
     # K2 at the decode's shapes: 1024 px at batch 1 (the kernels line), 2
-    # and 4 (the RLOO reward's decode), 10 (phase 13's eval decode) and
-    # 2048 px; at the last two the plain version runs over 4096-row query
-    # blocks (its fp32 scores would take 11 and 17 GB).
+    # and 4 (the RLOO reward's decode), 10 (phase 13's eval decode),
+    # 2048 px, and 512 px at batch 2 (phase 14's engine); at 2048 px and
+    # batch 10 the plain version runs over 4096-row query blocks (its fp32
+    # scores would take 11 and 17 GB).
     # All but the first draw from a generator of their own, so every later
     # phase keeps the inputs that it had before they were added
     k2 = {}
     g_k2 = torch.Generator(device=dev).manual_seed(seed + 7)
-    for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048), (4, 16384), (10, 16384)):
+    for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048), (4, 16384), (10, 16384),
+                 (2, N_VAE_512)):
         gen = g if (b, n) == (1, 16384) else g_k2
         q, k, v = (torch.randn(b, 1, n, 512, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
-        whole = n == 16384 and b <= 4  # else the plain version's fp32 scores take 10+ GB
+        # else the plain version's fp32 scores take 10+ GB
+        whole = (n == 16384 and b <= 4) or n == N_VAE_512
         plain = attention_reference if whole else blocked_reference
         out, ref = flash_attention_streaming(q, k, v), plain(q, k, v)
         torch.cuda.synchronize()
@@ -530,9 +578,10 @@ def kernel_phase(g, dev, seed):
         "K1": dict(max_abs_err=max(k1_err[0], k1n_err[0]), ms=k1_ms, plain_ms=k1_plain_ms,
                    bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib_ms,
                    batch_8=k1_train[8], batch_4=k1_train[4], batch_1=k1_train[1],
-                   batch_20=k1_train[20]),
+                   batch_20=k1_train[20], at_512px=k1_train["512px"]),
         "K2": dict(**k2[(1, 16384)], batch_2=k2[(2, 16384)], at_2048px=k2[(1, N_VAE_2048)],
-                   batch_4=k2[(4, 16384)], batch_10=k2[(10, 16384)]),
+                   batch_4=k2[(4, 16384)], batch_10=k2[(10, 16384)],
+                   at_512px=k2[(2, N_VAE_512)]),
     }
 
 
@@ -2006,12 +2055,12 @@ def cli_collator(device="cuda", seed=0):
     return make_prompt_encoder(shape, n_txt=N_CTX, seed=seed)
 
 
-def png_shape(path):
-    """(height, width, channels) of an 8-bit PNG of one IDAT chunk, its
-    pixel data inflated and its length checked."""
-    data = Path(path).read_bytes()
+def png_pixels(data: bytes, name: str) -> np.ndarray:
+    """The (H, W, channels) uint8 pixels of an 8-bit PNG of one IDAT chunk
+    with filter byte 0 on every row (``utils/image.py:png_bytes``' layout),
+    its length checked."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        fail(f"{path} is not a PNG")
+        fail(f"{name} is not a PNG")
     chunks, pos = {}, 8
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
@@ -2019,9 +2068,18 @@ def png_shape(path):
         pos += 12 + n
     w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
     channels = {0: 1, 2: 3}[color]
-    if depth != 8 or len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + w * channels):
-        fail(f"{path}: bad pixel data")
-    return h, w, channels
+    raw = zlib.decompress(chunks[b"IDAT"])
+    if depth != 8 or len(raw) != h * (1 + w * channels):
+        fail(f"{name}: bad pixel data")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * channels)
+    if rows[:, 0].any():
+        fail(f"{name}: a row with a filter other than None")
+    return rows[:, 1:].reshape(h, w, channels)
+
+
+def png_shape(path):
+    """(height, width, channels) of png_pixels' PNG at ``path``."""
+    return png_pixels(Path(path).read_bytes(), str(path)).shape
 
 
 def trace_kernels(path):
@@ -2222,6 +2280,460 @@ def cli_phase(seed, dev):
     return tuple(totals)
 
 
+def write_clip_vocab(path, prompts):
+    """A CLIP BPE vocabulary (vocab.json, merges.txt) for ``prompts`` in
+    ``path``: every byte symbol alone and with "</w>", the merges that
+    build each of their words whole from left to right, and CLIP's special
+    tokens at their ids, <|startoftext|> 49406 and <|endoftext|> 49407
+    (the ids between them unused). Returns the number of entries."""
+    import html
+
+    from tpdm_tpu_torch.utils import tokenizer as clip_tokenizer
+
+    b2u = clip_tokenizer._bytes_to_unicode()
+    syms = sorted(set(b2u.values()))
+    vocab = {s: i for i, s in enumerate(syms)}
+    vocab.update({s + "</w>": len(syms) + i for i, s in enumerate(syms)})
+    merges = ["#version: 0.2"]
+    for prompt in prompts:
+        text = clip_tokenizer._whitespace_clean(html.unescape(html.unescape(prompt))).lower()
+        for word in clip_tokenizer._PAT.findall(text):
+            pieces = [b2u[b] for b in word.encode("utf-8")]
+            pieces[-1] += "</w>"
+            head = pieces[0]
+            for nxt in pieces[1:]:
+                if head + nxt not in vocab:
+                    vocab[head + nxt] = len(vocab)
+                    merges.append(f"{head} {nxt}")
+                head += nxt
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    Path(path).mkdir(parents=True)
+    (Path(path) / "vocab.json").write_text(json.dumps(vocab), encoding="utf-8")
+    (Path(path) / "merges.txt").write_text("\n".join(merges) + "\n", encoding="utf-8")
+    return len(vocab)
+
+
+def write_t5_vocab(path, prompts):
+    """A T5 Unigram vocabulary for ``prompts`` as ``path``/spiece.model:
+    pad 0, eos 1, unk 2, "▁", every character of their words, and each
+    word after "▁" (scored above its characters). Returns its size."""
+    from tpdm_tpu_torch.utils import t5_tokenizer
+
+    words = sorted({w for p in prompts for w in t5_tokenizer._normalize(p).split()})
+    chars = sorted({c for w in words for c in w})
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -5.0, 1)]
+    pieces += [(c, -10.0, 1) for c in chars] + [("▁" + w, -1.0, 1) for w in words]
+    Path(path).mkdir(parents=True)
+    (Path(path) / "spiece.model").write_bytes(t5_tokenizer.serialize_spm_model(pieces))
+    return len(pieces)
+
+
+def text_reference_phase(seed, dev):
+    """Phase 14, step 1: a 2-layer CLIP-G and a 2-layer T5 at full width,
+    bf16 on the card, against the same (bf16-rounded) weights in fp32 on
+    the CPU. The same weights in bf16 on the CPU give the gap that bf16
+    alone opens, without the card."""
+    from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from tpdm_tpu_torch.models.t5 import T5Config, T5Encoder
+
+    from tpdm_tpu_torch.models.layers import init_weights_by_rank
+
+    cpu_gen = torch.Generator().manual_seed(seed + 42)
+    clip_ids = torch.randint(0, 49406, (2, 77), generator=cpu_gen)
+    clip_ids[0, 30] = 49407  # row 1 has no EOS: pooled at position 0
+    t5_ids = torch.randint(3, 32128, (2, 256), generator=cpu_gen)
+    clip_g = lambda: CLIPTextModel(CLIPTextConfig.sd3_clip_g(num_hidden_layers=2))
+    t5 = lambda: T5Encoder(T5Config.t5_xxl(num_layers=2))
+    errs, cpu_errs = {}, {}
+    # T5 at its own init (q N(0, 1/(d_model d_kv)), ...: scores of order
+    # one), as the tower below; then, reported without a bound, at N(0,
+    # 0.02²) everywhere, where its unscaled scores reach a std of ~13 and a
+    # near-argmax softmax turns bf16's rounding of q and k into a few %
+    for name, make, ids, init in (
+            ("CLIP-G", clip_g, clip_ids, lambda m: m.init_weights(cpu_gen, WEIGHT_STD)),
+            ("T5", t5, t5_ids, lambda m: m.init_weights(cpu_gen)),
+            ("T5 N(0, 0.02^2)", t5, t5_ids,
+             lambda m: init_weights_by_rank(m, cpu_gen, WEIGHT_STD))):
+        m_cpu = init(make()).to(torch.bfloat16).float()
+        with torch.device(dev):
+            m_card = make()
+        m_card.load_state_dict(m_cpu.state_dict())
+        m_card.to(torch.bfloat16)
+        with torch.no_grad():
+            ref, out = m_cpu(ids), m_card(ids.to(dev))
+        if not isinstance(ref, tuple):
+            ref, out = (ref,), (out,)
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            fail(f"the 2-layer {name} gave non-finite values on the card")
+        errs[name] = max(rel_to_range(o.cpu(), r) for o, r in zip(out, ref))
+        del m_card
+        m_cpu.to(torch.bfloat16)
+        with torch.no_grad():
+            out_cpu = m_cpu(ids)
+        if not isinstance(out_cpu, tuple):
+            out_cpu = (out_cpu,)
+        cpu_errs[name] = max(rel_to_range(o.float(), r) for o, r in zip(out_cpu, ref))
+        del m_cpu
+        torch.cuda.empty_cache()
+    phase("serve reference", f"2-layer CLIP-G (1280 wide, 20 heads, 77 tokens; all four "
+          f"outputs, a row without EOS) max rel err {errs['CLIP-G']:.3e}; 2-layer T5 (4096 wide, "
+          f"64 heads, 256 tokens) {errs['T5']:.3e}; card bf16 against CPU fp32 (bound "
+          f"{MODULE_REL_TOL}); T5 with N(0, {WEIGHT_STD}^2) weights everywhere "
+          f"{errs['T5 N(0, 0.02^2)']:.3e} (no bound); the same weights in bf16 on the CPU "
+          f"against CPU fp32: " + ", ".join(f"{k} {v:.3e}" for k, v in cpu_errs.items()))
+    if not max(errs["CLIP-G"], errs["T5"]) < MODULE_REL_TOL:
+        fail("the card's text towers disagree with their CPU fp32 reference")
+
+
+def serve_phase(seed, dev, smi):
+    """Phase 14: text prompts through the port's serving path at full width.
+    The 2-layer reference check; CLIP-L, CLIP-G and T5-XXL in bf16 from the
+    seed beside phase 5's MMDiT, TPM and VAE (rebuilt from the seed, as
+    phase 12 does) and toy tokenizers of the example prompts; generate from
+    ids against generate from embeds; a BatchingEngine (max_batch 2, 25 ms
+    window, 35 steps, 512 px served too) answering concurrent, repeated
+    (embed-cache hit), capped, guided with a negative, and 512 px requests,
+    a batch of two against a direct generate; then the HTTP server's
+    endpoints. K1 and K2 launches are checked around every call. Returns
+    the K1 and K2 launches of the phase."""
+    import http.client
+    import threading
+
+    from tpdm_tpu_torch import serve
+    from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from tpdm_tpu_torch.models.mmdit import MMDiTConfig
+    from tpdm_tpu_torch.models.t5 import T5Config, T5Encoder
+    from tpdm_tpu_torch.models.vae import vae_scale_factor
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+    from tpdm_tpu_torch.pipeline.text_encoding import SD3TextEncoders
+    from tpdm_tpu_torch.rewards import ImageRewardModel
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.train.builders import build_inference_ranker
+    from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
+    from tpdm_tpu_torch.utils.image import png_bytes
+    from tpdm_tpu_torch.utils.t5_tokenizer import T5Tokenizer
+    from tpdm_tpu_torch.utils.tokenizer import CLIPTokenizer
+
+    t_phase = time.perf_counter()
+    text_reference_phase(seed, dev)  # 1
+
+    # 2. the towers, phase 5's models and the tokenizers
+    t0 = time.perf_counter()
+    mmdit, tpm, vae = build_models(dev, seed, MMDiTConfig.sd3_medium())
+    layers = mmdit.config.num_layers
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    towers = {}
+    for name, make in (("CLIP-L", lambda: CLIPTextModel(CLIPTextConfig.sd3_clip_l())),
+                       ("CLIP-G", lambda: CLIPTextModel(CLIPTextConfig.sd3_clip_g())),
+                       ("T5-XXL", lambda: T5Encoder(T5Config.t5_xxl()))):
+        with torch.device(dev):
+            tower = make()
+        # T5 at its own init (text_reference_phase), CLIP at N(0, 0.02²)
+        if name == "T5-XXL":
+            tower.init_weights(gen)
+        else:
+            tower.init_weights(gen, WEIGHT_STD)
+        towers[name] = tower.to(torch.bfloat16)
+        torch.cuda.empty_cache()  # the fp32 draw
+    mcfg = mmdit.config
+    te = SD3TextEncoders(towers["CLIP-L"], towers["CLIP-G"], towers["T5-XXL"],
+                         t5_width=mcfg.joint_attention_dim)
+    pipe = TPDMPipeline(mmdit, tpm, vae, text_encoders=te)
+    factor = vae_scale_factor(vae.config)
+    px = mcfg.sample_size * factor
+    torch.cuda.synchronize()
+    sizes = {name: (sum(p.numel() for p in t.parameters()), module_bytes(t))
+             for name, t in towers.items()}
+    allocated = torch.cuda.memory_allocated(dev)
+    phase("serve models", "; ".join(f"{name} {n / 1e9:.4f} B params, {b / 1e9:.3f} GB bf16"
+                                    for name, (n, b) in sizes.items())
+          + f"; towers {sum(n for n, _ in sizes.values()) / 1e9:.4f} B params, "
+          f"{sum(b for _, b in sizes.values()) / 1e9:.3f} GB; with phase 5's MMDiT, TPM and VAE "
+          f"{allocated / 2**30:.2f} GiB allocated; weights from seed {seed} (CLIP N(0, "
+          f"{WEIGHT_STD}^2), T5 at its own init); {time.perf_counter() - t0:.1f} s")
+
+    with open(REPO / "example" / "prompts.jsonl") as f:
+        prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+    with tempfile.TemporaryDirectory() as tmp:
+        n_clip = write_clip_vocab(Path(tmp) / "clip", prompts)
+        n_t5 = write_t5_vocab(Path(tmp) / "t5", prompts)
+        (Path(tmp) / "bert").mkdir()
+        write_vocab(Path(tmp) / "bert" / "vocab.txt", prompts)
+        clip_tok = CLIPTokenizer.from_pretrained(str(Path(tmp) / "clip"), max_length=77)
+        t5_tok = T5Tokenizer.from_pretrained(str(Path(tmp) / "t5"), max_length=256)
+        bert_tok = BertTokenizer.from_pretrained(str(Path(tmp) / "bert"))
+
+    def tokenize(prompt):
+        return (clip_tok([prompt], max_length=77)["input_ids"],
+                t5_tok([prompt], max_length=256)["input_ids"])
+
+    tok_ms = {}
+    for label in ("first", "again"):  # the CLIP tokenizer caches each word's BPE
+        times = []
+        for p in prompts:
+            start = time.perf_counter()
+            c, t5 = tokenize(p)
+            times.append(1e3 * (time.perf_counter() - start))
+            if c.max() >= 49408 or t5.max() >= 32128 or (c == 49407).sum() < 1:
+                fail(f"tokenize({p!r}): ids out of the vocabulary or no EOS")
+        tok_ms[label] = (float(np.median(times)), max(times))
+    c1, t1 = tokenize(prompts[0])
+    phase("serve tokenize", f"CLIP BPE ({n_clip} entries, 77 ids) + T5 Unigram ({n_t5} pieces, "
+          f"256 ids) of the {len(prompts)} example prompts, on the host: median "
+          f"{tok_ms['first'][0]:.3f} ms (max {tok_ms['first'][1]:.3f}) a prompt, again "
+          f"{tok_ms['again'][0]:.3f} ms; {prompts[0]!r}: {int((c1 != 49407).sum()) + 1} CLIP and "
+          f"{int((t1 != 0).sum())} T5 tokens")
+
+    # the encode at batch 2, towers run: the first call, then warm
+    p1, p2, p3 = prompts[0], prompts[2], prompts[4]
+    ids = [tokenize(p) for p in (p1, p2)]
+    c2, t2 = np.concatenate([c for c, _ in ids]), np.concatenate([t for _, t in ids])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pe, pp = te.encode(c2, t2)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - start)
+    if pe.shape != (2, N_CTX, mcfg.joint_attention_dim) or pp.shape != (
+            2, mcfg.pooled_projection_dim) or not bool(
+            torch.isfinite(pe).all()) or pe.requires_grad:
+        fail(f"encode gave {tuple(pe.shape)} / {tuple(pp.shape)} embeds (finite, no grad?)")
+    encode_ms = median_ms(lambda: te.encode(c2, t2), reps=5)
+    c2_dev = torch.as_tensor(c2, device=dev).long()
+    t2_dev = torch.as_tensor(t2, device=dev).long()
+    with torch.no_grad():
+        tower_ms = {"CLIP-L": median_ms(lambda: te.clip_l(c2_dev), reps=5),
+                    "CLIP-G": median_ms(lambda: te.clip_g(c2_dev), reps=5),
+                    "T5-XXL": median_ms(lambda: te.t5(t2_dev), reps=5)}
+    t5_blocks = sum(p.numel() for n_, p in towers["T5-XXL"].named_parameters()
+                    if n_.startswith("block.") and p.dim() == 2 and "relative" not in n_)
+    t5_flop = 2 * 512 * t5_blocks + 4 * 2 * 64 * 256 * 256 * 64 * 24
+    phase("serve encode", f"batch 2 (prompts 1 and 3), towers run: first call {first_ms:.2f} ms, "
+          f"warm {encode_ms:.3f} ms (median of 5; CLIP-L {tower_ms['CLIP-L']:.3f}, CLIP-G "
+          f"{tower_ms['CLIP-G']:.3f}, T5-XXL {tower_ms['T5-XXL']:.3f} ms, "
+          f"{t5_flop / 1e12:.3f} TFLOP, {t5_flop / tower_ms['T5-XXL'] / 1e9:.1f} TFLOP/s); "
+          f"{smi}")
+
+    # launches: K1 layers x the steps of each generate call (every forward
+    # at CFG batch), K2 one a decode
+    calls = []
+    plain_generate = pipe.generate
+
+    def counted_generate(*a, **kw):
+        res = plain_generate(*a, **kw)
+        calls.append(res.num_steps)
+        return res
+
+    pipe.generate = counted_generate
+    flash_attention.launches = flash_attention_streaming.launches = 0
+
+    def run(label, fn):
+        """fn() timed, the K1 and K2 launches during it checked."""
+        n_calls = len(calls)
+        k1, k2 = flash_attention.launches, flash_attention_streaming.launches
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        steps = calls[n_calls:]
+        got = (flash_attention.launches - k1, flash_attention_streaming.launches - k2)
+        if not steps or got != (layers * sum(steps), len(steps)):
+            fail(f"{label}: K1 {got[0]} and K2 {got[1]} launches over generate calls of "
+                 f"{steps} steps, expected K1 {layers * sum(steps)} and K2 {len(steps)}")
+        return out, seconds, steps, got
+
+    # 3. generate from ids against generate from the same ids' embeds
+    zc, zt = np.zeros_like(c2), np.zeros_like(t2)
+    lat = torch.randn((2, mcfg.in_channels, mcfg.sample_size, mcfg.sample_size),
+                      generator=torch.Generator(device=dev).manual_seed(
+        seed + 41), device=dev, dtype=next(mmdit.parameters()).dtype)
+    torch.cuda.reset_peak_memory_stats(dev)
+    from_ids, s_ids, _, n_ids = run("generate from ids", lambda: pipe.generate(
+        clip_ids=c2, t5_ids=t2, negative_clip_ids=zc, negative_t5_ids=zt, latents=lat,
+        max_inference_steps=T_MAX))
+    npe, npp = te.encode(zc, zt)
+    from_embeds, s_emb, _, _ = run("generate from embeds", lambda: pipe.generate(
+        pe, pp, npe, npp, latents=lat, max_inference_steps=T_MAX))
+    check_schedule(from_ids, 2, px)
+    if not (np.array_equal(from_ids.images, from_embeds.images)
+            and np.array_equal(from_ids.last_valid_index, from_embeds.last_valid_index)):
+        fail("generate(clip_ids=, t5_ids=) differs from generate(prompt_embeds=encode(...))")
+    phase("serve parity", f"generate(clip_ids=, t5_ids=) at batch 2 equals generate on "
+          f"encode()'s embeds to the bit: {from_ids.num_steps} steps, {s_ids:.3f} s from ids "
+          f"(encode included) against {s_emb:.3f} s from embeds; K1 {n_ids[0]}, K2 {n_ids[1]}")
+
+    # 4. the engine
+    engine = BatchingEngine(pipe, tokenize, max_batch=2, window_ms=25, max_steps=35,
+                            resolutions=[SERVE_EXTRA_PX], vae_scale_factor=factor)
+    _, s_warm, steps_warm, _ = run("warmup", engine.warmup)
+    phase("serve warmup", f"BatchingEngine(max_batch=2, window_ms=25, max_steps=35, "
+          f"resolutions=[{SERVE_EXTRA_PX}]).warmup(): {steps_warm[0]} steps, {s_warm:.3f} s")
+    s1, s2, s3 = seed + 51, seed + 52, seed + 53
+    rows = []  # (label, seconds, steps of the engine's generate calls, launches, results)
+
+    def request(label, *submits, via=None):
+        via = via or engine
+        results, seconds, steps, got = run(label, lambda: [
+            r.result(timeout=600) for r in [via.submit(*a, **kw) for a, kw in submits]])
+        for res in results:
+            if res["image"].dtype != np.uint8 or res["image"].ndim != 3:
+                fail(f"{label}: image {res['image'].dtype} {res['image'].shape}")
+        rows.append((label, seconds, steps, got, results))
+        phase(f"serve request {label}", f"{seconds:.3f} s, "
+              f"{[r['inference_steps'] for r in results]} steps a request, {len(steps)} "
+              f"batch(es) of {steps} loop steps, K1 {got[0]}, K2 {got[1]}")
+        return results
+
+    engine.start()
+    try:
+        batches = engine.batches_run
+        ra, rb = request("2 concurrent", ((p1,), dict(seed=s1)), ((p2,), dict(seed=s2)))
+        if engine.batches_run - batches != 1:
+            fail(f"2 concurrent requests ran in {engine.batches_run - batches} batches")
+        hits = engine.embed_hits
+        (rc,) = request("repeat (cache hit)", ((p1,), dict(seed=s1)))
+        if engine.embed_hits - hits != 2 or not np.array_equal(rc["image"], ra["image"]):
+            fail(f"the repeated request: {engine.embed_hits - hits} embed-cache hits, image "
+                 f"equal {np.array_equal(rc['image'], ra['image'])}")
+        (rd,) = request("steps=5", ((p3,), dict(seed=s3, steps=5)))
+        if not 1 <= rd["inference_steps"] <= 5:
+            fail(f"a steps=5 request ran {rd['inference_steps']} steps")
+        negative = "blurry, low quality"
+        (re_,) = request("guidance 4.0 + negative",
+                         ((p1,), dict(seed=s1, guidance_scale=4.0, negative_prompt=negative)))
+        if ("\x00neg", negative) not in engine._embed_cache:
+            fail("the negative prompt's embeds are not in the engine's cache")
+        (rf,) = request(f"{SERVE_EXTRA_PX} px", ((p2,), dict(seed=s2, resolution=SERVE_EXTRA_PX)))
+        if rf["image"].shape != (SERVE_EXTRA_PX, SERVE_EXTRA_PX, 3):
+            fail(f"the {SERVE_EXTRA_PX} px request gave {rf['image'].shape}")
+    finally:
+        engine.stop()
+    stats = engine.stats()
+    stage = list(engine._stage_times)
+    # split_stages: the decode runs on the worker thread outside generate,
+    # K2 still once a batch; the batch of two equal to the fused engine's
+    split_engine = BatchingEngine(pipe, tokenize, max_batch=2, window_ms=25, max_steps=35,
+                                  split_stages=True)
+    split_engine.start()
+    try:
+        rg, rh = request("2 concurrent, split_stages", ((p1,), dict(seed=s1)),
+                         ((p2,), dict(seed=s2)), via=split_engine)
+    finally:
+        split_engine.stop()
+    split_stats = split_engine.stats()
+    if not (np.array_equal(rg["image"], ra["image"]) and np.array_equal(rh["image"], rb["image"])):
+        fail("the split_stages engine's batch of two differs from the fused engine's")
+    phase("serve split_stages", f"the batch of two equal to the bit to the fused engine's; "
+          f"denoise_s_p50 {split_stats['denoise_s_p50']:.4f}, decode_s_p50 "
+          f"{split_stats['decode_s_p50']:.4f}")
+
+    # the engine's batch of two against a direct generate on its latents
+    # and embeds (the negative the towers on zero ids at batch 1)
+    ne1, npp1 = te.encode(zc[:1], zt[:1])
+    direct, s_direct, _, _ = run("direct generate", lambda: pipe.generate(
+        pe, pp, ne1.expand(2, -1, -1), npp1.expand(2, -1),
+        latents=engine._latents([s1, s2], mcfg.sample_size), max_inference_steps=35,
+        guidance_scale=np.full(2, 7.0, np.float32), step_caps=np.full(2, 35, np.int32)))
+    for res, img in zip((ra, rb), direct.images):
+        if not np.array_equal(res["image"], img):
+            fail("the engine's batch of two differs from a direct generate on its latents "
+                 "and embeds")
+    # the guided request against a direct generate on the engine's cached
+    # rows of its prompt and negative, at guidance 4.0
+    cache = engine._embed_cache
+    row, neg_row = cache[p1], cache[("\x00neg", negative)]
+    pair = lambda t: torch.stack([t, t])
+    guided, s_guided, _, _ = run("direct guided generate", lambda: pipe.generate(
+        pair(row[0]), pair(row[1]), pair(neg_row[0]), pair(neg_row[1]),
+        latents=engine._latents([s1, s1], mcfg.sample_size), max_inference_steps=35,
+        guidance_scale=np.full(2, 4.0, np.float32), step_caps=np.full(2, 35, np.int32)))
+    if not np.array_equal(re_["image"], guided.images[0]):
+        fail("the guided request with a negative prompt differs from a direct generate at "
+             "guidance 4.0 on its prompt's and negative's embeds")
+    moved = np.abs(re_["image"].astype(np.int16) - ra["image"].astype(np.int16))
+    solo, s_solo, _, _ = run("batch 1", lambda: serve.generate(pipe, tokenize, p1, s1, 35))
+    gap = np.abs(solo.images[0].astype(np.int16) - ra["image"].astype(np.int16))
+    phase("serve batch of two", f"equal to the bit to a direct generate on its latents and "
+          f"embeds ({s_direct:.3f} s); the guided request with a negative equal to the bit to "
+          f"a direct generate at guidance 4.0 on the cached rows ({s_guided:.3f} s), against "
+          f"the default request's image max |diff| {int(moved.max())} levels, "
+          f"{100 * (moved > 0).mean():.3f} % of pixels; prompt 1 at batch 1 through serve.generate (the --cli "
+          f"path, {int(solo.last_valid_index[0]) + 1} steps, {s_solo:.3f} s) against the engine's "
+          f"batch of two: max |diff| {int(gap.max())} levels, {100 * (gap > 0).mean():.3f} % "
+          f"of pixels differ (no bound: another batch shape)")
+    phase("serve stats", ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in stats.items())
+        + f"; encode s (miss, hit) {stage[0].get('encode_s', 0):.4f}, "
+          f"{stage[1].get('encode_s', 0):.4f}")
+
+    # 5. HTTP
+    reward_model = ImageRewardModel.create(seed=seed + 30, device=dev)
+    ranker = build_inference_ranker(reward_model=reward_model, tokenizer=bert_tok)
+    args = argparse.Namespace(max_steps=35, max_batch=2, batch_window_ms=25.0, prompt=p1,
+                              seed=s1, port=0, max_rank_n=4)
+    h_engine, server = serve.make_http_server(pipe, tokenize, args, ranker=ranker)
+    h_engine.start()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=600)
+        try:
+            conn.request(method, path, body=None if body is None else json.dumps(body))
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    try:
+        (status, body), s_http, _, n_http = run(
+            "POST /generate", lambda: call("POST", "/generate", {"prompt": p1, "seed": s1}))
+        if status != 200:
+            fail(f"POST /generate: {status} {body[:200]}")
+        reply = json.loads(body)
+        png = base64.b64decode(reply["image_png_base64"])
+        if not np.array_equal(png_pixels(png, "/generate's PNG"), ra["image"]):
+            fail("/generate's PNG differs from the engine's image of the same request")
+        png_s = []
+        for _ in range(3):
+            start = time.perf_counter()
+            png_bytes(ra["image"])
+            png_s.append(time.perf_counter() - start)
+        png_ms = 1e3 * min(png_s)
+        gets = {path: call("GET", path) for path in ("/stats", "/metrics", "/healthz")}
+        if ({path: st for path, (st, _) in gets.items()} != dict.fromkeys(gets, 200)
+                or b"tpdm_batches_run" not in gets["/metrics"][1]):
+            fail(f"GET endpoints: {[(p, st) for p, (st, _) in gets.items()]}")
+        (status, body), s_rank, steps_rank, n_rank = run(
+            "POST /rank", lambda: call("POST", "/rank", {"prompt": p2, "seed": s2, "n": 2}))
+        ranked = json.loads(body) if status == 200 else {}
+        if not ranked.get("ranked") or sorted(ranked["ranking"]) != [1, 2]:
+            fail(f"POST /rank: {status} {body[:200]}")
+        bad = call("POST", "/generate", {"prompt": 42})[0]
+        if bad != 400:
+            fail(f"a bad request got {bad}, not 400")
+    finally:
+        server.shutdown()
+        h_engine.stop()
+        server.server_close()
+    phase("serve http", f"POST /generate round trip {s_http:.3f} s ({reply['inference_steps']} "
+          f"steps; the PNG equal to the engine's image; png_bytes at {px} px {png_ms:.1f} ms, "
+          f"{len(png)} bytes); GET /stats, /metrics, /healthz 200; POST /rank n=2 {s_rank:.3f} "
+          f"s ({len(steps_rank)} batch(es) of {steps_rank} steps): ranking {ranked['ranking']}, "
+          f"rewards {[round(r, 4) for r in ranked['rewards']]} (random ImageReward from seed "
+          f"{seed + 30}); a bad request 400; K1 {n_http[0] + n_rank[0]}, K2 "
+          f"{n_http[1] + n_rank[1]}")
+    totals = flash_attention.launches, flash_attention_streaming.launches
+    phase("serve phase", f"{time.perf_counter() - t_phase:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB over the requests; K1 "
+          f"{totals[0]}, K2 {totals[1]} launches over {len(calls)} generate calls")
+    del pipe, te, towers, mmdit, tpm, vae, engine, split_engine, h_engine, reward_model, ranker
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2275,6 +2787,7 @@ def main() -> int:
         k1_train, k2_train = rloo_phase(args.seed, dev)  # 11
         k1_fixed, k2_fixed = fixed_phase(args.seed, dev, adaptive)  # 12
         k1_cli, k2_cli = cli_phase(args.seed, dev)  # 13
+        k1_serve, k2_serve = serve_phase(args.seed, dev, smi)  # 14
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -2284,11 +2797,11 @@ def main() -> int:
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
-             "launches": k1_total + k1_train + k1_fixed + k1_cli,
+             "launches": k1_total + k1_train + k1_fixed + k1_cli + k1_serve,
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
-             "launches": k2_total + k2_train + k2_fixed + k2_cli,
+             "launches": k2_total + k2_train + k2_fixed + k2_cli + k2_serve,
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

@@ -152,10 +152,12 @@ def test_not_ported_options_raise(world):
     _, tpipe, x = world
     args = (t(x["pe"]), t(x["pp"]), t(x["npe"]), t(x["npp"]))
     for kw in (dict(init_image=np.zeros((2, 16, 16, 3), np.uint8)),
-               dict(mask=np.ones((2, 16, 16), np.float32)),
-               dict(clip_ids=np.zeros((2, 77), np.int32))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+               dict(mask=np.ones((2, 16, 16), np.float32))):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
             tpipe.generate(*args, latents=t(x["lat"]), **kw)
+    # token ids without text towers: the JAX package's ValueError
+    with pytest.raises(ValueError, match="need prompt_embeds or"):
+        tpipe.generate(clip_ids=np.zeros((2, 77), np.int32), latents=t(x["lat"]))
 
 
 def test_port_imports_without_jax():

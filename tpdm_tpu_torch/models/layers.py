@@ -271,3 +271,19 @@ def init_weights(module: nn.Module, generator: torch.Generator, std: float) -> n
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
     return module
+
+
+@torch.no_grad()
+def init_weights_by_rank(module: nn.Module, generator: torch.Generator, std: float) -> nn.Module:
+    """Random weights from ``generator`` (on the module's device) for towers
+    whose tables are parameters of their own (embeddings, position and
+    relative-position tables): every parameter of two or more dimensions
+    ~ N(0, std²), every ``bias`` 0 and every other vector (norm weights) 1."""
+    for name, p in module.named_parameters():
+        if name.rsplit(".", 1)[-1] == "bias":
+            p.zero_()
+        elif p.dim() == 1:
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, std, generator=generator)
+    return module

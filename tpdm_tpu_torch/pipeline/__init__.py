@@ -1,5 +1,5 @@
 """Generation: the CFG denoisers, the adaptive and fixed-schedule samplers
-and the pipeline."""
+and the pipeline; SD3 prompt encoding in ``pipeline.text_encoding``."""
 
 from tpdm_tpu_torch.pipeline.pipeline import GenerationResult, TPDMPipeline
 from tpdm_tpu_torch.pipeline.sampler import (

@@ -1,7 +1,8 @@
 """TPDMPipeline: adaptive-schedule SD3 text-to-image generation.
 
 Counterpart of ``tpdm_tpu/pipeline/pipeline.py``'s ``generate`` and
-``generate_fixed`` on precomputed prompt embeds. ``generate``: the
+``generate_fixed``. ``generate`` takes precomputed prompt embeds, or
+token ids that the pipeline's ``SD3TextEncoders`` encode. ``generate``: the
 CFG-doubled MMDiT and the TPM run the adaptive loop (``pipeline/
 sampler.py``), then the VAE decodes each sample's last valid latents to
 uint8 images. ``generate_fixed``: the baseline without the TPM, a fixed
@@ -67,17 +68,20 @@ class GenerationResult(NamedTuple):
     history_images: Optional[np.ndarray]
 
 
+@torch.no_grad()
 def decode_latents(vae: VAE, latents: torch.Tensor) -> torch.Tensor:
     """Final latents -> the VAE's images in [-1, 1]: z = latents /
     scaling_factor + shift_factor, decoded in the VAE's dtype (bf16 with K2
-    on the card)."""
+    on the card). Runs under ``torch.no_grad()``, whatever the caller's
+    thread has set: grad mode is thread-local, and K2 has no backward."""
     cfg = vae.config
     return vae.decode(latents.float() / cfg.scaling_factor + cfg.shift_factor)
 
 
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for an option whose port waits for ROADMAP queue 1's ``item``."""
     return NotImplementedError(
-        f"{what} is not ported to tpdm_tpu_torch yet (ROADMAP queue 1: {slice_name})"
+        f"{what} is not ported to tpdm_tpu_torch yet (ROADMAP queue 1, item {item})"
     )
 
 
@@ -114,8 +118,11 @@ class TPDMPipeline:
     Args:
         mmdit: the denoiser (``models.mmdit.MMDiT``).
         tpm: the time-prediction policy (``models.tpm.TimePredictor``).
-        vae: decoder (optional: raw latents are returned without one).
-        text_encoders: not ported yet; must be None.
+        vae: decoder (optional: raw latents are returned without one);
+            frozen (``requires_grad_(False)``, ``eval()``), as the text
+            towers are.
+        text_encoders: optional ``pipeline.text_encoding.SD3TextEncoders``
+            for ``generate(clip_ids=, t5_ids=)``.
         min_sigma: stop threshold.
     """
 
@@ -129,11 +136,10 @@ class TPDMPipeline:
         relative: bool = True,
         prediction_type: str = "alpha_beta",
     ):
-        if text_encoders is not None:
-            raise _not_ported("text_encoders", "text encoders")
         self.mmdit = mmdit
         self.tpm = tpm
-        self.vae = vae
+        self.vae = None if vae is None else vae.requires_grad_(False).eval()
+        self.text_encoders = text_encoders
         self.min_sigma = min_sigma
         self.relative = relative
         self.prediction_type = prediction_type
@@ -212,7 +218,11 @@ class TPDMPipeline:
 
         Takes precomputed embeds: ``prompt_embeds`` (b, n, joint_dim) and
         ``pooled_prompt_embeds`` (b, pooled_dim), plus their negatives when
-        ``guidance_scale`` (a scalar or (b,) strengths) is not None.
+        ``guidance_scale`` (a scalar or (b,) strengths) is not None. Or,
+        without ``prompt_embeds``, token ids that the pipeline's
+        ``text_encoders`` encode: ``clip_ids`` (b, 77) and ``t5_ids`` (b,
+        256) or None, and ``negative_clip_ids`` / ``negative_t5_ids`` with
+        CFG (each side encoded in one call of its own).
         ``latents`` (b, c, h, w) fixes the initial noise; otherwise it is
         drawn from ``torch.Generator().manual_seed(seed)`` on the MMDiT's
         device, which then also draws the Beta ratios when
@@ -231,13 +241,20 @@ class TPDMPipeline:
         conditional forward at batch b on a step where no sample is.
         ``solver``: "euler" or "ab2".
 
-        Text encoding (token ids) and img2img / inpainting (``init_image``,
-        ``mask``) are not ported yet and raise NotImplementedError.
+        img2img and inpainting (``init_image``, ``mask``) are not ported yet
+        and raise NotImplementedError.
         """
-        if clip_ids is not None or t5_ids is not None or prompt_embeds is None:
-            raise _not_ported("prompt token ids (text encoding)", "text encoders")
+        if prompt_embeds is None:
+            if self.text_encoders is None or clip_ids is None:
+                raise ValueError("need prompt_embeds or (text_encoders + ids)")
+            prompt_embeds, pooled_prompt_embeds = self.text_encoders.encode(clip_ids, t5_ids)
+            if guidance_scale is not None:
+                if negative_clip_ids is None:
+                    raise ValueError("CFG needs negative ids (or embeds)")
+                negative_prompt_embeds, negative_pooled_prompt_embeds = (
+                    self.text_encoders.encode(negative_clip_ids, negative_t5_ids))
         if init_image is not None or mask is not None:
-            raise _not_ported("init_image / mask (img2img, inpainting)", "the VAE Encoder")
+            raise not_ported("init_image / mask (img2img, inpainting)", "4: the VAE encoder")
 
         mcfg = self.mmdit.config
         device, dtype = self._device_dtype()

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpdm_tpu_torch.models.layers import init_weights_by_rank
 from tpdm_tpu_torch.rewards.bert import BertMedConfig, BertMedModel
 from tpdm_tpu_torch.rewards.vit import ViT, ViTConfig
 from tpdm_tpu_torch.utils.image import bicubic_resize_center_crop, normalize_clip
@@ -66,14 +67,7 @@ class ImageRewardNet(nn.Module):
         """Random weights from ``generator`` (on the net's device): every
         linear, conv, embedding, cls token and position table ~ N(0, std²),
         biases 0, LayerNorms 1 and 0. For runs without a checkpoint."""
-        for name, p in self.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            elif p.dim() == 1:  # LayerNorm scales
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, std, generator=generator)
-        return self
+        return init_weights_by_rank(self, generator, std)
 
 
 class ImageRewardModel:

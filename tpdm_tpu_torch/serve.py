@@ -1,0 +1,483 @@
+"""Serve text prompts from the port: ``python -m tpdm_tpu_torch.serve``.
+
+The port's counterpart of the repository's root ``serve.py``: adaptive-
+schedule generation from a prompt (``predict=True``, up to ``--max_steps``
+steps, the realised step count reported). ``--cli`` generates once and
+writes a PNG; otherwise a stdlib HTTP server answers ``POST /generate``
+and ``POST /rank`` (best-of-N) through a ``serving.BatchingEngine``, and
+``GET /stats``, ``/metrics`` (Prometheus text) and ``/healthz``:
+
+    python -m tpdm_tpu_torch.serve --toy --cli --prompt "a cat"         # on the card
+    python -m tpdm_tpu_torch.serve --toy --cpu --cli --prompt "a cat"   # anywhere
+    python -m tpdm_tpu_torch.serve --toy --cpu --port 7860              # HTTP
+
+It runs on the card unless ``--cpu`` is given, and exits non-zero without
+one. ``--toy`` builds random toy towers, MMDiT, TPM and VAE from a fixed
+seed and a deterministic toy tokenizer. Not ported yet, each exiting with a
+message that names its ROADMAP queue 1 item: ``--pretrained`` (7),
+``--continuous`` (10, second part), ``--family`` other than sd3 (12),
+``--dp`` / ``--mesh`` (9(d) and 14), ``--lora*`` (13(b)), ``--few_step``
+(9(e)), ``--quant_text`` (13(a)) and ``--reward_checkpoint`` (8); gradio
+is not ported. Importing the module starts nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import base64
+import io
+import json
+import logging
+import signal
+import threading
+import zlib
+
+import numpy as np
+import torch
+
+from tpdm_tpu_torch.pipeline.pipeline import not_ported
+
+logger = logging.getLogger("tpdm_tpu_torch.serve")
+
+_IMAGE_FORMATS = ("png", "jpeg")
+TOY_SEED = 0
+# flags of the root serve.py that the port refuses: flag -> (what, item)
+_NOT_PORTED_FLAGS = {
+    "pretrained": ("--pretrained (load_pipeline_from_pretrained)", "7"),
+    "continuous": ("--continuous (the continuous batching engine)", "10, second part"),
+    "dp": ("--dp (data-parallel replicas)", "9(d)"),
+    "mesh": ("--mesh (sharded-model serving)", "14"),
+    "lora": ("--lora (LoRA adapters)", "13(b)"),
+    "lora_scale": ("--lora_scale (LoRA adapters)", "13(b)"),
+    "lora_cache": ("--lora_cache (LoRA adapters)", "13(b)"),
+    "lora_fused": ("--lora_fused (LoRA adapters)", "13(b)"),
+    "few_step": ("--few_step (the distilled few-step sampler)", "9(e)"),
+    "quant_text": ("--quant_text (the weight-only int8 T5 tower)", "13(a)"),
+    "reward_checkpoint": ("--reward_checkpoint (convert_image_reward)", "8"),
+}
+
+
+def _pil_image():
+    """PIL's Image module, or None where PIL is not installed."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
+def _check_format(fmt) -> str:
+    """The response image format: "png" (the default, zlib alone) or
+    "jpeg" (quality 92, only where PIL imports)."""
+    if fmt is None:
+        return "png"
+    if not isinstance(fmt, str) or fmt.lower() not in _IMAGE_FORMATS:
+        raise ValueError(f"format must be one of {_IMAGE_FORMATS}")
+    fmt = fmt.lower()
+    if fmt == "jpeg" and _pil_image() is None:
+        raise ValueError("format jpeg needs PIL, which is not installed here; use png")
+    return fmt
+
+
+def _encode_image(image: np.ndarray, fmt: str):
+    """uint8 (H, W, 3) -> (payload key, base64 string)."""
+    if fmt == "jpeg":
+        buf = io.BytesIO()
+        _pil_image().fromarray(image).save(buf, format="JPEG", quality=92)
+        data = buf.getvalue()
+    else:
+        from tpdm_tpu_torch.utils.image import png_bytes
+
+        data = png_bytes(image)
+    return f"image_{fmt}_base64", base64.b64encode(data).decode()
+
+
+def _device(args) -> torch.device:
+    if getattr(args, "cpu", False):
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the port serves on a CUDA card (pass --cpu to "
+                         "serve on the CPU)")
+    return torch.device("cuda")
+
+
+def _quant_bits(args):
+    """--int8 / --int4: the MMDiT's stored-int weights (None: bf16/fp32)."""
+    if getattr(args, "int8", False) and getattr(args, "int4", False):
+        raise SystemExit("--int8 and --int4 are mutually exclusive")
+    if getattr(args, "int4", False):
+        return 4
+    return 8 if getattr(args, "int8", False) else None
+
+
+def toy_tokenize(prompt: str, n: int = 8):
+    """The toy towers' tokenizer: bos 97, up to six words at stable ids in
+    [1, 90] (crc32, the same in every process), eos 98, zero padding; T5
+    ids all ones. Returns (clip_ids (1, n), t5_ids (1, 12)) int32."""
+    words = [zlib.crc32(w.encode()) % 90 + 1 for w in prompt.split()[:6]]
+    ids = ([97] + words + [98])[:n]
+    ids = ids + [0] * (n - len(ids))
+    return np.array([ids], np.int32), np.ones((1, 12), np.int32)
+
+
+def build_pipeline(args):
+    """(pipe, tokenize) for ``args``: ``--toy`` builds the root serve.py's
+    toy configs (CLIP widths 32 and 48, T5 96, a 2-layer MMDiT caching its
+    front block, a 4-channel TPM, the toy VAE) with N(0, 0.02²) weights
+    drawn from a torch generator seeded with ``TOY_SEED``, on the card or,
+    with ``--cpu``, the CPU; ``--int8`` / ``--int4`` prequantise its MMDiT."""
+    if not getattr(args, "toy", False):
+        raise SystemExit("pass --toy: the port serves random toy weights until "
+                         "--pretrained is ported (ROADMAP queue 1, item 7)")
+    from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+    from tpdm_tpu_torch.models.t5 import T5Config, T5Encoder
+    from tpdm_tpu_torch.models.tpm import TimePredictor
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.ops.quant import prequantize_
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+    from tpdm_tpu_torch.pipeline.text_encoding import SD3TextEncoders
+
+    device = _device(args)
+    bits = _quant_bits(args)
+    mcfg = MMDiTConfig.toy(joint_attention_dim=96, pooled_projection_dim=64,
+                           cache_front_blocks=1, quant_matmuls=bits is not None,
+                           quant_bits=bits or 8)
+    with torch.device(device):
+        clip_l = CLIPTextModel(CLIPTextConfig.toy(hidden_size=32, projection_dim=24))
+        clip_g = CLIPTextModel(CLIPTextConfig.toy(hidden_size=48, projection_dim=40))
+        t5 = T5Encoder(T5Config.toy(d_model=96))
+        mmdit = MMDiT(mcfg)
+        tpm = TimePredictor(conv_out_channels=4, in_channels=2 * mcfg.inner_dim,
+                            temb_dim=mcfg.inner_dim, init_alpha=0.5, init_beta=2.0)
+        vae = VAE(VAEConfig.toy(latent_channels=16))
+    g = torch.Generator(device=device).manual_seed(TOY_SEED)
+    for module in (clip_l, clip_g, t5, mmdit, tpm, vae):
+        module.init_weights(g).eval()
+    if bits is not None:
+        prequantize_(mmdit)
+    text = SD3TextEncoders(clip_l, clip_g, t5, t5_width=96)
+    return TPDMPipeline(mmdit, tpm, vae, text_encoders=text), toy_tokenize
+
+
+def generate(pipe, tokenize, prompt, seed, max_steps, cache_interval=0,
+             guidance_interval=None, cache_tau=0.0, solver="euler"):
+    """One prompt through ``pipe.generate`` at batch 1, the negative the
+    towers on zero ids, as the engine's constant negative."""
+    clip_ids, t5_ids = tokenize(prompt)
+    return pipe.generate(
+        clip_ids=clip_ids, t5_ids=t5_ids, negative_clip_ids=np.zeros_like(clip_ids),
+        negative_t5_ids=np.zeros_like(t5_ids), predict=True, seed=seed,
+        max_inference_steps=max_steps, cache_interval=cache_interval,
+        guidance_interval=guidance_interval, cache_tau=cache_tau, solver=solver)
+
+
+def _accel_kwargs(args):
+    """(cache_interval, guidance_interval, cache_tau) from the flags."""
+    ci = getattr(args, "cache_interval", 0) or 0
+    gi = getattr(args, "guidance_interval", None)
+    if isinstance(gi, str):
+        parts = gi.split(",")
+        if len(parts) != 2:
+            raise SystemExit(f"--guidance_interval expects 'lo,hi', got {gi!r}")
+        gi = (float(parts[0]), float(parts[1]))
+    tau = getattr(args, "cache_tau", 0.0) or 0.0
+    if tau and ci:
+        raise SystemExit("--cache_tau and --cache_interval are mutually exclusive "
+                         "(one reuse policy)")
+    return ci, gi, float(tau)
+
+
+def _resolutions(args):
+    res = getattr(args, "resolutions", None)
+    if isinstance(res, str):
+        res = [int(x) for x in res.split(",") if x]
+    return res
+
+
+def _pipe_vae_scale_factor(pipe) -> int:
+    """Pixels per latent cell of the pipeline's VAE; 8 without one."""
+    if getattr(pipe, "vae", None) is None:
+        return 8
+    from tpdm_tpu_torch.models.vae import vae_scale_factor
+
+    return vae_scale_factor(pipe.vae.config)
+
+
+def make_http_server(pipe, tokenize, args, ranker=None):
+    """A threaded HTTP server over a ``BatchingEngine``: concurrent requests
+    coalesce into one batch. ``ranker`` (``train.builders.
+    build_inference_ranker``) ranks ``/rank``'s candidates; without one they
+    come back unranked. Returns (engine, server); start the engine, then
+    ``server.serve_forever()``."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from tpdm_tpu_torch.serving import (
+        BatchingEngine,
+        EngineOverloaded,
+        RequestExpired,
+        generate_ranked,
+    )
+    from tpdm_tpu_torch.utils.metrics_export import prometheus_text
+
+    ci, gi, tau = _accel_kwargs(args)
+    engine = BatchingEngine(
+        pipe, tokenize, max_batch=args.max_batch, window_ms=args.batch_window_ms,
+        max_steps=args.max_steps, resolutions=_resolutions(args),
+        vae_scale_factor=_pipe_vae_scale_factor(pipe), cache_interval=ci,
+        guidance_interval=gi, cache_tau=tau, solver=getattr(args, "solver", "euler"))
+
+    def not_served(req):
+        """Request fields whose options are not ported: a 400 naming them."""
+        if req.get("init_image_png_base64"):
+            raise ValueError(str(not_ported("img2img (init_image)", "4")))
+        if req.get("lora") is not None:
+            raise ValueError(str(not_ported("lora (LoRA adapters)", "13(b)")))
+
+    def steps_of(req):
+        steps = req.get("steps")
+        if steps is not None:
+            steps = int(steps)
+            if not 1 <= steps <= args.max_steps:
+                raise ValueError(f"steps must be in [1, {args.max_steps}]")
+        return steps
+
+    def prompt_of(req):
+        prompt = req.get("prompt", args.prompt)
+        if not isinstance(prompt, str):
+            raise ValueError("prompt must be a string")
+        return prompt
+
+    class Handler(BaseHTTPRequestHandler):
+        # HTTP/1.1 keep-alive: every response carries Content-Length
+        # (_reply, _text and send_error all do)
+        protocol_version = "HTTP/1.1"
+
+        def do_GET(self):
+            if self.path == "/stats":
+                self._reply(engine.stats())
+            elif self.path == "/healthz":
+                # liveness: the worker thread must still be running
+                alive = engine._thread is not None
+                self._text(200 if alive else 503, b"ok\n" if alive else b"stopped\n",
+                           "text/plain")
+            elif self.path == "/metrics":
+                self._text(200, prometheus_text(engine.stats()).encode(),
+                           "text/plain; version=0.0.4")
+            else:
+                self.send_error(404)
+
+        def _body(self, limit: int):
+            """The JSON body, or None after a 413."""
+            length = int(self.headers.get("Content-Length", 0))
+            if length > limit:
+                self.send_error(413, "request body too large")
+                return None
+            return json.loads(self.rfile.read(length) or b"{}")
+
+        def do_POST(self):
+            if self.path == "/rank":
+                self._do_rank()
+                return
+            if self.path != "/generate":
+                self.send_error(404)
+                return
+            # validate untrusted input before it reaches the batch worker:
+            # one bad request must not poison a coalesced batch
+            try:
+                req = self._body(8 * 1024 * 1024)
+                if req is None:
+                    return
+                not_served(req)
+                prompt = prompt_of(req)
+                seed = int(req.get("seed", args.seed))
+                steps = steps_of(req)
+                resolution = req.get("resolution")
+                if resolution is not None:
+                    resolution = int(resolution)
+                deadline_s = req.get("deadline_s")
+                if deadline_s is not None:
+                    deadline_s = float(deadline_s)
+                    if deadline_s <= 0:
+                        raise ValueError("deadline_s must be > 0")
+                guidance = req.get("guidance_scale")
+                if guidance is not None:
+                    guidance = float(guidance)
+                negative = req.get("negative_prompt")
+                if negative is not None and not isinstance(negative, str):
+                    raise ValueError("negative_prompt must be a string")
+                fmt = _check_format(req.get("format"))
+            except Exception as e:
+                self.send_error(400, str(e)[:100])
+                return
+            try:
+                res = engine.submit(prompt, seed, steps=steps, resolution=resolution,
+                                    deadline_s=deadline_s, guidance_scale=guidance,
+                                    negative_prompt=negative or None).result(timeout=600)
+            except ValueError as e:  # an unknown resolution etc.
+                self.send_error(400, str(e)[:100])
+                return
+            except (RequestExpired, EngineOverloaded) as e:
+                self.send_error(503, str(e)[:100])
+                return
+            except Exception as e:
+                self.send_error(500, str(e)[:100])
+                return
+            key, data = _encode_image(res["image"], fmt)
+            self._reply({key: data, "inference_steps": res["inference_steps"],
+                         "sigmas": res["sigmas"]})
+
+        def _do_rank(self):
+            """Best-of-N: ``n`` seeds of one prompt, ranked by ``ranker``
+            where one is configured."""
+            try:
+                req = self._body(65536)
+                if req is None:
+                    return
+                not_served(req)
+                prompt = prompt_of(req)
+                seed = int(req.get("seed", args.seed))
+                n = int(req.get("n", 4))
+                max_n = getattr(args, "max_rank_n", 8)
+                if not 1 <= n <= max_n:
+                    raise ValueError(f"n must be in [1, {max_n}]")
+                steps = steps_of(req)
+                fmt = _check_format(req.get("format"))
+            except Exception as e:
+                self.send_error(400, str(e)[:100])
+                return
+            try:
+                out = generate_ranked(engine, prompt, seed=seed, n=n, steps=steps,
+                                      ranker=ranker)
+            except ValueError as e:
+                self.send_error(400, str(e)[:100])
+                return
+            except EngineOverloaded as e:
+                self.send_error(503, str(e)[:100])
+                return
+            except Exception as e:
+                self.send_error(500, str(e)[:100])
+                return
+            payload = {"seeds": out["seeds"],
+                       "inference_steps": [c["inference_steps"] for c in out["candidates"]],
+                       "ranked": "ranking" in out}
+            for k in ("ranking", "rewards", "best"):
+                if k in out:
+                    payload[k] = out[k]
+            payload[f"images_{fmt}_base64"] = [_encode_image(c["image"], fmt)[1]
+                                               for c in out["candidates"]]
+            self._reply(payload)
+
+        def _text(self, status: int, body: bytes, content_type: str):
+            self.send_response(status)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _reply(self, payload: dict):
+            self._text(200, json.dumps(payload).encode(), "application/json")
+
+        def log_message(self, *a):
+            logger.info("%s", a)
+
+    server = ThreadingHTTPServer(("127.0.0.1", args.port), Handler)
+    return engine, server
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--pretrained", default=None)
+    p.add_argument("--toy", action="store_true", help="random toy weights (runs anywhere)")
+    p.add_argument("--family", default="sd3", choices=["sd3", "sd15", "sdxl", "flux"])
+    p.add_argument("--cli", action="store_true", help="generate --prompt once, write --out")
+    p.add_argument("--cpu", action="store_true", help="serve on the CPU instead of the card")
+    p.add_argument("--prompt", default="a serene mountain lake at dawn")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--max_steps", type=int, default=35)
+    p.add_argument("--max_batch", type=int, default=2,
+                   help="serving batch; partial batches pad to it")
+    p.add_argument("--batch_window_ms", type=float, default=25.0)
+    p.add_argument("--dp", type=int, default=None)
+    p.add_argument("--mesh", default=None)
+    p.add_argument("--continuous", action="store_true")
+    p.add_argument("--port", type=int, default=7860)
+    p.add_argument("--lora", action="append", default=None)
+    p.add_argument("--lora_scale", type=float, default=None)
+    p.add_argument("--lora_cache", type=int, default=None)
+    p.add_argument("--lora_fused", action="store_true")
+    p.add_argument("--tb_dir", default=None,
+                   help="stream the engine's stats() to TensorBoard event files here")
+    p.add_argument("--tb_interval", type=float, default=10.0)
+    p.add_argument("--out", default="generated.png")
+    p.add_argument("--reward_checkpoint", default=None)
+    p.add_argument("--max_rank_n", type=int, default=8, help="cap on /rank's candidates")
+    p.add_argument("--quant_text", action="store_true")
+    p.add_argument("--int4", action="store_true", help="int4 weight-only MMDiT (K5)")
+    p.add_argument("--int8", action="store_true", help="W8A8 int8 MMDiT (K4)")
+    p.add_argument("--few_step", default=None)
+    p.add_argument("--solver", default="euler", choices=["euler", "ab2"])
+    p.add_argument("--cache_interval", type=int, default=0,
+                   help=">= 2: the Δ-cache, refreshed every N steps")
+    p.add_argument("--cache_tau", type=float, default=0.0,
+                   help="> 0: the input-aware Δ-cache (exclusive with --cache_interval)")
+    p.add_argument("--guidance_interval", default=None,
+                   help="'lo,hi': CFG only while sigma is in [lo, hi)")
+    p.add_argument("--resolutions", default=None,
+                   help="comma-separated further output resolutions in pixels")
+    args = p.parse_args(argv)
+    for name, (what, item) in _NOT_PORTED_FLAGS.items():
+        if getattr(args, name):
+            raise SystemExit(str(not_ported(what, item)))
+    if args.family != "sd3":
+        raise SystemExit(str(not_ported(f"--family {args.family}", "12")))
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    pipe, tokenize = build_pipeline(args)
+
+    if args.cli:
+        from tpdm_tpu_torch.utils.image import write_png
+
+        ci, gi, tau = _accel_kwargs(args)
+        res = generate(pipe, tokenize, args.prompt, args.seed, args.max_steps,
+                       cache_interval=ci, guidance_interval=gi, cache_tau=tau,
+                       solver=args.solver)
+        write_png(args.out, res.images[0])
+        nfe = int(res.last_valid_index[0]) + 1
+        print(f"saved {args.out}; inference steps: {nfe} / cap {args.max_steps}")
+        return
+
+    engine, server = make_http_server(pipe, tokenize, args)
+    engine.start()
+    streamer = None
+    if args.tb_dir:
+        from tpdm_tpu_torch.utils.tb_writer import StatsStreamer
+
+        streamer = StatsStreamer(engine.stats, args.tb_dir, args.tb_interval)
+    logger.info("serving on http://127.0.0.1:%d/generate (POST json; GET /stats), max_batch "
+                "%d, window %.0f ms", server.server_address[1], args.max_batch,
+                args.batch_window_ms)
+
+    # graceful drain on SIGTERM / ctrl-C: stop accepting, let the engine
+    # finish its batch, exit; serve_forever() returns once shutdown() runs
+    def _drain(signum, frame):
+        logger.info("signal %d: draining and shutting down", signum)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _drain)
+    try:
+        server.serve_forever()
+    finally:
+        if streamer is not None:
+            streamer.stop()
+        engine.stop()
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

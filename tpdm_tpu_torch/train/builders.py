@@ -2,31 +2,34 @@
 embedder that stands in for the text towers.
 
 Counterpart of ``tpdm_tpu/train/builders.py``'s ``build_toy_agent``,
-``build_toy_reward``, ``build_image_reward_fn`` and
-``make_prompt_encoder``. ``build_toy_agent`` takes ``device`` ("cuda" by
-default, which raises without a card; the tests pass "cpu"); the others
-run where the modules they are given live. Not ported yet: the
+``build_toy_reward``, ``build_image_reward_fn``, ``build_inference_ranker``
+and ``make_prompt_encoder``. ``build_toy_agent`` takes ``device`` ("cuda"
+by default, which raises without a card; the tests pass "cpu"); the
+others run where the modules they are given live. Not ported yet: the
 pretrained SD3 agent and the checkpoint loading of the reward and the VAE
-(ROADMAP queue 1, item 7).
+(ROADMAP queue 1, items 7 and 8).
 """
 
 from __future__ import annotations
 
 import functools
 import hashlib
-from typing import Callable
+import logging
+from typing import Callable, Optional
 
 import torch
 
 from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
 from tpdm_tpu_torch.models.tpm import TimePredictor
 from tpdm_tpu_torch.models.vae import VAE
-from tpdm_tpu_torch.pipeline.pipeline import decode_latents
+from tpdm_tpu_torch.pipeline.pipeline import decode_latents, not_ported
 from tpdm_tpu_torch.rewards.image_reward import ImageRewardModel
 from tpdm_tpu_torch.train.config import RLOOConfig
 from tpdm_tpu_torch.train.rloo import TPDMAgent
 from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
 from tpdm_tpu_torch.utils.image import uint8_images
+
+logger = logging.getLogger(__name__)
 
 
 def _device(device) -> torch.device:
@@ -82,6 +85,43 @@ def build_image_reward_fn(
         return scores, scores
 
     return reward_fn
+
+
+def build_inference_ranker(
+    reward_checkpoint: Optional[str] = None,
+    tokenizer_path: Optional[str] = None,
+    max_length: int = 35,
+    reward_model: Optional[ImageRewardModel] = None,
+    tokenizer: Optional[BertTokenizer] = None,
+    device="cuda",
+) -> Callable:
+    """Best-of-N candidate ranker for serving: ``(prompt, images_uint8 (k,
+    H, W, 3)) -> (ranking, rewards)`` by ``ImageRewardModel.inference_rank``.
+
+    ``reward_model`` and ``tokenizer`` are injected (toy towers, a random
+    ImageReward, a WordPiece vocabulary written at run time); without a
+    model, a random-weight ImageReward is built on ``device``, and without a
+    tokenizer one is read from ``tokenizer_path`` (a BERT vocab.txt).
+    ``reward_checkpoint`` needs the ImageReward converter, not ported yet
+    (ROADMAP queue 1, item 8).
+    """
+    if reward_checkpoint is not None:
+        raise not_ported("reward_checkpoint (convert_image_reward)", "8")
+    if reward_model is None:
+        reward_model = ImageRewardModel.create(device=device)
+        logger.warning("ImageReward ranker running with RANDOM weights")
+    if tokenizer is None:
+        if tokenizer_path is None:
+            raise ValueError("ranker needs a BERT vocab.txt path")
+        tokenizer = BertTokenizer.from_pretrained(tokenizer_path)
+
+    def ranker(prompt: str, images):
+        enc = tokenizer([prompt], padding="max_length", truncation=True,
+                        max_length=max_length, return_tensors="np")
+        return reward_model.inference_rank(enc["input_ids"][0], images,
+                                           text_mask=enc["attention_mask"][0].astype(bool))
+
+    return ranker
 
 
 def _strip_prefix(prompt: str) -> str:

@@ -1,2 +1,2 @@
-"""Host utilities: image post-processing and weight conversion from the JAX
-package's parameter trees."""
+"""Host utilities: image post-processing, weight conversion from the JAX
+package's parameter trees, the tokenizers and the stats exporters."""

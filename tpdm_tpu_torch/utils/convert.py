@@ -9,7 +9,9 @@ maps one to one: ``transformer_blocks_3/attn/to_q/kernel`` becomes
 - GroupNorm / RMSNorm / LayerNorm ``scale`` -> ``weight``; ``bias`` stays
   ``bias``; Embed ``embedding`` -> ``weight``; a module's own parameters
   (the ViT's ``cls_token`` and ``pos_embed``, BERT's
-  ``position_embeddings``) keep their names and layouts;
+  ``position_embeddings``, CLIP's ``position_embedding``, T5's
+  ``relative_attention_bias`` and its norms' ``weight``) keep their names
+  and layouts;
 - a prequantised Dense (``tpdm_tpu/ops/quant.py:prequantize_params``): an
   int8 ``kernel`` -> int8 ``weight`` (out, in); an int4 ``kernel`` ->
   ``weight`` packed two to a byte (uint8 (out, in/2), ``ops/quant.py``);
@@ -35,13 +37,18 @@ import torch
 from tpdm_tpu_torch.ops.quant import pack_int4
 
 # Flax names that index lists of submodules:
-# "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1"; the ViT's "blocks_3"
-# and BERT's "layer_3" (leftmost match first, so "transformer_blocks_3"
-# stays whole)
+# "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1"; the ViT's "blocks_3",
+# BERT's "layer_3", CLIP's "layers_3" and T5's "block_3" (leftmost match
+# first, so "transformer_blocks_3" stays whole)
 _INDEXED = re.compile(
-    r"(transformer_blocks|up_blocks|resnets|attentions|upsamplers|blocks|layer)_(\d+)_?")
-# parameters that a module declares itself, carried over as they are
-_RAW_LEAVES = ("cls_token", "pos_embed", "position_embeddings")
+    r"(transformer_blocks|up_blocks|resnets|attentions|upsamplers|blocks|block|layers|layer)"
+    r"_(\d+)_?")
+# parameters that a module declares itself, carried over as they are (CLIP's
+# position table among them)
+_RAW_LEAVES = ("cls_token", "pos_embed", "position_embeddings", "position_embedding")
+# T5's own: its relative-position table and its norms' "weight", accepted
+# only by t5_from_jax
+_T5_RAW_LEAVES = ("relative_attention_bias", "weight")
 
 
 def _leaves(tree: Mapping, prefix: str = ""):
@@ -53,7 +60,8 @@ def _leaves(tree: Mapping, prefix: str = ""):
             yield path, np.asarray(value)
 
 
-def _flax_to_state_dict(tree: Mapping, drop_prefixes=()) -> Dict[str, torch.Tensor]:
+def _flax_to_state_dict(tree: Mapping, drop_prefixes=(),
+                        raw_leaves=_RAW_LEAVES) -> Dict[str, torch.Tensor]:
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     out = {}
@@ -77,7 +85,7 @@ def _flax_to_state_dict(tree: Mapping, drop_prefixes=()) -> Dict[str, torch.Tens
             leaf = "weight_scale"
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
-        elif leaf != "bias" and leaf not in _RAW_LEAVES:
+        elif leaf != "bias" and leaf not in raw_leaves:
             raise ValueError(f"unexpected Flax parameter {path} {value.shape}")
         mods = [_INDEXED.sub(r"\1.\2.", m).rstrip(".") for m in mods]
         name = ".".join(mods + [leaf])
@@ -111,3 +119,15 @@ def image_reward_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for ``rewards.image_reward.ImageRewardNet`` from the JAX
     ``ImageRewardNet``'s params (the ViT, BERT-med and MLP trees)."""
     return _flax_to_state_dict(flax_params)
+
+
+def clip_text_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.clip_text.CLIPTextModel`` from the JAX CLIP
+    text model's params."""
+    return _flax_to_state_dict(flax_params)
+
+
+def t5_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.t5.T5Encoder`` from the JAX T5 encoder's
+    params (float only: the port's T5 has no quantised mode yet)."""
+    return _flax_to_state_dict(flax_params, raw_leaves=_RAW_LEAVES + _T5_RAW_LEAVES)

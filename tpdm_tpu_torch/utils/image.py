@@ -62,14 +62,14 @@ def normalize_clip(images: torch.Tensor) -> torch.Tensor:
     return ((x - mean) / std).permute(0, 3, 1, 2)
 
 
-def write_png(path, image: np.ndarray, level: int = 6) -> None:
-    """uint8 (H, W, 3) RGB or (H, W) grey -> an 8-bit PNG file, written with
-    zlib alone (no imaging library): one IDAT chunk of rows that each start
-    with filter byte 0 (None)."""
+def png_bytes(image: np.ndarray, level: int = 6) -> bytes:
+    """uint8 (H, W, 3) RGB or (H, W) grey -> the bytes of an 8-bit PNG,
+    written with zlib alone (no imaging library): one IDAT chunk of rows
+    that each start with filter byte 0 (None)."""
     image = np.ascontiguousarray(image)
     if image.dtype != np.uint8 or image.ndim not in (2, 3) or (
             image.ndim == 3 and image.shape[2] != 3):
-        raise ValueError(f"write_png takes uint8 (H, W, 3) or (H, W), got {image.dtype} "
+        raise ValueError(f"a PNG takes uint8 (H, W, 3) or (H, W), got {image.dtype} "
                          f"{image.shape}")
     h, w = image.shape[:2]
     rows = image.reshape(h, -1)
@@ -81,6 +81,12 @@ def write_png(path, image: np.ndarray, level: int = 6) -> None:
 
     color_type = 2 if image.ndim == 3 else 0
     header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray, level: int = 6) -> None:
+    """``png_bytes(image, level)`` written to ``path``."""
+    data = png_bytes(image, level)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-                + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b""))
+        f.write(data)
