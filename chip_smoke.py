@@ -23,7 +23,8 @@ Phases, one line each, and any failure exits non-zero:
    request at CFG batch 4, (4, 24, 1408, 64)), K2 (at the
    1024 px decode's (1, 1, 16384, 512), (2, 1, 16384, 512), the RLOO
    reward's (4, 1, 16384, 512), phase 14's 512 px decode's (2, 1, 4096,
-   512) and phase 13's eval decode's (10, 1, 16384, 512) against the
+   512), phase 15's batch-1 512 px decode's (1, 1, 4096, 512) and phase
+   13's eval decode's (10, 1, 16384, 512) against the
    plain version in 4096-row query blocks, at 2048 px's
    (1, 1, 65536, 512) against the plain version in 4096-row query blocks,
    every 64-column block of O held on its own, and with strongly negative
@@ -120,7 +121,28 @@ Phases, one line each, and any failure exits non-zero:
    /rank ranked by a random ImageReward, and a bad request's 400. K1 and
    K2 launches are checked around every call; tokenize, encode (each
    tower, the T5-XXL forward's TFLOP/s), request, PNG and round-trip
-   times and the engine's stats() are printed.
+   times and the engine's stats() are printed;
+15. continuous batching on phase 14's models at 1024 px (CFG 7.0,
+   predict=True, 35 steps at most): a burst of 12 requests (example
+   prompts and seeds 0-11, caps cycling none, 4, none, 8) submitted at
+   once. A: ContinuousBatchingEngine(slots=4, seg_steps=4), warmed up;
+   each request equal to the bit to BatchingEngine(max_batch=4).
+   generate_batch at the same CFG batch 8 (its final latents decoded at
+   batch 1, as the engine decodes a slot; given the engine's batch-1
+   embeds), capped requests at their cap. B: A with pipeline_depth=2,
+   equal to A. C: decode_batch=4, at least two rows coalesced, its gap to
+   A. D: cache_interval=2 and solver="ab2" on 4 requests, twice each,
+   equal to the bit. E: MultiResContinuousRouter(resolutions=[512],
+   slots=2), two requests at 1024 px then the same at 512 px, each equal
+   to BatchingEngine(max_batch=2, resolutions=[512]) and no prompt
+   encoded twice. F: BatchingEngine(max_batch=4, window_ms=25) on the
+   burst. G: serve --continuous over HTTP (/generate's PNG, /stats,
+   /metrics, /healthz, a 400). Each run prints its makespan, images a
+   second, latency p50 / p95, slot utilisation, segments, host syncs, ms
+   a segment (CUDA events), peak memory and K1 / K2 launches, checked
+   exactly (K1 layers x the steps of each segment, K2 one a decode call);
+   any request error, segment_traces other than 1 or a record at ERROR
+   from serving_continuous fails the phase.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -139,6 +161,7 @@ import functools
 import gc
 import importlib
 import json
+import logging
 import math
 import os
 import re
@@ -229,6 +252,8 @@ N_TOK_512 = 1024 + N_CTX
 N_JOINT_512 = N_TOK_512 + (-N_TOK_512 % 128)
 N_VAE_512 = 4096
 SERVE_EXTRA_PX = 512  # phase 14's engine serves this resolution beside 1024 px
+CONT_REQUESTS = 12  # phase 15's burst: example prompts 0-11, seeds 0-11
+CONT_CAPS = (None, 4, None, 8)  # its step caps, in turn (the schedule stops at ~15)
 # the wgmma kernels' instantiations, each by a piece of its mangled name
 # (template arguments between I and E: Lb0 / Lb1 kStats off / on; 'a'
 # int8_t, then the epilogue: Li0 bf16 rounding, Li1 dequant, Li2 int32;
@@ -528,7 +553,8 @@ def kernel_phase(g, dev, seed):
     del q, k, v
     # K2 at the decode's shapes: 1024 px at batch 1 (the kernels line), 2
     # and 4 (the RLOO reward's decode), 10 (phase 13's eval decode),
-    # 2048 px, and 512 px at batch 2 (phase 14's engine); at 2048 px and
+    # 2048 px, and 512 px at batch 2 (phase 14's engine) and 1 (phase 15's
+    # router, which decodes a finished slot alone); at 2048 px and
     # batch 10 the plain version runs over 4096-row query blocks (its fp32
     # scores would take 11 and 17 GB).
     # All but the first draw from a generator of their own, so every later
@@ -536,7 +562,7 @@ def kernel_phase(g, dev, seed):
     k2 = {}
     g_k2 = torch.Generator(device=dev).manual_seed(seed + 7)
     for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048), (4, 16384), (10, 16384),
-                 (2, N_VAE_512)):
+                 (2, N_VAE_512), (1, N_VAE_512)):
         gen = g if (b, n) == (1, 16384) else g_k2
         q, k, v = (torch.randn(b, 1, n, 512, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
@@ -581,7 +607,7 @@ def kernel_phase(g, dev, seed):
                    batch_20=k1_train[20], at_512px=k1_train["512px"]),
         "K2": dict(**k2[(1, 16384)], batch_2=k2[(2, 16384)], at_2048px=k2[(1, N_VAE_2048)],
                    batch_4=k2[(4, 16384)], batch_10=k2[(10, 16384)],
-                   at_512px=k2[(2, N_VAE_512)]),
+                   at_512px=k2[(2, N_VAE_512)], at_512px_batch_1=k2[(1, N_VAE_512)]),
     }
 
 
@@ -2385,43 +2411,22 @@ def text_reference_phase(seed, dev):
         fail("the card's text towers disagree with their CPU fp32 reference")
 
 
-def serve_phase(seed, dev, smi):
-    """Phase 14: text prompts through the port's serving path at full width.
-    The 2-layer reference check; CLIP-L, CLIP-G and T5-XXL in bf16 from the
-    seed beside phase 5's MMDiT, TPM and VAE (rebuilt from the seed, as
-    phase 12 does) and toy tokenizers of the example prompts; generate from
-    ids against generate from embeds; a BatchingEngine (max_batch 2, 25 ms
-    window, 35 steps, 512 px served too) answering concurrent, repeated
-    (embed-cache hit), capped, guided with a negative, and 512 px requests,
-    a batch of two against a direct generate; then the HTTP server's
-    endpoints. K1 and K2 launches are checked around every call. Returns
-    the K1 and K2 launches of the phase."""
-    import http.client
-    import threading
-
-    from tpdm_tpu_torch import serve
+def serve_models(seed, dev):
+    """Phase 14's models: CLIP-L, CLIP-G and T5-XXL in bf16 from the seed
+    beside phase 5's MMDiT, TPM and VAE (rebuilt from the seed, as phase 12
+    does), and toy CLIP, T5 and BERT tokenizers of the example prompts.
+    Returns a namespace of the pipeline, towers, tokenizers and prompts."""
     from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
     from tpdm_tpu_torch.models.mmdit import MMDiTConfig
     from tpdm_tpu_torch.models.t5 import T5Config, T5Encoder
-    from tpdm_tpu_torch.models.vae import vae_scale_factor
-    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
     from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
     from tpdm_tpu_torch.pipeline.text_encoding import SD3TextEncoders
-    from tpdm_tpu_torch.rewards import ImageRewardModel
-    from tpdm_tpu_torch.serving import BatchingEngine
-    from tpdm_tpu_torch.train.builders import build_inference_ranker
     from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
-    from tpdm_tpu_torch.utils.image import png_bytes
     from tpdm_tpu_torch.utils.t5_tokenizer import T5Tokenizer
     from tpdm_tpu_torch.utils.tokenizer import CLIPTokenizer
 
-    t_phase = time.perf_counter()
-    text_reference_phase(seed, dev)  # 1
-
-    # 2. the towers, phase 5's models and the tokenizers
     t0 = time.perf_counter()
     mmdit, tpm, vae = build_models(dev, seed, MMDiTConfig.sd3_medium())
-    layers = mmdit.config.num_layers
     gen = torch.Generator(device=dev).manual_seed(seed + 40)
     towers = {}
     for name, make in (("CLIP-L", lambda: CLIPTextModel(CLIPTextConfig.sd3_clip_l())),
@@ -2436,23 +2441,9 @@ def serve_phase(seed, dev, smi):
             tower.init_weights(gen, WEIGHT_STD)
         towers[name] = tower.to(torch.bfloat16)
         torch.cuda.empty_cache()  # the fp32 draw
-    mcfg = mmdit.config
     te = SD3TextEncoders(towers["CLIP-L"], towers["CLIP-G"], towers["T5-XXL"],
-                         t5_width=mcfg.joint_attention_dim)
+                         t5_width=mmdit.config.joint_attention_dim)
     pipe = TPDMPipeline(mmdit, tpm, vae, text_encoders=te)
-    factor = vae_scale_factor(vae.config)
-    px = mcfg.sample_size * factor
-    torch.cuda.synchronize()
-    sizes = {name: (sum(p.numel() for p in t.parameters()), module_bytes(t))
-             for name, t in towers.items()}
-    allocated = torch.cuda.memory_allocated(dev)
-    phase("serve models", "; ".join(f"{name} {n / 1e9:.4f} B params, {b / 1e9:.3f} GB bf16"
-                                    for name, (n, b) in sizes.items())
-          + f"; towers {sum(n for n, _ in sizes.values()) / 1e9:.4f} B params, "
-          f"{sum(b for _, b in sizes.values()) / 1e9:.3f} GB; with phase 5's MMDiT, TPM and VAE "
-          f"{allocated / 2**30:.2f} GiB allocated; weights from seed {seed} (CLIP N(0, "
-          f"{WEIGHT_STD}^2), T5 at its own init); {time.perf_counter() - t0:.1f} s")
-
     with open(REPO / "example" / "prompts.jsonl") as f:
         prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2467,6 +2458,55 @@ def serve_phase(seed, dev, smi):
     def tokenize(prompt):
         return (clip_tok([prompt], max_length=77)["input_ids"],
                 t5_tok([prompt], max_length=256)["input_ids"])
+
+    torch.cuda.synchronize()
+    return argparse.Namespace(pipe=pipe, te=te, towers=towers, tokenize=tokenize,
+                              prompts=prompts, bert_tok=bert_tok, n_clip=n_clip, n_t5=n_t5,
+                              seconds=time.perf_counter() - t0)
+
+
+def serve_phase(seed, dev, smi):
+    """Phase 14: text prompts through the port's serving path at full width.
+    The 2-layer reference check; ``serve_models``' pipeline and tokenizers;
+    generate from ids against generate from embeds; a BatchingEngine (max_batch 2,
+    25 ms window, 35 steps, 512 px served too) answering concurrent,
+    repeated (embed-cache hit), capped, guided with a negative, and 512 px
+    requests, a batch of two against a direct generate; then the HTTP
+    server's endpoints. K1 and K2 launches are checked around every call.
+    Returns the K1 and K2 launches of the phase and ``serve_models``'
+    namespace, for phase 15."""
+    import http.client
+    import threading
+
+    from tpdm_tpu_torch import serve
+    from tpdm_tpu_torch.models.vae import vae_scale_factor
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+    from tpdm_tpu_torch.rewards import ImageRewardModel
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.train.builders import build_inference_ranker
+    from tpdm_tpu_torch.utils.image import png_bytes
+
+    t_phase = time.perf_counter()
+    text_reference_phase(seed, dev)  # 1
+
+    # 2. the towers, phase 5's models and the tokenizers
+    served = serve_models(seed, dev)
+    pipe, te, towers, tokenize = served.pipe, served.te, served.towers, served.tokenize
+    prompts, bert_tok, n_clip, n_t5 = served.prompts, served.bert_tok, served.n_clip, served.n_t5
+    mmdit, vae = pipe.mmdit, pipe.vae
+    layers = mmdit.config.num_layers
+    mcfg = mmdit.config
+    factor = vae_scale_factor(vae.config)
+    px = mcfg.sample_size * factor
+    sizes = {name: (sum(p.numel() for p in t.parameters()), module_bytes(t))
+             for name, t in towers.items()}
+    allocated = torch.cuda.memory_allocated(dev)
+    phase("serve models", "; ".join(f"{name} {n / 1e9:.4f} B params, {b / 1e9:.3f} GB bf16"
+                                    for name, (n, b) in sizes.items())
+          + f"; towers {sum(n for n, _ in sizes.values()) / 1e9:.4f} B params, "
+          f"{sum(b for _, b in sizes.values()) / 1e9:.3f} GB; with phase 5's MMDiT, TPM and VAE "
+          f"{allocated / 2**30:.2f} GiB allocated; weights from seed {seed} (CLIP N(0, "
+          f"{WEIGHT_STD}^2), T5 at its own init); {served.seconds:.1f} s")
 
     tok_ms = {}
     for label in ("first", "again"):  # the CLIP tokenizer caches each word's BPE
@@ -2728,10 +2768,422 @@ def serve_phase(seed, dev, smi):
     phase("serve phase", f"{time.perf_counter() - t_phase:.1f} s; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB over the requests; K1 "
           f"{totals[0]}, K2 {totals[1]} launches over {len(calls)} generate calls")
-    del pipe, te, towers, mmdit, tpm, vae, engine, split_engine, h_engine, reward_model, ranker
+    pipe.generate = plain_generate
+    del engine, split_engine, h_engine, reward_model, ranker
     gc.collect()
     torch.cuda.empty_cache()
-    return totals
+    return totals, served
+
+
+class ErrorRecords(logging.Handler):
+    """Collects the records at ERROR or above of one logger."""
+
+    def __init__(self, name):
+        super().__init__(logging.ERROR)
+        self.records = []
+        self.logger = logging.getLogger(name)
+        self.logger.addHandler(self)
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def close(self):
+        self.logger.removeHandler(self)
+        super().close()
+
+
+def continuous_phase(seed, dev, served):
+    """Phase 15: a mixed-cap burst through the continuous engine at full
+    width on phase 14's models (``served``): runs A-G of item 15 of this
+    file's docstring, each request checked, every run's K1 and K2
+    launches checked exactly. Returns the K1 and K2 launches of the runs."""
+    import http.client
+    import threading
+
+    from tpdm_tpu_torch import serve
+    from tpdm_tpu_torch.models.vae import vae_scale_factor
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.serving_continuous import (
+        ContinuousBatchingEngine,
+        MultiResContinuousRouter,
+    )
+    from tpdm_tpu_torch.utils.image import postprocess_images
+
+    t_phase = time.perf_counter()
+    pipe, tokenize, prompts = served.pipe, served.tokenize, served.prompts
+    mcfg = pipe.mmdit.config
+    layers, front = mcfg.num_layers, mcfg.cache_front_blocks
+    factor = vae_scale_factor(pipe.vae.config)
+    # the same models without the VAE: the fixed engine's final latents,
+    # decoded here at batch 1 as the continuous engine decodes a slot
+    raw = TPDMPipeline(pipe.mmdit, pipe.tpm, None, text_encoders=pipe.text_encoders)
+    mix = [(prompts[i], i, CONT_CAPS[i % len(CONT_CAPS)]) for i in range(CONT_REQUESTS)]
+    errors = ErrorRecords("tpdm_tpu_torch.serving_continuous")
+    totals = [0, 0]
+    batches = []  # the MMDiT forwards' batch sizes
+    hook = pipe.mmdit.register_forward_pre_hook(lambda m, a: batches.append(a[0].shape[0]))
+
+    dtype = pipe._device_dtype()[1]
+    as_latents = lambda lats: torch.as_tensor(np.stack(lats)).to(dev, dtype)
+
+    def decode1(latents):
+        """Final latents (fp32 of bf16 values) decoded one at a time."""
+        return [postprocess_images(pipe._decode_impl(as_latents([lat])))[0] for lat in latents]
+
+    def drive(label, engine, jobs, submit=None):
+        """``jobs`` at once through a started ``engine`` (or ``submit``):
+        results, and the run's makespan, latencies, segment times and
+        launches."""
+        submit = submit or engine.submit
+        seg_events = []
+        if isinstance(engine, ContinuousBatchingEngine):
+            real = engine._segment
+
+            def timed(st, live):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = real(st, live)
+                ev[1].record()
+                seg_events.append(ev)
+                return out
+
+            engine._segment = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        flash_attention.launches = flash_attention_streaming.launches = 0
+        del batches[:]
+        engine.start()
+        try:
+            start = time.monotonic()
+            reqs = [submit(p, seed=s, steps=c) for p, s, c in jobs]
+            done = [None] * len(reqs)
+            while not all(done):
+                for i, r in enumerate(reqs):
+                    if done[i] is None and r._event.is_set():
+                        done[i] = time.monotonic()
+                time.sleep(0.001)
+            results = [r.result(timeout=0) for r in reqs]
+        finally:
+            engine.stop()
+        torch.cuda.synchronize()
+        launches = (flash_attention.launches, flash_attention_streaming.launches)
+        totals[0] += launches[0]
+        totals[1] += launches[1]
+        lat = sorted(t - r.submitted_at for t, r in zip(done, reqs))
+        run = argparse.Namespace(
+            label=label, results=results, launches=launches, batches=list(batches),
+            makespan=max(done) - start, p50=lat[len(lat) // 2],
+            p95=lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            seg_ms=(float(np.mean([a.elapsed_time(b) for a, b in seg_events]))
+                    if seg_events else None),
+            peak=torch.cuda.max_memory_allocated(dev) / 2**30, stats=engine.stats())
+        for (p, s, c), res in zip(jobs, results):
+            if res["image"].dtype != np.uint8 or res["image"].ndim != 3:
+                fail(f"{label}: ({p!r}, {s}) gave an image {res['image'].dtype} "
+                     f"{res['image'].shape}")
+            if c is not None and res["inference_steps"] != c:
+                fail(f"{label}: a request capped at {c} ran {res['inference_steps']} steps")
+        if errors.records:
+            fail(f"{label}: serving_continuous logged {errors.records[0].getMessage()!r}")
+        return run
+
+    def report(run, engine=None):
+        st = run.stats
+        parts = [f"makespan {run.makespan:.3f} s, {len(run.results) / run.makespan:.3f} images/s",
+                 f"latency p50 / p95 {run.p50:.3f} / {run.p95:.3f} s"]
+        if engine is not None:
+            parts += [f"stats() latency_s_p50 / p95 {st['latency_s_p50']:.3f} / "
+                      f"{st['latency_s_p95']:.3f} s",
+                      f"slot_utilization {st['slot_utilization']:.4f}",
+                      f"segments_run {st['segments_run']} (host syncs: one readback a segment)",
+                      f"{run.seg_ms:.2f} ms a segment ({run.seg_ms / engine.seg_steps:.2f} ms "
+                      f"a step)", f"segment_traces {st['segment_traces']}"]
+        else:
+            parts += [f"stats() total_s_p50 / p95 {st['total_s_p50']:.3f} / "
+                      f"{st['total_s_p95']:.3f} s", f"batches_run {st['batches_run']}"]
+        parts += [f"NFE {[r['inference_steps'] for r in run.results]}",
+                  f"peak memory {run.peak:.2f} GiB",
+                  f"K1 {run.launches[0]}, K2 {run.launches[1]}"]
+        phase(f"continuous {run.label}", "; ".join(parts))
+
+    def check_continuous(run, engine, k1_segment):
+        """segment_traces 1, every forward at CFG batch 2 x slots, K1
+        ``k1_segment`` a segment, K2 one a decode call."""
+        st = run.stats
+        want = (k1_segment * st["segments_run"], engine.decode_calls)
+        if st["segment_traces"] != 1:
+            fail(f"{run.label}: segment_traces {st['segment_traces']}")
+        if set(run.batches) != {2 * engine.slots}:
+            fail(f"{run.label}: MMDiT forwards at batches {sorted(set(run.batches))}, "
+                 f"expected {2 * engine.slots}")
+        if run.launches != want:
+            fail(f"{run.label}: K1 {run.launches[0]}, K2 {run.launches[1]} launches, expected "
+                 f"K1 {want[0]} ({k1_segment} x {st['segments_run']} segments), K2 {want[1]} "
+                 f"(one a decode call)")
+
+    def continuous(**kw):
+        """A continuous engine over the phase's pipeline, counting its decode
+        calls."""
+        engine = ContinuousBatchingEngine(pipe, tokenize, max_steps=35, **kw)
+        engine.decode_calls = 0
+        real = engine._decode_rows
+
+        def counted(lats):
+            engine.decode_calls += 1
+            return real(lats)
+
+        engine._decode_rows = counted
+        return engine
+
+    def same(a, b):
+        return all(np.array_equal(x["image"], y["image"])
+                   and x["inference_steps"] == y["inference_steps"] for x, y in zip(a, b))
+
+    def gap(a, b):
+        """(largest uint8 gap, % of pixels that differ) of two image lists."""
+        d = np.stack([np.abs(x.astype(np.int16) - y.astype(np.int16)) for x, y in zip(a, b)])
+        return int(d.max()), 100 * float((d > 0).mean())
+
+    images = lambda run: [r["image"] for r in run.results]
+
+    def reference(engine, texts, max_batch, resolutions=None):
+        """BatchingEngine(max_batch) on ``raw``, given ``engine``'s batch-1
+        embed rows of ``texts`` and its negative: rows encoded at another
+        batch shape round differently."""
+        ref = BatchingEngine(raw, tokenize, max_batch=max_batch, max_steps=35,
+                             resolutions=resolutions, vae_scale_factor=factor)
+        for text in texts:
+            ref._embed_cache[text] = engine._prompt_embeds(text)
+        ref._neg_embed = engine._neg_rows
+        return ref
+
+    try:
+        # A: slots 4, seg_steps 4, depth 1, decode batch 1, warmed up
+        eng_a = continuous(slots=4, seg_steps=4)
+        start = time.perf_counter()
+        eng_a.warmup()
+        torch.cuda.synchronize()
+        s_warm = time.perf_counter() - start
+        eng_a.decode_calls = 0
+        run_a = drive("A", eng_a, mix)
+        check_continuous(run_a, eng_a, layers * eng_a.seg_steps)
+        report(run_a, eng_a)
+        # the fixed engine at the same CFG batch 8, its final latents decoded
+        # at batch 1
+        ref = reference(eng_a, {p for p, _, _ in mix}, 4)
+        start = time.perf_counter()
+        want, lat_ref = [], []
+        for i in range(0, len(mix), 4):
+            group = mix[i:i + 4]
+            out = ref.generate_batch([p for p, _, _ in group], [s for _, s, _ in group],
+                                     steps=[c for _, _, c in group])
+            lat_ref += [o["image"] for o in out]
+            want += out
+        decoded = decode1(lat_ref)
+        s_ref = time.perf_counter() - start
+        for (p, s, c), got, w, img in zip(mix, run_a.results, want, decoded):
+            if not (np.array_equal(got["image"], img)
+                    and got["inference_steps"] == w["inference_steps"]
+                    and got["sigmas"] == w["sigmas"]):
+                fail(f"run A's ({p!r}, seed {s}, cap {c}) differs from BatchingEngine(max_batch"
+                     f"=4).generate_batch: {got['inference_steps']} against "
+                     f"{w['inference_steps']} steps, images equal "
+                     f"{np.array_equal(got['image'], img)}")
+        batch_decoded = [
+            im for i in range(0, len(lat_ref), 4)
+            for im in postprocess_images(pipe._decode_impl(as_latents(lat_ref[i:i + 4])))]
+        level, share = gap(images(run_a), batch_decoded)
+        phase("continuous A reference", f"warmup {s_warm:.3f} s; each of the {len(mix)} "
+              f"requests equal to the bit to BatchingEngine(max_batch=4).generate_batch at CFG "
+              f"batch 8 (its final latents decoded at batch 1, as the engine decodes; "
+              f"{s_ref:.3f} s): images, steps and sigmas; decoded at batch 4 instead: max "
+              f"|diff| {level} levels on {share:.3f} % of pixels (no bound)")
+
+        # B: depth 2
+        eng_b = continuous(slots=4, seg_steps=4, pipeline_depth=2)
+        run_b = drive("B", eng_b, mix)
+        check_continuous(run_b, eng_b, layers * eng_b.seg_steps)
+        report(run_b, eng_b)
+        if not same(run_b.results, run_a.results):
+            fail("run B (pipeline_depth 2) differs from run A")
+
+        # C: decode batch 4
+        eng_c = continuous(slots=4, seg_steps=4, decode_batch=4)
+        run_c = drive("C", eng_c, mix)
+        check_continuous(run_c, eng_c, layers * eng_c.seg_steps)
+        report(run_c, eng_c)
+        coalesced = run_c.stats["decode_rows_coalesced"]
+        if coalesced < 2:
+            fail(f"run C coalesced {coalesced} rows")
+        level, share = gap(images(run_c), images(run_a))
+        phase("continuous C decode", f"decode_rows_coalesced {coalesced} of {len(mix)} in "
+              f"{eng_c.decode_calls} decode calls; against run A max |diff| {level} levels on "
+              f"{share:.3f} % of pixels (no bound: another decode batch)")
+
+        # D: the per-segment Δ-cache and AB2, 4 requests twice each
+        seg = eng_a.seg_steps
+        per_seg = {"cache_interval 2": layers * -(-seg // 2) + front * (seg // 2),
+                   "ab2": layers * seg}
+        for name, kw in (("cache_interval 2", dict(cache_interval=2)),
+                         ("ab2", dict(solver="ab2"))):
+            runs = []
+            for rep in (1, 2):  # a fresh engine each time
+                eng_d = continuous(slots=4, seg_steps=seg, **kw)
+                runs.append(drive(f"D {name} run {rep}", eng_d, mix[:4]))
+                check_continuous(runs[-1], eng_d, per_seg[name])
+                report(runs[-1], eng_d)
+            if not same(runs[0].results, runs[1].results):
+                fail(f"run D {name}: the two runs differ")
+            level, share = gap(images(runs[0]), images(run_a)[:4])
+            phase(f"continuous D {name}", f"the two runs equal to the bit; NFE "
+                  f"{[r['inference_steps'] for r in runs[0].results]} against A's "
+                  f"{[r['inference_steps'] for r in run_a.results[:4]]}; "
+                  f"{runs[1].seg_ms / seg:.2f} ms a step against A's {run_a.seg_ms / seg:.2f}; "
+                  f"against A max |diff| {level} levels on {share:.3f} % of pixels")
+            del eng_d, runs
+
+        # E: the router, 1024 px and 512 px, slots 2
+        calls = []
+
+        def counting(prompt):
+            calls.append(prompt)
+            return tokenize(prompt)
+
+        router = MultiResContinuousRouter(pipe, counting, resolutions=[SERVE_EXTRA_PX], slots=2,
+                                          seg_steps=seg, max_steps=35,
+                                          vae_scale_factor=factor)
+        n_probe = len(calls)
+        two = mix[:2]
+        runs_e = {}
+        for res in (router.default_resolution, SERVE_EXTRA_PX):
+            eng = router._engines[res]
+            real = eng._decode_rows
+            eng.decode_calls = 0
+
+            def counted(lats, eng=eng, real=real):
+                eng.decode_calls += 1
+                return real(lats)
+
+            eng._decode_rows = counted
+            runs_e[res] = drive(f"E {res} px", eng, two, submit=lambda *a, res=res, **k:
+                                router.submit(*a, resolution=res, **k))
+            check_continuous(runs_e[res], eng, layers * seg)
+            report(runs_e[res], eng)
+        encodes = calls[n_probe:]
+        if encodes != [p for p, _, _ in two]:
+            fail(f"run E: the router's engines encoded {encodes} after their build")
+        ref_e = reference(router._engines[router.default_resolution],
+                          [p for p, _, _ in two], 2, resolutions=[SERVE_EXTRA_PX])
+        for res, run in runs_e.items():
+            out = ref_e.generate_batch([p for p, _, _ in two], [s for _, s, _ in two],
+                                       steps=[c for _, _, c in two], resolution=res)
+            for o, img, got in zip(out, decode1([o["image"] for o in out]), run.results):
+                if not (np.array_equal(got["image"], img)
+                        and got["inference_steps"] == o["inference_steps"]):
+                    fail(f"run E at {res} px differs from BatchingEngine(max_batch=2, "
+                         f"resolutions=[{SERVE_EXTRA_PX}])")
+        phase("continuous E router", f"{len(two)} requests at {router.default_resolution} px then "
+              f"the same at {SERVE_EXTRA_PX} px: each equal to the bit to BatchingEngine("
+              f"max_batch=2, resolutions=[{SERVE_EXTRA_PX}]) at its resolution (decoded at "
+              f"batch 1); the {SERVE_EXTRA_PX} px engine encoded nothing ({len(encodes)} encodes "
+              f"after the build, both at {router.default_resolution} px)")
+
+        # F: the fixed-batch engine on the same mix
+        steps_f = []
+        plain_generate = pipe.generate
+
+        def counted_generate(*a, **k):
+            res = plain_generate(*a, **k)
+            steps_f.append(res.num_steps)
+            return res
+
+        eng_f = BatchingEngine(pipe, tokenize, max_batch=4, window_ms=25, max_steps=35)
+        eng_f.warmup()
+        pipe.generate = counted_generate
+        try:
+            run_f = drive("F BatchingEngine(max_batch=4, window_ms=25)", eng_f, mix)
+        finally:
+            pipe.generate = plain_generate
+        want_f = (layers * sum(steps_f), len(steps_f))
+        if run_f.launches != want_f or set(run_f.batches) != {8}:
+            fail(f"run F: K1 {run_f.launches[0]}, K2 {run_f.launches[1]} over batches of "
+                 f"{steps_f} steps at MMDiT batches {sorted(set(run_f.batches))}")
+        report(run_f)
+        level, share = gap(images(run_f), images(run_a))
+        phase("continuous F against A", f"{len(steps_f)} batches of {steps_f} steps; makespan "
+              f"{run_f.makespan:.3f} s against A {run_a.makespan:.3f} s and B "
+              f"{run_b.makespan:.3f} s; images against A max |diff| {level} levels on "
+              f"{share:.3f} % of pixels (no bound: embeds encoded and decodes at batch 4)")
+
+        # G: serve --continuous over HTTP
+        args = serve.parse_args(["--continuous", "--max_batch", "4", "--seg_steps", str(seg),
+                                 "--max_steps", "35", "--port", "0", "--prompt", mix[0][0],
+                                 "--seed", "0"])
+        h_engine, server = serve.make_http_server(pipe, tokenize, args)
+        if not isinstance(h_engine, ContinuousBatchingEngine):
+            fail(f"serve --continuous built a {type(h_engine).__name__}")
+        h_engine.start()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+
+        def call(method, path, body=None):
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                              timeout=600)
+            try:
+                conn.request(method, path, body=None if body is None else json.dumps(body))
+                resp = conn.getresponse()
+                return resp.status, resp.read()
+            finally:
+                conn.close()
+
+        flash_attention.launches = flash_attention_streaming.launches = 0
+        try:
+            start = time.perf_counter()
+            p1, s1, c1 = mix[1]  # a capped request of run A
+            status, body = call("POST", "/generate", {"prompt": p1, "seed": s1, "steps": c1})
+            s_http = time.perf_counter() - start
+            if status != 200:
+                fail(f"continuous POST /generate: {status} {body[:200]}")
+            reply = json.loads(body)
+            direct = h_engine.submit(p1, seed=s1, steps=c1).result(timeout=600)
+            if not np.array_equal(png_pixels(base64.b64decode(reply["image_png_base64"]),
+                                             "/generate's PNG"), direct["image"]):
+                fail("continuous /generate's PNG differs from the engine's image")
+            if not np.array_equal(direct["image"], run_a.results[1]["image"]):
+                fail("the HTTP engine's image differs from run A's of the same request")
+            gets = {path: call("GET", path) for path in ("/stats", "/metrics", "/healthz")}
+            stats_g = json.loads(gets["/stats"][1])
+            if ({path: st for path, (st, _) in gets.items()} != dict.fromkeys(gets, 200)
+                    or not {"segments_run", "slot_utilization", "segment_traces"} <= set(stats_g)
+                    or b"tpdm_segments_run" not in gets["/metrics"][1]):
+                fail(f"continuous GET endpoints: {[(p, st) for p, (st, _) in gets.items()]}")
+            bad = call("POST", "/generate", {"prompt": 42})[0]
+            if bad != 400:
+                fail(f"a bad continuous request got {bad}, not 400")
+        finally:
+            server.shutdown()
+            h_engine.stop()
+            server.server_close()
+        n_g = (flash_attention.launches, flash_attention_streaming.launches)
+        totals[0] += n_g[0]
+        totals[1] += n_g[1]
+        want_g = (layers * seg * stats_g["segments_run"], 2)
+        if n_g != want_g or stats_g["segment_traces"] != 1:
+            fail(f"continuous http: K1 {n_g[0]}, K2 {n_g[1]}, expected {want_g}")
+        phase("continuous G http", f"POST /generate (steps {c1}) round trip {s_http:.3f} s, its PNG "
+              f"equal to the engine's image and to run A's; GET /stats (segments_run "
+              f"{stats_g['segments_run']}, slot_utilization {stats_g['slot_utilization']:.4f}), "
+              f"/metrics, /healthz 200; a bad request 400; K1 {n_g[0]}, K2 {n_g[1]}")
+    finally:
+        hook.remove()
+        errors.close()
+    phase("continuous phase", f"{time.perf_counter() - t_phase:.1f} s; K1 {totals[0]}, K2 "
+          f"{totals[1]} launches over runs A-G")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tuple(totals)
 
 
 def main() -> int:
@@ -2787,7 +3239,9 @@ def main() -> int:
         k1_train, k2_train = rloo_phase(args.seed, dev)  # 11
         k1_fixed, k2_fixed = fixed_phase(args.seed, dev, adaptive)  # 12
         k1_cli, k2_cli = cli_phase(args.seed, dev)  # 13
-        k1_serve, k2_serve = serve_phase(args.seed, dev, smi)  # 14
+        (k1_serve, k2_serve), served = serve_phase(args.seed, dev, smi)  # 14
+        k1_cont, k2_cont = continuous_phase(args.seed, dev, served)  # 15
+        del served
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -2797,11 +3251,11 @@ def main() -> int:
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
-             "launches": k1_total + k1_train + k1_fixed + k1_cli + k1_serve,
+             "launches": k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont,
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
-             "launches": k2_total + k2_train + k2_fixed + k2_cli + k2_serve,
+             "launches": k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont,
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

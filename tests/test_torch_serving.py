@@ -446,7 +446,7 @@ def test_cli_writes_a_png(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             serve.main(["--toy", "--cli"])
-    for flag, item in ((["--continuous"], "10, second part"), (["--dp", "2"], "9\\(d\\)"),
+    for flag, item in ((["--dp", "2"], "9\\(d\\)"),
                        (["--family", "flux"], "12"), (["--quant_text"], "13\\(a\\)"),
                        (["--lora", "x"], "13\\(b\\)"), (["--few_step", "0,14"], "9\\(e\\)"),
                        (["--reward_checkpoint", "r"], "8"), (["--pretrained", "p"], "7")):

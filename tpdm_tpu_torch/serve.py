@@ -5,17 +5,22 @@ schedule generation from a prompt (``predict=True``, up to ``--max_steps``
 steps, the realised step count reported). ``--cli`` generates once and
 writes a PNG; otherwise a stdlib HTTP server answers ``POST /generate``
 and ``POST /rank`` (best-of-N) through a ``serving.BatchingEngine``, and
-``GET /stats``, ``/metrics`` (Prometheus text) and ``/healthz``:
+``GET /stats``, ``/metrics`` (Prometheus text) and ``/healthz``. With
+``--continuous`` the server runs ``serving_continuous.
+ContinuousBatchingEngine`` instead (``--max_batch`` slots, ``--seg_steps``,
+``--pipeline_depth``, ``--decode_batch``), or with ``--resolutions`` a
+``MultiResContinuousRouter``:
 
     python -m tpdm_tpu_torch.serve --toy --cli --prompt "a cat"         # on the card
     python -m tpdm_tpu_torch.serve --toy --cpu --cli --prompt "a cat"   # anywhere
     python -m tpdm_tpu_torch.serve --toy --cpu --port 7860              # HTTP
+    python -m tpdm_tpu_torch.serve --toy --cpu --continuous --max_batch 2 --seg_steps 2
 
 It runs on the card unless ``--cpu`` is given, and exits non-zero without
 one. ``--toy`` builds random toy towers, MMDiT, TPM and VAE from a fixed
 seed and a deterministic toy tokenizer. Not ported yet, each exiting with a
 message that names its ROADMAP queue 1 item: ``--pretrained`` (7),
-``--continuous`` (10, second part), ``--family`` other than sd3 (12),
+``--family`` other than sd3 (12),
 ``--dp`` / ``--mesh`` (9(d) and 14), ``--lora*`` (13(b)), ``--few_step``
 (9(e)), ``--quant_text`` (13(a)) and ``--reward_checkpoint`` (8); gradio
 is not ported. Importing the module starts nothing.
@@ -44,7 +49,6 @@ TOY_SEED = 0
 # flags of the root serve.py that the port refuses: flag -> (what, item)
 _NOT_PORTED_FLAGS = {
     "pretrained": ("--pretrained (load_pipeline_from_pretrained)", "7"),
-    "continuous": ("--continuous (the continuous batching engine)", "10, second part"),
     "dp": ("--dp (data-parallel replicas)", "9(d)"),
     "mesh": ("--mesh (sharded-model serving)", "14"),
     "lora": ("--lora (LoRA adapters)", "13(b)"),
@@ -204,28 +208,61 @@ def _pipe_vae_scale_factor(pipe) -> int:
     return vae_scale_factor(pipe.vae.config)
 
 
-def make_http_server(pipe, tokenize, args, ranker=None):
-    """A threaded HTTP server over a ``BatchingEngine``: concurrent requests
-    coalesce into one batch. ``ranker`` (``train.builders.
-    build_inference_ranker``) ranks ``/rank``'s candidates; without one they
-    come back unranked. Returns (engine, server); start the engine, then
-    ``server.serve_forever()``."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-    from tpdm_tpu_torch.serving import (
-        BatchingEngine,
-        EngineOverloaded,
-        RequestExpired,
-        generate_ranked,
-    )
-    from tpdm_tpu_torch.utils.metrics_export import prometheus_text
+def make_engine(pipe, tokenize, args):
+    """The serving engine for ``args``: a ``BatchingEngine``, or with
+    ``--continuous`` a ``ContinuousBatchingEngine`` (``--max_batch``
+    slots), or with ``--continuous --resolutions`` a
+    ``MultiResContinuousRouter``. The continuous engines take the Δ-cache
+    per segment (``--cache_interval``) and exit on ``--guidance_interval``
+    and ``--cache_tau``, as the root serve.py does."""
+    from tpdm_tpu_torch.serving import BatchingEngine
 
     ci, gi, tau = _accel_kwargs(args)
-    engine = BatchingEngine(
-        pipe, tokenize, max_batch=args.max_batch, window_ms=args.batch_window_ms,
-        max_steps=args.max_steps, resolutions=_resolutions(args),
-        vae_scale_factor=_pipe_vae_scale_factor(pipe), cache_interval=ci,
-        guidance_interval=gi, cache_tau=tau, solver=getattr(args, "solver", "euler"))
+    solver = getattr(args, "solver", "euler")
+    if not getattr(args, "continuous", False):
+        return BatchingEngine(
+            pipe, tokenize, max_batch=args.max_batch, window_ms=args.batch_window_ms,
+            max_steps=args.max_steps, resolutions=_resolutions(args),
+            vae_scale_factor=_pipe_vae_scale_factor(pipe), cache_interval=ci,
+            guidance_interval=gi, cache_tau=tau, solver=solver)
+    from tpdm_tpu_torch.serving_continuous import (
+        ContinuousBatchingEngine,
+        MultiResContinuousRouter,
+    )
+
+    if gi is not None or tau:
+        raise SystemExit("--guidance_interval/--cache_tau serve through the fixed-batch "
+                         "engine (the continuous segment carries the per-segment Δ-cache "
+                         "only: use --cache_interval); drop --continuous")
+    common = dict(slots=args.max_batch, seg_steps=getattr(args, "seg_steps", 4),
+                  max_steps=args.max_steps, cache_interval=ci,
+                  pipeline_depth=getattr(args, "pipeline_depth", 1) or 1,
+                  decode_batch=getattr(args, "decode_batch", 1) or 1,
+                  vae_scale_factor=_pipe_vae_scale_factor(pipe))
+    res = _resolutions(args)
+    if res:
+        return MultiResContinuousRouter(pipe, tokenize, resolutions=res, **common)
+    return ContinuousBatchingEngine(pipe, tokenize, solver=solver, **common)
+
+
+def _alive(engine) -> bool:
+    """Every worker thread of the engine (each of a router's) runs."""
+    engines = getattr(engine, "_engines", {None: engine}).values()
+    return all(e._thread is not None for e in engines)
+
+
+def make_http_server(pipe, tokenize, args, ranker=None):
+    """A threaded HTTP server over ``make_engine``'s engine: concurrent
+    requests coalesce into one batch, or share the continuous engine's
+    slots. ``ranker`` (``train.builders.build_inference_ranker``) ranks
+    ``/rank``'s candidates; without one they come back unranked. Returns
+    (engine, server); start the engine, then ``server.serve_forever()``."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from tpdm_tpu_torch.serving import EngineOverloaded, RequestExpired, generate_ranked
+    from tpdm_tpu_torch.utils.metrics_export import prometheus_text
+
+    engine = make_engine(pipe, tokenize, args)
 
     def not_served(req):
         """Request fields whose options are not ported: a 400 naming them."""
@@ -257,8 +294,8 @@ def make_http_server(pipe, tokenize, args, ranker=None):
             if self.path == "/stats":
                 self._reply(engine.stats())
             elif self.path == "/healthz":
-                # liveness: the worker thread must still be running
-                alive = engine._thread is not None
+                # liveness: the worker threads must still be running
+                alive = _alive(engine)
                 self._text(200 if alive else 503, b"ok\n" if alive else b"stopped\n",
                            "text/plain")
             elif self.path == "/metrics":
@@ -400,7 +437,14 @@ def parse_args(argv=None):
     p.add_argument("--batch_window_ms", type=float, default=25.0)
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--mesh", default=None)
-    p.add_argument("--continuous", action="store_true")
+    p.add_argument("--continuous", action="store_true",
+                   help="continuous batching: finished slots are refilled mid-denoise")
+    p.add_argument("--seg_steps", type=int, default=4,
+                   help="--continuous: denoise steps a segment, between slot refills")
+    p.add_argument("--pipeline_depth", type=int, default=1,
+                   help="--continuous: segments in flight ahead of the host's readback")
+    p.add_argument("--decode_batch", type=int, default=1,
+                   help="--continuous: finished slots coalesced into one decode")
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--lora", action="append", default=None)
     p.add_argument("--lora_scale", type=float, default=None)
@@ -431,6 +475,9 @@ def parse_args(argv=None):
             raise SystemExit(str(not_ported(what, item)))
     if args.family != "sd3":
         raise SystemExit(str(not_ported(f"--family {args.family}", "12")))
+    if args.solver != "euler" and args.continuous and args.resolutions:
+        raise SystemExit("--solver with --continuous serves the single-resolution engine; "
+                         "drop --resolutions")
     return args
 
 
@@ -458,9 +505,8 @@ def main(argv=None):
         from tpdm_tpu_torch.utils.tb_writer import StatsStreamer
 
         streamer = StatsStreamer(engine.stats, args.tb_dir, args.tb_interval)
-    logger.info("serving on http://127.0.0.1:%d/generate (POST json; GET /stats), max_batch "
-                "%d, window %.0f ms", server.server_address[1], args.max_batch,
-                args.batch_window_ms)
+    logger.info("serving on http://127.0.0.1:%d/generate (POST json; GET /stats) through %s, "
+                "max_batch %d", server.server_address[1], type(engine).__name__, args.max_batch)
 
     # graceful drain on SIGTERM / ctrl-C: stop accepting, let the engine
     # finish its batch, exit; serve_forever() returns once shutdown() runs

@@ -26,7 +26,8 @@ Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: data-parallel replicas and the sharded mesh (``dp``,
 ``mesh_shape``: 9(d) and 14), the family runners (``runner``: 12), LoRA
 adapters (``register_adapter``, ``lora=``: 13(b)) and img2img
-(``init_image``: 4). The continuous engine is item 10's second part.
+(``init_image``: 4). The continuous engine, which refills a finished
+request's slot mid-denoise, is ``serving_continuous.py``.
 """
 
 from __future__ import annotations
