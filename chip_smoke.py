@@ -32,11 +32,16 @@ Phases, one line each, and any failure exits non-zero:
    GEMMs K4 (int8, bit for bit on its int32 accumulator) and K5 (bf16) at
    every matmul shape of the batch 1 and batch 2 requests, beside
    torch._int_mm and cuBLAS's bf16 product; K1's, K4's and K5's TFLOP/s
-   (TOP/s) and share of their bound;
-4. a reference check: a 2-layer MMDiT (float, W8A8 and int4) and a VAE
-   decoder with a 512-wide mid block, on the card in bf16 through the
-   kernels, against the same weights run in fp32 on the CPU through the
-   plain versions;
+   (TOP/s) and share of their bound. Then SD3.5's shapes: K1 at
+   SD3.5-medium's image-only attn2 (2, 24, 4096, 64) without a kv_len and
+   at SD3.5-large's joint attention (2, 38, 4480, 64), kv_len 4429, and K4
+   at every W8A8 matmul shape of an SD3.5-large batch-1 request (K and N
+   in {2432, 9728}, 8192 image and 666 text rows);
+4. a reference check: a 2-layer MMDiT (float, W8A8 and int4), a 2-layer
+   SD3.5 MMDiT (dual attention in layer 0, qk RMSNorm; float and W8A8)
+   and a VAE decoder with a 512-wide mid block, on the card in bf16
+   through the kernels, against the same weights run in fp32 on the CPU
+   through the plain versions;
 5. the slice: full-width SD3-medium MMDiT (24 layers, 24 heads x 64), the
    TPM and the SD3 VAE decoder at 1024 px, weights drawn from the seed,
    answering two requests (batch 1, then batch 2) through
@@ -142,7 +147,22 @@ Phases, one line each, and any failure exits non-zero:
    a segment (CUDA events), peak memory and K1 / K2 launches, checked
    exactly (K1 layers x the steps of each segment, K2 one a decode call);
    any request error, segment_traces other than 1 or a record at ERROR
-   from serving_continuous fails the phase.
+   from serving_continuous fails the phase;
+16. SD3.5 at 1024 px (CFG 7.0, predict=True, TPM head bias (1.0, 0.55)),
+   weights drawn on the card from the seed: (a) SD3.5-medium at full
+   width (24 layers, 24 x 64 heads, dual attention in layers 0-12, qk
+   RMSNorm, a 384 x 384 sincos table) with its TPM and the SD3 VAE,
+   requests at batch 1 and 2 (K1 37 launches a step: 24 joint + 13
+   attn2); (b) SD3.5-large at full width (38 layers, 38 x 64 heads, 8.1 B
+   parameters), a bf16 request at batch 1, then the same model
+   prequantised W8A8 in place and the same request (K1 38 a step, K4 453
+   a step); (c) a synthetic diffusers-layout directory written to a
+   temporary directory (a 2-layer SD3.5-medium-width transformer in two
+   shards, the SD3 VAE, a TPM file) loaded by
+   load_pipeline_from_pretrained, every tensor and one request equal to
+   the bit to the same weights built in memory. Each request (after a
+   one-step warm-up at its batch) prints its steps, warm wall time (CUDA
+   events), peak memory and K1 / K2 / K4 launches, checked exactly.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -222,6 +242,12 @@ BF16_STEP = 2.0**-8
 _GEMM_KN = [(1536, 1536), (1536, 6144), (6144, 1536)]
 GEMM_SHAPES = [(m, k, n) for m in (8192, 666, 16384, 1332) for k, n in _GEMM_KN]
 TIMED_GEMM = (8192, 1536, 6144)
+# SD3.5-large's W8A8 matmuls at 1024 px, batch 1 (CFG 2): image rows then
+# text rows against the qkv/out (2432 x 2432), FF proj_in and FF proj_out
+# weights; the FF proj_in shape is the one in the kernels line
+SD35_LARGE_GEMM_SHAPES = [(m, k, n) for m in (8192, 666)
+                          for k, n in ((2432, 2432), (2432, 9728), (9728, 2432))]
+SD35_LARGE_TIMED_GEMM = (8192, 2432, 9728)
 # a quantised 24-layer forward against the bf16 one, mean |dv| / mean |v|:
 # int8 within the JAX package's bound (tests/test_mmdit.py:153); int4 only
 # within an order one, since N(0, 0.02^2) weights are int4's worst case
@@ -616,74 +642,131 @@ def gemm_phase(g, dev):
     versions at every quantised matmul shape of the 1024 px path, with
     their times, bounds and PyTorch's own products on the same operands
     (torch._int_mm and torch.matmul in bf16, both on b_t.t())."""
-    from tpdm_tpu_torch.ops.gemm import (
-        bf16_gemm,
-        bf16_gemm_reference,
-        int8_gemm,
-        int8_gemm_reference,
-    )
+    from tpdm_tpu_torch.ops.gemm import bf16_gemm, bf16_gemm_reference
 
     res = {}
     k4_err = k5_err = 0.0
     for m, k, n in GEMM_SHAPES:
-        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        b_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-        acc, acc_ref = int8_gemm(a, b_t), int8_gemm_reference(a, b_t)
-        lib_acc = torch._int_mm(a, b_t.t())
-        torch.cuda.synchronize()
-        if not torch.equal(acc, acc_ref):
-            fail(f"K4 int32 ({m}, {k}) x ({n}, {k}) is not bit-identical to its plain version: "
-                 f"{int((acc != acc_ref).sum())} elements differ")
-        x_scale = torch.rand(m, generator=g, device=dev) * 1e-2 + 1e-3
-        w_scale = torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3
-        bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
-        out = int8_gemm(a, b_t, x_scale, w_scale, bias)
-        ref = int8_gemm_reference(a, b_t, x_scale, w_scale, bias).float()
-        torch.cuda.synchronize()
-        gap = (out.float() - ref).abs()
-        if not (gap <= BF16_STEP * ref.abs()).all():
-            fail(f"K4 dequant ({m}, {k}) x ({n}, {k}) is more than one bf16 step from its plain "
-                 f"version: max abs err {gap.max().item()}")
-        k4_err = max(k4_err, gap.max().item())
+        k4, k4_text = k4_check(g, dev, m, k, n)
+        k4_err = max(k4_err, k4["max_abs_err"])
         x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn(n, k, generator=g, device=dev) * WEIGHT_STD).to(torch.bfloat16)
         k5 = output_error(f"K5 ({m}, {k}) x ({n}, {k})", bf16_gemm(x, w), bf16_gemm_reference(x, w))
         k5_err = max(k5_err, k5[0])
         times = dict(
-            k4=median_ms(lambda: int8_gemm(a, b_t, x_scale, w_scale, bias)),
-            k4_plain=median_ms(lambda: int8_gemm_reference(a, b_t, x_scale, w_scale, bias)),
-            k4_lib=median_ms(lambda: torch._int_mm(a, b_t.t())),
             k5=median_ms(lambda: bf16_gemm(x, w)),
             k5_plain=median_ms(lambda: bf16_gemm_reference(x, w)),
             k5_lib=median_ms(lambda: torch.matmul(x, w.t())),
         )
-        k4_bound = gemm_bound(m, k, n, 1, 2, PEAK_INT8_OPS, extra_bytes=4 * m + 6 * n)
         k5_bound = gemm_bound(m, k, n, 2, 2, PEAK_BF16_FLOPS)
-        phase("K4/K5", f"({m}, {k}) x ({n}, {k}): K4 int32 bit-identical (torch._int_mm "
-              f"{'equal' if torch.equal(lib_acc, acc_ref) else 'DIFFERS'}), dequant max abs err "
-              f"{gap.max().item():.3e} (bound one bf16 step), {times['k4']:.4f} ms, plain "
-              f"{times['k4_plain']:.4f} ms, torch._int_mm {times['k4_lib']:.4f} ms, bound "
-              f"{k4_bound[0]:.4f} ms ({k4_bound[1]}), {2 * m * n * k / times['k4'] / 1e9:.1f} "
-              f"TOP/s, {100 * k4_bound[0] / times['k4']:.1f} % of bound; K5 {fmt_err(k5)}, {times['k5']:.4f} ms, plain {times['k5_plain']:.4f} ms, "
-              f"torch.matmul {times['k5_lib']:.4f} ms, bound {k5_bound[0]:.4f} ms "
-              f"({k5_bound[1]}), {2 * m * n * k / times['k5'] / 1e9:.1f} TFLOP/s, "
-              f"{100 * k5_bound[0] / times['k5']:.1f} % of bound")
+        phase("K4/K5", f"{k4_text}; K5 {fmt_err(k5)}, {times['k5']:.4f} ms, plain "
+              f"{times['k5_plain']:.4f} ms, torch.matmul {times['k5_lib']:.4f} ms, bound "
+              f"{k5_bound[0]:.4f} ms ({k5_bound[1]}), {2 * m * n * k / times['k5'] / 1e9:.1f} "
+              f"TFLOP/s, {100 * k5_bound[0] / times['k5']:.1f} % of bound")
         if (m, k, n) == TIMED_GEMM:
-            res["K4"] = dict(ms=times["k4"], plain_ms=times["k4_plain"], bound_ms=k4_bound[0],
-                             bound_by=k4_bound[1], library_ms=times["k4_lib"])
+            res["K4"] = {key: v for key, v in k4.items() if key != "max_abs_err"}
             res["K5"] = dict(ms=times["k5"], plain_ms=times["k5_plain"], bound_ms=k5_bound[0],
                              bound_by=k5_bound[1], library_ms=times["k5_lib"])
-        del a, b_t, acc, acc_ref, lib_acc, out, ref, gap, x, w
+        del x, w
     res["K4"]["max_abs_err"] = k4_err
     res["K5"]["max_abs_err"] = k5_err
     torch.cuda.empty_cache()
     return res
 
 
+def k4_check(g, dev, m, k, n):
+    """K4 (both epilogues) against its plain version on int8 operands of
+    (m, k) x (n, k) drawn from ``g``, timed beside torch._int_mm. Returns
+    (a kernels-line dict, the line's text)."""
+    from tpdm_tpu_torch.ops.gemm import int8_gemm, int8_gemm_reference
+
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    b_t = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    acc, acc_ref = int8_gemm(a, b_t), int8_gemm_reference(a, b_t)
+    lib_acc = torch._int_mm(a, b_t.t())
+    torch.cuda.synchronize()
+    if not torch.equal(acc, acc_ref):
+        fail(f"K4 int32 ({m}, {k}) x ({n}, {k}) is not bit-identical to its plain version: "
+             f"{int((acc != acc_ref).sum())} elements differ")
+    lib_equal = torch.equal(lib_acc, acc_ref)
+    del acc, acc_ref, lib_acc
+    x_scale = torch.rand(m, generator=g, device=dev) * 1e-2 + 1e-3
+    w_scale = torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3
+    bias = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+    out = int8_gemm(a, b_t, x_scale, w_scale, bias)
+    ref = int8_gemm_reference(a, b_t, x_scale, w_scale, bias).float()
+    torch.cuda.synchronize()
+    gap = (out.float() - ref).abs()
+    if not (gap <= BF16_STEP * ref.abs()).all():
+        fail(f"K4 dequant ({m}, {k}) x ({n}, {k}) is more than one bf16 step from its plain "
+             f"version: max abs err {gap.max().item()}")
+    err = gap.max().item()
+    del out, ref, gap
+    ms = median_ms(lambda: int8_gemm(a, b_t, x_scale, w_scale, bias))
+    plain_ms = median_ms(lambda: int8_gemm_reference(a, b_t, x_scale, w_scale, bias))
+    lib_ms = median_ms(lambda: torch._int_mm(a, b_t.t()))
+    bound, by = gemm_bound(m, k, n, 1, 2, PEAK_INT8_OPS, extra_bytes=4 * m + 6 * n)
+    text = (f"({m}, {k}) x ({n}, {k}): K4 int32 bit-identical (torch._int_mm "
+            f"{'equal' if lib_equal else 'DIFFERS'}), dequant max abs err {err:.3e} (bound one "
+            f"bf16 step), {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}), {2 * m * n * k / ms / 1e9:.1f} TOP/s, "
+            f"{100 * bound / ms:.1f} % of bound")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms), text
+
+
+def sd35_kernel_phase(seed, dev):
+    """Phase 3, SD3.5's shapes, from a generator of their own: K1 at
+    SD3.5-medium's image-only attn2 without a kv_len, (2, 24, 4096, 64) and
+    (4, 24, 4096, 64) (CFG batch 2 and 4: phase 16's requests at batch 1
+    and 2), and at SD3.5-large's joint attention (2, 38, 4480, 64), kv_len
+    4429 (CFG batch 2), and K4 at every W8A8 matmul shape of an SD3.5-large
+    batch-1 request (K and N in {2432, 9728}; N 2432 ends in half a
+    256-column tile). Returns the kernels line's entries."""
+    from tpdm_tpu_torch.ops.attention import attention_reference, flash_attention
+    from torch.nn.functional import scaled_dot_product_attention
+
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    out = {}
+    for key, (b, h, n, kv_len) in (("sd35_attn2", (2, 24, 4096, None)),
+                                   ("sd35_attn2_batch_4", (4, 24, 4096, None)),
+                                   ("sd35_large", (2, 38, 4480, 4429))):
+        q, k, v = (torch.randn(b, h, n, 64, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        err = check_kernel(f"K1 ({b}, {h}, {n}, 64)", flash_attention, attention_reference,
+                           q, k, v, kv_len)
+        n_kv = n if kv_len is None else kv_len
+        ms = median_ms(lambda: flash_attention(q, k, v, kv_len))
+        plain_ms = median_ms(lambda: attention_reference(q, k, v, kv_len))
+        lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k[:, :, :n_kv], v[:, :, :n_kv]))
+        bound, by = attention_bound(b * h, n, n, 64, kv_len)
+        phase("K1", f"({b}, {h}, {n}, 64) bf16{'' if kv_len is None else f' kv_len {kv_len}'} "
+                    f"({'SD3.5-medium attn2' if h == 24 else 'SD3.5-large joint attention'}): "
+                    f"{fmt_err(err)} (bound {KERNEL_REL_TOL} of max |o|); kernel {ms:.3f} ms, "
+                    f"{4 * b * h * n * n_kv * 64 / ms / 1e9:.1f} TFLOP/s, "
+                    f"{100 * bound / ms:.1f} % of bound; plain {plain_ms:.3f} ms, "
+                    f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+        out.setdefault("K1", {})[key] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
+                                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del q, k, v
+        torch.cuda.empty_cache()
+    k4_err = 0.0
+    for m, k, n in SD35_LARGE_GEMM_SHAPES:
+        k4, text = k4_check(g, dev, m, k, n)
+        phase("K4", f"{text} (SD3.5-large)")
+        k4_err = max(k4_err, k4["max_abs_err"])
+        if (m, k, n) == SD35_LARGE_TIMED_GEMM:
+            out["K4"] = {"sd35_large": k4}
+    out["K4"]["sd35_large"]["max_abs_err"] = k4_err
+    torch.cuda.empty_cache()
+    return out
+
+
 def reference_phase(seed, dev):
     """Phase 4: card (bf16, kernels) vs CPU (fp32, plain versions)."""
     from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
     from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.ops.attention import flash_attention
     from tpdm_tpu_torch.ops.gemm import bf16_gemm, int8_gemm
     from tpdm_tpu_torch.ops.quant import prequantize_
 
@@ -731,21 +814,55 @@ def reference_phase(seed, dev):
                        f"{mmdit_err:.3e}, W8A8 (K4) {quant_errs[8]:.3e}, int4 (K5) "
                        f"{quant_errs[4]:.3e}; VAE decoder with 512-wide mid block (256 tokens) "
                        f"max rel err {vae_err:.3e} (bound {MODULE_REL_TOL})")
-    if not max(mmdit_err, vae_err, *quant_errs.values()) < MODULE_REL_TOL:
+    # SD3.5: dual attention in layer 0 (attn2 on K1 without a kv_len) and the
+    # qk RMSNorm with scales drawn around 1; float, then W8A8 on K4 with
+    # attn2 quantised (12 + 4 matmuls in layer 0, 9 in the last)
+    sd35 = MMDiTConfig.sd35_medium(num_layers=2, num_attention_heads=4,
+                                   caption_projection_dim=256, sample_size=16,
+                                   dual_attention_layers=(0,))
+    sd35_errs = {}
+    for label, cfg in (("float", sd35), ("W8A8", dataclasses.replace(sd35, quant_matmuls=True))):
+        m_cpu = MMDiT(cfg).init_weights(cpu_gen, WEIGHT_STD)
+        with torch.no_grad():
+            for name, param in m_cpu.named_parameters():
+                if ".norm_" in name:
+                    param.uniform_(0.8, 1.2, generator=cpu_gen)
+        m_cpu = m_cpu.to(torch.bfloat16).float()
+        if cfg.quant_matmuls:
+            prequantize_(m_cpu)
+        m_card = MMDiT(cfg).to(dev)
+        m_card.load_state_dict(m_cpu.state_dict())
+        m_card.to(torch.bfloat16)
+        before = flash_attention.launches, int8_gemm.launches
+        with torch.no_grad():
+            ref_out = m_cpu(*inputs)
+            card_out = m_card(*(x.to(dev, torch.bfloat16) for x in inputs))
+        n = flash_attention.launches - before[0], int8_gemm.launches - before[1]
+        if n != (3, 25 if cfg.quant_matmuls else 0):
+            fail(f"the 2-layer SD3.5 MMDiT ({label}) launched K1 {n[0]}, K4 {n[1]} times, "
+                 f"expected 3 and {25 if cfg.quant_matmuls else 0}")
+        sd35_errs[label] = max(rel_err(c, r) for c, r in zip(card_out, ref_out))
+    phase("reference", f"2-layer SD3.5 MMDiT (4x64 heads, dual attention in layer 0, qk "
+                       f"RMSNorm, 384-wide sincos table) max rel err {sd35_errs['float']:.3e}, "
+                       f"W8A8 (K4, attn2 quantised) {sd35_errs['W8A8']:.3e} (bound "
+                       f"{MODULE_REL_TOL}); K1 3 launches a forward (2 joint + 1 attn2)")
+    if not max(mmdit_err, vae_err, *quant_errs.values(), *sd35_errs.values()) < MODULE_REL_TOL:
         fail("the card's modules disagree with their CPU fp32 reference")
 
 
 def build_models(dev, seed, mmdit_config):
-    """Full-width SD3-medium MMDiT, TPM and SD3 VAE decoder in bf16 with
-    N(0, WEIGHT_STD²) weights from ``seed``, on ``dev``."""
+    """The MMDiT of ``mmdit_config`` (SD3-medium's or SD3.5's), its TPM and
+    the SD3 VAE decoder in bf16 with N(0, WEIGHT_STD²) weights from
+    ``seed``, on ``dev``."""
     from tpdm_tpu_torch.models.mmdit import MMDiT
     from tpdm_tpu_torch.models.tpm import TimePredictor
     from tpdm_tpu_torch.models.vae import VAE, VAEConfig
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    width = mmdit_config.inner_dim
     with torch.device(dev):
         mmdit = MMDiT(mmdit_config)
-        tpm = TimePredictor(conv_out_channels=128, in_channels=3072, temb_dim=1536,
+        tpm = TimePredictor(conv_out_channels=128, in_channels=2 * width, temb_dim=width,
                             init_alpha=TPM_HEAD_BIAS[0], init_beta=TPM_HEAD_BIAS[1],
                             dtype=torch.bfloat16)
         vae = VAE(VAEConfig.sd3())
@@ -3186,6 +3303,233 @@ def continuous_phase(seed, dev, served):
     return tuple(totals)
 
 
+def warm_request(pipe, dev, b, req_seed, counters, decode_s):
+    """One 1024 px request of batch b through ``pipe.generate`` (prompt
+    embeds drawn from ``req_seed``), after a one-step request at the same
+    batch outside the counts; each counter set to 0 just before it and read
+    after, its schedule checked. Returns (result, wall ms by CUDA events,
+    decode ms, launches, peak GiB)."""
+    eg = torch.Generator(device=dev).manual_seed(req_seed)
+    emb = lambda *shape: torch.randn(shape, generator=eg, device=dev, dtype=torch.bfloat16)
+    pe, npe = emb(b, N_CTX, 4096), emb(b, N_CTX, 4096)
+    pp, npp = emb(b, 2048), emb(b, 2048)
+    run = lambda steps: pipe.generate(pe, pp, npe, npp, max_inference_steps=steps,
+                                      guidance_scale=7.0, predict=True, seed=req_seed)
+    run(1)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = run(T_MAX)
+    end.record()
+    end.synchronize()
+    check_schedule(res, b, 1024)
+    return (res, start.elapsed_time(end), 1000 * decode_s["last"],
+            [fn.launches for fn in counters], torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def quantize_in_place(pipe, bits):
+    """``pipe.mmdit`` replaced by its quant_matmuls form holding the same
+    tensors (built on the meta device and given them by assign), then
+    prequantised: each bf16 weight is freed as its int copy replaces it, so
+    the card never holds the model twice."""
+    from tpdm_tpu_torch.models.mmdit import MMDiT
+    from tpdm_tpu_torch.ops.quant import prequantize_
+
+    mmdit = pipe.mmdit
+    with torch.device("meta"):
+        qm = MMDiT(dataclasses.replace(mmdit.config, quant_matmuls=True, quant_bits=bits))
+    qm.load_state_dict(mmdit.state_dict(), assign=True)
+    qm.pos_embed.pos_embed = mmdit.pos_embed.pos_embed  # not in the state dict
+    pipe.mmdit = qm.eval()
+    del mmdit
+    gc.collect()
+    return prequantize_(qm)
+
+
+def sd35_phase(seed, dev):
+    """Phase 16: SD3.5 at 1024 px (CFG 7.0, predict=True, TPM head bias
+    TPM_HEAD_BIAS), weights drawn on the card from the seed. (a)
+    SD3.5-medium at full width, requests at batch 1 and 2; (b) SD3.5-large
+    at full width, a bf16 request, then the same model prequantised W8A8 in
+    place and the same request; (c) a synthetic diffusers-layout directory
+    (a 2-layer SD3.5-medium-width transformer in two shards, the SD3 VAE, a
+    TPM file) loaded by load_pipeline_from_pretrained, its request equal to
+    the bit to the same weights built in memory. The W8A8 forward is held to
+    QUANT_REL_BOUND[8] of the bf16 one. K1, K2 and K4 launches are
+    checked exactly a request. Returns the phase's (K1, K2, K4) launches."""
+    from tpdm_tpu_torch.models.layers import get_2d_sincos_pos_embed
+    from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+    from tpdm_tpu_torch.models.tpm import TimePredictor
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+    from tpdm_tpu_torch.ops.gemm import int8_gemm
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline, load_pipeline_from_pretrained
+    from tpdm_tpu_torch.utils import convert, safetensors
+
+    t_phase = time.perf_counter()
+    counters = (flash_attention, flash_attention_streaming, int8_gemm)
+    totals = [0, 0, 0]
+    decode_s = {}
+
+    def request(label, pipe, b, req_seed, want):
+        """``want``: K1 launches a step, K4 launches a step."""
+        res, wall, dec, n, peak = warm_request(pipe, dev, b, req_seed, counters, decode_s)
+        steps = res.num_steps
+        expect = [want[0] * steps, 1, want[1] * steps]
+        if n != expect:
+            fail(f"{label}: K1 {n[0]}, K2 {n[1]}, K4 {n[2]} launches in {steps} steps, "
+                 f"expected {expect}")
+        for i, v in enumerate(n):
+            totals[i] += v
+        phase(label, f"batch {b}: {steps} steps, sigmas "
+              f"{[round(float(x), 5) for x in res.sigmas[0, :steps]]}, warm wall {wall:.1f} ms "
+              f"(CUDA events), {(wall - dec) / steps:.1f} ms/step (CFG batch {2 * b}), decode "
+              f"{dec:.1f} ms, peak memory {peak:.2f} GiB, K1 {n[0]} ({want[0]} a step), K2 "
+              f"{n[1]}, K4 {n[2]} ({want[1]} a step)")
+        return res
+
+    # (a) SD3.5-medium: its sincos table is 384 x 384 x 1536
+    t0 = time.perf_counter()
+    get_2d_sincos_pos_embed(1536, 384, 64)
+    t_table = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mcfg = MMDiTConfig.sd35_medium()
+    mmdit, tpm, vae = build_models(dev, seed + 30, mcfg)
+    pipe = TPDMPipeline(mmdit, tpm, vae)
+    timed_decoder(pipe, decode_s)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in mmdit.parameters())
+    table = mmdit.pos_embed.pos_embed
+    phase("sd35 medium models", f"SD3.5-medium MMDiT ({mcfg.num_layers} layers, "
+          f"{mcfg.num_attention_heads} x {mcfg.attention_head_dim} heads, dual attention in "
+          f"layers {min(mcfg.dual_attention_layers)}-{max(mcfg.dual_attention_layers)}, qk "
+          f"{mcfg.qk_norm}) {n_params / 1e9:.3f} B params + TPM + SD3 VAE decoder, bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s; sincos table {tuple(table.shape)} {table.dtype} "
+          f"{table.nbytes / 2**20:.1f} MiB on the card (fp32 {4 * table.numel() / 2**20:.1f} "
+          f"MiB at build), made on the host in {t_table:.3f} s")
+    per_step = (mcfg.num_layers + len(mcfg.dual_attention_layers), 0)
+    request("sd35 medium request 1", pipe, 1, seed + 31, per_step)
+    request("sd35 medium request 2", pipe, 2, seed + 32, per_step)
+    del mmdit, tpm, vae, pipe, table
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) SD3.5-large, bf16 then W8A8 in place
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lcfg = MMDiTConfig.sd35_large()
+    mmdit, tpm, vae = build_models(dev, seed + 33, lcfg)
+    pipe = TPDMPipeline(mmdit, tpm, vae)
+    timed_decoder(pipe, decode_s)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in mmdit.parameters())
+    phase("sd35 large models", f"SD3.5-large MMDiT ({lcfg.num_layers} layers, "
+          f"{lcfg.num_attention_heads} x {lcfg.attention_head_dim} heads, qk {lcfg.qk_norm}) "
+          f"{n_params / 1e9:.3f} B params, {module_bytes(mmdit) / 1e9:.3f} GB bf16, + TPM "
+          f"(in_channels {2 * lcfg.inner_dim}) + SD3 VAE decoder, built in "
+          f"{time.perf_counter() - t0:.1f} s (peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+          f"GiB with the fp32 draw)")
+    del mmdit
+    per_step_q = (lcfg.num_layers - 1) * 12 + 9
+    bf16_res = request("sd35 large request bf16", pipe, 1, seed + 34, (lcfg.num_layers, 0))
+    # one CFG-batch 1024 px forward, bf16 now and W8A8 after the quantisation,
+    # held to phase 6's bound
+    eg = torch.Generator(device=dev).manual_seed(seed + 37)
+    rand = lambda *shape: torch.randn(shape, generator=eg, device=dev, dtype=torch.bfloat16)
+    inputs = (rand(2, 16, 128, 128), torch.tensor([1000.0, 420.0], device=dev, dtype=torch.bfloat16),
+              rand(2, N_CTX, 4096), rand(2, 2048))
+    with torch.no_grad():
+        v_ref = pipe.mmdit(*inputs)[0].float()
+    t0 = time.perf_counter()
+    quantize_in_place(pipe, 8)
+    torch.cuda.synchronize()
+    phase("sd35 large W8A8", f"prequantised in place in {time.perf_counter() - t0:.1f} s: MMDiT "
+          f"weights {module_bytes(pipe.mmdit) / 1e9:.3f} GB, card memory "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    with torch.no_grad():
+        v = pipe.mmdit(*inputs)[0].float()
+    if not bool(torch.isfinite(v).all()):
+        fail("the SD3.5-large W8A8 MMDiT forward gave non-finite values")
+    v_gap = ((v - v_ref).abs().mean() / v_ref.abs().mean()).item()
+    phase("sd35 large W8A8", f"1024 px forward (CFG batch 2), mean |dv| / mean |v| against the "
+          f"bf16 forward on the same weights: {v_gap:.4e} (bound {QUANT_REL_BOUND[8]})")
+    if not v_gap < QUANT_REL_BOUND[8]:
+        fail(f"the SD3.5-large W8A8 forward is {v_gap} from the bf16 one "
+             f"(bound {QUANT_REL_BOUND[8]})")
+    del inputs, v_ref, v
+    q_res = request("sd35 large request W8A8", pipe, 1, seed + 34, (lcfg.num_layers, per_step_q))
+    gap = np.abs(q_res.images.astype(np.int16) - bf16_res.images.astype(np.int16))
+    phase("sd35 large W8A8", f"the same request as bf16: {q_res.num_steps} steps against "
+          f"{bf16_res.num_steps}, image mean |d| {gap.mean():.2f} levels, max {gap.max()}")
+    del tpm, vae, pipe, bf16_res, q_res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the loader on a synthetic diffusers-layout directory
+    ccfg = MMDiTConfig.sd35_medium(num_layers=2, dual_attention_layers=(0,))
+    gen = torch.Generator(device=dev).manual_seed(seed + 35)
+    with torch.device(dev):
+        mmdit = MMDiT(ccfg)
+        tpm = TimePredictor(conv_out_channels=128, in_channels=2 * ccfg.inner_dim,
+                            temb_dim=ccfg.inner_dim, init_alpha=TPM_HEAD_BIAS[0],
+                            init_beta=TPM_HEAD_BIAS[1], dtype=torch.bfloat16)
+        vae = VAE(VAEConfig.sd3())
+    for module in (mmdit, tpm, vae):
+        module.init_weights(gen, WEIGHT_STD).eval()
+    mmdit.to(device=dev, dtype=torch.bfloat16)
+    vae.to(torch.bfloat16)  # the TPM keeps fp32 weights computing in bf16, as the loader's
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = Path(tmp)
+        for sub in ("transformer", "vae"):
+            (root / sub).mkdir()
+        sd = convert.export_mmdit(mmdit.state_dict(), ccfg)
+        names = sorted(sd)
+        for i in range(2):
+            safetensors.save_file({k: sd[k] for k in names[i::2]}, str(
+                root / "transformer" / f"diffusion_pytorch_model-{i + 1:05d}-of-00002.safetensors"),
+                metadata={"format": "pt"})
+        safetensors.save_file(convert.export_vae(vae.state_dict(), vae.config),
+                              str(root / "vae" / "diffusion_pytorch_model.safetensors"))
+        safetensors.save_file(convert.export_tpm(tpm.state_dict()), str(root / "tpm.safetensors"))
+        n_bytes = sum(f.stat().st_size for f in root.rglob("*.safetensors"))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_pipeline_from_pretrained(str(root), mmdit_config=ccfg,
+                                               load_text_encoders=False,
+                                               tpm_checkpoint=str(root / "tpm.safetensors"))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    for name, ours, ref in (("MMDiT", loaded.mmdit, mmdit), ("VAE", loaded.vae, vae),
+                            ("TPM", loaded.tpm, tpm)):
+        a, b = ours.state_dict(), ref.state_dict()
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"the loaded {name} differs from the one in memory")
+    if not torch.equal(loaded.mmdit.pos_embed.pos_embed, mmdit.pos_embed.pos_embed):
+        fail("the loaded MMDiT's sincos table differs from the one in memory")
+    phase("sd35 loader", f"wrote {n_bytes / 2**20:.1f} MiB (2-layer SD3.5-medium-width "
+          f"transformer in 2 shards, SD3 VAE, TPM) in {t_write:.2f} s, "
+          f"load_pipeline_from_pretrained in {t_load:.2f} s; every tensor equal to the models "
+          f"in memory")
+    timed_decoder(loaded, decode_s)
+    res = request("sd35 loader request", loaded, 1, seed + 36, (3, 0))
+    mem_pipe = TPDMPipeline(mmdit, tpm, vae)
+    timed_decoder(mem_pipe, decode_s)
+    ref = request("sd35 in-memory request", mem_pipe, 1, seed + 36, (3, 0))
+    if not (np.array_equal(res.images, ref.images) and np.array_equal(res.sigmas, ref.sigmas)):
+        fail("the loaded pipeline's request differs from the in-memory one's")
+    phase("sd35 loader", f"the loaded pipeline's request equals the in-memory one's to the bit "
+          f"({res.num_steps} steps, images and sigmas)")
+    del mmdit, tpm, vae, loaded, mem_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("sd35 phase", f"{time.perf_counter() - t_phase:.1f} s; K1 {totals[0]}, K2 {totals[1]}, "
+          f"K4 {totals[2]} launches over its requests")
+    return tuple(totals)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3229,6 +3573,7 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(args.seed)
         kernels = kernel_phase(g, dev, args.seed)  # 3
         kernels.update(gemm_phase(g, dev))
+        sd35_kernels = sd35_kernel_phase(args.seed, dev)
         reference_phase(args.seed, dev)  # 4
         k1_total, k2_total, modules, adaptive = slice_1024_phase(args.seed, dev)  # 5
         k4_total, k5_total = quant_phase(args.seed, dev, modules)  # 6
@@ -3242,6 +3587,11 @@ def main() -> int:
         (k1_serve, k2_serve), served = serve_phase(args.seed, dev, smi)  # 14
         k1_cont, k2_cont = continuous_phase(args.seed, dev, served)  # 15
         del served
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1_sd35, k2_sd35, k4_sd35 = sd35_phase(args.seed, dev)  # 16
+        for name, entries in sd35_kernels.items():
+            kernels[name].update(entries)
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -3251,17 +3601,17 @@ def main() -> int:
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
-             "launches": k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont,
+             "launches": k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35,
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
-             "launches": k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont,
+             "launches": k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35,
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,
              **kernels["K3"]},
             {"name": "int8_gemm (K4)", "route": "cuda", "source": gemm_src,
-             "replaces": "experiments/attn_round3.py:301", "launches": k4_total,
+             "replaces": "experiments/attn_round3.py:301", "launches": k4_total + k4_sd35,
              **kernels["K4"]},
             {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:266", "launches": k5_total,

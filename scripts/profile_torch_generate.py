@@ -8,12 +8,14 @@ by kernel group, the launches, the device's idle share between its first
 and last kernel, and the request's wall time (with the profiler on).
 
     python3 scripts/profile_torch_generate.py --px 1024 [--batch 1] [--quant 8|4]
+    python3 scripts/profile_torch_generate.py --px 1024 --model sd35_large [--quant 8]
     python3 scripts/profile_torch_generate.py --px 2048
 
 At 2048 px the MMDiT is sequence-parallel over one process per visible
 card (a ring of 1 on a single card); at 1024 px it runs unsharded on
-cuda:0, and ``--quant`` prequantises it (W8A8 int8 on K4, or int4
-weight-only on K5). Between the warm-up and the profiled request one more
+cuda:0, ``--model`` picks SD3-medium (the default), SD3.5-medium or
+SD3.5-large at full width, and ``--quant`` prequantises it (W8A8 int8 on
+K4, or int4 weight-only on K5). Between the warm-up and the profiled request one more
 request runs with the profiler off, for its wall time. ``--out FILE`` also
 writes every rank's table as JSON.
 """
@@ -115,7 +117,7 @@ def _rank(rank, world, store, args, out_dir):
         dev = group.device
     else:
         dev = torch.device("cuda", rank)
-        models = build_models(dev, args.seed, MMDiTConfig.sd3_medium())
+        models = build_models(dev, args.seed, getattr(MMDiTConfig, args.model)())
         if args.quant:
             models = (quantized_copy(models[0], args.quant, dev), *models[1:])
             torch.cuda.empty_cache()
@@ -159,10 +161,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quant", type=int, choices=(8, 4), default=None,
                     help="prequantise the 1024 px MMDiT: 8 = W8A8 int8, 4 = int4 weight-only")
+    ap.add_argument("--model", default="sd3_medium",
+                    choices=("sd3_medium", "sd35_medium", "sd35_large"),
+                    help="the MMDiT of the unsharded 1024 px path")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
-    if args.quant and args.px > 1024:
-        raise SystemExit("--quant is for the unsharded 1024 px path")
+    if (args.quant or args.model != "sd3_medium") and args.px > 1024:
+        raise SystemExit("--quant and --model are for the unsharded 1024 px path")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile is of the card")
     world = torch.cuda.device_count() if args.px > 1024 else 1
@@ -176,7 +181,7 @@ def main() -> int:
         reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)]
     r0 = reports[0]
     mode = {None: "bf16", 8: "W8A8 int8", 4: "int4 weight-only"}[args.quant]
-    print(f"{smi}; {args.px} px, {mode}, batch {args.batch}, {world} rank(s); rank 0: "
+    print(f"{smi}; {args.model}, {args.px} px, {mode}, batch {args.batch}, {world} rank(s); rank 0: "
           f"{r0['steps']} steps, {r0['warm_wall_ms']:.1f} ms wall warm with the profiler off, "
           f"{r0['wall_ms']:.1f} ms wall with the profiler on, "
           f"{r0['kernel_ms']:.1f} ms of device busy time over a {r0['window_ms']:.1f} ms window, "

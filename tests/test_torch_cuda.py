@@ -122,6 +122,9 @@ def _blocked_plain(q, k, v, kv_len=None, rows=4096):
         ((8, 24, 4480, 4480), 4429),  # 1024 px, the RLOO rollout's CFG batch
         ((4, 24, 4480, 4480), 4429),  # ... the recompute replay's
         ((1, 24, 4480, 4480), 4429),  # ... a conditional-only step outside a guidance window
+        ((2, 24, 4096, 4096), None),  # SD3.5-medium's image-only attn2 at CFG batch 2
+        ((4, 24, 4096, 4096), None),  # ... at CFG batch 4 (a batch-2 request)
+        ((2, 38, 4480, 4480), 4429),  # SD3.5-large's joint attention, 38 heads
     ],
 )
 def test_k1_matches_plain(device, shape, kv_len):
@@ -417,7 +420,7 @@ def test_kernels_refuse_operands_that_require_grad(device):
 
 # (M, K, N): the SD3 1024 px image rows (batch 1, CFG 2) against the qkv/out,
 # FF proj_in and FF proj_out weights, the text rows, batch 2's rows (the
-# twelve shapes chip_smoke.py times), and tails
+# twelve shapes chip_smoke.py times), tails, and SD3.5-large's shapes
 GEMM_SHAPES = [
     (8192, 1536, 1536), (8192, 1536, 6144), (8192, 6144, 1536),
     (666, 1536, 1536), (666, 1536, 6144), (666, 6144, 1536),
@@ -427,6 +430,9 @@ GEMM_SHAPES = [
     # K5's persistent grid: 133 output tiles of 128 x 256, one past a wave of
     # 132 SMs; N at and one past a tile
     (17024, 64, 256), (300, 128, 256), (300, 128, 257),
+    # SD3.5-large at 1024 px, batch 1 (CFG 2): N 2432 ends in half a 256-column tile
+    (8192, 2432, 2432), (8192, 2432, 9728), (8192, 9728, 2432),
+    (666, 2432, 2432), (666, 2432, 9728), (666, 9728, 2432),
 ]
 
 

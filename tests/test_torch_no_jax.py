@@ -1,7 +1,10 @@
 """The port stands alone: no module of tpdm_tpu_torch, and not
-chip_smoke.py, imports JAX, Flax, Optax or the JAX package, and the port's
-YAMLs name only tpdm_tpu_torch targets (a ``_target_`` imports by name at
-run time, out of the reach of the import scan)."""
+chip_smoke.py, imports JAX, Flax, Optax or the JAX package, nor the
+checkpoint libraries that the card machine lacks (``safetensors``,
+``transformers``, ``diffusers``, ``msgpack``: the port reads checkpoints
+with its own ``utils/safetensors.py``), and the port's YAMLs name only
+tpdm_tpu_torch targets (a ``_target_`` imports by name at run time, out of
+the reach of the import scan)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +13,8 @@ import pytest
 import yaml
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpdm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpdm_tpu", "safetensors", "transformers",
+             "diffusers", "msgpack")
 SOURCES = sorted((REPO / "tpdm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -38,9 +42,12 @@ def test_no_jax_import(path):
 def test_the_scan_sees_the_imports_it_forbids():
     src = ("import jax\nimport jax.numpy as jnp\nfrom flax import linen\n"
            "from tpdm_tpu.ops import attention\nimport importlib\n"
-           "importlib.import_module('optax')\nfrom tpdm_tpu_torch.ops import attention\n")
-    assert [n for n in _imported(ast.parse(src)) if _forbidden(n)] == [
-        "jax", "jax.numpy", "flax", "tpdm_tpu.ops", "optax"]
+           "importlib.import_module('optax')\nfrom tpdm_tpu_torch.ops import attention\n"
+           "from safetensors.torch import load_file\nimport transformers, msgpack\n"
+           "from diffusers import AutoencoderKL\nfrom tpdm_tpu_torch.utils import safetensors\n")
+    assert sorted(n for n in _imported(ast.parse(src)) if _forbidden(n)) == sorted([
+        "jax", "jax.numpy", "flax", "tpdm_tpu.ops", "optax", "safetensors.torch",
+        "transformers", "msgpack", "diffusers"])
 
 
 def _targets(node):

@@ -449,6 +449,9 @@ def test_cli_writes_a_png(tmp_path):
     for flag, item in ((["--dp", "2"], "9\\(d\\)"),
                        (["--family", "flux"], "12"), (["--quant_text"], "13\\(a\\)"),
                        (["--lora", "x"], "13\\(b\\)"), (["--few_step", "0,14"], "9\\(e\\)"),
-                       (["--reward_checkpoint", "r"], "8"), (["--pretrained", "p"], "7")):
+                       (["--reward_checkpoint", "r"], "8")):
         with pytest.raises(SystemExit, match=f"item {item}"):
             serve.main(["--toy", "--cpu", *flag])
+    # --pretrained is ported: a directory without the tokenizer files exits naming one
+    with pytest.raises(SystemExit, match="vocab.json"):
+        serve.main(["--cpu", "--cli", "--pretrained", str(tmp_path / "no_checkpoint")])

@@ -49,20 +49,23 @@ def get_2d_sincos_pos_embed(
     interpolation_scale: float = 1.0,
 ) -> np.ndarray:
     """(grid_size², embed_dim) fp32 sincos position table, diffusers layout
-    (including its meshgrid order: the "h" half takes the w-varying grid)."""
+    (including its meshgrid order: the "h" half takes the w-varying grid).
+
+    Row i * m + j is (e[j], e[i]), e the 1-D embedding of the m coordinates:
+    each element is the same float64 product, sin or cos as diffusers' m² x
+    embed_dim evaluation, so the table is bit-identical to it, at m x
+    embed_dim of the work (SD3.5-medium's 384² x 1536 table)."""
     grid_h = (
         np.arange(grid_size, dtype=np.float64) / (grid_size / base_size) / interpolation_scale
     )
-    grid = np.stack(np.meshgrid(grid_h, grid_h), axis=0).reshape([2, grid_size, grid_size])
-
-    def _1d(dim: int, pos: np.ndarray) -> np.ndarray:
-        omega = 1.0 / 10000.0 ** (np.arange(dim // 2, dtype=np.float64) / (dim / 2.0))
-        out = np.einsum("m,d->md", pos.reshape(-1), omega)
-        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
-
-    emb_h = _1d(embed_dim // 2, grid[0])
-    emb_w = _1d(embed_dim // 2, grid[1])
-    return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+    half = embed_dim // 2
+    omega = 1.0 / 10000.0 ** (np.arange(half // 2, dtype=np.float64) / (half / 2.0))
+    out = np.einsum("m,d->md", grid_h, omega)
+    e = np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32)
+    table = np.empty((grid_size, grid_size, 2 * half), np.float32)
+    table[:, :, :half] = e[None, :, :]
+    table[:, :, half:] = e[:, None, :]
+    return table.reshape(grid_size * grid_size, 2 * half)
 
 
 def get_2d_sincos_pos_embed_fp32(
@@ -94,7 +97,8 @@ def _layer_norm_fp32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm with a learned scale (``weight``), fp32 statistics."""
+    """RMSNorm with a learned scale (``weight``, JAX's ``scale``), fp32
+    statistics, output in the input's dtype: SD3.5's qk norm."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -217,6 +221,25 @@ class AdaLayerNormZero(nn.Module):
         ).chunk(6, dim=-1)
         normed = _layer_norm_fp32(x) * (1.0 + scale_msa[:, None]) + shift_msa[:, None]
         return normed, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+class AdaLayerNormZeroX(nn.Module):
+    """SD3.5's dual-attention AdaLN: temb -> 9 modulation vectors (the six of
+    ``AdaLayerNormZero``, then shift, scale and gate of the image-only
+    attention); returns (normed x, gate_msa, shift_mlp, scale_mlp, gate_mlp,
+    normed x for attn2, gate_msa2). Both branches share one LayerNorm."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, 9 * dim)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor):
+        (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp,
+         shift_msa2, scale_msa2, gate_msa2) = self.linear(F.silu(emb)).chunk(9, dim=-1)
+        normed = _layer_norm_fp32(x)
+        out1 = normed * (1.0 + scale_msa[:, None]) + shift_msa[:, None]
+        out2 = normed * (1.0 + scale_msa2[:, None]) + shift_msa2[:, None]
+        return out1, gate_msa, shift_mlp, scale_mlp, gate_mlp, out2, gate_msa2
 
 
 class AdaLayerNormContinuous(nn.Module):

@@ -5,6 +5,12 @@ Counterpart of ``tpdm_tpu/models/mmdit.py``: SD3-medium's MMDiT, returning
 the post-final-AdaLN tokens that feed the Time Prediction Module. The joint
 attention runs kernel K1 on the card (``ops/attention.py``).
 
+SD3.5 (``MMDiTConfig.sd35_medium``, ``sd35_large``): ``qk_norm="rms_norm"``
+puts an RMSNorm over each head's q and k, image and text apart, before the
+joint concatenation; a block listed in ``dual_attention_layers`` takes
+``AdaLayerNormZeroX`` as its ``norm1`` and adds an image-only
+``SelfAttention`` (``attn2``, K1 without a kv_len) after the joint one.
+
 Sequence parallelism (``MMDiTConfig.seq_group``, the counterpart of
 ``seq_mesh``) shards the image tokens over the group's ranks, rank r
 holding the r-th of P equal shards (the last ones padded). The text tokens
@@ -32,9 +38,9 @@ residual Δ, and a "reuse" forward runs only the front blocks and adds a
 recorded Δ, so it skips the back blocks' work. The parameters are the same
 in every mode.
 
-Not ported yet: SD3.5's dual attention and qk RMSNorm, the batch axis
-sharded beside the token axis (``seq_batch_axes``), quantised matmuls under
-``seq_group`` and the Δ-cache under ``seq_group``.
+Not ported yet: the batch axis sharded beside the token axis
+(``seq_batch_axes``), and under ``seq_group`` the quantised matmuls, the
+Δ-cache and SD3.5's two features (``MMDiT`` refuses each pair).
 """
 
 from __future__ import annotations
@@ -49,9 +55,11 @@ from torch import nn
 from tpdm_tpu_torch.models.layers import (
     AdaLayerNormContinuous,
     AdaLayerNormZero,
+    AdaLayerNormZeroX,
     CombinedTimestepTextEmbed,
     FeedForward,
     PatchEmbed,
+    RMSNorm,
     _layer_norm_fp32,
     dense,
     init_weights,
@@ -77,7 +85,7 @@ class MMDiTConfig:
     pooled_projection_dim: int = 2048
     pos_embed_max_size: int = 96
     dual_attention_layers: Tuple[int, ...] = ()
-    qk_norm: Optional[str] = None
+    qk_norm: Optional[str] = None  # None | "rms_norm" (SD3.5)
     dtype: torch.dtype = torch.bfloat16
     # sequence parallelism: the image tokens sharded over this group's ranks
     # (parallel/mesh.py); the parameters are the same as without it
@@ -98,6 +106,30 @@ class MMDiTConfig:
         return cls(**kw)
 
     @classmethod
+    def sd35_medium(cls, **kw) -> "MMDiTConfig":
+        defaults = dict(
+            num_layers=24,
+            num_attention_heads=24,
+            dual_attention_layers=tuple(range(13)),
+            qk_norm="rms_norm",
+            pos_embed_max_size=384,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def sd35_large(cls, **kw) -> "MMDiTConfig":
+        defaults = dict(
+            num_layers=38,
+            num_attention_heads=38,
+            caption_projection_dim=2432,
+            qk_norm="rms_norm",
+            pos_embed_max_size=192,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
     def toy(cls, **kw) -> "MMDiTConfig":
         """Tiny config for tests: 2 layers, 8x8 latents, 64-dim."""
         defaults = dict(
@@ -113,6 +145,15 @@ class MMDiTConfig:
         )
         defaults.update(kw)
         return cls(**defaults)
+
+
+def _heads(t: torch.Tensor, b: int, h: int, d: int, norm=None) -> torch.Tensor:
+    """(b, n, h*d) -> (b, h, n, d), with an optional norm over each head's
+    d features applied before the transpose."""
+    t = t.reshape(b, -1, h, d)
+    if norm is not None:
+        t = norm(t)
+    return t.transpose(1, 2)
 
 
 class JointAttention(nn.Module):
@@ -131,6 +172,10 @@ class JointAttention(nn.Module):
         self.to_out = linear()
         if not context_pre_only:
             self.to_add_out = linear()
+        if config.qk_norm == "rms_norm":
+            d = config.attention_head_dim
+            for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+                setattr(self, name, RMSNorm(d))
 
     def forward(
         self, x: torch.Tensor, ctx: torch.Tensor, shard_valid: Optional[Sequence[int]] = None
@@ -142,27 +187,27 @@ class JointAttention(nn.Module):
         h, d = cfg.num_attention_heads, cfg.attention_head_dim
         b, n_img, _ = x.shape
         n_ctx = ctx.shape[1]
-
-        def heads(t):  # (b, n, h*d) -> (b, h, n, d)
-            return t.reshape(b, -1, h, d).transpose(1, 2)
-
         if cfg.seq_group is not None:
-            return self._seq_parallel(x, ctx, shard_valid, heads)
+            return self._seq_parallel(x, ctx, shard_valid)
 
         # The context is padded so the joint length is a multiple of 128;
         # the pad kv columns are masked through kv_len and the pad query
-        # rows sliced away (tpdm_tpu/models/mmdit.py:222-244).
+        # rows sliced away (tpdm_tpu/models/mmdit.py:222-244). The qk norm
+        # acts on each part before the pad and the concatenation.
         n_tok = n_img + n_ctx
         pad = -n_tok % 128
+        norms = cfg.qk_norm == "rms_norm"
 
-        def joint(img_proj, ctx_proj):
-            tc = heads(ctx_proj(ctx))
+        def joint(img_proj, ctx_proj, norm=None, norm_ctx=None):
+            tc = _heads(ctx_proj(ctx), b, h, d, norm_ctx)
             if pad:
                 tc = nn.functional.pad(tc, (0, 0, 0, pad))
-            return torch.cat([heads(img_proj(x)), tc], dim=2)
+            return torch.cat([_heads(img_proj(x), b, h, d, norm), tc], dim=2)
 
-        q = joint(self.to_q, self.add_q_proj)
-        k = joint(self.to_k, self.add_k_proj)
+        q_norms = (self.norm_q, self.norm_added_q) if norms else (None, None)
+        k_norms = (self.norm_k, self.norm_added_k) if norms else (None, None)
+        q = joint(self.to_q, self.add_q_proj, *q_norms)
+        k = joint(self.to_k, self.add_k_proj, *k_norms)
         v = joint(self.to_v, self.add_v_proj)
         o = joint_attention(q, k, v, kv_len=n_tok if pad else None)
         o = o.transpose(1, 2).reshape(b, n_tok + pad, h * d)
@@ -171,9 +216,11 @@ class JointAttention(nn.Module):
             return o_img, None
         return o_img, self.to_add_out(o[:, n_img:n_tok])
 
-    def _seq_parallel(self, x, ctx, shard_valid, heads):
-        group = self.config.seq_group
+    def _seq_parallel(self, x, ctx, shard_valid):
+        cfg = self.config
+        group = cfg.seq_group
         b, n_local, _ = x.shape
+        heads = lambda t: _heads(t, b, cfg.num_attention_heads, cfg.attention_head_dim)
         q = heads(self.to_q(x))
         k, v = (heads(proj(x)).contiguous() for proj in (self.to_k, self.to_v))
         k_ctx, v_ctx = (heads(proj(ctx)).contiguous() for proj in (self.add_k_proj, self.add_v_proj))
@@ -189,14 +236,45 @@ class JointAttention(nn.Module):
         return o_img, self.to_add_out(o[:, n_local:])
 
 
-class JointBlock(nn.Module):
-    """One MMDiT dual-stream block (diffusers ``JointTransformerBlock``)."""
+class SelfAttention(nn.Module):
+    """SD3.5's image-only self-attention (``attn2`` of a dual-attention
+    block): q/k/v and output projections, the optional qk RMSNorm, and K1 on
+    the card over the image tokens alone (no kv_len)."""
 
-    def __init__(self, config: MMDiTConfig, context_pre_only: bool = False):
+    def __init__(self, config: MMDiTConfig):
+        super().__init__()
+        self.config = config
+        dim = config.inner_dim
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            setattr(self, name, dense(dim, dim, config.quant_matmuls, config.quant_bits))
+        if config.qk_norm == "rms_norm":
+            self.norm_q = RMSNorm(config.attention_head_dim)
+            self.norm_k = RMSNorm(config.attention_head_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        b = x.shape[0]
+        h, d = cfg.num_attention_heads, cfg.attention_head_dim
+        norms = cfg.qk_norm == "rms_norm"
+        q = _heads(self.to_q(x), b, h, d, self.norm_q if norms else None).contiguous()
+        k = _heads(self.to_k(x), b, h, d, self.norm_k if norms else None).contiguous()
+        v = _heads(self.to_v(x), b, h, d).contiguous()
+        o = joint_attention(q, k, v)
+        return self.to_out(o.transpose(1, 2).reshape(b, -1, cfg.inner_dim))
+
+
+class JointBlock(nn.Module):
+    """One MMDiT dual-stream block (diffusers ``JointTransformerBlock``);
+    with ``use_dual_attention`` SD3.5's: ``AdaLayerNormZeroX`` as ``norm1``
+    and ``attn2`` after the joint attention."""
+
+    def __init__(self, config: MMDiTConfig, context_pre_only: bool = False,
+                 use_dual_attention: bool = False):
         super().__init__()
         dim = config.inner_dim
         self.context_pre_only = context_pre_only
-        self.norm1 = AdaLayerNormZero(dim)
+        self.use_dual_attention = use_dual_attention
+        self.norm1 = AdaLayerNormZeroX(dim) if use_dual_attention else AdaLayerNormZero(dim)
         self.norm1_context = (
             AdaLayerNormContinuous(dim) if context_pre_only else AdaLayerNormZero(dim)
         )
@@ -205,6 +283,8 @@ class JointBlock(nn.Module):
         self.ff = ff()
         if not context_pre_only:
             self.ff_context = ff()
+        if use_dual_attention:
+            self.attn2 = SelfAttention(config)
 
     def forward(
         self,
@@ -216,7 +296,11 @@ class JointBlock(nn.Module):
         """Returns (x, ctx); ctx comes back unchanged where the attention
         gave no text output (the last block, and ranks other than 0 of a
         seq group)."""
-        norm_x, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
+        if self.use_dual_attention:
+            (norm_x, gate_msa, shift_mlp, scale_mlp, gate_mlp, norm_x2,
+             gate_msa2) = self.norm1(x, temb)
+        else:
+            norm_x, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
         if self.context_pre_only:
             norm_ctx = self.norm1_context(ctx, temb)
         else:
@@ -225,6 +309,8 @@ class JointBlock(nn.Module):
             )
         attn_out, ctx_attn_out = self.attn(norm_x, norm_ctx, shard_valid)
         x = x + gate_msa[:, None] * attn_out
+        if self.use_dual_attention:
+            x = x + gate_msa2[:, None] * self.attn2(norm_x2)
         norm_x = _layer_norm_fp32(x) * (1.0 + scale_mlp[:, None]) + shift_mlp[:, None]
         x = x + gate_mlp[:, None] * self.ff(norm_x)
         if ctx_attn_out is None:
@@ -240,10 +326,12 @@ class MMDiT(nn.Module):
 
     def __init__(self, config: MMDiTConfig):
         super().__init__()
-        if config.dual_attention_layers or config.qk_norm is not None:
+        if config.qk_norm not in (None, "rms_norm"):
+            raise ValueError(f"qk_norm must be None or 'rms_norm', got {config.qk_norm!r}")
+        if (config.dual_attention_layers or config.qk_norm) and config.seq_group is not None:
             raise NotImplementedError(
-                "SD3.5 dual attention and qk RMSNorm are not ported yet "
-                "(ROADMAP queue 1, SD3.5 layers)"
+                "SD3.5's dual attention and qk norm with seq_group have no parity check yet "
+                "(ROADMAP queue 1, item 14(d))"
             )
         if config.quant_matmuls and config.seq_group is not None:
             raise NotImplementedError(
@@ -262,7 +350,8 @@ class MMDiT(nn.Module):
             config.joint_attention_dim, config.caption_projection_dim
         )
         self.transformer_blocks = nn.ModuleList(
-            JointBlock(config, context_pre_only=(i == config.num_layers - 1))
+            JointBlock(config, context_pre_only=(i == config.num_layers - 1),
+                       use_dual_attention=(i in config.dual_attention_layers))
             for i in range(config.num_layers)
         )
         self.norm_out = AdaLayerNormContinuous(dim)

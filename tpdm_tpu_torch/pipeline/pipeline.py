@@ -19,18 +19,24 @@ then decodes its own copy: the decode needs no collective and takes no
 longer than rank 0's alone, and each rank returns the whole result. The
 Δ-cache, the guidance window and ``generate_fixed`` refuse a seq group
 (ROADMAP queue 1, item 14(g)).
+
+``load_pipeline_from_pretrained`` builds the pipeline from a local
+diffusers-layout directory (SD3 or, through ``mmdit_config``, SD3.5).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import os
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from tpdm_tpu_torch.models.vae import VAE, vae_scale_factor
+from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+from tpdm_tpu_torch.models.tpm import TimePredictor
+from tpdm_tpu_torch.models.vae import VAE, VAEConfig, vae_scale_factor
 from tpdm_tpu_torch.ops.schedules import uniform_flow_sigmas
 from tpdm_tpu_torch.pipeline.denoise import (
     interval_cached_init_delta,
@@ -428,3 +434,119 @@ class TPDMPipeline:
         if self.vae is None:
             return _raw_latents(final)
         return postprocess_images(self._decode_impl(final))
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return device
+
+
+def _load_dir(root: str, sub: str, keep: Callable[[str], bool] = lambda key: True) -> dict:
+    """The tensors of every ``*.safetensors`` shard in ``root/sub`` whose
+    name ``keep`` accepts; the others' bytes are never read."""
+    from tpdm_tpu_torch.utils import safetensors
+
+    d = os.path.join(root, sub)
+    shards = sorted(f for f in os.listdir(d) if f.endswith(".safetensors"))
+    if not shards:
+        raise FileNotFoundError(f"no *.safetensors file in {d}")
+    sd = {}
+    for f in shards:
+        path = os.path.join(d, f)
+        keys = [k for k in safetensors.read_header(path) if k != "__metadata__" and keep(k)]
+        sd.update(safetensors.load_file(path, keys))
+    return sd
+
+
+def _from_state(build: Callable[[], nn.Module], state: dict, device, dtype) -> nn.Module:
+    """``build()`` on the meta device, given ``state``'s tensors, then moved
+    to ``device`` and ``dtype``: no random initialisation, and a strict load."""
+    with torch.device("meta"):
+        module = build()
+    module.load_state_dict(state, assign=True)
+    return module.to(device=device, dtype=dtype).eval()
+
+
+def load_pipeline_from_pretrained(
+    root: str,
+    dtype: torch.dtype = torch.bfloat16,
+    load_text_encoders: bool = True,
+    tpm_checkpoint: Optional[str] = None,
+    mmdit_config: Optional[MMDiTConfig] = None,
+    quant_int8: bool = False,
+    quant_bits: int = 8,
+    quant_text: bool = False,
+    device="cuda",
+) -> TPDMPipeline:
+    """A pipeline from a local diffusers-layout SD3 directory.
+
+    Counterpart of ``tpdm_tpu/pipeline/pipeline.py:load_pipeline_from_
+    pretrained``. ``root`` holds ``transformer/``, ``vae/`` and, with
+    ``load_text_encoders``, ``text_encoder/`` (CLIP-L), ``text_encoder_2/``
+    (CLIP-G) and ``text_encoder_3/`` (T5-XXL), each with one or more
+    ``*.safetensors`` shards, read by the port's own reader. The MMDiT is
+    SD3-medium's, quantised at ``quant_bits`` with ``quant_int8``, unless
+    ``mmdit_config`` names another (SD3.5: ``MMDiTConfig.sd35_medium()``,
+    ``sd35_large()``), whose quant fields then hold, as in JAX. A
+    quantised MMDiT loads the float weights and is prequantised once. The
+    TPM (``in_channels`` 2 x the MMDiT's width, ``temb_dim`` its width)
+    comes from ``tpm_checkpoint``, a TPM-only safetensors file in the
+    reference's layout, or is drawn from seed 0; its weights stay fp32 and
+    compute in ``dtype``. The MMDiT, VAE and towers are cast to ``dtype``.
+
+    Everything is built on ``device`` (the card unless the caller asks for
+    the CPU); JAX's host-resident text towers, a policy for a 16 GB TPU,
+    are not carried over: the whole stack fits on an 80 GB card.
+    ``quant_text`` (the weight-only int8 T5) is not ported yet.
+    """
+    from tpdm_tpu_torch.ops.quant import prequantize_
+    from tpdm_tpu_torch.utils import convert
+
+    if quant_text:
+        raise not_ported("quant_text (the weight-only int8 T5 tower)", "13(a)")
+    device = resolve_device(device)
+    mcfg = mmdit_config or MMDiTConfig.sd3_medium(
+        dtype=dtype, quant_matmuls=quant_int8, quant_bits=quant_bits)
+    mmdit = _from_state(
+        lambda: MMDiT(mcfg),
+        convert.convert_mmdit(_load_dir(root, "transformer"), mcfg.num_layers,
+                              mcfg.dual_attention_layers, mcfg.qk_norm),
+        device, dtype)
+    if mcfg.quant_matmuls:
+        prequantize_(mmdit)
+
+    vcfg = VAEConfig.sd3()
+    vae_state = convert.convert_vae(_load_dir(root, "vae", lambda k: k.startswith("decoder.")),
+                                    vcfg.block_out_channels, vcfg.layers_per_block)
+    vae = _from_state(lambda: VAE(vcfg), vae_state, device, dtype)
+
+    with torch.device(device):
+        tpm = TimePredictor(conv_out_channels=128, in_channels=2 * mcfg.inner_dim,
+                            temb_dim=mcfg.inner_dim, dtype=dtype)
+    if tpm_checkpoint is not None:
+        tpm.load_state_dict(convert.convert_tpm(convert.load_safetensors(tpm_checkpoint)))
+    else:
+        tpm.init_weights(torch.Generator(device=device).manual_seed(0))
+    tpm.eval()
+
+    text = None
+    if load_text_encoders:
+        from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+        from tpdm_tpu_torch.models.t5 import T5Config, T5Encoder
+        from tpdm_tpu_torch.pipeline.text_encoding import SD3TextEncoders
+
+        towers = []
+        for sub, cfg in (("text_encoder", CLIPTextConfig.sd3_clip_l()),
+                         ("text_encoder_2", CLIPTextConfig.sd3_clip_g())):
+            state = convert.convert_clip_text(_load_dir(root, sub), cfg.num_hidden_layers)
+            towers.append(_from_state(lambda: CLIPTextModel(cfg), state, device, dtype))
+        tcfg = T5Config.t5_xxl()
+        t5 = _from_state(lambda: T5Encoder(tcfg),
+                         convert.convert_t5(_load_dir(root, "text_encoder_3"), tcfg.num_layers),
+                         device, dtype)
+        text = SD3TextEncoders(*towers, t5, t5_width=tcfg.d_model)
+    return TPDMPipeline(mmdit, tpm, vae, text_encoders=text)

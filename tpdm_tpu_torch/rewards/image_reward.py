@@ -9,7 +9,7 @@ Counterpart of ``tpdm_tpu/rewards/image_reward.py``:
 
 The whole batch scores in one call, on the model's device, in fp32 (the
 JAX module's dtype). Not ported yet: ``score_grad`` and the checkpoint
-converters (ROADMAP queue 1, item 7).
+converters (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations

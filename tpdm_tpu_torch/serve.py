@@ -18,9 +18,18 @@ ContinuousBatchingEngine`` instead (``--max_batch`` slots, ``--seg_steps``,
 
 It runs on the card unless ``--cpu`` is given, and exits non-zero without
 one. ``--toy`` builds random toy towers, MMDiT, TPM and VAE from a fixed
-seed and a deterministic toy tokenizer. Not ported yet, each exiting with a
-message that names its ROADMAP queue 1 item: ``--pretrained`` (7),
-``--family`` other than sd3 (12),
+seed and a deterministic toy tokenizer. ``--pretrained DIR`` loads a local
+diffusers-layout SD3-medium directory (``pipeline.
+load_pipeline_from_pretrained``; bf16 on the card, fp32 with ``--cpu``),
+with ``--tpm FILE`` a TPM-only safetensors checkpoint, and tokenizes with
+the port's own CLIP and T5 tokenizers from ``DIR/tokenizer/`` and
+``DIR/tokenizer_3/``; a missing tokenizer file exits naming it (there is
+no ``transformers`` fallback):
+
+    python -m tpdm_tpu_torch.serve --pretrained DIR --tpm tpm.safetensors --cli
+
+Not ported yet, each exiting with a message that names its ROADMAP queue 1
+item: ``--family`` other than sd3 (12),
 ``--dp`` / ``--mesh`` (9(d) and 14), ``--lora*`` (13(b)), ``--few_step``
 (9(e)), ``--quant_text`` (13(a)) and ``--reward_checkpoint`` (8); gradio
 is not ported. Importing the module starts nothing.
@@ -33,6 +42,7 @@ import base64
 import io
 import json
 import logging
+import os
 import signal
 import threading
 import zlib
@@ -48,7 +58,6 @@ _IMAGE_FORMATS = ("png", "jpeg")
 TOY_SEED = 0
 # flags of the root serve.py that the port refuses: flag -> (what, item)
 _NOT_PORTED_FLAGS = {
-    "pretrained": ("--pretrained (load_pipeline_from_pretrained)", "7"),
     "dp": ("--dp (data-parallel replicas)", "9(d)"),
     "mesh": ("--mesh (sharded-model serving)", "14"),
     "lora": ("--lora (LoRA adapters)", "13(b)"),
@@ -124,15 +133,51 @@ def toy_tokenize(prompt: str, n: int = 8):
     return np.array([ids], np.int32), np.ones((1, 12), np.int32)
 
 
+def pretrained_tokenize(root: str):
+    """The tokenize function of a checkpoint directory: the port's CLIP BPE
+    (``tokenizer/``: vocab.json, merges.txt) and T5 Unigram
+    (``tokenizer_3/``: spiece.model or tokenizer.json) tokenizers, 77 and
+    256 ids. A missing file exits naming it."""
+    from tpdm_tpu_torch.utils.t5_tokenizer import T5Tokenizer
+    from tpdm_tpu_torch.utils.tokenizer import CLIPTokenizer
+
+    try:
+        tok_clip = CLIPTokenizer.from_pretrained(os.path.join(root, "tokenizer"))
+        tok_t5 = T5Tokenizer.from_pretrained(os.path.join(root, "tokenizer_3"))
+    except FileNotFoundError as e:
+        raise SystemExit(f"--pretrained {root}: a tokenizer file is missing ({e}); the port "
+                         "reads its own tokenizers and has no transformers fallback") from None
+
+    def tokenize(prompt, _n=None):
+        return (tok_clip([prompt], max_length=77)["input_ids"],
+                tok_t5([prompt], max_length=256)["input_ids"])
+
+    return tokenize
+
+
 def build_pipeline(args):
-    """(pipe, tokenize) for ``args``: ``--toy`` builds the root serve.py's
-    toy configs (CLIP widths 32 and 48, T5 96, a 2-layer MMDiT caching its
+    """(pipe, tokenize) for ``args``: ``--pretrained`` loads a checkpoint
+    directory (bf16 on the card, fp32 on the CPU; ``--int8`` / ``--int4``
+    prequantise its MMDiT); ``--toy`` builds the root serve.py's toy
+    configs (CLIP widths 32 and 48, T5 96, a 2-layer MMDiT caching its
     front block, a 4-channel TPM, the toy VAE) with N(0, 0.02²) weights
     drawn from a torch generator seeded with ``TOY_SEED``, on the card or,
     with ``--cpu``, the CPU; ``--int8`` / ``--int4`` prequantise its MMDiT."""
+    if getattr(args, "pretrained", None):
+        from tpdm_tpu_torch.pipeline.pipeline import load_pipeline_from_pretrained
+
+        device = _device(args)
+        tokenize = pretrained_tokenize(args.pretrained)
+        bits = _quant_bits(args)
+        pipe = load_pipeline_from_pretrained(
+            args.pretrained, dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
+            tpm_checkpoint=getattr(args, "tpm", None), quant_int8=bits is not None,
+            quant_bits=bits or 8, device=device)
+        return pipe, tokenize
+    if getattr(args, "tpm", None):
+        raise SystemExit("--tpm loads a checkpoint's TPM: pass --pretrained")
     if not getattr(args, "toy", False):
-        raise SystemExit("pass --toy: the port serves random toy weights until "
-                         "--pretrained is ported (ROADMAP queue 1, item 7)")
+        raise SystemExit("pass --pretrained DIR (a local diffusers-layout checkpoint) or --toy")
     from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
     from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
     from tpdm_tpu_torch.models.t5 import T5Config, T5Encoder
@@ -424,7 +469,9 @@ def make_http_server(pipe, tokenize, args, ranker=None):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--pretrained", default=None)
+    p.add_argument("--pretrained", default=None,
+                   help="a local diffusers-layout SD3-medium directory")
+    p.add_argument("--tpm", default=None, help="a TPM-only safetensors checkpoint")
     p.add_argument("--toy", action="store_true", help="random toy weights (runs anywhere)")
     p.add_argument("--family", default="sd3", choices=["sd3", "sd15", "sdxl", "flux"])
     p.add_argument("--cli", action="store_true", help="generate --prompt once, write --out")

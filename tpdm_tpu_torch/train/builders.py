@@ -2,12 +2,12 @@
 embedder that stands in for the text towers.
 
 Counterpart of ``tpdm_tpu/train/builders.py``'s ``build_toy_agent``,
-``build_toy_reward``, ``build_image_reward_fn``, ``build_inference_ranker``
-and ``make_prompt_encoder``. ``build_toy_agent`` takes ``device`` ("cuda"
-by default, which raises without a card; the tests pass "cpu"); the
-others run where the modules they are given live. Not ported yet: the
-pretrained SD3 agent and the checkpoint loading of the reward and the VAE
-(ROADMAP queue 1, items 7 and 8).
+``build_sd3_agent``, ``build_toy_reward``, ``build_image_reward_fn``,
+``build_inference_ranker`` and ``make_prompt_encoder``. The agent builders
+take ``device`` ("cuda" by default, which raises without a card; the tests
+pass "cpu"); the others run where the modules they are given live. Not
+ported yet: the checkpoint loading of the reward and the VAE (ROADMAP
+queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -22,7 +22,12 @@ import torch
 from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
 from tpdm_tpu_torch.models.tpm import TimePredictor
 from tpdm_tpu_torch.models.vae import VAE
-from tpdm_tpu_torch.pipeline.pipeline import decode_latents, not_ported
+from tpdm_tpu_torch.pipeline.pipeline import (
+    decode_latents,
+    load_pipeline_from_pretrained,
+    not_ported,
+    resolve_device,
+)
 from tpdm_tpu_torch.rewards.image_reward import ImageRewardModel
 from tpdm_tpu_torch.train.config import RLOOConfig
 from tpdm_tpu_torch.train.rloo import TPDMAgent
@@ -32,16 +37,12 @@ from tpdm_tpu_torch.utils.image import uint8_images
 logger = logging.getLogger(__name__)
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
-    return device
+SD3_VARIANTS = ("sd3_medium", "sd35_medium", "sd35_large")
 
 
 def build_toy_agent(config: RLOOConfig, seed: int = 0, device="cuda") -> TPDMAgent:
     """Random-weight toy agent (the toy MMDiT, a 4-channel TPM), fp32."""
-    device = _device(device)
+    device = resolve_device(device)
     with torch.device(device):
         mmdit = MMDiT(MMDiTConfig.toy())
     mmdit.init_weights(torch.Generator(device=device).manual_seed(seed)).eval()
@@ -50,6 +51,35 @@ def build_toy_agent(config: RLOOConfig, seed: int = 0, device="cuda") -> TPDMAge
                             temb_dim=mcfg.inner_dim, init_alpha=config.init_alpha,
                             init_beta=config.init_beta)
     return TPDMAgent(mmdit, config, tpm=tpm)
+
+
+def build_sd3_agent(
+    config: RLOOConfig,
+    pretrained: str,
+    tpm_checkpoint: Optional[str] = None,
+    dtype: str = "bfloat16",
+    variant: str = "sd3_medium",
+    device="cuda",
+) -> TPDMAgent:
+    """Agent over a local diffusers-layout checkpoint directory
+    (``pipeline.load_pipeline_from_pretrained`` without the text towers):
+    ``variant`` names the ``MMDiTConfig`` classmethod (``sd3_medium``,
+    ``sd35_medium`` or ``sd35_large``). The agent's TPM factory builds the
+    pipeline's TPM (128 channels, its default head bias, computing in
+    ``dtype``), as the JAX builder passes ``pipe.tpm``. Training starts
+    from a ``tpm_checkpoint``'s weights (``TPDMAgent(tpm_start=)``), and
+    from weights drawn by the trainer without one."""
+    if variant not in SD3_VARIANTS:
+        raise ValueError(f"variant must be one of {SD3_VARIANTS}, got {variant!r}")
+    tdtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    mcfg = getattr(MMDiTConfig, variant)(dtype=tdtype)
+    pipe = load_pipeline_from_pretrained(pretrained, dtype=tdtype, load_text_encoders=False,
+                                         tpm_checkpoint=tpm_checkpoint, mmdit_config=mcfg,
+                                         device=device)
+    tpm = functools.partial(TimePredictor, conv_out_channels=128, in_channels=2 * mcfg.inner_dim,
+                            temb_dim=mcfg.inner_dim, dtype=tdtype)
+    start = pipe.tpm.state_dict() if tpm_checkpoint is not None else None
+    return TPDMAgent(pipe.mmdit, config, tpm=tpm, tpm_start=start)
 
 
 def build_toy_reward() -> Callable:

@@ -6,12 +6,16 @@ with the same numbered ``checkpoint-N`` directories, in torch's own format:
 ``trainer_state.pt`` holds the TPM's state dict, the optimizer's state and
 the rollout generator's state, ``ema.pt`` the EMA of the TPM when there is
 one, and ``trainer_meta.json`` the update, the episode and the numpy RNG's
-state. A save is written to ``tmp-checkpoint-N`` and renamed into place, so
-a kill mid-save leaves no resumable-looking half checkpoint. The frozen
-towers are never checkpointed.
+state. Beside them ``tpm.safetensors`` holds the TPM alone in the
+reference's ``agent_model.time_predictor.`` layout (``utils/convert.py:
+export_tpm``), as the JAX package writes it, for the inference stacks that
+load a TPM; ``load_tpm_safetensors`` reads it back. A save is written to
+``tmp-checkpoint-N`` and renamed into place, so a kill mid-save leaves no
+resumable-looking half checkpoint. The frozen towers are never
+checkpointed.
 
-Not ported yet: reading the JAX package's msgpack checkpoints and the TPM
-safetensors export (ROADMAP queue 1, item 7).
+Not ported yet: reading the JAX package's msgpack checkpoints (ROADMAP
+queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -25,9 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpdm_tpu_torch.utils import safetensors
+from tpdm_tpu_torch.utils.convert import convert_tpm, export_tpm
+
 STATE_FILE = "trainer_state.pt"
 META_FILE = "trainer_meta.json"
 EMA_FILE = "ema.pt"
+TPM_FILE = "tpm.safetensors"
 
 
 def save_checkpoint(
@@ -41,7 +49,8 @@ def save_checkpoint(
     ema: Optional[dict] = None,
 ) -> str:
     """Write ``output_dir/checkpoint-{step}`` (replacing one of that step);
-    ``tpm``, ``optimizer`` and ``ema`` are state dicts. Returns its path."""
+    ``tpm`` (a ``TimePredictor``'s), ``optimizer`` and ``ema`` are state
+    dicts. Returns its path."""
     final = os.path.join(output_dir, f"checkpoint-{step}")
     path = os.path.join(output_dir, f"tmp-checkpoint-{step}")
     if os.path.isdir(path):
@@ -51,6 +60,7 @@ def save_checkpoint(
                os.path.join(path, STATE_FILE))
     if ema is not None:
         torch.save(ema, os.path.join(path, EMA_FILE))
+    safetensors.save_file(export_tpm(tpm), os.path.join(path, TPM_FILE))
     meta = {"update": step, "episode": episode}
     if np_rng_state is not None:
         meta["np_rng_state"] = _encode_rng(np_rng_state)
@@ -100,6 +110,12 @@ def restore_checkpoint(path: str, map_location="cpu") -> dict:
     if os.path.exists(ema_path):
         out["ema"] = torch.load(ema_path, map_location=map_location, weights_only=True)
     return out
+
+
+def load_tpm_safetensors(path: str) -> dict:
+    """A TPM-only safetensors file (``tpm.safetensors`` of a checkpoint, or
+    the reference's) as a ``TimePredictor`` state dict."""
+    return convert_tpm(safetensors.load_file(path))
 
 
 def rotate_checkpoints(output_dir: str, save_total_limit: Optional[int]) -> list:

@@ -256,6 +256,8 @@ class TPDMAgent:
             from ``config`` (128 conv channels, ``init_alpha``/``init_beta``,
             ``tpm_param_cap``), with fp32 parameters that compute in the
             MMDiT's dtype.
+        tpm_start: a state dict of that TPM (a pretrained one) that
+            ``init_tpm_params`` loads in place of drawn weights.
         replay_mode: "cached" keeps (h_combined, temb) of every step (25 MB
             a sample a step at 1024 px in bf16) and replays the TPM alone;
             "recompute" keeps the latents of every step and re-runs the
@@ -273,11 +275,13 @@ class TPDMAgent:
         config: RLOOConfig,
         tpm: Optional[Callable[[], nn.Module]] = None,
         replay_mode: str = "cached",
+        tpm_start: Optional[dict] = None,
     ):
         if replay_mode not in ("cached", "recompute"):
             raise ValueError(replay_mode)
         check_adaptive_solver(config.solver)
         self.replay_mode = replay_mode
+        self.tpm_start = tpm_start
         self.mmdit = mmdit.requires_grad_(False)
         self.config = config
         mcfg = mmdit.config
@@ -309,9 +313,13 @@ class TPDMAgent:
     def init_tpm_params(self, generator: torch.Generator) -> nn.Module:
         """A fresh TPM on the MMDiT's device, its weights drawn from
         ``generator`` (on that device): N(0, 0.02²), zero biases, the head's
-        bias (init_alpha, init_beta)."""
+        bias (init_alpha, init_beta); or, given ``tpm_start``, a copy of
+        those weights."""
         with torch.device(self.device):
             tpm = self.tpm_factory()
+        if self.tpm_start is not None:
+            tpm.load_state_dict(self.tpm_start)
+            return tpm
         return tpm.init_weights(generator)
 
     def prepare_latents(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:

@@ -1,7 +1,24 @@
-"""Carry weights from the JAX package's Flax parameter trees to the port.
+"""Carry weights to the port: from published checkpoints, and from the JAX
+package's Flax parameter trees.
 
-The port's submodules carry the Flax module names, so a parameter's path
-maps one to one: ``transformer_blocks_3/attn/to_q/kernel`` becomes
+Published checkpoints (diffusers / transformers layouts, read from
+safetensors files by ``load_safetensors``) go straight to the port's state
+dicts through ``convert_mmdit``, ``convert_vae``, ``convert_clip_text``,
+``convert_t5`` and ``convert_tpm``, each with the name and arguments of
+``tpdm_tpu/utils/convert.py``'s. ``export_tpm`` writes the TPM back in
+the reference's layout (JAX's checkpoint export), and ``export_mmdit`` /
+``export_vae`` write the diffusers layout of drawn weights (a local
+checkpoint directory for tests and ``chip_smoke.py``). torch keeps the
+checkpoints' (out, in) and (out, in, kh, kw) layouts, so each converter is
+a table of renames (``to_out.0`` -> ``to_out``, ``net.0.proj`` /
+``net.2`` -> ``proj_in`` / ``proj_out``, the towers' prefixes dropped)
+that its export inverts; the patchify conv becomes a Linear over (p, p,
+c)-ordered patches. ``dtype`` None keeps the stored dtype. Keys a
+converter does not use are ignored, as in JAX; a missing one raises
+``KeyError``.
+
+From the Flax trees (the ``*_from_jax`` functions), the port's submodules
+carry the Flax module names, so a parameter's path maps one to one: ``transformer_blocks_3/attn/to_q/kernel`` becomes
 ``transformer_blocks.3.attn.to_q.weight``. Leaves change layout:
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
@@ -29,12 +46,13 @@ then quantises the model once.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from tpdm_tpu_torch.ops.quant import pack_int4
+from tpdm_tpu_torch.utils import safetensors
 
 # Flax names that index lists of submodules:
 # "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1"; the ViT's "blocks_3",
@@ -131,3 +149,207 @@ def t5_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for ``models.t5.T5Encoder`` from the JAX T5 encoder's
     params (float only: the port's T5 has no quantised mode yet)."""
     return _flax_to_state_dict(flax_params, raw_leaves=_RAW_LEAVES + _T5_RAW_LEAVES)
+
+
+# ---------------------------------------------------------------------------
+# published checkpoints (diffusers / transformers layouts)
+# ---------------------------------------------------------------------------
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a .safetensors file, as CPU torch tensors of the
+    stored dtype (``utils/safetensors.py``; no ``safetensors`` package)."""
+    return safetensors.load_file(path)
+
+
+def _tensor(t, dtype=None) -> torch.Tensor:
+    """A checkpoint's array as a contiguous torch tensor, cast to ``dtype``
+    (None keeps the stored one)."""
+    t = t if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
+    return (t if dtype is None else t.to(dtype)).contiguous()
+
+
+def _pairs(src: str, dst: Optional[str] = None, leaves=("weight", "bias")):
+    """[(checkpoint key, port key)] for each leaf of one module."""
+    dst = src if dst is None else dst
+    return [(f"{src}.{leaf}", f"{dst}.{leaf}") for leaf in leaves]
+
+
+def _renamed(state_dict: Mapping, keys, dtype=None, prefix: str = "") -> Dict[str, torch.Tensor]:
+    return {dst: _tensor(state_dict[prefix + src], dtype) for src, dst in keys}
+
+
+def _mmdit_keys(num_layers: int, dual_attention_layers=(), qk_norm: Optional[str] = None):
+    keys = _pairs("pos_embed.proj")  # the conv's weight is reshaped apart
+    for name in ("time_text_embed.timestep_embedder.linear_1",
+                 "time_text_embed.timestep_embedder.linear_2",
+                 "time_text_embed.text_embedder.linear_1",
+                 "time_text_embed.text_embedder.linear_2",
+                 "context_embedder", "norm_out.linear", "proj_out"):
+        keys += _pairs(name)
+
+    def attn(base: str, joint: bool, pre_only: bool):
+        out = [p for n in ("to_q", "to_k", "to_v") for p in _pairs(f"{base}.{n}")]
+        out += _pairs(f"{base}.to_out.0", f"{base}.to_out")
+        norms = ("norm_q", "norm_k")
+        if joint:
+            out += [p for n in ("add_q_proj", "add_k_proj", "add_v_proj")
+                    for p in _pairs(f"{base}.{n}")]
+            if not pre_only:
+                out += _pairs(f"{base}.to_add_out")
+            norms += ("norm_added_q", "norm_added_k")
+        if qk_norm == "rms_norm":
+            out += [p for n in norms for p in _pairs(f"{base}.{n}", leaves=("weight",))]
+        return out
+
+    def ff(base: str):
+        return _pairs(f"{base}.net.0.proj", f"{base}.proj_in") + _pairs(
+            f"{base}.net.2", f"{base}.proj_out")
+
+    for i in range(num_layers):
+        base = f"transformer_blocks.{i}"
+        pre_only = i == num_layers - 1
+        keys += _pairs(f"{base}.norm1.linear") + _pairs(f"{base}.norm1_context.linear")
+        keys += attn(f"{base}.attn", joint=True, pre_only=pre_only) + ff(f"{base}.ff")
+        if not pre_only:
+            keys += ff(f"{base}.ff_context")
+        if i in dual_attention_layers:
+            keys += attn(f"{base}.attn2", joint=False, pre_only=False)
+    return keys
+
+
+def convert_mmdit(
+    state_dict: Mapping,
+    num_layers: int,
+    dual_attention_layers=(),
+    qk_norm: Optional[str] = None,
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """diffusers ``SD3Transformer2DModel`` state dict (SD3 or SD3.5) ->
+    state dict of ``models.mmdit.MMDiT`` with that many layers."""
+    out = _renamed(state_dict, _mmdit_keys(num_layers, dual_attention_layers, qk_norm), dtype)
+    w = out["pos_embed.proj.weight"]  # (embed, c, p, p), the stride-p conv
+    out["pos_embed.proj.weight"] = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
+    return out
+
+
+def export_mmdit(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_mmdit``: an ``MMDiT(cfg)`` state dict (float)
+    -> the diffusers layout, contiguous CPU tensors (to write a local
+    checkpoint directory)."""
+    keys = _mmdit_keys(cfg.num_layers, cfg.dual_attention_layers, cfg.qk_norm)
+    out = {src: _tensor(state_dict[dst].detach().cpu()) for src, dst in keys}
+    p, c = cfg.patch_size, cfg.in_channels
+    w = out["pos_embed.proj.weight"]
+    out["pos_embed.proj.weight"] = w.reshape(-1, p, p, c).permute(0, 3, 1, 2).contiguous()
+    return out
+
+
+_TPM_KEYS = [p for n in ("conv1", "conv2", "norm1.linear", "norm1.norm", "fc1", "fc2")
+             for p in _pairs(n)]
+
+
+def convert_tpm(state_dict: Mapping, dtype=None) -> Dict[str, torch.Tensor]:
+    """A TPM-only checkpoint -> state dict of ``models.tpm.TimePredictor``.
+    Accepts ``agent_model.time_predictor.``-, ``time_predictor.``-prefixed or
+    unprefixed keys, as JAX's does."""
+    for prefix in ("agent_model.time_predictor.", "time_predictor.", ""):
+        if any(k.startswith(prefix + "conv1.") for k in state_dict):
+            break
+    return _renamed(state_dict, _TPM_KEYS, dtype, prefix)
+
+
+def export_tpm(tpm_state: Mapping, prefix: str = "agent_model.time_predictor.") -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_tpm``: a ``TimePredictor`` state dict -> the
+    reference's layout under ``prefix``, contiguous CPU tensors (a raw
+    buffer of a transposed view would be written wrong)."""
+    return {prefix + src: _tensor(tpm_state[dst].detach().cpu()) for src, dst in _TPM_KEYS}
+
+
+def _vae_keys(block_out_channels, layers_per_block: int):
+    def resnet(base: str, has_shortcut: bool):
+        names = ("norm1", "conv1", "norm2", "conv2") + (("conv_shortcut",) if has_shortcut else ())
+        return [p for n in names for p in _pairs(f"{base}.{n}")]
+
+    mid = "decoder.mid_block"
+    keys = _pairs("decoder.conv_in") + resnet(f"{mid}.resnets.0", False)
+    keys += [p for n in ("group_norm", "to_q", "to_k", "to_v")
+             for p in _pairs(f"{mid}.attentions.0.{n}")]
+    keys += _pairs(f"{mid}.attentions.0.to_out.0", f"{mid}.attentions.0.to_out")
+    keys += resnet(f"{mid}.resnets.1", False)
+    ch_up = list(reversed(block_out_channels))
+    prev = ch_up[0]
+    for i, out_ch in enumerate(ch_up):
+        for j in range(layers_per_block + 1):
+            in_ch = prev if j == 0 else out_ch
+            keys += resnet(f"decoder.up_blocks.{i}.resnets.{j}", in_ch != out_ch)
+        if i < len(ch_up) - 1:
+            keys += _pairs(f"decoder.up_blocks.{i}.upsamplers.0.conv",
+                           f"decoder.up_blocks.{i}.upsamplers.0")
+        prev = out_ch
+    return keys + _pairs("decoder.conv_norm_out") + _pairs("decoder.conv_out")
+
+
+def convert_vae(
+    state_dict: Mapping,
+    block_out_channels=(128, 256, 512, 512),
+    layers_per_block: int = 2,
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """diffusers ``AutoencoderKL`` state dict -> state dict of
+    ``models.vae.VAE``: the decoder only; the encoder's keys are dropped
+    (the port's VAE has no encoder yet, ROADMAP queue 1, item 4)."""
+    return _renamed(state_dict, _vae_keys(block_out_channels, layers_per_block), dtype)
+
+
+def export_vae(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_vae``: a ``VAE(cfg)`` state dict -> the diffusers
+    layout of its decoder, contiguous CPU tensors."""
+    keys = _vae_keys(cfg.block_out_channels, cfg.layers_per_block)
+    return {src: _tensor(state_dict[dst].detach().cpu()) for src, dst in keys}
+
+
+def _clip_text_keys(num_layers: int):
+    keys = [("text_model.embeddings.token_embedding.weight", "token_embedding.weight"),
+            ("text_model.embeddings.position_embedding.weight", "position_embedding"),
+            ("text_projection.weight", "text_projection.weight")]
+    keys += _pairs("text_model.final_layer_norm", "final_layer_norm")
+    for i in range(num_layers):
+        src, dst = f"text_model.encoder.layers.{i}", f"layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            keys += _pairs(f"{src}.self_attn.{name}", f"{dst}.self_attn.{name}")
+        for name in ("layer_norm1", "layer_norm2"):
+            keys += _pairs(f"{src}.{name}", f"{dst}.{name}")
+        for name in ("fc1", "fc2"):
+            keys += _pairs(f"{src}.mlp.{name}", f"{dst}.{name}")
+    return keys
+
+
+def convert_clip_text(state_dict: Mapping, num_layers: int, dtype=None) -> Dict[str, torch.Tensor]:
+    """transformers ``CLIPTextModelWithProjection`` state dict (SD3's CLIP-L
+    and CLIP-G, each with its ``text_projection``) -> state dict of
+    ``models.clip_text.CLIPTextModel``."""
+    return _renamed(state_dict, _clip_text_keys(num_layers), dtype)
+
+
+def _t5_keys(num_layers: int):
+    keys = [("shared.weight", "shared.weight"),
+            ("encoder.final_layer_norm.weight", "final_layer_norm.weight")]
+    for i in range(num_layers):
+        src, dst = f"encoder.block.{i}.layer", f"block.{i}"
+        keys += [(f"{src}.0.SelfAttention.{n}.weight", f"{dst}.attention.{n}.weight")
+                 for n in ("q", "k", "v", "o")]
+        if i == 0:
+            keys.append((f"{src}.0.SelfAttention.relative_attention_bias.weight",
+                         f"{dst}.attention.relative_attention_bias"))
+        keys += [(f"{src}.0.layer_norm.weight", f"{dst}.ln_attn.weight"),
+                 (f"{src}.1.layer_norm.weight", f"{dst}.ln_mlp.weight")]
+        keys += [(f"{src}.1.DenseReluDense.{n}.weight", f"{dst}.{n}.weight")
+                 for n in ("wi_0", "wi_1", "wo")]
+    return keys
+
+
+def convert_t5(state_dict: Mapping, num_layers: int, dtype=None) -> Dict[str, torch.Tensor]:
+    """transformers ``T5EncoderModel`` state dict -> state dict of
+    ``models.t5.T5Encoder``."""
+    return _renamed(state_dict, _t5_keys(num_layers), dtype)
