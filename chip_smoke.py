@@ -162,7 +162,26 @@ Phases, one line each, and any failure exits non-zero:
    load_pipeline_from_pretrained, every tensor and one request equal to
    the bit to the same weights built in memory. Each request (after a
    one-step warm-up at its batch) prints its steps, warm wall time (CUDA
-   events), peak memory and K1 / K2 / K4 launches, checked exactly.
+   events), peak memory and K1 / K2 / K4 launches, checked exactly;
+17. image-to-image and inpainting on phase 14's models at 1024 px (the
+   VAE's encoder drawn from the seed with the decoder): encode_image at
+   batch 1 and 4 (K2 one launch a call, encode ms by CUDA events; the
+   bf16 latents against an fp32 encode of the same weights with the
+   plain attention, mean |dz| / mean |z| < ENCODE_REL_BOUND);
+   generate(init_image, strength=1.0) equal to text-to-image to the bit;
+   per-sample strengths (0.4, 0.8) at batch 2, each starting at its
+   strength, the lower nearer the init image; a half-mask inpaint whose
+   kept latents equal the encoded ones to the bit; a BatchingEngine batch
+   of two text and two img2img rows (the text rows equal a text-only
+   batch's, the batch a direct generate(init_image=, seed=<one a row>));
+   a ContinuousBatchingEngine(slots=4, seg_steps=4) burst of 8, half
+   img2img, each equal to BatchingEngine(max_batch=4) with its images
+   encoded and decoded at batch 1; /generate with init_image_png_base64
+   (and a malformed PNG's 400). K1 (24 a step) and K2 (one an encode
+   call, one a decode call) are checked exactly around every call; the
+   encode ms, the img2img request's wall time and steps beside the
+   text-to-image request's, peak memory and the phase's seconds are
+   printed beside nvidia-smi's name and power limit.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -185,12 +204,10 @@ import logging
 import math
 import os
 import re
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -278,6 +295,11 @@ N_TOK_512 = 1024 + N_CTX
 N_JOINT_512 = N_TOK_512 + (-N_TOK_512 % 128)
 N_VAE_512 = 4096
 SERVE_EXTRA_PX = 512  # phase 14's engine serves this resolution beside 1024 px
+# phase 17: the bf16 encode against an fp32 encode of the same weights,
+# mean |dz| / mean |z| of the model-space latents (the bf16 decode's CPU
+# test bound, tests/test_torch_vae.py)
+ENCODE_REL_BOUND = 5e-2
+I2I_STRENGTHS = (0.4, 0.8)  # phase 17's per-sample strengths
 CONT_REQUESTS = 12  # phase 15's burst: example prompts 0-11, seeds 0-11
 CONT_CAPS = (None, 4, None, 8)  # its step caps, in turn (the schedule stops at ~15)
 # the wgmma kernels' instantiations, each by a piece of its mangled name
@@ -785,8 +807,10 @@ def reference_phase(seed, dev):
         card_out = m_card(*(x.to(dev, torch.bfloat16) for x in inputs))
     mmdit_err = max(rel_err(c, r) for c, r in zip(card_out, ref_out))
     vcfg_small = VAEConfig.sd3(block_out_channels=(128, 512), layers_per_block=1)
-    v_cpu = VAE(vcfg_small).init_weights(cpu_gen, WEIGHT_STD).to(torch.bfloat16).float()
-    v_card = VAE(vcfg_small).to(dev)
+    # the decoder alone: its weights and the draws after it stay as they were
+    v_cpu = VAE(vcfg_small, encoder=False).init_weights(cpu_gen, WEIGHT_STD).to(
+        torch.bfloat16).float()
+    v_card = VAE(vcfg_small, encoder=False).to(dev)
     v_card.load_state_dict(v_cpu.state_dict())
     v_card.to(torch.bfloat16)
     z = torch.randn(1, 16, 16, 16, generator=cpu_gen)
@@ -2199,25 +2223,14 @@ def cli_collator(device="cuda", seed=0):
 
 
 def png_pixels(data: bytes, name: str) -> np.ndarray:
-    """The (H, W, channels) uint8 pixels of an 8-bit PNG of one IDAT chunk
-    with filter byte 0 on every row (``utils/image.py:png_bytes``' layout),
-    its length checked."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        fail(f"{name} is not a PNG")
-    chunks, pos = {}, 8
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        chunks[data[pos + 4:pos + 8]] = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
-    channels = {0: 1, 2: 3}[color]
-    raw = zlib.decompress(chunks[b"IDAT"])
-    if depth != 8 or len(raw) != h * (1 + w * channels):
-        fail(f"{name}: bad pixel data")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * channels)
-    if rows[:, 0].any():
-        fail(f"{name}: a row with a filter other than None")
-    return rows[:, 1:].reshape(h, w, channels)
+    """The uint8 pixels of a PNG (the port's stdlib reader); a malformed one
+    fails the run."""
+    from tpdm_tpu_torch.utils.image import read_png
+
+    try:
+        return read_png(data)
+    except ValueError as e:
+        fail(f"{name}: {e}")
 
 
 def png_shape(path):
@@ -3303,6 +3316,331 @@ def continuous_phase(seed, dev, served):
     return tuple(totals)
 
 
+def img2img_phase(seed, dev, served, smi):
+    """Phase 17: image-to-image and inpainting on phase 14's models
+    (``served``), item 17 of this file's docstring. Returns the K1 and K2
+    launches of the phase."""
+    import copy
+    import http.client
+    import threading
+
+    from tpdm_tpu_torch import serve
+    from tpdm_tpu_torch.models import vae as vae_module
+    from tpdm_tpu_torch.models.vae import vae_scale_factor
+    from tpdm_tpu_torch.ops.attention import (
+        attention_reference,
+        flash_attention,
+        flash_attention_streaming,
+    )
+    from tpdm_tpu_torch.pipeline import pipeline as pipeline_module
+    from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline, latent_mask
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.serving_continuous import ContinuousBatchingEngine
+    from tpdm_tpu_torch.utils.image import png_bytes, preprocess_images
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipe, tokenize, prompts = served.pipe, served.tokenize, served.prompts
+    layers = pipe.mmdit.config.num_layers
+    cfg = pipe.vae.config
+    factor = vae_scale_factor(cfg)
+    px = pipe.mmdit.config.sample_size * factor
+    totals = [0, 0]
+
+    def counted(label, fn, want):
+        """fn() timed on the host clock between synchronizes; its K1 and K2
+        launches added to the phase's and checked against ``want(out)``
+        (unless None)."""
+        torch.cuda.synchronize()
+        flash_attention.launches = flash_attention_streaming.launches = 0
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        got = (flash_attention.launches, flash_attention_streaming.launches)
+        totals[0] += got[0]
+        totals[1] += got[1]
+        if want is not None and got != want(out):
+            fail(f"img2img {label}: K1 {got[0]}, K2 {got[1]} launches, expected K1 "
+                 f"{want(out)[0]}, K2 {want(out)[1]}")
+        return out, seconds
+
+    def ids(texts):
+        rows = [tokenize(p) for p in texts]
+        c, t5 = np.concatenate([r[0] for r in rows]), np.concatenate([r[1] for r in rows])
+        return dict(clip_ids=c, t5_ids=t5, negative_clip_ids=np.zeros_like(c),
+                    negative_t5_ids=np.zeros_like(t5))
+
+    gen_kw = dict(max_inference_steps=T_MAX, guidance_scale=7.0, predict=True)
+    steps_k = lambda n_k2: lambda r: (layers * r.num_steps, n_k2)
+    same = lambda a, b: np.array_equal(a, b)
+
+    # 1. a text-to-image image to start from, and its same request at strength 1.0
+    s0 = seed + 170
+    t2i, _ = counted("text-to-image", lambda: pipe.generate(**ids(prompts[:1]), seed=s0,
+                                                               **gen_kw), steps_k(1))
+    check_schedule(t2i, 1, px)
+    img_a = t2i.images[0]
+    img_b = np.ascontiguousarray(img_a[::-1])  # a second init image: A upside down
+    one, _ = counted("strength 1.0", lambda: pipe.generate(
+        **ids(prompts[:1]), seed=s0, init_image=img_b[None], strength=1.0, **gen_kw), steps_k(2))
+    if not (same(one.images, t2i.images) and same(one.sigmas, t2i.sigmas)
+            and one.num_steps == t2i.num_steps):
+        fail("generate(init_image, strength=1.0) differs from text-to-image at the same seed")
+    again, s_t2i = counted("text-to-image again", lambda: pipe.generate(
+        **ids(prompts[:1]), seed=s0, **gen_kw), steps_k(1))
+    i2i, s_i2i = counted("request", lambda: pipe.generate(
+        **ids(prompts[:1]), seed=s0, init_image=img_b[None], strength=0.6, **gen_kw), steps_k(2))
+    check_schedule(i2i, 1, px)
+    phase("img2img request", f"{px} px, batch 1, prompt 0, CFG 7.0: text-to-image {t2i.num_steps} "
+          f"steps in {s_t2i:.3f} s (its second call); img2img at strength 0.6 from its image upside down "
+          f"{i2i.num_steps} steps in {s_i2i:.3f} s (encode + denoise + decode); at strength 1.0 "
+          f"equal to text-to-image to the bit (images, sigmas, {one.num_steps} steps); {smi}")
+
+    # 2. encode_image at batch 1 and 4: one K2 a call, ms by CUDA events
+    x1, x4 = img_a[None], np.stack([img_a, img_b, img_a[:, ::-1], img_b[:, ::-1]])
+    enc_ms, latents = {}, {}
+    for b, x in ((1, x1), (4, x4)):
+        latents[b], _ = counted(f"encode batch {b}", lambda: pipe.encode_image(x),
+                                lambda z: (0, 1))
+        z = latents[b]
+        if z.shape != (b, cfg.latent_channels, px // factor, px // factor) \
+                or z.dtype != torch.float32 \
+                or not bool(torch.isfinite(z).all()):
+            fail(f"encode_image at batch {b}: {tuple(z.shape)} {z.dtype}, finite "
+                 f"{bool(torch.isfinite(z).all())}")
+        enc_ms[b], _ = counted(f"encode batch {b} timed", lambda: median_ms(
+            lambda: pipe.encode_image(x), reps=5, warmup=1), lambda _: (0, 6))
+    rows_equal = same(latents[4][0].cpu().numpy(), latents[1][0].cpu().numpy())
+    # the fp32 reference: the same (bf16-valued) weights in fp32, the plain
+    # attention (K2 takes bf16 only), full fp32 convs (main() turns TF32 off)
+    vae32 = copy.deepcopy(pipe.vae).float()
+    real_attention = vae_module.joint_attention
+    vae_module.joint_attention = attention_reference
+    try:
+        with torch.no_grad():
+            mean32, _ = vae32.encode(preprocess_images(torch.as_tensor(x1, device=dev)))
+    finally:
+        vae_module.joint_attention = real_attention
+    z32 = (mean32 - cfg.shift_factor) * cfg.scaling_factor
+    del vae32, mean32
+    enc_rel = float((latents[1] - z32).abs().mean() / z32.abs().mean())
+    if not enc_rel < ENCODE_REL_BOUND:
+        fail(f"the bf16 encode is {enc_rel:.4e} from the fp32 one (mean |dz| / mean |z|), bound "
+             f"{ENCODE_REL_BOUND}")
+    phase("img2img encode", f"encode_image (VAE encoder bf16, K2 at (b, 1, {(px // factor) ** 2}, "
+          f"512)): batch 1 "
+          f"{enc_ms[1]:.3f} ms, batch 4 {enc_ms[4]:.3f} ms ({enc_ms[4] / 4:.3f} ms an image; "
+          f"medians of 5, CUDA events), one K2 launch a call; bf16 against an fp32 encode of the "
+          f"same weights (plain attention): mean |dz| / mean |z| {enc_rel:.4e} (bound "
+          f"{ENCODE_REL_BOUND}); batch 4's first row equal to batch 1's to the bit: {rows_equal}; "
+          f"{smi}")
+    del z32
+    clean_a = latents[1]
+
+    # 3. per-sample strengths at batch 2 from one image, each starting there
+    starts = []
+    real_sample = pipeline_module.adaptive_sample
+
+    def recording(*a, **kw):
+        starts.append(kw["init_sigma"])
+        return real_sample(*a, **kw)
+
+    pipeline_module.adaptive_sample = recording
+    try:
+        pair, s_pair = counted("batch 2", lambda: pipe.generate(
+            **ids([prompts[0]] * 2), seed=s0, init_image=np.stack([img_a, img_a]),
+            strength=list(I2I_STRENGTHS), decode=False, **gen_kw), steps_k(1))
+    finally:
+        pipeline_module.adaptive_sample = real_sample
+    want_start = torch.tensor(I2I_STRENGTHS, dtype=torch.float32)
+    clean_np = clean_a.cpu().numpy()[0]
+    dist_init = [float(np.abs(pair.images[i] - clean_np).mean()) for i in (0, 1)]
+    if not torch.equal(starts[0].cpu(), want_start) or not dist_init[0] < dist_init[1]:
+        fail(f"batch 2 at strengths {I2I_STRENGTHS}: started at {starts[0].tolist()}, mean "
+             f"|latents - init latents| {dist_init}")
+    phase("img2img batch 2", f"strengths {I2I_STRENGTHS} from one image: the loop started at "
+          f"sigmas {starts[0].tolist()}, first steps to {pair.sigmas[:, 0].tolist()}; "
+          f"{[int(i) + 1 for i in pair.last_valid_index]} steps in {s_pair:.3f} s (no decode); "
+          f"mean |final - init| latents {dist_init[0]:.4f} and {dist_init[1]:.4f}; K2 1 (the "
+          f"encode)")
+
+    # 4. inpainting: the right half regenerated, the left half kept
+    mask = np.zeros((1, px, px), np.float32)
+    mask[:, :, px // 2:] = 1.0
+    inp, s_inp = counted("inpaint", lambda: pipe.generate(
+        **ids(prompts[:1]), seed=s0, init_image=x1, strength=0.8, mask=mask, decode=False,
+        **gen_kw), steps_k(1))
+    kept = (latent_mask(torch.from_numpy(mask[:, None]), clean_a.shape[-2:], "cpu") == 0)
+    kept = kept.expand(clean_a.shape).numpy()
+    want_kept = clean_a.to(pipe._device_dtype()[1]).float().cpu().numpy()  # the model's bf16
+    moved = float(np.abs(inp.images - want_kept)[~kept].mean())
+    if not (same(inp.images[kept], want_kept[kept]) and moved > 1e-3):
+        fail(f"inpainting: the kept latents differ from the encoded ones, or the regenerated "
+             f"ones did not move (mean |d| {moved:.3e})")
+    phase("img2img inpaint", f"half mask at strength 0.8: {inp.num_steps} steps in {s_inp:.3f} s "
+          f"(no decode); the {int(kept[0, 0].sum())} latent cells whose mask is 0 equal the "
+          f"encoded init latents (in bf16) to the bit in all {clean_a.shape[1]} channels; the "
+          f"others moved by {moved:.4f} on mean")
+
+    # 5. BatchingEngine: two text and two img2img rows
+    eng = BatchingEngine(pipe, tokenize, max_batch=4, max_steps=35, vae_scale_factor=factor)
+    texts, seeds = prompts[2:6], [seed + 172 + i for i in range(4)]
+    nfe_k = lambda n_k2: lambda out: (layers * max(o["inference_steps"] for o in out), n_k2)
+    mixed, s_mixed = counted("engine mixed batch", lambda: eng.generate_batch(
+        texts, seeds, init_images=[None, None, img_a, img_b],
+        strengths=[None, None, *I2I_STRENGTHS]), nfe_k(2))
+    text_only, _ = counted("engine text batch", lambda: eng.generate_batch(texts, seeds),
+                           nfe_k(1))
+    embeds = eng._embeds_for(texts, ids(texts)["clip_ids"], ids(texts)["t5_ids"], [""] * 4)
+    blank = np.zeros((px, px, 3), np.uint8)
+    direct, _ = counted("engine direct", lambda: pipe.generate(
+        *embeds, init_image=np.stack([blank, blank, img_a, img_b]),
+        strength=[1.0, 1.0, *I2I_STRENGTHS], seed=seeds, max_inference_steps=35,
+        guidance_scale=7.0, step_caps=[35] * 4), steps_k(2))
+    for i, res in enumerate(mixed):
+        if not (same(res["image"], direct.images[i])
+                and res["inference_steps"] == int(direct.last_valid_index[i]) + 1):
+            fail(f"engine row {i} differs from the direct generate(init_image=, seed=[...])")
+        if i < 2 and not (same(res["image"], text_only[i]["image"])
+                          and res["sigmas"] == text_only[i]["sigmas"]):
+            fail(f"engine text row {i} differs from the text-only batch's")
+    phase("img2img engine", f"BatchingEngine(max_batch=4): prompts 2-5, rows 2 and 3 img2img at "
+          f"{I2I_STRENGTHS}: {[o['inference_steps'] for o in mixed]} steps in {s_mixed:.3f} s "
+          f"(one encode of the batch, K2 2); the text rows equal a text-only batch's to the bit "
+          f"({[o['inference_steps'] for o in text_only]} steps); all four equal a direct "
+          f"generate(init_image=[blank, blank, A, B], strength=[1, 1, 0.4, 0.8], seed=[...]) to "
+          f"the bit")
+
+    # 6. ContinuousBatchingEngine: a burst of 8, half img2img
+    class RowByRow(TPDMPipeline):
+        """Encodes and decodes one image at a time, as the continuous engine
+        encodes a slot's image and decodes a finished slot."""
+
+        def encode_image(self, images, **kw):
+            return torch.cat([super().encode_image(images[i:i + 1], **kw)
+                              for i in range(len(images))])
+
+        def _decode_impl(self, lat):
+            self.decoded = lat  # the final latents, compared below
+            return torch.cat([super(RowByRow, self)._decode_impl(lat[i:i + 1])
+                              for i in range(lat.shape[0])])
+
+    burst = [(prompts[6 + i], seed + 180 + i, CONT_CAPS[i % 4],
+              (img_a, img_b)[i // 2 % 2] if i % 2 == 0 else None,
+              (None, 0.5, 0.8, 0.4)[i // 2] if i % 2 == 0 else None) for i in range(8)]
+    cont = ContinuousBatchingEngine(pipe, tokenize, slots=4, seg_steps=4, max_steps=35,
+                                    vae_scale_factor=factor)
+    decodes = []
+    real_rows = cont._decode_rows
+    cont._decode_rows = lambda lats: (decodes.append(lats.shape[0]), real_rows(lats))[1]
+    counted("continuous warmup", cont.warmup, None)  # its segments are not counted after
+    del decodes[:]
+    finals = {}  # each request's final latents
+    real_complete = cont._complete
+
+    def complete(req, lat_row, nfe, sigmas):
+        finals[id(req)] = lat_row
+        real_complete(req, lat_row, nfe, sigmas)
+
+    cont._complete = complete
+    n_i2i = sum(im is not None for *_, im, _ in burst)
+
+    def run_burst():
+        cont.start()
+        try:
+            start = time.monotonic()
+            reqs = [cont.submit(p, seed=s, steps=c, init_image=im, strength=st)
+                    for p, s, c, im, st in burst]
+            out = [r.result(timeout=600) for r in reqs]
+            return out, time.monotonic() - start, reqs
+        finally:
+            cont.stop()
+
+    (got, makespan, reqs), _ = counted("continuous burst", run_burst, lambda _: (
+        layers * cont.seg_steps * cont.segments_run, len(decodes) + n_i2i))
+    ref = BatchingEngine(RowByRow(pipe.mmdit, pipe.tpm, pipe.vae, text_encoders=pipe.text_encoders),
+                         tokenize, max_batch=4, max_steps=35, vae_scale_factor=factor)
+    for text in {p for p, *_ in burst}:
+        ref._embed_cache[text] = cont._prompt_embeds(text)
+    ref._neg_embed = cont._neg_rows
+    want, want_lat = [], []
+    for i in range(0, len(burst), 4):
+        group = burst[i:i + 4]
+        has_i2i = any(im is not None for *_, im, _ in group)
+        out, _ = counted("continuous reference", lambda: ref.generate_batch(
+            [g[0] for g in group], [g[1] for g in group], steps=[g[2] for g in group],
+            init_images=[g[3] for g in group], strengths=[g[4] for g in group]),
+            lambda out: (layers * max(o["inference_steps"] for o in out),
+                         4 * has_i2i + 4))
+        want += out
+        want_lat += list(ref.pipe.decoded)
+    for (p, s, c, im, st), req, g, w, w_lat in zip(burst, reqs, got, want, want_lat):
+        if not (torch.equal(finals[id(req)][0], w_lat) and same(g["image"], w["image"])
+                and g["inference_steps"] == w["inference_steps"] and g["sigmas"] == w["sigmas"]):
+            fail(f"continuous ({p!r}, seed {s}, cap {c}, img2img {im is not None}, strength {st}) "
+                 f"differs from BatchingEngine(max_batch=4): {g['inference_steps']} against "
+                 f"{w['inference_steps']} steps, images equal {same(g['image'], w['image'])}")
+    if cont.segment_traces != 1:
+        fail(f"continuous: segment_traces {cont.segment_traces}")
+    phase("img2img continuous", f"ContinuousBatchingEngine(slots=4, seg_steps=4): 8 requests, "
+          f"4 img2img (strengths 0.6, 0.5, 0.8, 0.4), caps {CONT_CAPS} in turn: makespan "
+          f"{makespan:.3f} s, NFE {[g['inference_steps'] for g in got]}, "
+          f"{cont.segments_run} segments; each request equal to the bit to BatchingEngine("
+          f"max_batch=4) (final latents, images, steps, sigmas; its images encoded and decoded "
+          f"at batch 1); "
+          f"K2 {len(decodes)} decodes + {n_i2i} encodes")
+
+    # 7. /generate with init_image_png_base64
+    args = serve.parse_args(["--max_batch", "2", "--max_steps", "35", "--port", "0",
+                             "--prompt", prompts[0], "--seed", "0"])
+    h_engine, server = serve.make_http_server(pipe, tokenize, args)
+    h_engine.start()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(body):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=600)
+        try:
+            conn.request("POST", "/generate", body=json.dumps(body))
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    png_a = base64.b64encode(png_bytes(img_a)).decode()
+    try:
+        (status, body), s_http = counted("http", lambda: call(
+            {"prompt": prompts[1], "seed": s0, "strength": 0.5, "init_image_png_base64": png_a}),
+            lambda r: (layers * len(json.loads(r[1])["sigmas"]) if r[0] == 200 else 0, 2))
+        if status != 200:
+            fail(f"img2img POST /generate: {status} {body[:200]}")
+        reply = json.loads(body)
+        direct_h, _ = counted("http direct", lambda: h_engine.generate_batch(
+            [prompts[1]], [s0], init_images=[img_a], strengths=[0.5])[0],
+            lambda r: (layers * r["inference_steps"], 2))
+        if not same(png_pixels(base64.b64decode(reply["image_png_base64"]), "/generate's PNG"),
+                    direct_h["image"]):
+            fail("img2img /generate's PNG differs from the engine's image")
+        bad = call({"prompt": prompts[1], "init_image_png_base64":
+                    base64.b64encode(b"\x89PNG not really").decode()})[0]
+        if bad != 400:
+            fail(f"a malformed init image got {bad}, not 400")
+    finally:
+        server.shutdown()
+        h_engine.stop()
+        server.server_close()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    phase("img2img http", f"POST /generate with init_image_png_base64 ({px} px, strength 0.5): "
+          f"round trip {s_http:.3f} s, {len(reply['sigmas'])} steps, its PNG equal to the "
+          f"engine's image; a malformed PNG 400")
+    phase("img2img phase", f"{time.perf_counter() - t_phase:.1f} s; peak memory {peak:.2f} GiB; "
+          f"K1 {totals[0]}, K2 {totals[1]} launches; {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tuple(totals)
+
+
 def warm_request(pipe, dev, b, req_seed, counters, decode_s):
     """One 1024 px request of batch b through ``pipe.generate`` (prompt
     embeds drawn from ``req_seed``), after a one-step request at the same
@@ -3586,6 +3924,7 @@ def main() -> int:
         k1_cli, k2_cli = cli_phase(args.seed, dev)  # 13
         (k1_serve, k2_serve), served = serve_phase(args.seed, dev, smi)  # 14
         k1_cont, k2_cont = continuous_phase(args.seed, dev, served)  # 15
+        k1_i2i, k2_i2i = img2img_phase(args.seed, dev, served, smi)  # 17
         del served
         gc.collect()
         torch.cuda.empty_cache()
@@ -3601,11 +3940,13 @@ def main() -> int:
         print(json.dumps({"kernels": [
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
-             "launches": k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35,
+             "launches": (k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35
+                          + k1_i2i),
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
-             "launches": k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35,
+             "launches": (k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35
+                          + k2_i2i),
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

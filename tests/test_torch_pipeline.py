@@ -149,11 +149,14 @@ def test_generate_options_size_caps_and_raw_latents(world):
 
 
 def test_not_ported_options_raise(world):
+    """img2img and inpainting are ported: their options now raise the JAX
+    package's ValueErrors where they conflict (an image with latents, a
+    mask without an image)."""
     _, tpipe, x = world
     args = (t(x["pe"]), t(x["pp"]), t(x["npe"]), t(x["npp"]))
-    for kw in (dict(init_image=np.zeros((2, 16, 16, 3), np.uint8)),
-               dict(mask=np.ones((2, 16, 16), np.float32))):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+    for kw, match in ((dict(init_image=np.zeros((2, 16, 16, 3), np.uint8)), "not both"),
+                      (dict(mask=np.ones((2, 16, 16), np.float32)), "requires init_image")):
+        with pytest.raises(ValueError, match=match):
             tpipe.generate(*args, latents=t(x["lat"]), **kw)
     # token ids without text towers: the JAX package's ValueError
     with pytest.raises(ValueError, match="need prompt_embeds or"):

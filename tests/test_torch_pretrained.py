@@ -42,6 +42,7 @@ from tpdm_tpu_torch.train.builders import build_sd3_agent
 from tpdm_tpu_torch.train.config import RLOOConfig
 from tpdm_tpu_torch.utils import convert
 from tpdm_tpu_torch.utils import safetensors as st
+from tpdm_tpu_torch.utils.image import read_png
 from tpdm_tpu_torch.utils.instantiate import instantiate_file
 
 REPO = Path(__file__).resolve().parents[1]
@@ -144,40 +145,6 @@ def test_convert_mmdit_matches_jax(variant):
     assert all(v.dtype == torch.bfloat16 for v in bf16.values())
 
 
-def _vae_encoder_keys(block_out_channels, layers_per_block):
-    """The encoder keys JAX's convert_vae reads (dummy values): a
-    diffusers AutoencoderKL holds them, and the port's converter drops them."""
-    conv, vec, lin = np.ones((1, 1, 1, 1), np.float32), np.ones(1, np.float32), np.ones((1, 1))
-    sd = {}
-
-    def add(base, kind):
-        sd[f"{base}.weight"] = {"conv": conv, "norm": vec, "linear": lin}[kind]
-        sd[f"{base}.bias"] = vec
-
-    def resnet(base, shortcut):
-        for n, kind in (("norm1", "norm"), ("conv1", "conv"), ("norm2", "norm"), ("conv2", "conv")):
-            add(f"{base}.{n}", kind)
-        if shortcut:
-            add(f"{base}.conv_shortcut", "conv")
-
-    add("encoder.conv_in", "conv")
-    for j in (0, 1):
-        resnet(f"encoder.mid_block.resnets.{j}", False)
-    add("encoder.mid_block.attentions.0.group_norm", "norm")
-    for n in ("to_q", "to_k", "to_v", "to_out.0"):
-        add(f"encoder.mid_block.attentions.0.{n}", "linear")
-    add("encoder.conv_norm_out", "norm")
-    add("encoder.conv_out", "conv")
-    prev = block_out_channels[0]
-    for i, out_ch in enumerate(block_out_channels):
-        for j in range(layers_per_block):
-            resnet(f"encoder.down_blocks.{i}.resnets.{j}", (prev if j == 0 else out_ch) != out_ch)
-        if i < len(block_out_channels) - 1:
-            add(f"encoder.down_blocks.{i}.downsamplers.0.conv", "conv")
-        prev = out_ch
-    return sd
-
-
 def _drawn(module, seed):
     """Seeded N(0, 1) values in every parameter of a module, as float."""
     g = torch.Generator().manual_seed(seed)
@@ -194,8 +161,8 @@ def test_convert_towers_match_jax(tower):
     if tower == "vae":
         vcfg = VAEConfig.toy(block_out_channels=(8, 16, 16), layers_per_block=1)
         ours_sd = _drawn(VAE(vcfg), 0)
-        sd = {**{k: v.numpy() for k, v in convert.export_vae(ours_sd, vcfg).items()},
-              **_vae_encoder_keys(vcfg.block_out_channels, vcfg.layers_per_block)}
+        # the exported layout holds the encoder's keys beside the decoder's
+        sd = {k: v.numpy() for k, v in convert.export_vae(ours_sd, vcfg).items()}
         args = (vcfg.block_out_channels, vcfg.layers_per_block)
         ref = convert.vae_from_jax(jconvert.convert_vae(sd, *args))
         ours = convert.convert_vae(sd, *args)
@@ -278,8 +245,8 @@ def toy_configs(monkeypatch):
 @pytest.fixture(scope="module")
 def toy_dir(tmp_path_factory):
     """(root, in-memory modules) of a toy checkpoint directory: the
-    transformer in two shards with metadata, the VAE with encoder keys the
-    loader skips, the three towers, both tokenizers and a TPM file."""
+    transformer in two shards with metadata, the VAE with its encoder, the
+    three towers, both tokenizers and a TPM file."""
     root = tmp_path_factory.mktemp("checkpoint")
     g = torch.Generator().manual_seed(0)
     mcfg = _toy_mmdit_config()
@@ -305,8 +272,7 @@ def toy_dir(tmp_path_factory):
 
     write("transformer", convert.export_mmdit(mods["mmdit"].state_dict(), mcfg), shards=2)
     vcfg = mods["vae"].config
-    write("vae", {**convert.export_vae(mods["vae"].state_dict(), vcfg),
-                  "encoder.conv_in.weight": torch.zeros(1)})
+    write("vae", convert.export_vae(mods["vae"].state_dict(), vcfg))
     for sub, name in (("text_encoder", "clip_l"), ("text_encoder_2", "clip_g")):
         write(sub, _hf(mods[name].state_dict(), convert._clip_text_keys(2)))
     write("text_encoder_3", _hf(mods["t5"].state_dict(), convert._t5_keys(2)))
@@ -339,6 +305,33 @@ def test_load_pipeline_from_pretrained_equals_the_models_in_memory(toy_dir, toy_
     ref = serve.generate(_memory_pipeline(mods), tokenize, "hello cat", seed=3, max_steps=3)
     np.testing.assert_array_equal(ours.images, ref.images)
     np.testing.assert_array_equal(ours.sigmas, ref.sigmas)
+    image = np.random.default_rng(0).integers(0, 256, (1, 16, 16, 3), dtype=np.uint8)
+    torch.testing.assert_close(pipe.encode_image(image),
+                               _memory_pipeline(mods).encode_image(image), rtol=0, atol=0)
+
+
+def test_decoder_only_vae_directory_loads_and_refuses_to_encode(toy_dir, toy_configs, tmp_path):
+    """A directory whose vae/ holds the decoder alone (an older export)
+    loads a VAE without an encoder; encoding, and so img2img, raises."""
+    root, mods = toy_dir
+    shutil.copytree(root / "transformer", tmp_path / "transformer")
+    (tmp_path / "vae").mkdir()
+    decoder = {k: v for k, v in convert.export_vae(mods["vae"].state_dict(),
+                                                   mods["vae"].config).items()
+               if k.startswith("decoder.")}
+    st.save_file(decoder, str(tmp_path / "vae" / "model.safetensors"))
+    pipe = load_pipeline_from_pretrained(str(tmp_path), dtype=torch.float32,
+                                         load_text_encoders=False,
+                                         mmdit_config=_toy_mmdit_config(), device="cpu")
+    assert pipe.vae.encoder is None
+    _same(pipe.vae.state_dict(), {k: v for k, v in mods["vae"].state_dict().items()
+                                  if k.startswith("decoder.")})
+    image = np.zeros((1, 16, 16, 3), np.uint8)
+    with pytest.raises(ValueError, match="no VAE encoder"):
+        pipe.encode_image(image)
+    pe, pp = torch.zeros(1, 5, 96), torch.zeros(1, 64)
+    with pytest.raises(ValueError, match="no VAE encoder"):
+        pipe.generate(pe, pp, guidance_scale=None, init_image=image, max_inference_steps=1)
 
 
 def test_load_pipeline_quantised_and_refusals(toy_dir, toy_configs):
@@ -390,11 +383,9 @@ def test_serve_pretrained_cli(toy_dir, toy_configs, tmp_path, capsys):
                 "--cli", "--prompt", "hello cat", "--max_steps", "3", "--seed", "5",
                 "--out", str(out)])
     assert "/ cap 3" in capsys.readouterr().out
-    from test_torch_serving import _png_pixels
-
     ref = serve.generate(_memory_pipeline(mods), serve.pretrained_tokenize(str(root)),
                          "hello cat", seed=5, max_steps=3)
-    np.testing.assert_array_equal(_png_pixels(out.read_bytes()), ref.images[0])
+    np.testing.assert_array_equal(read_png(out.read_bytes()), ref.images[0])
     broken = tmp_path / "broken"
     shutil.copytree(root, broken, ignore=shutil.ignore_patterns("tokenizer_3"))
     with pytest.raises(SystemExit, match="spiece.model"):

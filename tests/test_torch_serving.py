@@ -15,7 +15,6 @@ import subprocess
 import sys
 import threading
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +24,7 @@ import torch
 from tpdm_tpu.serving import BatchingEngine as JBatchingEngine
 from tpdm_tpu.utils.metrics_export import prometheus_text as jax_prometheus_text
 from tpdm_tpu_torch import serve
+from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
 from tpdm_tpu_torch.rewards import ImageRewardModel
 from tpdm_tpu_torch.rewards.bert import BertMedConfig
 from tpdm_tpu_torch.rewards.vit import ViTConfig
@@ -36,6 +36,7 @@ from tpdm_tpu_torch.serving import (
 )
 from tpdm_tpu_torch.train.builders import build_inference_ranker
 from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
+from tpdm_tpu_torch.utils.image import png_bytes, read_png
 from tpdm_tpu_torch.utils.metrics_export import prometheus_text
 
 REPO = Path(__file__).resolve().parents[1]
@@ -102,6 +103,53 @@ def test_engine_matches_direct_generate_and_cli_path(toy):
     for res in (miss, hit):
         np.testing.assert_array_equal(res["image"], direct.images[0])
         assert res["inference_steps"] == int(direct.last_valid_index[0]) + 1
+
+
+def test_img2img_rows_beside_text_rows(toy):
+    """A batch of two text-to-image and two img2img rows: the text rows equal
+    a text-only batch's to the bit, and the batch equals a direct
+    generate(init_image=, strength=, seed=<one a row>) at the same batch
+    shape, the text rows there blank images at strength 1.0."""
+    pipe, tokenize = toy
+    eng = _engine(toy, max_batch=4, vae_scale_factor=2)
+    prompts, seeds = ["a cat", "a dog", "blue bird", "red square"], [1, 2, 3, 4]
+    rng = np.random.default_rng(5)
+    imgs = [None, None] + [rng.integers(0, 256, (PX, PX, 3), dtype=np.uint8) for _ in "ab"]
+    mixed = eng.generate_batch(prompts, seeds, init_images=imgs, strengths=[None, None, 0.4, 0.8])
+    text = eng.generate_batch(prompts, seeds)
+    for i in (0, 1):
+        np.testing.assert_array_equal(mixed[i]["image"], text[i]["image"])
+        assert mixed[i]["sigmas"] == text[i]["sigmas"]
+    for i, s in ((2, 0.4), (3, 0.8)):  # the first step starts at the strength
+        assert mixed[i]["sigmas"][0] <= s + 1e-6 and mixed[i]["sigmas"] != text[i]["sigmas"]
+    ids = [tokenize(p) for p in prompts]
+    embeds = eng._embeds_for(prompts, np.concatenate([c for c, _ in ids]),
+                             np.concatenate([t5 for _, t5 in ids]), [""] * 4)
+    blank = np.zeros((PX, PX, 3), np.uint8)
+    direct = pipe.generate(*embeds, init_image=np.stack([blank, blank] + imgs[2:]),
+                           strength=[1.0, 1.0, 0.4, 0.8], seed=seeds, max_inference_steps=STEPS,
+                           guidance_scale=eng.guidance_scale, step_caps=[STEPS] * 4)
+    for i, res in enumerate(mixed):
+        np.testing.assert_array_equal(res["image"], direct.images[i])
+        assert res["inference_steps"] == int(direct.last_valid_index[i]) + 1
+    # the worker: an img2img request and a text request coalesce into one batch
+    eng2 = _running(_engine(toy, window_ms=500, vae_scale_factor=2))
+    try:
+        r_img = eng2.submit("blue bird", seed=3, init_image=imgs[2], strength=0.4)
+        r_txt = eng2.submit("a cat", seed=1)
+        got = [r_img.result(timeout=120), r_txt.result(timeout=120)]
+    finally:
+        eng2.stop()
+    want = eng2.generate_batch(["blue bird", "a cat"], [3, 1], init_images=[imgs[2], None],
+                               strengths=[0.4, None])
+    assert eng2.batches_run == 2  # the submitted pair ran as one batch
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["image"], w["image"])
+    with pytest.raises(ValueError, match="needs an init_image"):
+        eng.submit("a cat", strength=0.5)
+    with pytest.raises(ValueError, match="VAE encoder"):
+        BatchingEngine(TPDMPipeline(pipe.mmdit, pipe.tpm, None, text_encoders=pipe.text_encoders),
+                       tokenize).submit("a cat", init_image=imgs[2])
 
 
 def test_step_caps_and_per_request_guidance(toy):
@@ -292,10 +340,13 @@ def test_validation_and_options_not_ported(toy):
         eng.register_adapter("a", {})
     with pytest.raises(NotImplementedError, match="13\\(b\\)"):
         eng.submit("a cat", lora="a")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.submit("a cat", init_image=np.zeros((PX, PX, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.generate_batch(["a"], [0], init_images=[np.zeros((PX, PX, 3), np.uint8)])
+    # img2img is ported: its options are checked as the JAX engine checks them
+    eng = _engine(toy, vae_scale_factor=2)
+    with pytest.raises(ValueError, match="serves"):
+        eng.submit("a cat", init_image=np.zeros((PX // 2, PX, 3), np.uint8))
+    with pytest.raises(ValueError, match="strength"):
+        eng.generate_batch(["a"], [0], init_images=[np.zeros((PX, PX, 3), np.uint8)],
+                           strengths=[1.5])
     with pytest.raises(ValueError, match="solver"):
         _engine(toy, solver="heun")
     with pytest.raises(ValueError, match="mutually exclusive"):
@@ -344,16 +395,6 @@ def test_prometheus_text_matches_jax():
     assert prometheus_text(stats, prefix="p") == jax_prometheus_text(stats, prefix="p")
 
 
-def _png_pixels(data: bytes) -> np.ndarray:
-    """An 8-bit RGB PNG of one IDAT chunk (png_bytes' layout) -> (H, W, 3)."""
-    assert data[:8] == b"\x89PNG\r\n\x1a\n"
-    w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
-    idat = data.index(b"IDAT")
-    n = int.from_bytes(data[idat - 4:idat], "big")
-    raw = np.frombuffer(zlib.decompress(data[idat + 4:idat + 4 + n]), np.uint8)
-    return raw.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
-
-
 def _toy_ranker():
     """A random toy ImageReward and a WordPiece vocabulary of its prompts."""
     vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "cat", "dog"]
@@ -390,9 +431,20 @@ def test_http_round_trip(toy, monkeypatch):
         out = json.loads(body)
         want = engine.generate_batch(["a cat"], [7], guidances=[5.0],
                                      negative_prompts=["blurry"])[0]
-        np.testing.assert_array_equal(_png_pixels(base64.b64decode(out["image_png_base64"])),
+        np.testing.assert_array_equal(read_png(base64.b64decode(out["image_png_base64"])),
                                       want["image"])
         assert out["inference_steps"] == want["inference_steps"]
+        # img2img: the image as a PNG, read without PIL
+        init = np.random.default_rng(3).integers(0, 256, (PX, PX, 3), dtype=np.uint8)
+        status, body = call("POST", "/generate", {
+            "prompt": "a cat", "seed": 7, "strength": 0.5,
+            "init_image_png_base64": base64.b64encode(png_bytes(init)).decode()})
+        assert status == 200, body[:200]
+        out = json.loads(body)
+        want = engine.generate_batch(["a cat"], [7], init_images=[init], strengths=[0.5])[0]
+        np.testing.assert_array_equal(read_png(base64.b64decode(out["image_png_base64"])),
+                                      want["image"])
+        assert out["inference_steps"] == want["inference_steps"] and out["sigmas"][0] <= 0.5
         status, body = call("POST", "/rank", {"prompt": "a dog", "seed": 5, "n": 2})
         assert status == 200, body[:200]
         ranked = json.loads(body)
@@ -407,7 +459,9 @@ def test_http_round_trip(toy, monkeypatch):
         assert call("GET", "/healthz") == (200, b"ok\n")
         assert call("GET", "/nope")[0] == 404
         for bad in (b"not json", {"prompt": 42}, {"steps": 9}, {"negative_prompt": 3},
-                    {"format": "webp"}, {"lora": "x"}, {"init_image_png_base64": "AAAA"}):
+                    {"format": "webp"}, {"lora": "x"}, {"init_image_png_base64": "AAAA"},
+                    {"init_image_png_base64": base64.b64encode(png_bytes(
+                        np.zeros((PX // 2, PX, 3), np.uint8))).decode()}):
             assert call("POST", "/generate", bad)[0] == 400, bad
         assert call("POST", "/rank", {"n": 99})[0] == 400
         monkeypatch.setattr(serve, "_pil_image", lambda: None)
@@ -442,7 +496,7 @@ def test_cli_writes_a_png(tmp_path):
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "inference steps:" in proc.stdout and "/ cap 3" in proc.stdout
-    assert _png_pixels(out.read_bytes()).shape == (PX, PX, 3)
+    assert read_png(out.read_bytes()).shape == (PX, PX, 3)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             serve.main(["--toy", "--cli"])

@@ -24,7 +24,6 @@ import logging
 import threading
 import time
 import types
-import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +58,7 @@ from tpdm_tpu_torch.serving_continuous import (
     MultiResContinuousRouter,
     PromptEmbedCache,
 )
+from tpdm_tpu_torch.utils.image import read_png
 
 STEPS = 6
 PX = 16  # the toy MMDiT's 8 x 8 latents through the toy VAE's factor 2
@@ -188,6 +188,69 @@ def test_matches_the_fixed_engine_to_the_bit(raw, depth):
         assert out["sigmas"] == want["sigmas"]
     stats = eng.stats()
     assert stats["slot_steps_active"] == sum(o["inference_steps"] for o in got)
+    assert eng.segment_traces == 1
+
+
+class _RowByRow(TPDMPipeline):
+    """A pipeline that encodes and decodes one image at a time, as the
+    continuous engine encodes a slot's image and decodes a finished slot
+    (decode_batch 1): another batch shape rounds differently."""
+
+    def encode_image(self, images, **kw):
+        return torch.cat([super(_RowByRow, self).encode_image(images[i:i + 1], **kw)
+                          for i in range(len(images))])
+
+    def _decode_impl(self, latents):
+        self.decoded = latents  # the final latents, for the test to compare
+        return torch.cat([super(_RowByRow, self)._decode_impl(latents[i:i + 1])
+                          for i in range(latents.shape[0])])
+
+
+# (prompt, seed, cap, image seed or None, strength)
+IMG2IMG = [("a cat", 3, None, 1, 0.5), ("a dog on a hill", 7, 2, None, None),
+           ("blue bird", 11, None, 2, 0.9), ("a cat", 3, 3, None, None),
+           ("red square", 23, None, 3, None)]
+
+
+def test_img2img_slots_match_the_fixed_engine_to_the_bit(toy):
+    """img2img slots beside text-to-image slots: every request's image, NFE
+    and sigmas equal BatchingEngine(max_batch=2)'s for the same (prompt,
+    seed, image, strength, cap) to the bit (the reference encoding and
+    decoding at batch 1); an img2img slot starts at its strength (0.6 by
+    default)."""
+    pipe, tokenize = toy
+    images = {k: np.random.default_rng(k).integers(0, 256, (PX, PX, 3), dtype=np.uint8)
+              for k in (1, 2, 3)}
+    eng = _engine(toy, vae_scale_factor=2)
+    finals = {}
+    real_complete = eng._complete
+
+    def complete(req, lat_row, nfe, sigmas):
+        finals[id(req)] = lat_row.clone()
+        real_complete(req, lat_row, nfe, sigmas)
+
+    eng._complete = complete
+    eng.start()
+    try:
+        reqs = [eng.submit(p, seed=s, steps=c, strength=st,
+                           init_image=None if k is None else images[k])
+                for p, s, c, k, st in IMG2IMG]
+        got = [r.result(timeout=120) for r in reqs]
+    finally:
+        eng.stop()
+    ref = _reference(eng, {p for p, *_ in IMG2IMG})
+    ref.pipe = _RowByRow(pipe.mmdit, pipe.tpm, pipe.vae, text_encoders=pipe.text_encoders,
+                         min_sigma=pipe.min_sigma)
+    ref.vae_scale_factor = 2
+    for (p, s, c, k, st), req, out in zip(IMG2IMG, reqs, got):
+        img = None if k is None else images[k]
+        want = ref.generate_batch([p], [s], steps=[c], init_images=[img], strengths=[st])[0]
+        assert torch.equal(finals[id(req)], ref.pipe.decoded[:1])  # the final latents
+        np.testing.assert_array_equal(out["image"], want["image"])
+        assert out["inference_steps"] == want["inference_steps"]
+        assert out["sigmas"] == want["sigmas"]
+        if k is not None:
+            assert out["sigmas"][0] <= (0.6 if st is None else st) + 1e-6
     assert eng.segment_traces == 1
 
 
@@ -443,9 +506,10 @@ def test_unported_options_name_their_items(toy):
         eng.register_adapter("a", {})
     with pytest.raises(NotImplementedError, match="item 13\\(b\\)"):
         eng.submit("a cat", lora="a")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.submit("a cat", init_image=np.zeros((PX, PX, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # img2img slots are ported: their options are checked as in JAX
+    with pytest.raises(ValueError, match="strength must be"):
+        eng.submit("a cat", init_image=np.zeros((PX, PX, 3), np.uint8), strength=0.0)
+    with pytest.raises(ValueError, match="needs an init_image"):
         eng.submit("a cat", strength=0.5)
     for kw, match in ((dict(pipeline_depth=0), "pipeline_depth"),
                       (dict(decode_batch=0), "decode_batch"),
@@ -508,18 +572,6 @@ def test_serve_builds_the_continuous_engines_and_guards(toy):
         _args(argv=["--continuous", "--resolutions", "24", "--solver", "ab2"])
 
 
-def _png_pixels(data: bytes) -> np.ndarray:
-    width, height = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
-    pos, idat = 8, b""
-    while pos < len(data):
-        n = int.from_bytes(data[pos:pos + 4], "big")
-        if data[pos + 4:pos + 8] == b"IDAT":
-            idat += data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + 3 * width)
-    return rows[:, 1:].reshape(height, width, 3)
-
-
 @pytest.mark.parametrize("resolutions", [None, "24"])
 def test_http_round_trip_continuous(toy, resolutions):
     """``--continuous`` (and with ``--resolutions 24``, the router): POST
@@ -549,7 +601,7 @@ def test_http_round_trip_continuous(toy, resolutions):
         assert status == 200, body[:200]
         out = json.loads(body)
         want = engine.submit("a cat", seed=7, resolution=res).result(timeout=60)
-        np.testing.assert_array_equal(_png_pixels(base64.b64decode(out["image_png_base64"])),
+        np.testing.assert_array_equal(read_png(base64.b64decode(out["image_png_base64"])),
                                       want["image"])
         assert out["inference_steps"] == want["inference_steps"]
         status, body = call("GET", "/stats")

@@ -1,4 +1,5 @@
-"""tpdm_tpu_torch VAE decoder against the JAX VAE on the same weights."""
+"""tpdm_tpu_torch VAE against the JAX VAE on the same weights (the encode
+path's parity checks are in test_torch_img2img.py)."""
 
 import jax
 import numpy as np
@@ -25,12 +26,21 @@ def test_decode_matches(models):
 
 
 def test_encoder_parameters_are_dropped(models):
+    """No parameter is dropped any more: ``vae_from_jax`` carries the
+    encoder's tree beside the decoder's, leaf for leaf, and a decoder-only
+    VAE refuses to encode."""
     _, variables, tv = models
     from tpdm_tpu_torch.utils.convert import vae_from_jax
 
     sd = vae_from_jax(variables)
-    assert all(k.startswith("decoder.") for k in sd)
+    n_flax = sum(np.size(leaf) for leaf in jax.tree_util.tree_leaves(variables))
+    assert {k.split(".")[0] for k in sd} == {"decoder", "encoder"}
     assert set(sd) == set(tv.state_dict())
+    assert sum(v.numel() for v in sd.values()) == n_flax
+    dec_only = VAE(VAEConfig.toy(latent_channels=4), encoder=False)
+    dec_only.load_state_dict({k: v for k, v in sd.items() if k.startswith("decoder.")})
+    with pytest.raises(ValueError, match="without an encoder"):
+        dec_only.encode(torch.zeros(1, 3, 16, 16))
 
 
 def test_bf16_decode_keeps_fp32_statistics_and_stays_close(models):

@@ -1,12 +1,11 @@
-"""SD3 VAE decoder (AutoencoderKL layout) in PyTorch, NCHW.
+"""SD3 VAE (AutoencoderKL layout) in PyTorch, NCHW: decoder and encoder.
 
-Counterpart of ``tpdm_tpu/models/vae.py``'s decode path. The mid-block
-attention (one head, 512 wide, 16384 tokens at 1024 px) runs kernel K2 on
-the card (``ops/attention.py``). Convs and matmuls run in the weights' dtype
+Counterpart of ``tpdm_tpu/models/vae.py``. The mid-block attention of both
+halves (one head, 512 wide, 16384 tokens at 1024 px) runs kernel K2 on the
+card (``ops/attention.py``). Convs and matmuls run in the weights' dtype
 and GroupNorm keeps fp32 statistics: with bf16 weights (``vae.to(
-torch.bfloat16)``) that is the JAX package's ``make_fast_decode`` policy.
-
-Not ported yet: the Encoder (image-to-image, training data).
+torch.bfloat16)``) that is the JAX package's ``make_fast_decode`` policy,
+for the encode as for the decode.
 """
 
 from __future__ import annotations
@@ -127,6 +126,53 @@ class UpBlock(nn.Module):
         return x
 
 
+class DownBlock(nn.Module):
+    """layers_per_block resnets, then (except the last) a stride-2 3x3 conv
+    over the input padded by one row and column at the bottom and right
+    (diffusers Downsample2D)."""
+
+    def __init__(self, in_channels: int, out_channels: int, n_resnets: int, groups: int,
+                 downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock(in_channels if j == 0 else out_channels, out_channels, groups)
+            for j in range(n_resnets)
+        )
+        self.downsamplers = nn.ModuleList(
+            [nn.Conv2d(out_channels, out_channels, 3, stride=2)] if downsample else []
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for resnet in self.resnets:
+            x = resnet(x)
+        for conv in self.downsamplers:
+            x = conv(F.pad(x, (0, 1, 0, 1)))
+        return x
+
+
+class Encoder(nn.Module):
+    def __init__(self, config: VAEConfig):
+        super().__init__()
+        ch = list(config.block_out_channels)  # e.g. [128, 256, 512, 512]
+        groups = config.norm_num_groups
+        self.conv_in = nn.Conv2d(config.in_channels, ch[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList(
+            DownBlock(ch[max(i - 1, 0)], out_ch, config.layers_per_block, groups,
+                      downsample=i < len(ch) - 1)
+            for i, out_ch in enumerate(ch)
+        )
+        self.mid_block = MidBlock(ch[-1], groups)
+        self.conv_norm_out = GroupNorm(groups, ch[-1])
+        self.conv_out = nn.Conv2d(ch[-1], 2 * config.latent_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for block in self.down_blocks:
+            x = block(x)
+        x = self.mid_block(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class Decoder(nn.Module):
     def __init__(self, config: VAEConfig):
         super().__init__()
@@ -151,12 +197,20 @@ class Decoder(nn.Module):
 
 class VAE(nn.Module):
     """``decode(z)``: (b, latent_c, h, w) unscaled latents -> (b, 3, 8h, 8w)
-    in [-1, 1]-ish, in the weights' dtype."""
+    in [-1, 1]-ish; ``encode(img)``: (b, 3, H, W) -> (mean, logvar), each
+    (b, latent_c, H/8, W/8); both in the weights' dtype.
 
-    def __init__(self, config: VAEConfig):
+    ``encoder=False`` builds the decoder alone (a checkpoint that holds no
+    encoder): ``encoder`` is then None and ``encode`` raises. The encoder
+    is registered after the decoder, so ``init_weights`` draws the decoder's
+    weights first, as it did before the encoder was ported.
+    """
+
+    def __init__(self, config: VAEConfig, encoder: bool = True):
         super().__init__()
         self.config = config
         self.decoder = Decoder(config)
+        self.encoder = Encoder(config) if encoder else None
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02) -> "VAE":
         return init_weights(self, generator, std)
@@ -164,6 +218,14 @@ class VAE(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Apply ``z / scaling_factor + shift_factor`` before calling."""
         return self.decoder(z.to(self.decoder.conv_in.weight.dtype))
+
+    def encode(self, img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, logvar) of the posterior, logvar clipped to [-30, 20]."""
+        if self.encoder is None:
+            raise ValueError("this VAE was built without an encoder (decoder-only weights)")
+        out = self.encoder(img.to(self.encoder.conv_in.weight.dtype))
+        mean, logvar = out.chunk(2, dim=1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.decode(z)

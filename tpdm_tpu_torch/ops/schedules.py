@@ -1,8 +1,7 @@
 """The reference Beta schedule of the KL anchor and the fixed sigma ladder.
 
-Counterpart of ``tpdm_tpu/ops/schedules.py``: ``get_ref_beta`` and
-``uniform_flow_sigmas``. ``img2img_sigmas`` waits for the VAE encoder
-(ROADMAP queue 1, item 4).
+Counterpart of ``tpdm_tpu/ops/schedules.py``: ``get_ref_beta``,
+``uniform_flow_sigmas`` and its image-to-image companion ``img2img_sigmas``.
 """
 
 from __future__ import annotations
@@ -34,25 +33,43 @@ def get_ref_beta(sigmas: torch.Tensor, num_steps: int = 28) -> tuple[torch.Tenso
     return alpha, beta
 
 
+def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
+    """float32 ``jnp.linspace(start, stop, num)`` with the operations XLA
+    runs for it: t_i = start (1 - s_i) + stop s_i with s_i = i times the
+    float32 reciprocal of num - 1, the last t exactly ``stop``. A true
+    division would differ in the last bit at some steps (num = 28: step 20)."""
+    f32 = dict(dtype=torch.float32)
+    start, stop = torch.tensor(start, **f32), torch.tensor(stop, **f32)
+    if num > 1:
+        div = num - 1
+        step = torch.arange(div, **f32) * (1.0 / torch.tensor(float(div), **f32))
+        return torch.cat([start * (1 - step) + stop * step, stop[None]])
+    return start.reshape(num)
+
+
 def uniform_flow_sigmas(num_steps: int = 28, shift: float = 3.0) -> torch.Tensor:
     """SD3's fixed ``num_steps`` flow-matching ladder, (num_steps,) float32
     on the CPU, descending from 1.0 (append the terminal 0 to integrate to
     the clean image): sigma_i = shift t_i / (1 + (shift - 1) t_i), t
     descending linearly from 1 to 1/1000.
 
-    Built on the host in float32 with the operations that XLA runs for
-    ``jnp.linspace`` (t_i = 1 (1 - s_i) + 0.001 s_i with s_i = i times the
-    float32 reciprocal of T - 1, the last t exactly 1/1000), so the ladder
-    equals the JAX package's bit for bit; a true division would differ in
-    the last bit at some steps (T = 28: step 20). The samplers read it on
-    the host, where their branches are decided.
+    Built on the host in float32 as ``jnp.linspace`` builds it
+    (``_linspace_f32``), so the ladder equals the JAX package's bit for
+    bit. The samplers read it on the host, where their branches are decided.
     """
-    f32 = dict(dtype=torch.float32)
-    start, stop = torch.tensor(1.0, **f32), torch.tensor(1.0 / 1000.0, **f32)
-    if num_steps > 1:
-        div = num_steps - 1
-        step = torch.arange(div, **f32) * (1.0 / torch.tensor(float(div), **f32))
-        t = torch.cat([start * (1 - step) + stop * step, stop[None]])
-    else:
-        t = start.reshape(num_steps)
+    t = _linspace_f32(1.0, 1.0 / 1000.0, num_steps)
+    return shift * t / (1.0 + (shift - 1.0) * t)
+
+
+def img2img_sigmas(num_steps: int, strength: float, shift: float = 3.0) -> torch.Tensor:
+    """The fixed ladder that starts at noise level ``strength`` (SDEdit):
+    the level the init latents were noised to by ``(1 - s) x0 + s eps``,
+    then the shifted-t curve of ``uniform_flow_sigmas`` down to its last
+    sigma; strength 1.0 gives that ladder. The starting t inverts
+    sigma = shift t / (1 + (shift - 1) t). Raises unless 0 < strength <= 1.
+    """
+    if not 0.0 < strength <= 1.0:
+        raise ValueError(f"strength must be in (0, 1], got {strength}")
+    t0 = strength / (shift - (shift - 1.0) * strength)
+    t = _linspace_f32(t0, 1.0 / 1000.0, num_steps)
     return shift * t / (1.0 + (shift - 1.0) * t)

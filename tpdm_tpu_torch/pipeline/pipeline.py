@@ -1,11 +1,15 @@
-"""TPDMPipeline: adaptive-schedule SD3 text-to-image generation.
+"""TPDMPipeline: adaptive-schedule SD3 generation, from text and from images.
 
-Counterpart of ``tpdm_tpu/pipeline/pipeline.py``'s ``generate`` and
-``generate_fixed``. ``generate`` takes precomputed prompt embeds, or
-token ids that the pipeline's ``SD3TextEncoders`` encode. ``generate``: the
-CFG-doubled MMDiT and the TPM run the adaptive loop (``pipeline/
-sampler.py``), then the VAE decodes each sample's last valid latents to
-uint8 images. ``generate_fixed``: the baseline without the TPM, a fixed
+Counterpart of ``tpdm_tpu/pipeline/pipeline.py``'s ``generate``,
+``generate_fixed`` and ``encode_image``. ``generate`` takes precomputed
+prompt embeds, or token ids that the pipeline's ``SD3TextEncoders``
+encode. ``generate``: the CFG-doubled MMDiT and the TPM run the adaptive
+loop (``pipeline/sampler.py``), then the VAE decodes each sample's last
+valid latents to uint8 images. With ``init_image`` it runs image-to-image
+(SDEdit): the image's latents (``encode_image``, the VAE encoder with K2 in
+its mid block) are noised to ``strength`` and the loop starts there; with
+``mask`` as well it inpaints, re-imposing the known region at each step's
+noise level. ``generate_fixed``: the baseline without the TPM, a fixed
 ``num_steps`` ladder with the Euler, Heun, midpoint or AB2 solver. Both
 take the Δ-cache (``cache_interval`` or ``cache_tau``) and the guidance
 window (``guidance_interval``). The modules hold their own weights, on
@@ -32,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
@@ -59,7 +64,7 @@ from tpdm_tpu_torch.pipeline.sampler import (
     fixed_schedule_sample_cached,
     fixed_schedule_sample_solver,
 )
-from tpdm_tpu_torch.utils.image import postprocess_images
+from tpdm_tpu_torch.utils.image import postprocess_images, preprocess_images
 
 
 class GenerationResult(NamedTuple):
@@ -82,6 +87,42 @@ def decode_latents(vae: VAE, latents: torch.Tensor) -> torch.Tensor:
     thread has set: grad mode is thread-local, and K2 has no backward."""
     cfg = vae.config
     return vae.decode(latents.float() / cfg.scaling_factor + cfg.shift_factor)
+
+
+def seed_noise(seed, shape, device, dtype):
+    """(generator, noise of ``shape``) for ``generate``'s ``seed``: an int
+    draws the whole batch from ``torch.Generator(device).manual_seed(seed)``;
+    a sequence of one seed a row draws row i as a batch-1 draw from its own
+    seed does (the engines' per-request latents), and returns the first
+    row's generator."""
+    if np.ndim(seed) == 0:
+        g = torch.Generator(device=device).manual_seed(int(seed))
+        return g, torch.randn(shape, generator=g, device=device, dtype=dtype)
+    gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seed]
+    if len(gens) != shape[0]:
+        raise ValueError(f"{len(gens)} seeds for a batch of {shape[0]}")
+    row = (1,) + tuple(shape[1:])
+    return gens[0], torch.cat([torch.randn(row, generator=g, device=device, dtype=dtype)
+                               for g in gens])
+
+
+def noised_latents(clean: torch.Tensor, noise: torch.Tensor, strength: torch.Tensor):
+    """Image-to-image starting latents ``(1 - s) clean + s noise``, mixed in
+    fp32 with ``strength`` (b,) fp32 and cast to the noise's dtype: at
+    strength 1.0 the noise itself, bit for bit."""
+    s = strength.to(device=noise.device, dtype=torch.float32).reshape(-1, 1, 1, 1)
+    return ((1.0 - s) * clean.float() + s * noise.float()).to(noise.dtype)
+
+
+def latent_mask(mask, size, device) -> torch.Tensor:
+    """An inpainting mask (b, 1, H, W) at the image's size -> (b, 1, h, w)
+    fp32 in [0, 1] on the latent grid: the antialiased bilinear resize
+    that ``jax.image.resize(method="linear")`` is (a triangle filter
+    widened by the scale factor), so a pixel boundary becomes a soft seam
+    about one latent wide."""
+    m = F.interpolate(mask.to(device), size=tuple(size), mode="bilinear", antialias=True,
+                      align_corners=False)
+    return torch.clamp(m, 0.0, 1.0)
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -158,6 +199,60 @@ class TPDMPipeline:
         param = next(p for p in self.mmdit.parameters() if p.is_floating_point())
         return param.device, param.dtype
 
+    @torch.no_grad()
+    def encode_image(self, images, generator: Optional[torch.Generator] = None,
+                     sample_posterior: bool = False) -> torch.Tensor:
+        """uint8 (b, H, W, 3) -> model-space latents (b, c, H/8, W/8), fp32
+        on the VAE's device: the posterior mean (or, with
+        ``sample_posterior``, a draw from ``generator``), then ``(z -
+        shift_factor) * scaling_factor``, the inverse of the decode's
+        transform. The encoder runs in the VAE's dtype (bf16 with K2 on the
+        card). ``images``: a numpy array or a tensor."""
+        if self.vae is None or self.vae.encoder is None:
+            raise ValueError("pipeline has no VAE encoder; cannot encode images")
+        device = next(self.vae.parameters()).device
+        x = images if isinstance(images, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(images))
+        mean, logvar = self.vae.encode(preprocess_images(x.to(device)))
+        z = mean.float()
+        if sample_posterior:
+            if generator is None:
+                raise ValueError("sample_posterior=True needs a generator")
+            eps = torch.randn(mean.shape, generator=generator, device=device,
+                              dtype=torch.float32)
+            z = z + torch.exp(0.5 * logvar.float()) * eps
+        cfg = self.vae.config
+        return (z - cfg.shift_factor) * cfg.scaling_factor
+
+    def _img2img(self, init_image, strength, mask, b, seed, device, dtype):
+        """(generator, starting latents, init_sigma, projection or None) of
+        ``generate(init_image=, strength=, mask=)``. The noise is drawn
+        by the call that draws text-to-image latents, in the model dtype,
+        and mixed in fp32, so strength 1.0 reproduces text-to-image bit for
+        bit."""
+        s0 = torch.broadcast_to(torch.as_tensor(strength, dtype=torch.float32), (b,))
+        if bool(((s0 <= 0.0) | (s0 > 1.0)).any()):
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
+        clean = self.encode_image(init_image).to(device)
+        if clean.shape[0] != b:
+            raise ValueError(f"init_image batch {clean.shape[0]} != prompt batch {b}")
+        generator, eps = seed_noise(seed, clean.shape, device, dtype)
+        s0 = s0.to(device)
+        latents = noised_latents(clean, eps, s0)
+        if mask is None:
+            return generator, latents, s0, None
+        m = torch.as_tensor(mask, dtype=torch.float32)
+        if m.dim() == 3:
+            m = m[:, None]
+        if m.dim() != 4 or m.shape[0] != b or m.shape[1] != 1:
+            raise ValueError(f"mask must be (b, H, W) or (b, 1, H, W); got {tuple(m.shape)}")
+        img_hw = tuple(init_image.shape[1:3])
+        if tuple(m.shape[-2:]) != img_hw:
+            raise ValueError(f"mask is {m.shape[-2]}x{m.shape[-1]}, init_image is "
+                             f"{img_hw[0]}x{img_hw[1]}")
+        return generator, latents, s0, (clean, eps.float(), latent_mask(m, clean.shape[-2:],
+                                                                        device))
+
     def _cfg_embeds(self, prompt_embeds, pooled_prompt_embeds, negative_prompt_embeds,
                     negative_pooled_prompt_embeds, guidance_scale):
         """(prompt embeds, pooled embeds, guidance) on the MMDiT's device:
@@ -232,7 +327,10 @@ class TPDMPipeline:
         ``latents`` (b, c, h, w) fixes the initial noise; otherwise it is
         drawn from ``torch.Generator().manual_seed(seed)`` on the MMDiT's
         device, which then also draws the Beta ratios when
-        ``predict=False``. ``step_caps`` caps each sample's steps;
+        ``predict=False``; ``seed`` may also be one int a sample, each row
+        then drawn as a batch-1 call with its seed draws it (the engines'
+        per-request latents), the first row's generator drawing the
+        ratios. ``step_caps`` caps each sample's steps;
         ``init_sigma`` sets per-sample starting noise levels;
         ``decode=False`` returns the raw final latents in ``images``.
 
@@ -247,8 +345,16 @@ class TPDMPipeline:
         conditional forward at batch b on a step where no sample is.
         ``solver``: "euler" or "ab2".
 
-        img2img and inpainting (``init_image``, ``mask``) are not ported yet
-        and raise NotImplementedError.
+        ``init_image`` uint8 (b, H, W, 3) runs image-to-image: its latents
+        (``encode_image``) are noised to ``strength`` (a scalar or (b,), in
+        (0, 1]) with the noise text-to-image would start from, and each
+        sample starts at sigma = its strength; H and W set the size
+        (``height`` / ``width`` are ignored). ``mask`` (b, H, W) or (b, 1,
+        H, W) in [0, 1] inpaints: 1 regenerates, 0 keeps the init image.
+        After each step the kept region is re-imposed at the step's noise
+        level, and the final latents are composited with the init
+        latents before the decode. ``init_image`` excludes ``latents``,
+        ``init_sigma`` and a seq group.
         """
         if prompt_embeds is None:
             if self.text_encoders is None or clip_ids is None:
@@ -259,8 +365,16 @@ class TPDMPipeline:
                     raise ValueError("CFG needs negative ids (or embeds)")
                 negative_prompt_embeds, negative_pooled_prompt_embeds = (
                     self.text_encoders.encode(negative_clip_ids, negative_t5_ids))
-        if init_image is not None or mask is not None:
-            raise not_ported("init_image / mask (img2img, inpainting)", "4: the VAE encoder")
+        if mask is not None and init_image is None:
+            raise ValueError("mask (inpainting) requires init_image")
+        if init_image is not None:
+            if latents is not None:
+                raise ValueError("pass init_image or latents, not both")
+            if init_sigma is not None:
+                raise ValueError("init_sigma is derived from strength when init_image is "
+                                 "given; pass one or the other")
+            if self.mmdit.config.seq_group is not None:
+                raise _seq_group_refused("init_image (img2img, inpainting)")
 
         mcfg = self.mmdit.config
         device, dtype = self._device_dtype()
@@ -271,8 +385,11 @@ class TPDMPipeline:
         guidance_interval = _check_cache_options(cache_interval, cache_tau, guidance_interval,
                                                  guidance_scale)
 
-        generator = torch.Generator(device=device).manual_seed(seed)
-        if latents is None:
+        proj = None
+        if init_image is not None:
+            generator, latents, init_sigma, proj = self._img2img(
+                init_image, strength, mask, b, seed, device, dtype)
+        elif latents is None:
             lh = lw = mcfg.sample_size
             if height is not None or width is not None:
                 f = vae_scale_factor(self.vae.config) if self.vae is not None else 8
@@ -285,10 +402,9 @@ class TPDMPipeline:
                         f"{mcfg.patch_size}); got {h_px}x{w_px}"
                     )
                 lh, lw = h_px // f, w_px // f
-            latents = torch.randn(
-                (b, mcfg.in_channels, lh, lw), generator=generator, device=device, dtype=dtype
-            )
+            generator, latents = seed_noise(seed, (b, mcfg.in_channels, lh, lw), device, dtype)
         else:
+            generator = torch.Generator(device=device).manual_seed(int(np.ravel(seed)[0]))
             latents = torch.as_tensor(latents, device=device)
         group = mcfg.seq_group
         if group is not None and (guidance_interval is not None or cache_interval >= 2
@@ -332,10 +448,27 @@ class TPDMPipeline:
             guidance_interval=guidance_interval,
             solver=solver,
         )
+        project_fn = None
+        if proj is not None:
+            x0, eps, m = proj
+
+            def project_fn(lat, sig_next):
+                # the known region at the step's new noise level, with the
+                # starting noise (RePaint / diffusers-legacy)
+                sb = sig_next.reshape(-1, 1, 1, 1)
+                known = (1.0 - sb) * x0 + sb * eps
+                return (m * lat.float() + (1.0 - m) * known).to(lat.dtype)
+
         out = adaptive_sample(
             denoise_fn, self.tpm, latents, generator, scfg,
             step_caps=step_caps, init_sigma=init_sigma, group=group, cached=cached,
+            project_fn=project_fn,
         )
+        if proj is not None:
+            # the exact composite: the kept region is the init image's
+            # latents, wherever each sample's schedule stopped
+            final = out.final_latents
+            out = out._replace(final_latents=(m * final.float() + (1.0 - m) * x0).to(final.dtype))
         history = None
         if return_full_process_images and self.vae is not None:
             history = np.stack([postprocess_images(self._decode_impl(out.history_latents[t]))
@@ -520,9 +653,11 @@ def load_pipeline_from_pretrained(
         prequantize_(mmdit)
 
     vcfg = VAEConfig.sd3()
-    vae_state = convert.convert_vae(_load_dir(root, "vae", lambda k: k.startswith("decoder.")),
-                                    vcfg.block_out_channels, vcfg.layers_per_block)
-    vae = _from_state(lambda: VAE(vcfg), vae_state, device, dtype)
+    vae_state = convert.convert_vae(_load_dir(root, "vae"), vcfg.block_out_channels,
+                                    vcfg.layers_per_block)
+    # a decoder-only directory builds a VAE without an encoder (no img2img)
+    vae = _from_state(lambda: VAE(vcfg, encoder="encoder.conv_in.weight" in vae_state),
+                      vae_state, device, dtype)
 
     with torch.device(device):
         tpm = TimePredictor(conv_out_channels=128, in_channels=2 * mcfg.inner_dim,

@@ -30,8 +30,7 @@ give on each card.
 activations with the current TPM (the PPO replay): only the TPM runs, and
 it is differentiable with respect to the TPM.
 
-Not ported yet: the inpainting projection (with the VAE encoder, ROADMAP
-queue 1 item 4). The JAX loop's pinned-host XLA placement of the cache
+The JAX loop's pinned-host XLA placement of the cache
 (``offload_cache``) has no CUDA counterpart: the trainer moves the cache to
 the host after the rollout (``train/rloo.py``, ``offload_cache="host"``).
 """
@@ -186,6 +185,7 @@ def adaptive_sample(
     init_sigma: Optional[torch.Tensor] = None,
     group: Optional[SeqGroup] = None,
     cached: Optional[CachedDenoise] = None,
+    project_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> SampleOutput:
     """Run the adaptive, self-terminating denoise loop.
 
@@ -200,6 +200,10 @@ def adaptive_sample(
         cached: the Δ-cache pair; ``denoise_fn`` is then unused (may be
             None), and each step runs full_fn or reuse_fn with Δ carried
             from step to step.
+        project_fn: optional ``(latents (b,c,h,w), sigma_next (b,)) ->
+            latents``, applied after each step's update and before the done
+            mask keeps finished samples (inpainting re-imposes the known
+            region at the new noise level).
     """
     b = init_latents.shape[0]
     T = cfg.max_inference_steps
@@ -276,6 +280,8 @@ def adaptive_sample(
             v_prev, sigma_prev = velocity, sigma
         else:
             new_latents = flow_euler_step(velocity, sigma_next, sigma, latents)
+        if project_fn is not None:
+            new_latents = project_fn(new_latents, sigma_next)
         last_valid = torch.where(done.reshape(bcast), last_valid, new_latents)
 
         sigmas[step] = sigma_next

@@ -9,7 +9,9 @@ and ``POST /rank`` (best-of-N) through a ``serving.BatchingEngine``, and
 ``--continuous`` the server runs ``serving_continuous.
 ContinuousBatchingEngine`` instead (``--max_batch`` slots, ``--seg_steps``,
 ``--pipeline_depth``, ``--decode_batch``), or with ``--resolutions`` a
-``MultiResContinuousRouter``:
+``MultiResContinuousRouter``. ``POST /generate`` takes ``init_image_png_base64``
+(a PNG at the served resolution, read without PIL) and ``strength`` for
+image-to-image:
 
     python -m tpdm_tpu_torch.serve --toy --cli --prompt "a cat"         # on the card
     python -m tpdm_tpu_torch.serve --toy --cpu --cli --prompt "a cat"   # anywhere
@@ -305,14 +307,13 @@ def make_http_server(pipe, tokenize, args, ranker=None):
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from tpdm_tpu_torch.serving import EngineOverloaded, RequestExpired, generate_ranked
+    from tpdm_tpu_torch.utils.image import read_png_rgb
     from tpdm_tpu_torch.utils.metrics_export import prometheus_text
 
     engine = make_engine(pipe, tokenize, args)
 
     def not_served(req):
         """Request fields whose options are not ported: a 400 naming them."""
-        if req.get("init_image_png_base64"):
-            raise ValueError(str(not_ported("img2img (init_image)", "4")))
         if req.get("lora") is not None:
             raise ValueError(str(not_ported("lora (LoRA adapters)", "13(b)")))
 
@@ -388,13 +389,21 @@ def make_http_server(pipe, tokenize, args, ranker=None):
                 negative = req.get("negative_prompt")
                 if negative is not None and not isinstance(negative, str):
                     raise ValueError("negative_prompt must be a string")
+                init_image = strength = None
+                if req.get("init_image_png_base64"):
+                    # a malformed image is the client's error: ValueError, a 400
+                    init_image = read_png_rgb(base64.b64decode(req["init_image_png_base64"],
+                                                               validate=True))
+                    if req.get("strength") is not None:
+                        strength = float(req["strength"])
                 fmt = _check_format(req.get("format"))
             except Exception as e:
                 self.send_error(400, str(e)[:100])
                 return
             try:
                 res = engine.submit(prompt, seed, steps=steps, resolution=resolution,
-                                    deadline_s=deadline_s, guidance_scale=guidance,
+                                    deadline_s=deadline_s, init_image=init_image,
+                                    strength=strength, guidance_scale=guidance,
                                     negative_prompt=negative or None).result(timeout=600)
             except ValueError as e:  # an unknown resolution etc.
                 self.send_error(400, str(e)[:100])

@@ -13,21 +13,28 @@ Counterpart of ``tpdm_tpu/serving.py``'s ``BatchingEngine``. It:
   resolutions (one sub-batch a resolution), and keeps the text embeddings
   of recent prompts in an LRU of device rows, so a batch whose prompts are
   all cached skips the three towers;
+- runs img2img rows (``init_image``, ``strength``) beside text-to-image
+  rows in one batch: a batch with any image runs as ``TPDMPipeline.
+  generate(init_image=, strength=, seed=<one a row>)``, a text-to-image
+  row there being a blank image at strength 1.0, whose starting latent is
+  its seed's noise exactly and whose sigma starts at 1.0. The whole padded
+  batch is encoded in one VAE call, so each served resolution has one
+  encode shape, as it has one denoise shape;
 - keeps per-request determinism: each request's initial latent is drawn
   as a batch-1 ``TPDMPipeline.generate(seed=s)`` draws it,
   ``torch.randn`` from ``torch.Generator(device).manual_seed(s)`` on the
   MMDiT's device, and ``predict=True`` draws nothing else. The engine,
-  ``serve.py --cli`` and a direct call so give the same (prompt, seed) the
-  same image at the same batch shape. It is not the JAX package's image
-  for that seed: ``jax.random`` and ``torch.Generator`` draw different
-  numbers.
+  ``serve.py --cli`` and a direct call (``generate(seed=[s0, s1, ...])``)
+  so give the same (prompt, seed[, image, strength]) the same image at the
+  same batch shape. It is not the JAX package's image for that seed:
+  ``jax.random`` and ``torch.Generator`` draw different numbers.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: data-parallel replicas and the sharded mesh (``dp``,
-``mesh_shape``: 9(d) and 14), the family runners (``runner``: 12), LoRA
-adapters (``register_adapter``, ``lora=``: 13(b)) and img2img
-(``init_image``: 4). The continuous engine, which refills a finished
-request's slot mid-denoise, is ``serving_continuous.py``.
+``mesh_shape``: 9(d) and 14), the family runners (``runner``: 12) and LoRA
+adapters (``register_adapter``, ``lora=``: 13(b)). The continuous engine,
+which refills a finished request's slot mid-denoise, is
+``serving_continuous.py``.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tpdm_tpu_torch.pipeline.pipeline import not_ported
+from tpdm_tpu_torch.pipeline.pipeline import not_ported, seed_noise
 from tpdm_tpu_torch.utils.image import postprocess_images
 
 logger = logging.getLogger(__name__)
@@ -69,6 +76,10 @@ class ServeRequest:
     resolution: Optional[int] = None
     # seconds this request may wait before it starts; None = forever
     deadline_s: Optional[float] = None
+    # image-to-image: uint8 (H, W, 3) at the request's resolution, noised to
+    # ``strength`` (submit() defaults it to 0.6); None = text-to-image
+    init_image: Optional[np.ndarray] = None
+    strength: Optional[float] = None
     # per-request CFG strength; None = the engine's guidance_scale
     guidance_scale: Optional[float] = None
     # per-request negative prompt; None/"" = the engine's constant negative
@@ -124,6 +135,29 @@ def generate_ranked(
         out["rewards"] = [float(x) for x in rewards]
         out["best"] = int(np.argmax(out["rewards"]))
     return out
+
+
+def checked_img2img(pipe, init_image, strength, px: int):
+    """(init_image, strength) of a request, checked as the JAX engines check
+    them: a uint8 (px, px, 3) image, the strength in (0, 1] (default 0.6),
+    a strength only with an image, and a pipeline with a VAE encoder.
+    (None, None) for a text-to-image request."""
+    if init_image is None:
+        if strength is not None:
+            raise ValueError("strength needs an init_image")
+        return None, None
+    if pipe.vae is None or pipe.vae.encoder is None:
+        raise ValueError("img2img needs a pipeline with a VAE encoder")
+    s = 0.6 if strength is None else float(strength)
+    if not 0.0 < s <= 1.0:
+        raise ValueError(f"strength must be in (0, 1], got {strength}")
+    init_image = np.asarray(init_image)
+    if init_image.ndim != 3 or init_image.shape[-1] != 3:
+        raise ValueError("init_image must be (H, W, 3) uint8")
+    if init_image.shape[:2] != (px, px):
+        raise ValueError(f"init_image is {init_image.shape[0]}x{init_image.shape[1]}; "
+                         f"this request serves {px}x{px}")
+    return init_image, s
 
 
 def _percentile(vals, q):
@@ -309,11 +343,8 @@ class BatchingEngine:
         draws it, stacked."""
         mcfg = self.pipe.mmdit.config
         device, dtype = self.pipe._device_dtype()
-        shape = (1, mcfg.in_channels, lat_size, lat_size)
-        return torch.cat([
-            torch.randn(shape, generator=torch.Generator(device=device).manual_seed(s),
-                        device=device, dtype=dtype)
-            for s in seeds])
+        shape = (len(seeds), mcfg.in_channels, lat_size, lat_size)
+        return seed_noise(seeds, shape, device, dtype)[1]
 
     def generate_batch(
         self, prompts: Sequence[str], seeds: Sequence[int],
@@ -330,11 +361,11 @@ class BatchingEngine:
         engine's max) caps each request's steps; ``guidances`` (None
         entries = the engine's default) sets each one's CFG strength;
         ``negative_prompts`` (None/"" = the constant negative) each one's
-        negative. ``lora`` and ``init_images`` are not ported."""
+        negative; ``init_images`` / ``strengths`` (None entries = text-to-
+        image) run img2img rows (see the module docstring). ``lora`` is not
+        ported."""
         if lora is not None:
             raise not_ported("lora (LoRA adapters)", "13(b)")
-        if init_images is not None and any(im is not None for im in init_images):
-            raise not_ported("init_images (img2img)", "4")
         n = len(prompts)
         if not 0 < n <= self.max_batch:
             raise ValueError(f"a batch takes 1 to {self.max_batch} prompts, got {n}")
@@ -344,6 +375,9 @@ class BatchingEngine:
         caps = [min(c or self.max_steps, self.max_steps)
                 for c in (list(steps) if steps is not None else [None] * n)]
         caps = caps + [caps[-1]] * pad
+        imgs = list(init_images) if init_images is not None else [None] * n
+        strs = list(strengths) if strengths is not None else [None] * n
+        imgs, strs = imgs + [imgs[-1]] * pad, strs + [strs[-1]] * pad
         gds = list(guidances) if guidances is not None else [None] * n
         negs = [x or "" for x in (list(negative_prompts) if negative_prompts is not None
                                   else [None] * n)]
@@ -369,7 +403,16 @@ class BatchingEngine:
                              f"{sorted(self.resolutions)}")
         lat_size = (resolution // self.vae_scale_factor if resolution is not None
                     else self.pipe.mmdit.config.sample_size)
-        latents = self._latents(seeds, lat_size)
+        if any(im is not None for im in imgs):
+            px = lat_size * self.vae_scale_factor
+            rows = [checked_img2img(self.pipe, im, st, px) for im, st in zip(imgs, strs)]
+            blank = np.zeros((px, px, 3), np.uint8)
+            start = dict(init_image=np.stack([blank if im is None else im for im, _ in rows]),
+                         strength=np.asarray([1.0 if im is None else st for im, st in rows],
+                                             np.float32),
+                         seed=seeds)
+        else:
+            start = dict(latents=self._latents(seeds, lat_size))
         t_tokenized = time.monotonic()
         split = self.split_stages and self.pipe.vae is not None
         embeds = None
@@ -377,7 +420,7 @@ class BatchingEngine:
             embeds = self._embeds_for(prompts, clip_ids, t5_ids, negs)
         t_encoded = time.monotonic()
         common = dict(
-            latents=latents, predict=True, max_inference_steps=self.max_steps,
+            **start, predict=True, max_inference_steps=self.max_steps,
             guidance_scale=gs_batch if gs_batch is not None else self.guidance_scale,
             decode=not split, step_caps=np.asarray(caps, np.int32),
             cache_interval=self.cache_interval, guidance_interval=self.guidance_interval,
@@ -446,8 +489,6 @@ class BatchingEngine:
             raise EngineOverloaded("engine is stopped; no worker will run this")
         if lora is not None:
             raise not_ported("lora (LoRA adapters)", "13(b)")
-        if init_image is not None or strength is not None:
-            raise not_ported("init_image / strength (img2img)", "4")
         if steps is not None and steps < 1:
             raise ValueError("steps must be >= 1")
         if guidance_scale is not None or negative_prompt:
@@ -459,9 +500,12 @@ class BatchingEngine:
         if resolution is not None and resolution not in self.resolutions:
             raise ValueError(f"resolution {resolution} not in the served set "
                              f"{sorted(self.resolutions)}")
+        init_image, strength = checked_img2img(
+            self.pipe, init_image, strength,
+            resolution if resolution is not None else self.default_resolution)
         req = ServeRequest(
             prompt=prompt, seed=seed, steps=steps, resolution=resolution,
-            deadline_s=deadline_s,
+            deadline_s=deadline_s, init_image=init_image, strength=strength,
             guidance_scale=None if guidance_scale is None else float(guidance_scale),
             negative_prompt=negative_prompt or None)
         try:
@@ -544,6 +588,8 @@ class BatchingEngine:
                     results = self.generate_batch(
                         [r.prompt for r in group], [r.seed for r in group],
                         steps=[r.steps for r in group], resolution=res_px,
+                        init_images=[r.init_image for r in group],
+                        strengths=[r.strength for r in group],
                         guidances=[r.guidance_scale for r in group],
                         negative_prompts=[r.negative_prompt for r in group])
                     if self._stage_times:

@@ -37,9 +37,14 @@ the decode worker may read it at any time. Both workers launch on the
 default stream, so the decode of a row is ordered after the segment that
 wrote it. Grad mode is per thread: each worker enters ``torch.no_grad()``.
 
+img2img slots: a request with ``init_image`` has its image encoded at
+batch 1 when it takes a slot, mixed into its seed's noise at its
+``strength`` as ``TPDMPipeline.generate`` mixes it, and its slot starts at
+sigma = strength, sharing the segment with text-to-image slots.
+
 Determinism: with ``predict=True`` a request's image depends only on its
-(prompt, seed, cap, guidance, negative): its latent is drawn as
-``BatchingEngine._latents`` draws it, and the segment runs the ops of
+(prompt, seed, cap, guidance, negative[, image, strength]): its latent is
+drawn as ``BatchingEngine._latents`` draws it, and the segment runs the ops of
 ``TPDMPipeline.generate``'s loop in the same dtypes, so at the same batch
 shape its latents equal the fixed engine's to the bit. With
 ``predict=False`` the Beta draws come from one ``torch.Generator`` owned
@@ -48,8 +53,8 @@ towers on zero ids) are encoded once at build.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: ``dp`` (9(d)), ``mesh_shape`` (14), LoRA adapters
-(``register_adapter``, ``fused_lora``, ``submit(lora=)``: 13(b)), img2img
-slots (``submit(init_image=, strength=)``: 4) and the family engines (12).
+(``register_adapter``, ``fused_lora``, ``submit(lora=)``: 13(b)) and the
+family engines (12).
 """
 
 from __future__ import annotations
@@ -68,9 +73,9 @@ from tpdm_tpu_torch.ops.beta import beta_mode, beta_sample
 from tpdm_tpu_torch.ops.flow_euler import flow_euler_step
 from tpdm_tpu_torch.ops.flow_solver import flow_ab2_step
 from tpdm_tpu_torch.pipeline.denoise import make_cfg_denoise_cached_fns, make_cfg_denoise_fn
-from tpdm_tpu_torch.pipeline.pipeline import not_ported
+from tpdm_tpu_torch.pipeline.pipeline import noised_latents, not_ported, seed_noise
 from tpdm_tpu_torch.pipeline.sampler import SamplerConfig, _clamp_ratio, _raw_to_alpha_beta
-from tpdm_tpu_torch.serving import EngineOverloaded, ServeRequest
+from tpdm_tpu_torch.serving import EngineOverloaded, ServeRequest, checked_img2img
 from tpdm_tpu_torch.utils.image import postprocess_images
 
 logger = logging.getLogger(__name__)
@@ -410,14 +415,20 @@ class ContinuousBatchingEngine:
         """(c, h, w): drawn as ``BatchingEngine._latents`` and a batch-1
         ``generate(seed=s)`` draw it, so (prompt, seed) give the same image
         through every entry point."""
-        mcfg = self.pipe.mmdit.config
-        g = torch.Generator(device=self._device).manual_seed(seed)
-        return torch.randn((1, mcfg.in_channels, self._lat_size, self._lat_size),
-                           generator=g, device=self._device, dtype=self._dtype)[0]
+        shape = (1, self.pipe.mmdit.config.in_channels, self._lat_size, self._lat_size)
+        return seed_noise([seed], shape, self._device, self._dtype)[1][0]
 
     def _slot_init(self, req: ServeRequest):
-        """(latent row, starting sigma) of a text-to-image slot."""
-        return self._init_latent(req.seed), 1.0
+        """(latent row, starting sigma) of a fresh slot: text-to-image at
+        sigma 1.0 from the seed's noise; img2img from the image's latents
+        (encoded at batch 1) mixed into that noise at the strength, the
+        slot starting at sigma = strength."""
+        lat = self._init_latent(req.seed)
+        if req.init_image is None:
+            return lat, 1.0
+        clean = self.pipe.encode_image(req.init_image[None])
+        s = torch.tensor([req.strength], dtype=torch.float32)
+        return noised_latents(clean, lat[None], s)[0], float(s)
 
     def _assign(self, slot: int, req: ServeRequest):
         pe_row, pp_row = self._prompt_embeds(req.prompt)
@@ -628,14 +639,13 @@ class ContinuousBatchingEngine:
         it still waits for a slot that long after submit.
         ``guidance_scale`` / ``negative_prompt`` set its CFG strength and
         negative (per-slot state: any mix shares the segment).
-        ``init_image`` / ``strength`` and ``lora`` are not ported."""
+        ``init_image`` (uint8 (H, W, 3) at the engine's resolution) runs it
+        image-to-image: its slot starts at sigma = ``strength`` (default
+        0.6) from the noised init latents. ``lora`` is not ported."""
         if self._stop.is_set():
             raise EngineOverloaded("engine is stopped; no worker will run this")
         if lora is not None:
             raise not_ported("lora (continuous LoRA adapters)", "13(b)")
-        if init_image is not None or strength is not None:
-            raise not_ported("init_image / strength (the continuous engine's img2img slots)",
-                             "4")
         if steps is not None and steps < 1:
             raise ValueError("steps must be >= 1")
         if guidance_scale is not None or negative_prompt:
@@ -648,8 +658,11 @@ class ContinuousBatchingEngine:
             raise ValueError("slots share one latent shape: serve several resolutions with "
                              "MultiResContinuousRouter (or the fixed-batch engine's "
                              "resolutions=)")
+        init_image, strength = checked_img2img(self.pipe, init_image, strength,
+                                               self._lat_size * self.vae_scale_factor)
         req = ServeRequest(
             prompt=prompt, seed=seed, steps=steps, deadline_s=deadline_s,
+            init_image=init_image, strength=strength,
             guidance_scale=None if guidance_scale is None else float(guidance_scale),
             negative_prompt=negative_prompt or None)
         try:

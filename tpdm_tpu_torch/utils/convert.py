@@ -55,11 +55,13 @@ from tpdm_tpu_torch.ops.quant import pack_int4
 from tpdm_tpu_torch.utils import safetensors
 
 # Flax names that index lists of submodules:
-# "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1"; the ViT's "blocks_3",
+# "up_blocks_0_resnets_1" -> "up_blocks.0.resnets.1",
+# "down_blocks_2_downsamplers_0" -> "down_blocks.2.downsamplers.0"; the ViT's "blocks_3",
 # BERT's "layer_3", CLIP's "layers_3" and T5's "block_3" (leftmost match
 # first, so "transformer_blocks_3" stays whole)
 _INDEXED = re.compile(
-    r"(transformer_blocks|up_blocks|resnets|attentions|upsamplers|blocks|block|layers|layer)"
+    r"(transformer_blocks|up_blocks|down_blocks|resnets|attentions|upsamplers|downsamplers"
+    r"|blocks|block|layers|layer)"
     r"_(\d+)_?")
 # parameters that a module declares itself, carried over as they are (CLIP's
 # position table among them)
@@ -128,9 +130,9 @@ def tpm_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def vae_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict for ``models.vae.VAE`` (decoder only) from the JAX VAE's
-    params; the encoder's parameters are dropped, it is not ported yet."""
-    return _flax_to_state_dict(flax_params, drop_prefixes=("encoder/",))
+    """State dict for ``models.vae.VAE`` (decoder and encoder) from the JAX
+    VAE's params."""
+    return _flax_to_state_dict(flax_params)
 
 
 def image_reward_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
@@ -266,17 +268,19 @@ def export_tpm(tpm_state: Mapping, prefix: str = "agent_model.time_predictor.") 
     return {prefix + src: _tensor(tpm_state[dst].detach().cpu()) for src, dst in _TPM_KEYS}
 
 
-def _vae_keys(block_out_channels, layers_per_block: int):
+def _vae_keys(block_out_channels, layers_per_block: int, encoder: bool = True):
     def resnet(base: str, has_shortcut: bool):
         names = ("norm1", "conv1", "norm2", "conv2") + (("conv_shortcut",) if has_shortcut else ())
         return [p for n in names for p in _pairs(f"{base}.{n}")]
 
-    mid = "decoder.mid_block"
-    keys = _pairs("decoder.conv_in") + resnet(f"{mid}.resnets.0", False)
-    keys += [p for n in ("group_norm", "to_q", "to_k", "to_v")
-             for p in _pairs(f"{mid}.attentions.0.{n}")]
-    keys += _pairs(f"{mid}.attentions.0.to_out.0", f"{mid}.attentions.0.to_out")
-    keys += resnet(f"{mid}.resnets.1", False)
+    def mid(base: str):
+        keys = resnet(f"{base}.resnets.0", False)
+        keys += [p for n in ("group_norm", "to_q", "to_k", "to_v")
+                 for p in _pairs(f"{base}.attentions.0.{n}")]
+        keys += _pairs(f"{base}.attentions.0.to_out.0", f"{base}.attentions.0.to_out")
+        return keys + resnet(f"{base}.resnets.1", False)
+
+    keys = _pairs("decoder.conv_in") + mid("decoder.mid_block")
     ch_up = list(reversed(block_out_channels))
     prev = ch_up[0]
     for i, out_ch in enumerate(ch_up):
@@ -287,7 +291,21 @@ def _vae_keys(block_out_channels, layers_per_block: int):
             keys += _pairs(f"decoder.up_blocks.{i}.upsamplers.0.conv",
                            f"decoder.up_blocks.{i}.upsamplers.0")
         prev = out_ch
-    return keys + _pairs("decoder.conv_norm_out") + _pairs("decoder.conv_out")
+    keys += _pairs("decoder.conv_norm_out") + _pairs("decoder.conv_out")
+    if not encoder:
+        return keys
+    keys += _pairs("encoder.conv_in")
+    prev = block_out_channels[0]
+    for i, out_ch in enumerate(block_out_channels):
+        for j in range(layers_per_block):
+            in_ch = prev if j == 0 else out_ch
+            keys += resnet(f"encoder.down_blocks.{i}.resnets.{j}", in_ch != out_ch)
+        if i < len(block_out_channels) - 1:
+            keys += _pairs(f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                           f"encoder.down_blocks.{i}.downsamplers.0")
+        prev = out_ch
+    return keys + mid("encoder.mid_block") + _pairs("encoder.conv_norm_out") + _pairs(
+        "encoder.conv_out")
 
 
 def convert_vae(
@@ -297,15 +315,18 @@ def convert_vae(
     dtype=None,
 ) -> Dict[str, torch.Tensor]:
     """diffusers ``AutoencoderKL`` state dict -> state dict of
-    ``models.vae.VAE``: the decoder only; the encoder's keys are dropped
-    (the port's VAE has no encoder yet, ROADMAP queue 1, item 4)."""
-    return _renamed(state_dict, _vae_keys(block_out_channels, layers_per_block), dtype)
+    ``models.vae.VAE``: the decoder, and the encoder where the checkpoint
+    holds one (``encoder.conv_in.weight``); a decoder-only checkpoint gives
+    the state dict of ``VAE(cfg, encoder=False)``."""
+    encoder = "encoder.conv_in.weight" in state_dict
+    return _renamed(state_dict, _vae_keys(block_out_channels, layers_per_block, encoder), dtype)
 
 
 def export_vae(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """Inverse of ``convert_vae``: a ``VAE(cfg)`` state dict -> the diffusers
-    layout of its decoder, contiguous CPU tensors."""
-    keys = _vae_keys(cfg.block_out_channels, cfg.layers_per_block)
+    """Inverse of ``convert_vae``: a ``VAE(cfg)`` state dict (with or
+    without its encoder) -> the diffusers layout, contiguous CPU tensors."""
+    encoder = "encoder.conv_in.weight" in state_dict
+    keys = _vae_keys(cfg.block_out_channels, cfg.layers_per_block, encoder)
     return {src: _tensor(state_dict[dst].detach().cpu()) for src, dst in keys}
 
 
