@@ -23,7 +23,8 @@ Phases, one line each, and any failure exits non-zero:
    request at CFG batch 4, (4, 24, 1408, 64)), K2 (at the
    1024 px decode's (1, 1, 16384, 512), (2, 1, 16384, 512), the RLOO
    reward's (4, 1, 16384, 512), phase 14's 512 px decode's (2, 1, 4096,
-   512), phase 15's batch-1 512 px decode's (1, 1, 4096, 512) and phase
+   512), phase 15's batch-1 512 px decode's (1, 1, 4096, 512), phase
+   18's engine decode's (4, 1, 4096, 512) and phase
    13's eval decode's (10, 1, 16384, 512) against the
    plain version in 4096-row query blocks, at 2048 px's
    (1, 1, 65536, 512) against the plain version in 4096-row query blocks,
@@ -33,8 +34,11 @@ Phases, one line each, and any failure exits non-zero:
    every matmul shape of the batch 1 and batch 2 requests, beside
    torch._int_mm and cuBLAS's bf16 product; K1's, K4's and K5's TFLOP/s
    (TOP/s) and share of their bound. Then SD3.5's shapes: K1 at
-   SD3.5-medium's image-only attn2 (2, 24, 4096, 64) without a kv_len and
-   at SD3.5-large's joint attention (2, 38, 4480, 64), kv_len 4429, and K4
+   SD3.5-medium's image-only attn2 (2, 24, 4096, 64) and (4, 24, 4096,
+   64) without a kv_len and at SD3.5-large's joint attention (2, 38, 4480,
+   64), kv_len 4429 (each timed over back-to-back calls between CUDA
+   events, and by its device time: calls queued behind a sleep on the
+   card), and K4
    at every W8A8 matmul shape of an SD3.5-large batch-1 request (K and N
    in {2432, 9728}, 8192 image and 666 text rows);
 4. a reference check: a 2-layer MMDiT (float, W8A8 and int4), a 2-layer
@@ -181,7 +185,27 @@ Phases, one line each, and any failure exits non-zero:
    call, one a decode call) are checked exactly around every call; the
    encode ms, the img2img request's wall time and steps beside the
    text-to-image request's, peak memory and the phase's seconds are
-   printed beside nvidia-smi's name and power limit.
+   printed beside nvidia-smi's name and power limit;
+18. SD1.5 at 512 px (CFG 7.5, predict=True, TPM head bias (1.0, 0.55),
+   at most 25 steps), after the SD3 models are freed: K1 at each SD1.5
+   shape at the CFG batches 2, 4 and 8 that the phase's calls run (head
+   dims 40, 80 and 160; self-attention at 4096, 1024, 256 and the mid
+   block's 64 tokens, cross-attention against 77 text tokens) against its
+   plain version, timed beside it and scaled_dot_product_attention over
+   back-to-back calls between CUDA events, and by its device time (calls
+   queued behind a sleep on the card); the SD1.5 UNet (860 M parameters),
+   CLIP-L with a toy vocabulary of the example prompts and the SD1.5 VAE with its
+   encoder drawn from the seed in bf16; one UNet forward against an fp32
+   copy of the same weights on the card (MODULE_REL_TOL of each output's
+   range), its warm time at CFG batch 2 and 4, and a profiler trace of
+   three forwards at each (device busy time, K1's share of it, the
+   device's idle share); SD15Pipeline.generate at
+   batch 1 and 2 (each warmed by a one-step rollout), an img2img request
+   at strength 0.6 (the loop starting at t 599), and a BatchingEngine over
+   make_sd15_runner with three requests of mixed caps, each row equal to a
+   direct runner call on the same padded batch to the bit, caps exact. K1
+   (32 a forward) and K2 (one an encode, one a decode) are checked exactly
+   around every call.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -204,6 +228,7 @@ import logging
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -248,6 +273,8 @@ FLOOR_FACTOR = 2.0
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep spins on the SM clock (1.98 GHz at most)
+MIN_SLEEP_MS = 10.0  # device_ms's least sleep: well above a host stall of a few ms
 # K4's dequant epilogue against its plain version: the same fp32 operations,
 # each rounded once, then one rounding to bf16, so within one bf16 step
 # (2^-8 of |plain|) at every element; its int32 accumulator is exact
@@ -302,14 +329,36 @@ ENCODE_REL_BOUND = 5e-2
 I2I_STRENGTHS = (0.4, 0.8)  # phase 17's per-sample strengths
 CONT_REQUESTS = 12  # phase 15's burst: example prompts 0-11, seeds 0-11
 CONT_CAPS = (None, 4, None, 8)  # its step caps, in turn (the schedule stops at ~15)
+# phase 18, SD1.5 at 512 px: the sampler's step cap (the JAX agent's
+# default), CFG 7.5, img2img strength, the engine batch's caps, and K1's
+# shapes (8 heads of C/8: each level's self-attention and its
+# cross-attention against the 77 CLIP tokens) at each CFG batch the
+# phase runs: 2 (a batch-1 request, img2img, the checked forward), 4 (the
+# batch-2 request, the timed batch-2 forward) and 8 (the engine's batch
+# padded to 4), by the kernels line's key (CFG batch 2 without a suffix)
+SD15_T_MAX = 25
+SD15_GS = 7.5
+SD15_STRENGTH = 0.6
+SD15_ENGINE_CAPS = (None, 3, 6)
+_SD15_LEVELS = (("d40", 4096, 40), ("d80", 1024, 80), ("d160", 256, 160), ("mid", 64, 160))
+SD15_K1_SHAPES = {
+    f"sd15_{level}_{kind}{'' if b == 2 else f'_batch_{b}'}":
+        (b, 8, n, n if kind == "self" else 77, d)
+    for b in (2, 4, 8) for level, n, d in _SD15_LEVELS for kind in ("self", "cross")
+}
 # the wgmma kernels' instantiations, each by a piece of its mangled name
 # (template arguments between I and E: Lb0 / Lb1 kStats off / on; 'a'
 # int8_t, then the epilogue: Li0 bf16 rounding, Li1 dequant, Li2 int32;
 # K2's kernel is not a template: E closes its name)
+# K1 and K3 are flash_attn_sm90_kernel<stats, consumers, 64-column boxes>:
+# K1 at d 64 and d 40 share one instantiation (the head dim is the tensor
+# maps' extent), d 80 and d 160 have their own
 WGMMA_KERNELS = (
-    ("K1", "flash_attn_sm90_kernelILb0E"),
+    ("K1", "flash_attn_sm90_kernelILb0ELi3ELi1E"),
+    ("K1 d80", "flash_attn_sm90_kernelILb0ELi2ELi2E"),
+    ("K1 d160", "flash_attn_sm90_kernelILb0ELi1ELi3E"),
     ("K2", "flash_attn_d512_kernelE"),
-    ("K3", "flash_attn_sm90_kernelILb1E"),
+    ("K3", "flash_attn_sm90_kernelILb1ELi3ELi1E"),
     ("K4", "gemm_sm90_kernelIaLi1E"),
     ("K4 int32", "gemm_sm90_kernelIaLi2E"),
     ("K5", "gemm_sm90_kernelI13__nv_bfloat16Li0E"),
@@ -439,6 +488,148 @@ def check_kernel(name, kernel, plain, q, k, v, kv_len):
     ref = plain(q, k, v, kv_len)
     torch.cuda.synchronize()
     return output_error(name, out, ref)
+
+
+def trace_device_events(fn, calls, attempts=3):
+    """The device events (name, start us, end us) of ``calls`` calls of
+    fn() under torch.profiler, read from its Chrome trace; [] if none of
+    ``attempts`` sessions recorded one (a session on the card now and then
+    records no device event, after others in the same process did)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = trace_kernels(path)
+        if events:
+            return events
+    return []
+
+
+def device_ms(fn, calls=20, reps=5, attempts=4):
+    """fn()'s device time a call: ``calls`` warm calls queued behind a
+    torch.cuda._sleep that outlasts the host's launches, then timed between
+    CUDA events, so the card runs them back to back without waiting on the
+    host (the kernels' own time and the gaps between them); the median of
+    ``reps``. The sleep is four times the host's time to queue the calls,
+    at least MIN_SLEEP_MS. A rep whose sleep ended before its calls were
+    queued (the host stalled: it shares its cores) would time the host, so
+    it is dropped and taken again behind a sleep four times that queue time;
+    fails if ``attempts`` reps in a row are dropped."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sleep_ms = max(4e3 * (time.perf_counter() - start), MIN_SLEEP_MS)
+    torch.cuda.synchronize()
+    times, dropped = [], 0
+    while len(times) < reps:
+        before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        before.record()
+        torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        slept_ms = before.elapsed_time(start)
+        if slept_ms > queued_ms:
+            times.append(start.elapsed_time(end) / calls)
+            dropped = 0
+            continue
+        dropped += 1
+        if dropped == attempts:
+            fail(f"device_ms: in {attempts} reps in a row the card slept less than the host took "
+                 f"to queue {calls} calls (last: slept {slept_ms:.3f} ms, queued {queued_ms:.3f} ms)")
+        sleep_ms = max(sleep_ms, 4 * queued_ms)
+    return statistics.median(times)
+
+
+def timed_ms(fn, target_ms=2.0, reps=10):
+    """median_ms over back-to-back calls between one pair of CUDA events,
+    as many (1 to 50) as take about ``target_ms``: the median time a call,
+    in which a short kernel's launch overlaps the one before it."""
+    calls = max(1, min(50, round(target_ms / median_ms(fn, reps=3))))
+    return median_ms(fn, reps=reps, calls=calls)
+
+
+def k1_check(g, dev, label, b, h, n_q, n_kv, d, kv_len=None):
+    """K1 at q (b, h, n_q, d) x kv (b, h, n_kv, d), N(0, 1) bf16 drawn from
+    ``g`` (q, k, v in turn), against its plain version (KERNEL_REL_TOL),
+    timed (timed_ms) beside the plain version and
+    scaled_dot_product_attention on the valid kv rows, and by its and the
+    library call's device time (device_ms). Prints one line; returns the
+    kernels line's entry."""
+    from tpdm_tpu_torch.ops.attention import attention_reference, flash_attention
+    from torch.nn.functional import scaled_dot_product_attention
+
+    q = torch.randn(b, h, n_q, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, h, n_kv, d, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    err = check_kernel(f"K1 {label}", flash_attention, attention_reference, q, k, v, kv_len)
+    n_valid = n_kv if kv_len is None else kv_len
+    kernel = lambda: flash_attention(q, k, v, kv_len)
+    library = lambda: scaled_dot_product_attention(q, k[:, :, :n_valid], v[:, :, :n_valid])
+    ms, lib_ms = timed_ms(kernel), timed_ms(library)
+    plain_ms = timed_ms(lambda: attention_reference(q, k, v, kv_len))
+    dev_ms, lib_dev_ms = device_ms(kernel), device_ms(library)
+    bound, by = attention_bound(b * h, n_q, n_kv, d, kv_len)
+    flop = 4 * b * h * n_q * n_valid * d
+    phase("K1", f"{label} ({b}, {h}, {n_q}, {d}) x kv {n_kv}"
+                f"{'' if kv_len is None else f' kv_len {kv_len}'} bf16: {fmt_err(err)} (bound "
+                f"{KERNEL_REL_TOL} of max |o|); kernel {ms:.4f} ms a call back to back, "
+                f"{flop / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f} % of bound (device time "
+                f"{dev_ms:.4f} ms, {100 * bound / dev_ms:.1f} %); plain {plain_ms:.4f} ms, "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms (device time {lib_dev_ms:.4f}), "
+                f"bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, device_ms=dev_ms, library_device_ms=lib_dev_ms)
+
+
+def launch_counter(prefix, totals):
+    """counted(label, fn, want): fn() between synchronizes on the host
+    clock, K1's and K2's launch counts set to 0 just before and read just
+    after, added to ``totals`` and checked against ``want(out)`` (unless
+    None); returns (out, seconds)."""
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+
+    def counted(label, fn, want):
+        torch.cuda.synchronize()
+        flash_attention.launches = flash_attention_streaming.launches = 0
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        got = (flash_attention.launches, flash_attention_streaming.launches)
+        totals[0] += got[0]
+        totals[1] += got[1]
+        if want is not None and got != want(out):
+            fail(f"{prefix} {label}: K1 {got[0]}, K2 {got[1]} launches, expected K1 "
+                 f"{want(out)[0]}, K2 {want(out)[1]}")
+        return out, seconds
+
+    return counted
+
+
+def load_profile_script():
+    """scripts/profile_torch_generate.py as a module (group_of, summarise);
+    its chip_smoke imports resolve to this module, not to a second copy."""
+    import importlib.util
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_generate", REPO / "scripts" / "profile_torch_generate.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def ptxas_report(kernel):
@@ -601,8 +792,9 @@ def kernel_phase(g, dev, seed):
     del q, k, v
     # K2 at the decode's shapes: 1024 px at batch 1 (the kernels line), 2
     # and 4 (the RLOO reward's decode), 10 (phase 13's eval decode),
-    # 2048 px, and 512 px at batch 2 (phase 14's engine) and 1 (phase 15's
-    # router, which decodes a finished slot alone); at 2048 px and
+    # 2048 px, and 512 px at batch 2 (phase 14's engine), 1 (phase 15's
+    # router, which decodes a finished slot alone) and 4 (phase 18's engine
+    # batch, SD1.5's VAE: the same shape); at 2048 px and
     # batch 10 the plain version runs over 4096-row query blocks (its fp32
     # scores would take 11 and 17 GB).
     # All but the first draw from a generator of their own, so every later
@@ -610,7 +802,7 @@ def kernel_phase(g, dev, seed):
     k2 = {}
     g_k2 = torch.Generator(device=dev).manual_seed(seed + 7)
     for b, n in ((1, 16384), (2, 16384), (1, N_VAE_2048), (4, 16384), (10, 16384),
-                 (2, N_VAE_512), (1, N_VAE_512)):
+                 (2, N_VAE_512), (1, N_VAE_512), (4, N_VAE_512)):
         gen = g if (b, n) == (1, 16384) else g_k2
         q, k, v = (torch.randn(b, 1, n, 512, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
@@ -655,7 +847,8 @@ def kernel_phase(g, dev, seed):
                    batch_20=k1_train[20], at_512px=k1_train["512px"]),
         "K2": dict(**k2[(1, 16384)], batch_2=k2[(2, 16384)], at_2048px=k2[(1, N_VAE_2048)],
                    batch_4=k2[(4, 16384)], batch_10=k2[(10, 16384)],
-                   at_512px=k2[(2, N_VAE_512)], at_512px_batch_1=k2[(1, N_VAE_512)]),
+                   at_512px=k2[(2, N_VAE_512)], at_512px_batch_1=k2[(1, N_VAE_512)],
+                   at_512px_batch_4=k2[(4, N_VAE_512)]),
     }
 
 
@@ -745,32 +938,13 @@ def sd35_kernel_phase(seed, dev):
     4429 (CFG batch 2), and K4 at every W8A8 matmul shape of an SD3.5-large
     batch-1 request (K and N in {2432, 9728}; N 2432 ends in half a
     256-column tile). Returns the kernels line's entries."""
-    from tpdm_tpu_torch.ops.attention import attention_reference, flash_attention
-    from torch.nn.functional import scaled_dot_product_attention
-
     g = torch.Generator(device=dev).manual_seed(seed + 16)
-    out = {}
-    for key, (b, h, n, kv_len) in (("sd35_attn2", (2, 24, 4096, None)),
-                                   ("sd35_attn2_batch_4", (4, 24, 4096, None)),
-                                   ("sd35_large", (2, 38, 4480, 4429))):
-        q, k, v = (torch.randn(b, h, n, 64, generator=g, device=dev).to(torch.bfloat16)
-                   for _ in range(3))
-        err = check_kernel(f"K1 ({b}, {h}, {n}, 64)", flash_attention, attention_reference,
-                           q, k, v, kv_len)
-        n_kv = n if kv_len is None else kv_len
-        ms = median_ms(lambda: flash_attention(q, k, v, kv_len))
-        plain_ms = median_ms(lambda: attention_reference(q, k, v, kv_len))
-        lib_ms = median_ms(lambda: scaled_dot_product_attention(q, k[:, :, :n_kv], v[:, :, :n_kv]))
-        bound, by = attention_bound(b * h, n, n, 64, kv_len)
-        phase("K1", f"({b}, {h}, {n}, 64) bf16{'' if kv_len is None else f' kv_len {kv_len}'} "
-                    f"({'SD3.5-medium attn2' if h == 24 else 'SD3.5-large joint attention'}): "
-                    f"{fmt_err(err)} (bound {KERNEL_REL_TOL} of max |o|); kernel {ms:.3f} ms, "
-                    f"{4 * b * h * n * n_kv * 64 / ms / 1e9:.1f} TFLOP/s, "
-                    f"{100 * bound / ms:.1f} % of bound; plain {plain_ms:.3f} ms, "
-                    f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
-        out.setdefault("K1", {})[key] = dict(max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
-                                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
-        del q, k, v
+    out = {"K1": {}}
+    for key, (b, h, n, kv_len), what in (
+            ("sd35_attn2", (2, 24, 4096, None), "SD3.5-medium attn2"),
+            ("sd35_attn2_batch_4", (4, 24, 4096, None), "SD3.5-medium attn2"),
+            ("sd35_large", (2, 38, 4480, 4429), "SD3.5-large joint attention")):
+        out["K1"][key] = k1_check(g, dev, f"{key} ({what})", b, h, n, n, 64, kv_len)
         torch.cuda.empty_cache()
     k4_err = 0.0
     for m, k, n in SD35_LARGE_GEMM_SHAPES:
@@ -2252,21 +2426,15 @@ def cli_phase(seed, dev):
     run A (two updates with the eval, TensorBoard and the profiler), run B
     (resumed from A for update 3), run C (update 1 again, its cache
     offloaded to the host). Returns the K1 and K2 launches of the three."""
-    import importlib.util
-
     from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
     from tpdm_tpu_torch.train import rloo
     from tpdm_tpu_torch.train.callbacks import EvalVisualizationCallback, ProfilerCallback
     from tpdm_tpu_torch.train.main import main as train_main
     from tpdm_tpu_torch.utils.tb_writer import read_scalar_events
 
-    # chip_smoke.<builder> and the profile script's chip_smoke imports
-    # resolve to this module, not to a second copy of it
+    # chip_smoke.<builder> resolves to this module, not to a second copy
     sys.modules.setdefault("chip_smoke", sys.modules[__name__])
-    spec = importlib.util.spec_from_file_location(
-        "profile_torch_generate", REPO / "scripts" / "profile_torch_generate.py")
-    profile_script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(profile_script)
+    profile_script = load_profile_script()
 
     t_phase = time.perf_counter()
     counters = (flash_attention, flash_attention_streaming)
@@ -3327,11 +3495,7 @@ def img2img_phase(seed, dev, served, smi):
     from tpdm_tpu_torch import serve
     from tpdm_tpu_torch.models import vae as vae_module
     from tpdm_tpu_torch.models.vae import vae_scale_factor
-    from tpdm_tpu_torch.ops.attention import (
-        attention_reference,
-        flash_attention,
-        flash_attention_streaming,
-    )
+    from tpdm_tpu_torch.ops.attention import attention_reference
     from tpdm_tpu_torch.pipeline import pipeline as pipeline_module
     from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline, latent_mask
     from tpdm_tpu_torch.serving import BatchingEngine
@@ -3346,24 +3510,7 @@ def img2img_phase(seed, dev, served, smi):
     factor = vae_scale_factor(cfg)
     px = pipe.mmdit.config.sample_size * factor
     totals = [0, 0]
-
-    def counted(label, fn, want):
-        """fn() timed on the host clock between synchronizes; its K1 and K2
-        launches added to the phase's and checked against ``want(out)``
-        (unless None)."""
-        torch.cuda.synchronize()
-        flash_attention.launches = flash_attention_streaming.launches = 0
-        start = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        got = (flash_attention.launches, flash_attention_streaming.launches)
-        totals[0] += got[0]
-        totals[1] += got[1]
-        if want is not None and got != want(out):
-            fail(f"img2img {label}: K1 {got[0]}, K2 {got[1]} launches, expected K1 "
-                 f"{want(out)[0]}, K2 {want(out)[1]}")
-        return out, seconds
+    counted = launch_counter("img2img", totals)
 
     def ids(texts):
         rows = [tokenize(p) for p in texts]
@@ -3868,6 +4015,255 @@ def sd35_phase(seed, dev):
     return tuple(totals)
 
 
+def sd15_kernel_phase(seed, dev):
+    """Phase 18's kernels: K1 at each SD1.5 shape of SD15_K1_SHAPES
+    (k1_check), from a generator of their own. Returns the kernels line's
+    K1 entries."""
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    out = {key: k1_check(g, dev, key, *shape) for key, shape in SD15_K1_SHAPES.items()}
+    torch.cuda.empty_cache()
+    return out
+
+
+def sd15_models(seed, dev):
+    """Phase 18's models, N(0, WEIGHT_STD²) weights from ``seed`` on the
+    card in bf16: the SD1.5 UNet (UNetConfig.sd15(), 860 M parameters),
+    CLIP-L (12 x 768) with a toy CLIP vocabulary of the example prompts,
+    the SD1.5 VAE with its encoder, and an SD15Agent whose TPM (128
+    channels over 2 x 320, bf16 compute) has head bias TPM_HEAD_BIAS.
+    Returns a namespace of them, the tokenizer, encode and the prompts."""
+    from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.train import RLOOConfig
+    from tpdm_tpu_torch.train.sd15_agent import SD15Agent
+    from tpdm_tpu_torch.utils.tokenizer import CLIPTokenizer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 180)
+    with torch.device(dev):
+        unet = UNetSD15(UNetConfig.sd15())
+        clip = CLIPTextModel(CLIPTextConfig.sd3_clip_l())
+        vae = VAE(VAEConfig.sd15())
+    for module in (unet, clip, vae):
+        module.init_weights(gen, WEIGHT_STD)
+        module.to(dtype=torch.bfloat16).eval()
+        torch.cuda.empty_cache()  # the fp32 draw
+    agent = SD15Agent(unet, RLOOConfig(max_inference_steps=SD15_T_MAX,
+                                       init_alpha=TPM_HEAD_BIAS[0], init_beta=TPM_HEAD_BIAS[1]),
+                      guidance_scale=SD15_GS)
+    tpm = agent.init_tpm_params(gen).eval()
+    with open(REPO / "example" / "prompts.jsonl") as f:
+        prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_clip_vocab(Path(tmp) / "clip", prompts)
+        tok = CLIPTokenizer.from_pretrained(str(Path(tmp) / "clip"), max_length=77)
+
+    def clip_ids(texts):
+        return tok(list(texts), max_length=77)["input_ids"]
+
+    @torch.no_grad()
+    def encode(texts):
+        ids = torch.as_tensor(clip_ids(texts), device=dev).long()
+        return clip(ids)[1], clip(torch.zeros_like(ids))[1]
+
+    torch.cuda.synchronize()
+    return argparse.Namespace(unet=unet, clip=clip, vae=vae, agent=agent, tpm=tpm,
+                              clip_ids=clip_ids, encode=encode, prompts=prompts,
+                              seconds=time.perf_counter() - t0)
+
+
+def check_sd15_schedule(res, b, px, t0=999):
+    """uint8 images of (b, px, px, 3) and integer timesteps that start at
+    ``t0`` and fall strictly over each sample's valid steps."""
+    n = res.num_steps
+    if res.images.dtype.name != "uint8" or res.images.shape != (b, px, px, 3):
+        fail(f"sd15 images {res.images.dtype} {res.images.shape}, expected uint8 "
+             f"({b}, {px}, {px}, 3)")
+    if not 1 <= n <= SD15_T_MAX:
+        fail(f"sd15: {n} steps, expected 1..{SD15_T_MAX}")
+    for i in range(b):
+        last = int(res.last_valid_index[i])
+        ts = [int(x) for x in res.schedule[i, : last + 2]]
+        if last < 0 or ts[0] != t0 or not all(a > c for a, c in zip(ts, ts[1:])):
+            fail(f"sd15 sample {i}: timesteps not falling from {t0} over valid steps: {ts}")
+
+
+def sd15_phase(seed, dev, smi):
+    """Phase 18: SD1.5 at 512 px, item 18 of this file's docstring.
+    Returns (K1 launches, K2 launches, the kernels line's K1 entries)."""
+    import copy
+
+    from tpdm_tpu_torch.models import unet_sd15
+    from tpdm_tpu_torch.ops.attention import attention_reference
+    from tpdm_tpu_torch.pipeline.variants import SD15Pipeline
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.serving_families import make_sd15_runner, make_vae_decoder
+
+    t_phase = time.perf_counter()
+    k1_entries = sd15_kernel_phase(seed, dev)
+    m = sd15_models(seed, dev)
+    n_params = sum(p.numel() for p in m.unet.parameters())
+    ucfg = m.unet.config
+    # transformer blocks: depth x layers_per_block down, x (layers_per_block
+    # + 1) up, and the mid block's; two K1 calls a block
+    blocks = sum(ucfg.depths) * (2 * ucfg.layers_per_block + 1) + ucfg.mid_transformer_layers
+    k1_a_forward = 2 * blocks
+    phase("sd15 models", f"UNet {n_params / 1e6:.2f} M parameters ({blocks} transformer blocks, "
+                         f"K1 {k1_a_forward} a forward), CLIP-L 12 x 768, the SD1.5 VAE with its "
+                         f"encoder, TPM head bias {TPM_HEAD_BIAS}, bf16, drawn in "
+                         f"{m.seconds:.1f} s; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    px = ucfg.sample_size * 8
+    totals = [0, 0]
+    counted = launch_counter("sd15", totals)
+
+    # 1. one UNet forward at CFG batch 2 against an fp32 copy of the same
+    # (bf16-valued) weights on the card, whose attention is the plain version
+    # (K1 takes bf16 only)
+    g = torch.Generator(device=dev).manual_seed(seed + 181)
+    lat = torch.randn(2, 4, ucfg.sample_size, ucfg.sample_size, generator=g, device=dev)
+    ctx, nctx = m.encode(m.prompts[:1])
+    ctx = torch.cat([nctx, ctx])
+    tt = torch.tensor([999.0, 999.0], device=dev)
+    with torch.no_grad():
+        out, _ = counted("forward", lambda: m.unet(lat.to(torch.bfloat16), tt, ctx),
+                         lambda _: (k1_a_forward, 0))
+        f32 = copy.deepcopy(m.unet).float()
+        real_attention = unet_sd15.joint_attention
+        unet_sd15.joint_attention = attention_reference
+        try:
+            ref = f32(lat, tt, ctx.float())
+        finally:
+            unet_sd15.joint_attention = real_attention
+        del f32
+        torch.cuda.empty_cache()
+    errs = [rel_to_range(a, b) for a, b in zip(out, ref)]
+    if not all(bool(torch.isfinite(a.float()).all()) for a in out) or max(errs) > MODULE_REL_TOL:
+        fail(f"sd15 forward: bf16 against fp32, max error / range {errs} (bound {MODULE_REL_TOL})")
+    # warm forwards at CFG batch 2 and 4: the median of 10 by CUDA events,
+    # then a profiler trace of three back to back: the device's busy time a
+    # forward, K1's part of it, and the device's idle share of the trace's
+    # window (a forward whose launches outlast its kernels leaves it idle)
+    summarise = load_profile_script().summarise
+    fwd = []
+    for b in (1, 2):
+        x, c = lat.to(torch.bfloat16).repeat(b, 1, 1, 1), ctx.repeat(b, 1, 1)
+        calls = []  # a session that records nothing is run again
+
+        def forward():
+            calls.append(b)
+            return m.unet(x, tt.repeat(b), c)
+
+        (ms, events), _ = counted(
+            f"forward timed, batch {b}",
+            lambda: (median_ms(forward, reps=10, warmup=2), trace_device_events(forward, 3)),
+            lambda _: (k1_a_forward * len(calls), 0))
+        text = f"CFG batch {2 * b}: {ms:.2f} ms (CUDA events, median of 10)"
+        if events:
+            _, busy, idle, _ = summarise(events)
+            k1_dev = sum(t1 - t0 for name, t0, t1 in events if "flash_attn_sm90_kernel" in name)
+            text += (f", device busy {busy / 3:.2f} ms a forward, K1 {k1_dev / 3e3:.2f} ms of "
+                     f"it, idle share {idle:.4f} (profiler, 3 forwards)")
+        else:
+            text += ", its trace not measured (the profiler recorded no device event)"
+        fwd.append(text)
+    phase("sd15 forward", f"{px} px, CFG batch 2: eps, t_feat, h1, h2 against fp32 on the card "
+                          f"{', '.join(f'{e:.3e}' for e in errs)} of their range (bound "
+                          f"{MODULE_REL_TOL}); K1 {k1_a_forward} launches; warm forward "
+                          f"{'; '.join(fwd)}; {smi}")
+
+    # 2. requests through SD15Pipeline.generate at batch 1 and 2, each warmed
+    # by a one-step request at its batch
+    pipe = SD15Pipeline(m.agent, m.vae, m.clip)
+    steps_k = lambda n_k2: lambda r: (k1_a_forward * r.num_steps, n_k2)
+
+    def request(texts, seed_, **kw):
+        ids = m.clip_ids(texts)
+        return pipe.generate(clip_ids=ids, negative_clip_ids=np.zeros_like(ids), seed=seed_,
+                             tpm_params=m.tpm, **kw)
+
+    results = {}
+    for b in (1, 2):
+        texts = m.prompts[:b]
+        pe, npe = m.encode(texts)
+        counted(f"warm-up, batch {b}", lambda: m.agent.sample(
+            m.tpm, {"prompt_embeds": pe, "negative_prompt_embeds": npe},
+            torch.Generator(device=dev).manual_seed(0), predict=True,
+            sampler_cfg=dataclasses.replace(m.agent.sampler_cfg, num_inference_steps=1,
+                                            predict=True)),
+            lambda r: (k1_a_forward, 0))
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, sec = counted(f"request, batch {b}", lambda: request(texts, seed + 182 + b),
+                           steps_k(1))
+        check_sd15_schedule(res, b, px)
+        results[b] = res
+        phase("sd15 request", f"{px} px, batch {b}, CFG {SD15_GS}: {res.num_steps} steps "
+                              f"(timesteps {res.schedule[0, :res.num_steps + 1].tolist()}), "
+                              f"{sec:.3f} s ({1000 * sec / res.num_steps:.1f} ms a step with "
+                              f"the text encode and the decode); K1 {k1_a_forward} a step, K2 "
+                              f"1; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+                              f"{smi}")
+
+    # 3. img2img from the batch-1 image upside down at SD15_STRENGTH
+    init = np.ascontiguousarray(results[1].images[:, ::-1])
+    t0 = int(round(SD15_STRENGTH * 999))
+    i2i, sec = counted("img2img", lambda: request(m.prompts[:1], seed + 183, init_image=init,
+                                                  strength=SD15_STRENGTH), steps_k(2))
+    check_sd15_schedule(i2i, 1, px, t0=t0)
+    phase("sd15 img2img", f"strength {SD15_STRENGTH}: the loop starts at t {t0}, "
+                          f"{i2i.num_steps} steps (text-to-image: {results[1].num_steps}) in "
+                          f"{sec:.3f} s (encode + denoise + decode); K2 2 (encode, decode)")
+
+    # 4. the fixed-batch engine over the SD1.5 runner: three requests with
+    # mixed caps in one batch padded to four, each row equal to a direct
+    # runner call on the same padded batch to the bit
+    # the loop's iterations (a row whose t fell below min_time takes one
+    # masked step more than its valid ones), read from each rollout
+    loops = []
+    sample = m.agent.sample
+    m.agent.sample = lambda *a, **kw: loops.append(sample(*a, **kw)) or loops[-1]
+    runner = make_sd15_runner(m.agent, m.tpm, m.encode, make_vae_decoder(m.vae))
+    engine = BatchingEngine(None, lambda p, _n=None: (None, None), max_batch=4,
+                            window_ms=500.0, max_steps=SD15_T_MAX, runner=runner)
+    texts, seeds = m.prompts[:3], [seed + 190 + i for i in range(3)]
+    engine.start()
+    try:
+        def burst():
+            reqs = [engine.submit(p, seed=sd, steps=c)
+                    for p, sd, c in zip(texts, seeds, SD15_ENGINE_CAPS)]
+            return [r.result(timeout=600) for r in reqs]
+
+        got, sec_engine = counted("engine", burst,
+                                  lambda r: (k1_a_forward * loops[-1].num_steps, 1))
+    finally:
+        engine.stop()
+    caps = [c or SD15_T_MAX for c in SD15_ENGINE_CAPS]
+    direct, _ = counted("engine's direct call", lambda: runner(
+        texts + texts[-1:], seeds + seeds[-1:], caps + caps[-1:]),
+        lambda r: (k1_a_forward * loops[-1].num_steps, 1))
+    m.agent.sample = sample
+    for i, (a, b) in enumerate(zip(got, direct)):
+        if not (np.array_equal(a["image"], b["image"]) and a["sigmas"] == b["sigmas"]
+                and a["inference_steps"] == b["inference_steps"]):
+            fail(f"sd15 engine row {i} differs from the direct call: steps "
+                 f"{a['inference_steps']} / {b['inference_steps']}")
+        if SD15_ENGINE_CAPS[i] is not None and a["inference_steps"] != SD15_ENGINE_CAPS[i]:
+            fail(f"sd15 engine row {i}: {a['inference_steps']} steps under cap "
+                 f"{SD15_ENGINE_CAPS[i]}")
+    stats = engine.stats()
+    phase("sd15 engine", f"BatchingEngine(max_batch=4, runner=make_sd15_runner(...)): 3 requests, "
+                         f"caps {SD15_ENGINE_CAPS}, steps {[x['inference_steps'] for x in got]}, "
+                         f"{sec_engine:.3f} s; each row equal to a direct runner call of the "
+                         f"padded batch to the bit; stats batches_run {stats['batches_run']}, "
+                         f"padded_slots {stats['padded_slots']}")
+    phase("sd15 phase", f"{time.perf_counter() - t_phase:.1f} s; K1 {totals[0]}, K2 {totals[1]} "
+                        f"launches; {smi}")
+    del m, pipe, runner, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals[0], totals[1], k1_entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3931,6 +4327,10 @@ def main() -> int:
         k1_sd35, k2_sd35, k4_sd35 = sd35_phase(args.seed, dev)  # 16
         for name, entries in sd35_kernels.items():
             kernels[name].update(entries)
+        gc.collect()
+        torch.cuda.empty_cache()
+        k1_sd15, k2_sd15, sd15_k1 = sd15_phase(args.seed, dev, smi)  # 18
+        kernels["K1"].update(sd15_k1)
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -3941,12 +4341,12 @@ def main() -> int:
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
              "launches": (k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35
-                          + k1_i2i),
+                          + k1_i2i + k1_sd15),
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
              "launches": (k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35
-                          + k2_i2i),
+                          + k2_i2i + k2_sd15),
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

@@ -204,6 +204,73 @@ def test_k1_mask_with_strongly_negative_scores(device):
     _assert_close(out, ref)
 
 
+# K1 at the SD1.5 UNet's head dims at 512 px, at the CFG batches that its
+# requests run: 2 (batch 1), 4 (batch 2) and 8 (the engine's batch of four);
+# each level's self-attention and its cross-attention against the 77 text
+# tokens
+UNET_SHAPES = [
+    shape for b in (2, 4, 8) for shape in (
+        (b, 8, 4096, 4096, 40), (b, 8, 4096, 77, 40),  # level 0, 320 channels
+        (b, 8, 1024, 1024, 80), (b, 8, 1024, 77, 80),  # level 1, 640
+        (b, 8, 256, 256, 160), (b, 8, 256, 77, 160),  # level 2, 1280
+        (b, 8, 64, 64, 160), (b, 8, 64, 77, 160),  # the mid block
+    )
+]
+
+
+@pytest.mark.parametrize("shape", UNET_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_unet_head_dims_match_plain(device, shape):
+    b, h, n_q, n_kv, d = shape
+    q, k, v = _qkv(device, b, h, n_q, n_kv, d, seed=n_q + d)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_close(out, _blocked_plain(q, k, v, rows=1024))
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("n_q,n_kv,kv_len", [(1, 77, None), (65, 129, None), (193, 300, 257),
+                                             (129, 256, 1), (64, 128, 100)])
+def test_k1_unet_head_dims_tile_edges(device, d, n_q, n_kv, kv_len):
+    """The padded instantiations at ragged query blocks (64 rows a consumer:
+    192 a block at d 40, 128 at d 80, 64 at d 160) and kv walks that end
+    mid-tile, masked or not."""
+    q, k, v = _qkv(device, 1, 2, n_q, n_kv, d, seed=n_q * 3 + n_kv + d)
+    _assert_close(flash_attention(q, k, v, kv_len), attention_reference(q, k, v, kv_len))
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_k1_unet_head_dims_strongly_negative_scores(device, d):
+    q, k, v = _qkv(device, 1, 2, 128, 256, d, seed=30 + d)
+    q[..., 0] += 12.0
+    k[..., 0] = -80.0
+    _assert_close(flash_attention(q, k, v, 200),
+                  attention_reference(q, k[:, :, :200], v[:, :, :200]))
+
+
+def test_k1_d40_scales_by_the_true_head_dim(device):
+    """At d 40 the rows are padded to 64 columns: a softmax scaled by
+    1/sqrt(64) instead of 1/sqrt(40) is far outside the bound here (scores
+    of order 10), and the kernel must match the true scale."""
+    q, k, v = _qkv(device, 1, 2, 256, 256, 40, seed=41)
+    q = (q.float() * 2.0).to(torch.bfloat16)
+    out = flash_attention(q, k, v)
+    _assert_close(out, attention_reference(q, k, v))
+    q_padded_scale = (q.float() * (40 / 64) ** 0.5).to(torch.bfloat16)
+    wrong = attention_reference(q_padded_scale, k, v)
+    assert (out.float() - wrong.float()).abs().max() > 10 * ATOL
+
+
+@pytest.mark.parametrize("d", [32, 48, 96, 128])
+def test_k1_raises_on_other_head_dims(device, d):
+    q, k, v = _qkv(device, 1, 1, 64, 64, d, seed=d)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+
+
 def _reference_stats(q, k, v, kv_len, rows=1024):
     """attention_reference_stats over blocks of ``rows`` query rows."""
     parts = [attention_reference_stats(q[:, :, i:i + rows], k, v, kv_len)

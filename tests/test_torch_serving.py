@@ -331,10 +331,17 @@ def test_stop_restart_and_submit_after_stop(toy):
 
 def test_validation_and_options_not_ported(toy):
     pipe, tokenize = toy
-    for kw, item in ((dict(dp=2), "9\\(d\\)"), (dict(mesh_shape=(1, 1, 1)), "14"),
-                     (dict(runner=lambda *a: []), "12")):
+    for kw, item in ((dict(dp=2), "9\\(d\\)"), (dict(mesh_shape=(1, 1, 1)), "14")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
             BatchingEngine(pipe, tokenize, **kw)
+    # a family runner is ported (serving_families.make_sd15_runner); the
+    # engine refuses the SD3-only options beside it, as the JAX engine does
+    stub = lambda prompts, seeds, caps: [{"image": None, "inference_steps": 1,
+                                          "sigmas": []}] * len(prompts)
+    assert BatchingEngine(None, tokenize, max_batch=2, runner=stub).generate_batch(
+        ["a"], [0]) == stub(["a"], [0], [1])
+    with pytest.raises(ValueError, match="resolutions"):
+        BatchingEngine(pipe, tokenize, runner=stub, resolutions=[2 * PX])
     eng = _engine(toy)
     with pytest.raises(NotImplementedError, match="13\\(b\\)"):
         eng.register_adapter("a", {})

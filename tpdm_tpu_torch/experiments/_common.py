@@ -85,8 +85,11 @@ def require_card() -> torch.device:
     return torch.device("cuda")
 
 
-def median_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of fn() after ``warmup`` calls."""
+def median_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
+              calls: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of fn() after ``warmup`` calls;
+    each timing brackets ``calls`` back-to-back calls and is divided by
+    them."""
     for _ in range(warmup):
         fn()
     times = []
@@ -94,10 +97,11 @@ def median_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> floa
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 

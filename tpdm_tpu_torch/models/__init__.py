@@ -1,7 +1,8 @@
-"""Models of the port: the SD3 MMDiT, the Time Prediction Module and the
-SD3 VAE decoder; the text towers in ``models.clip_text`` and
-``models.t5``."""
+"""Models of the port: the SD3 MMDiT, the SD1.5 / SDXL UNet, the Time
+Prediction Module and the VAEs; the text towers in ``models.clip_text``
+and ``models.t5``."""
 
 from tpdm_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
 from tpdm_tpu_torch.models.tpm import TimePredictor, reshape_tokens_to_2d
+from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
 from tpdm_tpu_torch.models.vae import VAE, VAEConfig

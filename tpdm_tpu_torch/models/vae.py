@@ -1,4 +1,4 @@
-"""SD3 VAE (AutoencoderKL layout) in PyTorch, NCHW: decoder and encoder.
+"""The SD VAEs (AutoencoderKL layout) in PyTorch, NCHW: decoder and encoder.
 
 Counterpart of ``tpdm_tpu/models/vae.py``. The mid-block attention of both
 halves (one head, 512 wide, 16384 tokens at 1024 px) runs kernel K2 on the
@@ -37,6 +37,21 @@ class VAEConfig:
     @classmethod
     def sd3(cls, **kw) -> "VAEConfig":
         return cls(**kw)
+
+    @classmethod
+    def sd15(cls, **kw) -> "VAEConfig":
+        """SD1.5's AutoencoderKL: 4 latent channels, scaling 0.18215, no shift."""
+        d = dict(latent_channels=4, scaling_factor=0.18215, shift_factor=0.0)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def sdxl(cls, **kw) -> "VAEConfig":
+        """SDXL's AutoencoderKL: SD1.5's topology at scaling 0.13025 (a wrong
+        scaling factor decodes silently wrong)."""
+        d = dict(latent_channels=4, scaling_factor=0.13025, shift_factor=0.0)
+        d.update(kw)
+        return cls(**d)
 
     @classmethod
     def toy(cls, **kw) -> "VAEConfig":

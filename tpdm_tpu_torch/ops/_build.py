@@ -53,6 +53,9 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 ENTRIES = {
     "tpdm_flash_attention_d64": [_P] * 4 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_d40": [_P] * 4 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_d80": [_P] * 4 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_d160": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d512": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_stats_d64": [_P] * 6 + [_I] * 4 + [_P],
     "tpdm_int8_gemm": [_P] * 6 + [_I] * 3 + [_P],

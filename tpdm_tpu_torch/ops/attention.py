@@ -96,13 +96,18 @@ def _launch(entry: str, q, k, v, kv_len: int, *stats: torch.Tensor) -> torch.Ten
     return out
 
 
+# K1's head dims: 64 (the MMDiT) and the SD1.5 UNet's 40, 80 and 160
+K1_HEAD_DIMS = (40, 64, 80, 160)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """K1: fused non-causal attention at head_dim 64 (MMDiT joint attention).
+    """K1: fused non-causal attention at head_dim 64 (MMDiT joint attention)
+    and 40, 80, 160 (the SD1.5 UNet's 8 heads of 320, 640 and 1280).
 
     Replaces ``tpdm_tpu/ops/attention.py:_flash_kernel`` (driven by
     ``_flash_attention_fwd_impl``): softmax(QK^T/sqrt(d))V per batch*head
@@ -111,16 +116,22 @@ def flash_attention(
     (2, 24, 4480, 64) is compute bound; the kernel runs its two products as
     wgmma (bf16, fp32 accumulate) on K and V tiles that a producer warp
     brings by TMA through a shared-memory ring, 192 query rows a block.
-    ``csrc/attn_sm90.cu`` holds the design note.
+    The other head dims are the same kernel on rows padded to whole
+    64-column TMA boxes (TMA zero-fills the padding, the store clips it),
+    with the softmax scale of the true head dim. ``csrc/attn_sm90.cu``
+    holds the design note.
 
-    CUDA: bf16, contiguous (b, h, n, 64) tensors, none requiring grad
-    while grad mode is on, or it raises. CPU: the plain version
-    ``attention_reference``.
+    CUDA: bf16, contiguous (b, h, n, d) tensors with d in ``K1_HEAD_DIMS``,
+    none requiring grad while grad mode is on, or it raises. CPU: the plain
+    version ``attention_reference``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_len)
-    kv_len = _check_kernel_operands("flash_attention", q, k, v, 64, kv_len)
-    out = _launch("tpdm_flash_attention_d64", q, k, v, kv_len)
+    d = q.shape[-1]
+    if d not in K1_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d}; the kernel takes {K1_HEAD_DIMS}")
+    kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len)
+    out = _launch(f"tpdm_flash_attention_d{d}", q, k, v, kv_len)
     flash_attention.launches += 1
     return out
 
@@ -246,8 +257,8 @@ def joint_attention(
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention routed by head width: 512 (the VAE's single wide head) to
-    K2, anything else to K1, which on CUDA takes head_dim 64 only. On CPU
-    tensors both run the plain version."""
+    K2, anything else to K1, which on CUDA takes the head dims of
+    ``K1_HEAD_DIMS`` only. On CPU tensors both run the plain version."""
     if q.shape[-1] == 512:
         return flash_attention_streaming(q, k, v, kv_len)
     return flash_attention(q, k, v, kv_len)

@@ -1,5 +1,7 @@
 """Generation: the CFG denoisers, the adaptive and fixed-schedule samplers
-and the pipeline; SD3 prompt encoding in ``pipeline.text_encoding``."""
+and the pipeline; SD3 prompt encoding in ``pipeline.text_encoding``; the
+SD1.5 family's integer-t loop in ``pipeline.sd15_sampler`` and its
+pipeline in ``pipeline.variants``."""
 
 from tpdm_tpu_torch.pipeline.pipeline import GenerationResult, TPDMPipeline
 from tpdm_tpu_torch.pipeline.sampler import (
@@ -16,3 +18,4 @@ from tpdm_tpu_torch.pipeline.sampler import (
     replay_logprobs,
     solver_nfe,
 )
+from tpdm_tpu_torch.pipeline.variants import SD15Pipeline, VariantResult

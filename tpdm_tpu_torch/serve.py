@@ -30,8 +30,17 @@ no ``transformers`` fallback):
 
     python -m tpdm_tpu_torch.serve --pretrained DIR --tpm tpm.safetensors --cli
 
+``--family sd15 --toy`` serves the SD1.5 family's toy world (UNet, CLIP
+tower, TPM and VAE drawn from the same seed) through ``serving_families.
+make_sd15_runner``, on ``--cli`` or the HTTP engine, on the CPU only
+(``--cpu``: the toy UNet's head dims have no K1 kernel); a full-width SD1.5
+model is served through the library (build an ``SD15Agent`` and call
+``make_sd15_runner``), as with the JAX package:
+
+    python -m tpdm_tpu_torch.serve --family sd15 --toy --cpu --cli --prompt "a cat"
+
 Not ported yet, each exiting with a message that names its ROADMAP queue 1
-item: ``--family`` other than sd3 (12),
+item: ``--family sdxl|flux`` (12), ``--family sd15 --continuous`` (12),
 ``--dp`` / ``--mesh`` (9(d) and 14), ``--lora*`` (13(b)), ``--few_step``
 (9(e)), ``--quant_text`` (13(a)) and ``--reward_checkpoint`` (8); gradio
 is not ported. Importing the module starts nothing.
@@ -211,6 +220,68 @@ def build_pipeline(args):
     return TPDMPipeline(mmdit, tpm, vae, text_encoders=text), toy_tokenize
 
 
+def build_family_world(args):
+    """``--family sd15``: the toy SD1.5 world as the root serve.py builds it
+    (the toy UNet at cross-attention width 32, an 8-token CLIP tower 32
+    wide, a 4-channel TPM, the toy VAE at 4 latent channels, at most 8
+    steps), weights N(0, 0.02²) from ``TOY_SEED``: a dict of the agent, its
+    TPM, ``encode``, ``decode`` and the fixed-batch ``runner``. None for
+    sd3. Without ``--toy`` it exits: a full-width model is built in the
+    library and served with ``make_sd15_runner``. The toy world runs on
+    the CPU only (``--cpu``): its UNet's head dims (4, 6, 8) have no K1
+    kernel on the card."""
+    fam = getattr(args, "family", "sd3")
+    if fam == "sd3":
+        return None
+    if fam != "sd15":
+        raise SystemExit(str(not_ported(f"--family {fam}", "12")))
+    if not getattr(args, "toy", False):
+        raise SystemExit(f"--family {fam} currently serves --toy configs from the CLI; for "
+                         "real checkpoints build a runner with "
+                         "tpdm_tpu_torch.serving_families.make_sd15_runner")
+    if _quant_bits(args) is not None:
+        raise SystemExit("--int8/--int4 are not supported for --family sd15 (quantization "
+                         "covers the MMDiT/FLUX transformer backbones)")
+    if not getattr(args, "cpu", False):
+        raise SystemExit(f"--family {fam} --toy runs on the CPU: pass --cpu (the toy UNet's "
+                         "head dims have no K1 kernel on the card; there, build a full-width "
+                         "runner with tpdm_tpu_torch.serving_families.make_sd15_runner)")
+    from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from tpdm_tpu_torch.models.tpm import TimePredictor
+    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.serving_families import make_sd15_runner, make_vae_decoder
+    from tpdm_tpu_torch.train.config import RLOOConfig
+    from tpdm_tpu_torch.train.sd15_agent import SD15Agent
+
+    device = _device(args)
+    ucfg = UNetConfig.toy(cross_attention_dim=32)
+    ch0 = ucfg.block_out_channels[0]
+    g = torch.Generator(device=device).manual_seed(TOY_SEED)
+    with torch.device(device):
+        unet = UNetSD15(ucfg).init_weights(g)
+        text = CLIPTextModel(CLIPTextConfig.toy(hidden_size=32, max_position_embeddings=8))
+        vae = VAE(VAEConfig.toy(latent_channels=4))
+    text.init_weights(g).eval()
+    vae.init_weights(g)
+    agent = SD15Agent(unet, RLOOConfig(max_inference_steps=min(args.max_steps, 8)),
+                      tpm=lambda: TimePredictor(conv_out_channels=4, in_channels=2 * ch0,
+                                                temb_dim=ch0))
+    tpm = agent.init_tpm_params(g).eval()
+
+    @torch.no_grad()
+    def encode(prompts):
+        ids = torch.as_tensor(np.concatenate([toy_tokenize(p)[0] for p in prompts]),
+                              device=device).long()
+        return text(ids)[1], text(torch.zeros_like(ids))[1]
+
+    ci, gi, tau = _accel_kwargs(args)
+    decode = make_vae_decoder(vae)
+    return dict(family=fam, agent=agent, tpm_params=tpm, encode=encode, decode=decode,
+                runner=make_sd15_runner(agent, tpm, encode, decode, cache_interval=ci,
+                                        guidance_interval=gi, cache_tau=tau))
+
+
 def generate(pipe, tokenize, prompt, seed, max_steps, cache_interval=0,
              guidance_interval=None, cache_tau=0.0, solver="euler"):
     """One prompt through ``pipe.generate`` at batch 1, the negative the
@@ -255,15 +326,27 @@ def _pipe_vae_scale_factor(pipe) -> int:
     return vae_scale_factor(pipe.vae.config)
 
 
-def make_engine(pipe, tokenize, args):
+def make_engine(pipe, tokenize, args, runner=None):
     """The serving engine for ``args``: a ``BatchingEngine``, or with
     ``--continuous`` a ``ContinuousBatchingEngine`` (``--max_batch``
     slots), or with ``--continuous --resolutions`` a
     ``MultiResContinuousRouter``. The continuous engines take the Δ-cache
     per segment (``--cache_interval``) and exit on ``--guidance_interval``
-    and ``--cache_tau``, as the root serve.py does."""
+    and ``--cache_tau``, as the root serve.py does. With a family
+    ``runner``, a ``BatchingEngine`` over it (``pipe`` None)."""
     from tpdm_tpu_torch.serving import BatchingEngine
 
+    if runner is not None:
+        if _resolutions(args):
+            raise SystemExit("--resolutions is SD3-only (fixed-batch sub-batches or "
+                             "MultiResContinuousRouter); the sd15 family agent serves one "
+                             "latent geometry")
+        if getattr(args, "continuous", False):
+            raise SystemExit(str(not_ported("--continuous for --family sd15 "
+                                            "(ContinuousSD15Engine)", "12")))
+        return BatchingEngine(None, tokenize, max_batch=args.max_batch,
+                              window_ms=args.batch_window_ms, max_steps=args.max_steps,
+                              runner=runner)
     ci, gi, tau = _accel_kwargs(args)
     solver = getattr(args, "solver", "euler")
     if not getattr(args, "continuous", False):
@@ -298,19 +381,20 @@ def _alive(engine) -> bool:
     return all(e._thread is not None for e in engines)
 
 
-def make_http_server(pipe, tokenize, args, ranker=None):
+def make_http_server(pipe, tokenize, args, ranker=None, runner=None):
     """A threaded HTTP server over ``make_engine``'s engine: concurrent
     requests coalesce into one batch, or share the continuous engine's
     slots. ``ranker`` (``train.builders.build_inference_ranker``) ranks
     ``/rank``'s candidates; without one they come back unranked. Returns
-    (engine, server); start the engine, then ``server.serve_forever()``."""
+    (engine, server); start the engine, then ``server.serve_forever()``.
+    ``runner``: a family runner, served by a ``BatchingEngine`` over it."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from tpdm_tpu_torch.serving import EngineOverloaded, RequestExpired, generate_ranked
     from tpdm_tpu_torch.utils.image import read_png_rgb
     from tpdm_tpu_torch.utils.metrics_export import prometheus_text
 
-    engine = make_engine(pipe, tokenize, args)
+    engine = make_engine(pipe, tokenize, args, runner=runner)
 
     def not_served(req):
         """Request fields whose options are not ported: a 400 naming them."""
@@ -529,8 +613,10 @@ def parse_args(argv=None):
     for name, (what, item) in _NOT_PORTED_FLAGS.items():
         if getattr(args, name):
             raise SystemExit(str(not_ported(what, item)))
-    if args.family != "sd3":
+    if args.family not in ("sd3", "sd15"):
         raise SystemExit(str(not_ported(f"--family {args.family}", "12")))
+    if args.family != "sd3" and args.solver != "euler":
+        raise SystemExit("--solver serves the SD3 engines and --cli; family runners keep euler")
     if args.solver != "euler" and args.continuous and args.resolutions:
         raise SystemExit("--solver with --continuous serves the single-resolution engine; "
                          "drop --resolutions")
@@ -540,7 +626,25 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    pipe, tokenize = build_pipeline(args)
+    world = build_family_world(args)
+    runner = None
+    if world is not None:
+        runner = world["runner"]
+        pipe = None
+
+        def tokenize(prompt, _n=None):  # the runner encodes; the engine needs the prompts
+            return None, None
+
+        if args.cli:
+            from tpdm_tpu_torch.utils.image import write_png
+
+            res = runner([args.prompt], [args.seed], [args.max_steps])[0]
+            write_png(args.out, res["image"])
+            print(f"saved {args.out}; inference steps: {res['inference_steps']} / cap "
+                  f"{args.max_steps}")
+            return
+    else:
+        pipe, tokenize = build_pipeline(args)
 
     if args.cli:
         from tpdm_tpu_torch.utils.image import write_png
@@ -554,7 +658,7 @@ def main(argv=None):
         print(f"saved {args.out}; inference steps: {nfe} / cap {args.max_steps}")
         return
 
-    engine, server = make_http_server(pipe, tokenize, args)
+    engine, server = make_http_server(pipe, tokenize, args, runner=runner)
     engine.start()
     streamer = None
     if args.tb_dir:

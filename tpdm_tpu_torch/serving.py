@@ -29,12 +29,17 @@ Counterpart of ``tpdm_tpu/serving.py``'s ``BatchingEngine``. It:
   same batch shape. It is not the JAX package's image for that seed:
   ``jax.random`` and ``torch.Generator`` draw different numbers.
 
+A model family other than SD3 is served through a ``runner`` (``serving_
+families.make_sd15_runner``): the engine keeps the queue, the window, the
+padding and the stats, the runner owns tokenize, encode, sample and
+decode, and per-request resolutions, guidance, negatives, img2img and the
+engine-level acceleration options are refused, as in JAX.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: data-parallel replicas and the sharded mesh (``dp``,
-``mesh_shape``: 9(d) and 14), the family runners (``runner``: 12) and LoRA
-adapters (``register_adapter``, ``lora=``: 13(b)). The continuous engine,
-which refills a finished request's slot mid-denoise, is
-``serving_continuous.py``.
+``mesh_shape``: 9(d) and 14) and LoRA adapters (``register_adapter``,
+``lora=``: 13(b)). The continuous engine, which refills a finished
+request's slot mid-denoise, is ``serving_continuous.py``.
 """
 
 from __future__ import annotations
@@ -169,7 +174,7 @@ class BatchingEngine:
     """Coalesces requests into fixed-shape batches for one pipeline.
 
     Args:
-        pipe: a ``TPDMPipeline`` with ``text_encoders``.
+        pipe: a ``TPDMPipeline`` with ``text_encoders``; None with a runner.
         tokenize: prompt -> (clip_ids (1, 77), t5_ids (1, L)) numpy arrays.
         max_batch: the batch size; partial batches are padded to it.
         window_ms: how long to wait for more requests after the first.
@@ -189,9 +194,12 @@ class BatchingEngine:
             own.
         vae_scale_factor: image pixels per latent cell (8 for SD3's VAE).
         cache_interval, guidance_interval, cache_tau, solver: as in
-            ``TPDMPipeline.generate``, for every batch.
-        dp, mesh_shape, runner: not ported (ROADMAP queue 1, items 9(d),
-            14 and 12).
+            ``TPDMPipeline.generate``, for every batch (not with a runner,
+            which takes them where it is built).
+        runner: ``(prompts, seeds, caps) -> [{image, inference_steps,
+            sigmas}, ...]`` over the padded batch, in place of the SD3
+            pipeline (``serving_families.make_sd15_runner``).
+        dp, mesh_shape: not ported (ROADMAP queue 1, items 9(d) and 14).
     """
 
     def __init__(
@@ -219,8 +227,15 @@ class BatchingEngine:
             raise not_ported("dp (data-parallel replicas)", "9(d)")
         if mesh_shape is not None:
             raise not_ported("mesh_shape (sharded-model serving)", "14")
-        if runner is not None:
-            raise not_ported("runner (the model families' runners)", "12")
+        if runner is not None and resolutions:
+            raise ValueError("per-request resolutions are SD3-pipeline-only")
+        if runner is not None and (cache_interval or guidance_interval or cache_tau):
+            raise ValueError("cache_interval/guidance_interval on the engine apply to the SD3 "
+                             "pipeline path; family runners take them at construction "
+                             "(serving_families.make_*_runner)")
+        if runner is not None and solver != "euler":
+            raise ValueError("solver applies to the SD3 pipeline path; family runners own "
+                             "their sampler configs")
         if solver not in ("euler", "ab2"):
             raise ValueError("engine solver must be 'euler' or 'ab2' (the adaptive loop "
                              f"has no two-eval solvers), got {solver!r}")
@@ -232,6 +247,7 @@ class BatchingEngine:
                              "(engine guidance_scale=None)")
         self.pipe = pipe
         self.tokenize = tokenize
+        self._runner = runner
         self.max_batch = max_batch
         self.window_ms = window_ms
         self.max_steps = max_steps
@@ -256,8 +272,11 @@ class BatchingEngine:
         self.embed_hits = 0
         self.embed_misses = 0
         self.vae_scale_factor = vae_scale_factor
-        self.default_resolution = pipe.mmdit.config.sample_size * vae_scale_factor
-        self.resolutions = set(resolutions or []) | {self.default_resolution}
+        self.default_resolution = (pipe.mmdit.config.sample_size * vae_scale_factor
+                                   if pipe is not None else None)
+        self.resolutions = set(resolutions or [])
+        if self.default_resolution is not None:
+            self.resolutions.add(self.default_resolution)
         for r in self.resolutions:
             lat = r // vae_scale_factor
             if lat * vae_scale_factor != r or lat < 1:
@@ -386,6 +405,9 @@ class BatchingEngine:
                              "engine (this one was built with guidance_scale=None)")
         gds = gds + [gds[-1]] * pad
         negs = negs + [negs[-1]] * pad
+        if self._runner is not None:
+            return self._run_runner(prompts, seeds, caps, n, pad, record_stats,
+                                    any(im is not None for im in imgs), gds, negs)
         gs_batch = None
         if self.guidance_scale is not None:
             gs_batch = np.asarray([self.guidance_scale if g is None else float(g) for g in gds],
@@ -472,6 +494,25 @@ class BatchingEngine:
                         "sigmas": np.asarray(res.sigmas[i][:nfe]).tolist()})
         return out
 
+    def _run_runner(self, prompts, seeds, caps, n, pad, record_stats, any_img2img, gds, negs):
+        """A padded batch through the family runner, with the engine's stats."""
+        if any_img2img:
+            raise ValueError("img2img is SD3-pipeline-engine-only")
+        if any(g is not None for g in gds) or any(negs):
+            raise ValueError("per-request guidance/negative prompts are SD3-pipeline-engine-only")
+        t_start = time.monotonic()
+        results = self._runner(prompts, seeds, caps)
+        t_done = time.monotonic()
+        if len(results) != self.max_batch:
+            raise RuntimeError(f"runner returned {len(results)} results for a padded batch "
+                               f"of {self.max_batch}")
+        if record_stats:
+            self.batches_run += 1
+            self.padded_slots += pad
+            self._stage_times.append({"batch": n, "padded": pad, "device_s": t_done - t_start,
+                                      "total_s": t_done - t_start})
+        return results[:n]
+
     # -- async surface -------------------------------------------------------
     def submit(
         self, prompt: str, seed: int = 0, steps: Optional[int] = None,
@@ -491,6 +532,13 @@ class BatchingEngine:
             raise not_ported("lora (LoRA adapters)", "13(b)")
         if steps is not None and steps < 1:
             raise ValueError("steps must be >= 1")
+        if self._runner is not None:
+            if guidance_scale is not None or negative_prompt:
+                raise ValueError("per-request guidance/negative prompts are SD3-only")
+            if init_image is not None or strength is not None:
+                raise ValueError("img2img needs the SD3 pipeline engine with a VAE")
+            if resolution is not None:
+                raise ValueError("per-request resolutions are SD3-only")
         if guidance_scale is not None or negative_prompt:
             if self.guidance_scale is None:
                 raise ValueError("per-request guidance/negative prompts need a CFG-enabled "

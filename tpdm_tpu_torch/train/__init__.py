@@ -1,5 +1,6 @@
 """Training of the port: RLOO/PPO of the TPM over a frozen SD3 backbone,
-its config, checkpoints and builders."""
+its config, checkpoints and builders; the SD1.5 agent in
+``train.sd15_agent``."""
 
 from tpdm_tpu_torch.train.config import RLOOConfig
 from tpdm_tpu_torch.train.rloo import (
@@ -13,3 +14,4 @@ from tpdm_tpu_torch.train.rloo import (
     ppo_loss,
     rloo_advantages,
 )
+from tpdm_tpu_torch.train.sd15_agent import SD15Agent

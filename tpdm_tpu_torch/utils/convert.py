@@ -374,3 +374,79 @@ def convert_t5(state_dict: Mapping, num_layers: int, dtype=None) -> Dict[str, to
     """transformers ``T5EncoderModel`` state dict -> state dict of
     ``models.t5.T5Encoder``."""
     return _renamed(state_dict, _t5_keys(num_layers), dtype)
+
+
+# ---------------------------------------------------------------------------
+# SD1.5 UNet (diffusers UNet2DConditionModel <-> models.unet_sd15.UNetSD15)
+# ---------------------------------------------------------------------------
+
+
+def unet_sd15_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.unet_sd15.UNetSD15`` from the JAX UNet's
+    params (any of its configs: SD1.x, SDXL, the refiner)."""
+    return _flax_to_state_dict(flax_params)
+
+
+_UNET_ATTN_RENAMES = (
+    (re.compile(r"^block\.(attn[12])_to_out\."), r"transformer_blocks.0.\1.to_out.0."),
+    (re.compile(r"^block\.(attn[12])_(to_[qkv])\."), r"transformer_blocks.0.\1.\2."),
+    (re.compile(r"^block\.ff_proj\."), "transformer_blocks.0.ff.net.0.proj."),
+    (re.compile(r"^block\.ff_out\."), "transformer_blocks.0.ff.net.2."),
+    (re.compile(r"^block\."), "transformer_blocks.0."),
+)
+_UNET_RENAMES = (
+    (re.compile(r"^time_linear_(\d)\."), r"time_embedding.linear_\1."),
+    (re.compile(r"^(down|up)_(\d+)_resnet_(\d+)\."), r"\1_blocks.\2.resnets.\3."),
+    (re.compile(r"^mid_resnet_(\d+)\."), r"mid_block.resnets.\1."),
+    (re.compile(r"^(down|up)_(\d+)_attn_(\d+)\."), r"\1_blocks.\2.attentions.\3."),
+    (re.compile(r"^mid_attn\."), "mid_block.attentions.0."),
+    (re.compile(r"^down_(\d+)_downsample\."), r"down_blocks.\1.downsamplers.0.conv."),
+    (re.compile(r"^up_(\d+)_upsample\."), r"up_blocks.\1.upsamplers.0.conv."),
+)
+
+
+def _unet_sd15_keys(block_out_channels, layers_per_block: int):
+    """[(diffusers key, port key)] of an SD1.5-topology UNet (one
+    transformer block a level): the port's keys from the module built on
+    the meta device, each renamed to diffusers' layout."""
+    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
+
+    cfg = UNetConfig(block_out_channels=tuple(block_out_channels),
+                     layers_per_block=layers_per_block)
+    with torch.device("meta"):
+        port_keys = list(UNetSD15(cfg).state_dict())
+    keys = []
+    for dst in port_keys:
+        src = dst
+        for pattern, repl in _UNET_RENAMES:
+            m = pattern.match(src)
+            if m:
+                head, rest = pattern.sub(repl, src[:m.end()]), src[m.end():]
+                if "attentions" in head:
+                    for p_attn, r_attn in _UNET_ATTN_RENAMES:
+                        if p_attn.match(rest):
+                            rest = p_attn.sub(r_attn, rest, count=1)
+                            break
+                src = head + rest
+                break
+        keys.append((src, dst))
+    return keys
+
+
+def convert_unet_sd15(
+    state_dict: Mapping,
+    block_out_channels=(320, 640, 1280, 1280),
+    layers_per_block: int = 2,
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """diffusers SD1.5 ``UNet2DConditionModel`` state dict (3
+    CrossAttnDownBlock2D + DownBlock2D, UNetMidBlock2DCrossAttn, UpBlock2D +
+    3 CrossAttnUpBlock2D) -> state dict of ``models.unet_sd15.UNetSD15``."""
+    return _renamed(state_dict, _unet_sd15_keys(block_out_channels, layers_per_block), dtype)
+
+
+def export_unet_sd15(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_unet_sd15``: a ``UNetSD15(cfg)`` state dict ->
+    the diffusers layout, contiguous CPU tensors."""
+    keys = _unet_sd15_keys(cfg.block_out_channels, cfg.layers_per_block)
+    return {src: _tensor(state_dict[dst].detach().cpu()) for src, dst in keys}
