@@ -206,6 +206,29 @@ Phases, one line each, and any failure exits non-zero:
    direct runner call on the same padded batch to the bit, caps exact. K1
    (32 a forward) and K2 (one an encode, one a decode) are checked exactly
    around every call.
+19. SDXL at 1024 px (CFG 5.0, predict=True, TPM head bias (1.0, 0.55),
+   at most 25 steps) and the UNet families' continuous engines, after
+   phase 18's models are freed: K1 at d 64 at SDXL's shapes (the base's 10
+   heads over 4096 tokens and 20 over 1024 at CFG batch 2, 4 and 8, the
+   refiner's 12 over 4096, 24 over 1024 and 256 at CFG batch 2 and 4, each
+   with its cross-attention against 77 text tokens) and at the toy
+   worlds' head dims below 64 (padded to 64 columns) against its plain
+   version, timed as phase 18 times it; ContinuousSD15Engine(slots=4,
+   seg_steps=4) at full SD1.5 width at 512 px on a burst of 8 requests
+   with mixed caps, then the same burst through BatchingEngine(max_batch=4)
+   over make_sd15_runner: every schedule equal, every image equal or within
+   the 1-level seam, makespan and p50 side by side; the SDXL base (2.6 B
+   parameters) and refiner (2.3 B), CLIP-L, bigG and the SDXL VAE drawn in
+   bf16; one base forward at CFG batch 2 against an fp32 copy on the card
+   and its warm time; SDXLPipeline.generate from text through
+   SDXLTextEncoders at batch 1 and 2; the refiner on the decoded batch-1
+   image at strength 0.3; the ensemble at denoising_end 0.8 through
+   make_sdxl_ensemble_runner behind BatchingEngine; ContinuousSDXLEngine's
+   burst as the SD1.5 engine's; and ``serve --family sdxl --toy`` and
+   ``serve --family sd15 --continuous --toy`` on the card, one HTTP
+   /generate each. K1 (140 a base forward, 88 a refiner forward, 32 an
+   SD1.5 forward) and K2 (one an encode or decode) are checked exactly
+   around every call.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -4073,15 +4096,16 @@ def sd15_models(seed, dev):
                               seconds=time.perf_counter() - t0)
 
 
-def check_sd15_schedule(res, b, px, t0=999):
+def check_sd15_schedule(res, b, px, t0=999, t_max=SD15_T_MAX):
     """uint8 images of (b, px, px, 3) and integer timesteps that start at
-    ``t0`` and fall strictly over each sample's valid steps."""
+    ``t0`` and fall strictly over each sample's valid steps, at most
+    ``t_max`` of them."""
     n = res.num_steps
     if res.images.dtype.name != "uint8" or res.images.shape != (b, px, px, 3):
         fail(f"sd15 images {res.images.dtype} {res.images.shape}, expected uint8 "
              f"({b}, {px}, {px}, 3)")
-    if not 1 <= n <= SD15_T_MAX:
-        fail(f"sd15: {n} steps, expected 1..{SD15_T_MAX}")
+    if not 1 <= n <= t_max:
+        fail(f"sd15: {n} steps, expected 1..{t_max}")
     for i in range(b):
         last = int(res.last_valid_index[i])
         ts = [int(x) for x in res.schedule[i, : last + 2]]
@@ -4264,6 +4288,533 @@ def sd15_phase(seed, dev, smi):
     return totals[0], totals[1], k1_entries
 
 
+# phase 19: SDXL at 1024 px (the base, the refiner, the ensemble) and the
+# UNet families' continuous engines. The sampler's step cap and CFG
+# (SDXLAgent's default), the refiner's strength on a decoded image, the
+# ensemble's denoising_end, each continuous burst's size and caps, and
+# K1's new shapes at d 64: the base's 10 heads over the level-1 grid's
+# 4096 tokens and 20 over level 2's and the mid block's 1024 (CFG batch 2,
+# 4 and 8: a batch-1 and a batch-2 request, the engines' four slots), the
+# refiner's 12 over 4096, 24 over 1024 and 24 over its mid block's 256
+# (CFG batch 2 and 4: a refined image, the ensemble's batch of two), each
+# beside its cross-attention against 77 text tokens; and K1 at the toy
+# worlds' head dims below 64 (padded to 64 columns: the toy UNets' 4, 6
+# and 8 at CFG batch 4, the toy VAE's 16), which the CLI runs serve
+SDXL_T_MAX = 25
+SDXL_GS = 5.0
+SDXL_REFINE_STRENGTH = 0.3
+SDXL_DENOISING_END = 0.8
+SDXL_ENSEMBLE_CAPS = (None, 10)
+FAMILY_BURST = 8  # each continuous engine's burst: example prompts, seeds
+FAMILY_CAPS = (None, 4, None, 8)  # its caps, in turn
+_SDXL_LEVELS = (("l1", 10, 4096), ("l2", 20, 1024))
+_SDXL_REFINER_LEVELS = (("refiner_l1", 12, 4096), ("refiner_l2", 24, 1024),
+                        ("refiner_mid", 24, 256))
+_batch_key = lambda b: "" if b == 2 else f"_batch_{b}"
+SDXL_K1_SHAPES = {
+    **{f"sdxl_{level}_{kind}{_batch_key(b)}": (b, h, n, n if kind == "self" else 77, 64)
+       for b in (2, 4, 8) for level, h, n in _SDXL_LEVELS for kind in ("self", "cross")},
+    **{f"sdxl_{level}_{kind}{_batch_key(b)}": (b, h, n, n if kind == "self" else 77, 64)
+       for b in (2, 4) for level, h, n in _SDXL_REFINER_LEVELS for kind in ("self", "cross")},
+    "toy_d4": (4, 2, 256, 256, 4), "toy_d6": (4, 2, 64, 64, 6), "toy_d8": (4, 2, 16, 16, 8),
+    "toy_xl_d4": (4, 3, 64, 64, 4), "toy_vae_d16": (2, 1, 256, 256, 16),
+}
+
+
+def unet_k1_a_forward(ucfg):
+    """K1 calls of one UNet forward: two a transformer block (depth x
+    layers_per_block down, x (layers_per_block + 1) up, and the mid
+    block's)."""
+    return 2 * (sum(ucfg.depths) * (2 * ucfg.layers_per_block + 1)
+                + ucfg.mid_transformer_layers)
+
+
+def sdxl_models(seed, dev):
+    """Phase 19's SDXL models, N(0, WEIGHT_STD²) weights from ``seed`` on
+    the card in bf16: the base UNet (UNetConfig.sdxl(), 2.6 B parameters),
+    the refiner (sdxl_refiner(), 2.3 B), CLIP-L (12 x 768) and bigG (32 x
+    1280) with a toy CLIP vocabulary of the example prompts (bigG's ids
+    padded with 0 past the first EOS, as its tokenizer pads), the SDXL VAE
+    with its encoder, and SDXLAgent / SDXLRefinerAgent whose TPMs (128
+    channels, bf16 compute) have head bias TPM_HEAD_BIAS. Returns a
+    namespace of them and the encode functions."""
+    from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.pipeline.text_encoding import SDXLTextEncoders
+    from tpdm_tpu_torch.train import RLOOConfig
+    from tpdm_tpu_torch.train.sdxl_agent import SDXLAgent, SDXLRefinerAgent
+    from tpdm_tpu_torch.utils.tokenizer import CLIPTokenizer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 190)
+    modules = []
+    for build in (lambda: UNetSD15(UNetConfig.sdxl()),
+                  lambda: UNetSD15(UNetConfig.sdxl_refiner()),
+                  lambda: CLIPTextModel(CLIPTextConfig.sd3_clip_l()),
+                  lambda: CLIPTextModel(CLIPTextConfig.sd3_clip_g()),
+                  lambda: VAE(VAEConfig.sdxl())):
+        with torch.device(dev):
+            module = build()
+        module.init_weights(gen, WEIGHT_STD)
+        modules.append(module.to(dtype=torch.bfloat16).eval())
+        torch.cuda.empty_cache()  # the fp32 draw
+    unet, refiner, clip_l, clip_g, vae = modules
+    config = RLOOConfig(max_inference_steps=SDXL_T_MAX, init_alpha=TPM_HEAD_BIAS[0],
+                        init_beta=TPM_HEAD_BIAS[1])
+    agent = SDXLAgent(unet, config, guidance_scale=SDXL_GS)
+    ragent = SDXLRefinerAgent(refiner, config, guidance_scale=SDXL_GS)
+    tpm, rtpm = agent.init_tpm_params(gen).eval(), ragent.init_tpm_params(gen).eval()
+    text = SDXLTextEncoders(clip_l, clip_g)
+    with open(REPO / "example" / "prompts.jsonl") as f:
+        prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_clip_vocab(Path(tmp) / "clip", prompts)
+        tok = CLIPTokenizer.from_pretrained(str(Path(tmp) / "clip"), max_length=77)
+
+    def clip_ids(texts):
+        return np.asarray(tok(list(texts), max_length=77)["input_ids"])
+
+    def g_ids(texts):
+        ids = clip_ids(texts).copy()
+        eos = ids == 49407
+        ids[(np.cumsum(eos, axis=1) - eos) > 0] = 0  # past the first EOS
+        return ids
+
+    def pairs(pos, neg):
+        return (pos.prompt_embeds, pos.pooled_prompt_embeds, neg.prompt_embeds,
+                neg.pooled_prompt_embeds)
+
+    def encode(texts):
+        ids = clip_ids(texts)
+        return pairs(text.encode(ids, g_ids(texts)), text.encode(np.zeros_like(ids)))
+
+    def encode_refiner(texts):
+        ids = g_ids(texts)
+        return pairs(text.encode_refiner(ids), text.encode_refiner(np.zeros_like(ids)))
+
+    torch.cuda.synchronize()
+    return argparse.Namespace(unet=unet, refiner=refiner, text=text, vae=vae, agent=agent,
+                              ragent=ragent, tpm=tpm, rtpm=rtpm, clip_ids=clip_ids,
+                              g_ids=g_ids, encode=encode, encode_refiner=encode_refiner,
+                              prompts=prompts, seconds=time.perf_counter() - t0)
+
+
+def recorded_samples(*agents):
+    """Each agent's sample() wrapped to append its outputs to the list
+    returned (the loops' iterations: a row whose t fell below min_time
+    takes one masked step past its valid ones); restore() undoes it."""
+    outs, real = [], [a.sample for a in agents]
+    for agent, sample in zip(agents, real):
+        agent.sample = (lambda *a, _s=sample, _agent=agent, **kw:
+                        outs.append((_agent, _s(*a, **kw))) or outs[-1][1])
+
+    def restore():
+        for agent, sample in zip(agents, real):
+            agent.sample = sample
+
+    return outs, restore
+
+
+def burst(engine, jobs):
+    """``jobs`` at once through a started ``engine``: results, makespan and
+    latency p50 on the host clock (each request's completion polled)."""
+    engine.start()
+    try:
+        start = time.monotonic()
+        reqs = [engine.submit(p, seed=s, steps=c) for p, s, c in jobs]
+        done = [None] * len(reqs)
+        while not all(done):
+            for i, r in enumerate(reqs):
+                if done[i] is None and r._event.is_set():
+                    done[i] = time.monotonic()
+            time.sleep(0.001)
+        results = [r.result(timeout=0) for r in reqs]
+    finally:
+        engine.stop()
+    lat = sorted(t - r.submitted_at for t, r in zip(done, reqs))
+    return results, max(done) - start, lat[len(lat) // 2]
+
+
+def family_continuous(label, counted, agent, tpm, encode, decode, k1_fwd, prompts, seed, smi):
+    """A burst of FAMILY_BURST requests with FAMILY_CAPS through the
+    family's continuous engine (4 slots, seg_steps 4), then through
+    BatchingEngine(max_batch=4) over the family's runner given the
+    continuous engine's embed rows and decoding a row at a time as the
+    continuous engine does (a decode's batch changes its rounding):
+    makespans and p50 side by side, each request's integer schedule and
+    steps equal. A request's final latents and image are then held to the
+    runner at the same CFG batch with the request in its slot's row (runner
+    calls of 4 rows, the requests placed by slot): equal, or the image
+    within the 1-level uint8 seam on under 1 % of pixels; the share equal
+    to the fixed engine's own row is printed. K1 and K2 checked exactly
+    around each burst."""
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.serving_continuous import ContinuousSD15Engine, ContinuousSDXLEngine
+    from tpdm_tpu_torch.serving_families import make_sd15_runner, make_sdxl_runner
+
+    sdxl = label == "sdxl"
+    cls = ContinuousSDXLEngine if sdxl else ContinuousSD15Engine
+    cont = cls(agent, encode, decode=decode, tpm_params=tpm, slots=4, seg_steps=4)
+    cont.warmup()
+    slot_of, finals = {}, {}
+    assign, complete = cont._assign, cont._complete
+
+    def assign_rec(slot, req):
+        slot_of[req.seed] = slot
+        assign(slot, req)
+
+    def complete_rec(req, lat_row, nfe, sigmas):
+        finals[req.seed] = lat_row.clone()
+        complete(req, lat_row, nfe, sigmas)
+
+    cont._assign, cont._complete = assign_rec, complete_rec
+    jobs = [(prompts[i % len(prompts)], seed + i, FAMILY_CAPS[i % len(FAMILY_CAPS)])
+            for i in range(FAMILY_BURST)]
+    (got, span_c, p50_c), _ = counted(
+        f"{label} continuous", lambda: burst(cont, jobs),
+        lambda _: (k1_fwd * cont.seg_steps * cont.segments_run, FAMILY_BURST))
+    stats = cont.stats()
+
+    def rows_encode(texts):
+        rows = [cont._prompt_embeds(t) for t in texts]
+        pe, npe = torch.stack([r[0] for r in rows]), cont._neg_pe.expand(len(texts), -1, -1)
+        if not sdxl:
+            return pe, npe
+        return (pe, torch.stack([r[1] for r in rows]), npe,
+                cont._neg_pp.expand(len(texts), -1))
+
+    calls_z = []  # [seeds, final latents] of each runner call
+
+    def decode_rows(z):
+        calls_z[-1][1] = z
+        return np.concatenate([decode(z[i:i + 1]) for i in range(z.shape[0])])
+
+    make = make_sdxl_runner if sdxl else make_sd15_runner
+    inner = make(agent, tpm, rows_encode, decode_rows)
+
+    def runner(texts, seeds, caps):
+        calls_z.append([list(seeds), None])
+        return inner(texts, seeds, caps)
+
+    T = agent.sampler_cfg.num_inference_steps
+    warm = [p for p, _, _ in jobs[:4]]
+    counted(f"{label} fixed warm-up", lambda: runner(warm, [seed] * 4, [1] * 4), None)
+    decodes = FAMILY_BURST + -FAMILY_BURST % 4  # a batch's padded rows decode too
+    outs, restore = recorded_samples(agent)
+    fixed = BatchingEngine(None, lambda p, _n=None: (None, None), max_batch=4, window_ms=100.0,
+                           max_steps=T, runner=runner)
+    try:
+        (want, span_f, p50_f), _ = counted(
+            f"{label} fixed", lambda: burst(fixed, jobs),
+            lambda _: (k1_fwd * sum(o.num_steps for _, o in outs), decodes))
+    finally:
+        restore()
+    for (p, s, c), a, b in zip(jobs, got, want):
+        if [int(v) for v in a["sigmas"]] != b["sigmas"] or a["inference_steps"] != b[
+                "inference_steps"]:
+            fail(f"{label} continuous ({p!r}, {s}, cap {c}): schedule {a['sigmas']} against the "
+                 f"fixed runner's {b['sigmas']}")
+        if c is not None and a["inference_steps"] != min(c, T):
+            fail(f"{label} continuous: a request capped at {c} ran {a['inference_steps']} steps")
+    fixed_latents = {}
+    for seeds, z in calls_z[1:]:  # the burst's batches (padding repeats a request)
+        for k, s in enumerate(seeds):
+            fixed_latents.setdefault(s, z[k:k + 1])
+    fixed_rows = sum(1 for _, s, _ in jobs if torch.equal(finals[s], fixed_latents[s]))
+    # the runner with each request in its slot's row, the other rows filled
+    # with the burst's first request
+    calls = []
+    for i, (p, s, c) in enumerate(jobs):
+        call = next((k for k in calls if k[slot_of[s]] is None), None)
+        if call is None:
+            call = [None] * 4
+            calls.append(call)
+        call[slot_of[s]] = i
+    images = {}
+    for call in calls:
+        rows = [jobs[0 if i is None else i] for i in call]
+        res, _ = counted(f"{label} reference", lambda: runner(
+            [r[0] for r in rows], [r[1] for r in rows], [r[2] or T for r in rows]), None)
+        for k, i in enumerate(call):
+            if i is not None:
+                images[jobs[i][1]] = (res[k]["image"], calls_z[-1][1][k:k + 1])
+    seams, exact = [], 0
+    for (p, s, c), a in zip(jobs, got):
+        ref_image, ref_latents = images[s]
+        exact += torch.equal(finals[s], ref_latents)
+        d = np.abs(a["image"].astype(np.int16) - ref_image.astype(np.int16))
+        seams.append((int(d.max()), float((d > 0).mean())))
+        if seams[-1][0] > 1 or seams[-1][1] >= 0.01:
+            fail(f"{label} continuous ({p!r}, {s}, slot {slot_of[s]}): image against the runner's "
+                 f"at its slot's row: largest gap {seams[-1][0]} levels on {seams[-1][1]:.4f} of "
+                 f"the pixels; final latents max |d| "
+                 f"{(finals[s].float() - ref_latents.float()).abs().max().item():.3e}, against "
+                 f"the fixed engine's row "
+                 f"{(finals[s].float() - fixed_latents[s].float()).abs().max().item():.3e}")
+    same = sum(1 for m, _ in seams if m == 0)
+    seam = ("" if same == len(seams) else f", the rest within one level on at most "
+            f"{max(sh for _, sh in seams):.4f} of the pixels")
+    phase(f"{label} continuous",
+          f"{type(cont).__name__}(slots=4, seg_steps=4): {FAMILY_BURST} requests, caps "
+          f"{FAMILY_CAPS}, steps {[r['inference_steps'] for r in got]}; makespan {span_c:.3f} s, "
+          f"p50 {p50_c:.3f} s, slot_utilization {stats['slot_utilization']:.4f}, segments_run "
+          f"{stats['segments_run']}; BatchingEngine(max_batch=4) over the runner: makespan "
+          f"{span_f:.3f} s, p50 {p50_f:.3f} s (its decode a row at a time); every schedule equal "
+          f"to the fixed engine's; at the request's slot row ({len(calls)} runner calls) "
+          f"{exact} of {len(jobs)} final latents and {same} images equal to the bit{seam}; "
+          f"{fixed_rows} of {len(jobs)} final latents equal to the fixed engine's own row; {smi}")
+    del cont, fixed, runner, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_cli(label, argv, counted):
+    """``serve`` on the card (no --cpu) with ``argv``: its toy world behind
+    the HTTP server, one POST /generate answered with a PNG and the integer
+    schedule; K1 (the toy UNet's forwards and the toy VAE's attention, d 16)
+    checked exactly, K2 none. Returns the round trip's seconds."""
+    import http.client
+    import threading
+
+    from tpdm_tpu_torch import serve
+    from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+
+    args = serve.parse_args(["--toy", "--port", "0", "--max_steps", "8", *argv])
+    world = serve.build_family_world(args)
+    k1_fwd = unet_k1_a_forward(world["agent"].unet.config)
+    outs, restore = recorded_samples(world["agent"])
+    engine, server = serve.make_http_server(None, None, args, runner=world["runner"],
+                                            world=world)
+    continuous = args.continuous
+    engine.start()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call():
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=600)
+        try:
+            conn.request("POST", "/generate", body=json.dumps({"prompt": "a cat", "seed": 1}))
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    def want(_):
+        if continuous:
+            return k1_fwd * engine.seg_steps * engine.segments_run + 1, 0
+        return k1_fwd * sum(o.num_steps for _, o in outs) + 1, 0
+
+    try:
+        (status, body), sec = counted(f"cli {label}", call, want)
+        got = (flash_attention.launches, flash_attention_streaming.launches)
+    finally:
+        server.shutdown()
+        engine.stop()
+        server.server_close()
+        restore()
+    if status != 200:
+        fail(f"serve {' '.join(argv)}: POST /generate {status} {body[:200]}")
+    reply = json.loads(body)
+    image = png_pixels(base64.b64decode(reply["image_png_base64"]), f"serve {label}'s PNG")
+    if image.dtype != np.uint8 or image.ndim != 3 or not reply["sigmas"]:
+        fail(f"serve {label}: image {image.shape}, sigmas {reply['sigmas']}")
+    phase(f"cli {label}", f"python -m tpdm_tpu_torch.serve {' '.join(argv)} --toy on the card: "
+                          f"{type(engine).__name__}, POST /generate {status} in {sec:.3f} s, "
+                          f"{reply['inference_steps']} steps, timesteps {reply['sigmas']}, a "
+                          f"{image.shape[0]} x {image.shape[1]} PNG; K1 {got[0]} launches "
+                          f"({k1_fwd} a toy forward at head dims below 64, one a toy decode), K2 0")
+    return got
+
+
+def sdxl_phase(seed, dev, smi):
+    """Phase 19: SDXL at 1024 px and the families' continuous engines, item
+    19 of this file's docstring. Returns (K1 launches, K2 launches, the
+    kernels line's K1 entries)."""
+    import copy
+
+    from tpdm_tpu_torch.models import unet_sd15
+    from tpdm_tpu_torch.ops.attention import (
+        attention_reference,
+        flash_attention,
+        flash_attention_streaming,
+    )
+    from tpdm_tpu_torch.pipeline.variants import SDXLPipeline, SDXLRefinerPipeline
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.serving_families import make_sdxl_ensemble_runner, make_vae_decoder
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 19)
+    k1_entries = {key: k1_check(g, dev, key, *shape) for key, shape in SDXL_K1_SHAPES.items()}
+    torch.cuda.empty_cache()
+    totals = [0, 0]
+    counted = launch_counter("sdxl", totals)
+
+    # 1. the SD1.5 continuous engine at 512 px on phase 18's models, built anew
+    m15 = sd15_models(seed, dev)
+    family_continuous("sd15", counted, m15.agent, m15.tpm, m15.encode,
+                      make_vae_decoder(m15.vae), unet_k1_a_forward(m15.unet.config),
+                      m15.prompts, seed + 1900, smi)
+    del m15
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the SDXL models
+    m = sdxl_models(seed, dev)
+    ucfg, rcfg = m.unet.config, m.refiner.config
+    k1_base, k1_ref = unet_k1_a_forward(ucfg), unet_k1_a_forward(rcfg)
+    n_base = sum(p.numel() for p in m.unet.parameters())
+    n_ref = sum(p.numel() for p in m.refiner.parameters())
+    phase("sdxl models", f"base UNet {n_base / 1e9:.3f} B parameters (K1 {k1_base} a forward), "
+                         f"refiner {n_ref / 1e9:.3f} B (K1 {k1_ref}), CLIP-L 12 x 768, bigG 32 x "
+                         f"1280, the SDXL VAE with its encoder, TPM head bias {TPM_HEAD_BIAS}, "
+                         f"bf16, drawn in {m.seconds:.1f} s; "
+                         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    px = ucfg.sample_size * 8
+
+    # 3. one base forward at CFG batch 2 against an fp32 copy of the same
+    # (bf16-valued) weights on the card, its attention the plain version
+    lat = torch.randn(2, 4, ucfg.sample_size, ucfg.sample_size, generator=g, device=dev)
+    pe, pooled, npe, npooled = m.encode(m.prompts[:1])
+    ctx, pp = torch.cat([npe, pe]), torch.cat([npooled, pooled])
+    added = {"text_embeds": pp, "time_ids": m.agent.default_time_ids(2)}
+    tt = torch.tensor([999.0, 999.0], device=dev)
+    with torch.no_grad():
+        out, _ = counted("forward", lambda: m.unet(lat.to(torch.bfloat16), tt, ctx, added),
+                         lambda _: (k1_base, 0))
+        f32 = copy.deepcopy(m.unet).float()
+        real_attention = unet_sd15.joint_attention
+        unet_sd15.joint_attention = attention_reference
+        try:
+            ref = f32(lat, tt, ctx.float(), {k: v.float() for k, v in added.items()})
+        finally:
+            unet_sd15.joint_attention = real_attention
+        del f32
+        torch.cuda.empty_cache()
+        errs = [rel_to_range(a, b) for a, b in zip(out, ref)]
+        if (not all(bool(torch.isfinite(a.float()).all()) for a in out)
+                or max(errs) > MODULE_REL_TOL):
+            fail(f"sdxl forward: bf16 against fp32, max error / range {errs} (bound "
+                 f"{MODULE_REL_TOL})")
+        # the warm forward: the median of 10 by CUDA events, then a profiler
+        # trace of three back to back (as phase 18's)
+        x = lat.to(torch.bfloat16)
+        calls = []
+
+        def forward():
+            calls.append(1)
+            return m.unet(x, tt, ctx, added)
+
+        (ms, events), _ = counted(
+            "forward timed",
+            lambda: (median_ms(forward, reps=10, warmup=2), trace_device_events(forward, 3)),
+            lambda _: (k1_base * len(calls), 0))
+    trace = ", its trace not measured (the profiler recorded no device event)"
+    if events:
+        _, busy, idle, _ = load_profile_script().summarise(events)
+        k1_dev = sum(t1 - t0 for name, t0, t1 in events if "flash_attn_sm90_kernel" in name)
+        trace = (f", device busy {busy / 3:.2f} ms a forward, K1 {k1_dev / 3e3:.2f} ms of it, "
+                 f"idle share {idle:.4f} (profiler, 3 forwards)")
+    phase("sdxl forward", f"{px} px, CFG batch 2: eps, t_feat, h1, h2 against fp32 on the card "
+                          f"{', '.join(f'{e:.3e}' for e in errs)} of their range (bound "
+                          f"{MODULE_REL_TOL}); K1 {k1_base} launches a forward; warm forward "
+                          f"{ms:.2f} ms (CUDA events, median of 10){trace}; {smi}")
+
+    # 4. SDXLPipeline.generate from text at batch 1 and 2, each warmed by a
+    # one-step rollout at its batch
+    pipe = SDXLPipeline(m.agent, m.vae, m.text)
+    results = {}
+    for b in (1, 2):
+        texts = m.prompts[:b]
+        pe, pooled, npe, npooled = m.encode(texts)
+        counted(f"warm-up, batch {b}", lambda: m.agent.sample(
+            m.tpm, {"prompt_embeds": pe, "pooled_prompt_embeds": pooled,
+                    "negative_prompt_embeds": npe, "negative_pooled_prompt_embeds": npooled},
+            torch.Generator(device=dev).manual_seed(0), predict=True,
+            sampler_cfg=dataclasses.replace(m.agent.sampler_cfg, num_inference_steps=1,
+                                            predict=True)),
+            lambda r: (k1_base, 0))
+        ids = m.clip_ids(texts)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, sec = counted(f"request, batch {b}", lambda: pipe.generate(
+            clip_ids=ids, negative_clip_ids=np.zeros_like(ids), seed=seed + 191 + b,
+            tpm_params=m.tpm), lambda r: (k1_base * r.num_steps, 1))
+        check_sd15_schedule(res, b, px, t_max=SDXL_T_MAX)
+        results[b] = res
+        phase("sdxl request", f"{px} px, batch {b}, CFG {SDXL_GS}: {res.num_steps} steps "
+                              f"(timesteps {res.schedule[0, :res.num_steps + 1].tolist()}), "
+                              f"{sec:.3f} s ({1000 * sec / res.num_steps:.1f} ms a step with "
+                              f"the text encode and the decode); K1 {k1_base} a step, K2 1; "
+                              f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {smi}")
+
+    # 5. the refiner on the batch-1 image at SDXL_REFINE_STRENGTH
+    rpipe = SDXLRefinerPipeline(m.ragent, m.vae, m.text)
+    t0 = int(round(SDXL_REFINE_STRENGTH * 999))
+    gi = m.g_ids(m.prompts[:1])
+    refined, sec = counted("refiner", lambda: rpipe.refine(
+        init_image=results[1].images, strength=SDXL_REFINE_STRENGTH, clip_g_ids=gi,
+        negative_clip_g_ids=np.zeros_like(gi), seed=seed + 194, tpm_params=m.rtpm),
+        lambda r: (k1_ref * r.num_steps, 2))
+    check_sd15_schedule(refined, 1, px, t0=t0, t_max=SDXL_T_MAX)
+    phase("sdxl refiner", f"SDXLRefinerPipeline.refine of the batch-1 image at strength "
+                          f"{SDXL_REFINE_STRENGTH}: the loop starts at t {t0}, {refined.num_steps} "
+                          f"steps (timesteps {refined.schedule[0, :refined.num_steps + 1].tolist()})"
+                          f" in {sec:.3f} s (encode + denoise + decode); K1 {k1_ref} a step, K2 2")
+
+    # 6. the ensemble behind the fixed-batch engine
+    runner = make_sdxl_ensemble_runner(m.agent, m.tpm, m.ragent, m.rtpm, m.encode,
+                                       m.encode_refiner, make_vae_decoder(m.vae),
+                                       denoising_end=SDXL_DENOISING_END)
+    outs, restore = recorded_samples(m.agent, m.ragent)
+    engine = BatchingEngine(None, lambda p, _n=None: (None, None), max_batch=2,
+                            window_ms=500.0, max_steps=SDXL_T_MAX, runner=runner)
+
+    def loops_k1(_):
+        return (sum((k1_base if a is m.agent else k1_ref) * o.num_steps for a, o in outs),
+                sum(1 for a, _ in outs if a is m.agent))  # one decode a batch
+
+    try:
+        (got, span, _), _ = counted("ensemble", lambda: burst(engine, [
+            (p, seed + 195 + i, c) for i, (p, c) in enumerate(zip(m.prompts, SDXL_ENSEMBLE_CAPS))]),
+            loops_k1)
+    finally:
+        restore()
+    t_cut = int(round(999 * (1.0 - SDXL_DENOISING_END)))
+    for r, cap in zip(got, SDXL_ENSEMBLE_CAPS):
+        ts = r["sigmas"]
+        if (r["base_steps"] + r["refiner_steps"] != r["inference_steps"]
+                or r["handoff_t"] >= t_cut or r["refiner_steps"] < 1
+                or ts[r["base_steps"] - 1] != r["handoff_t"]
+                or (cap is not None and r["inference_steps"] > cap)
+                or r["image"].shape != (px, px, 3)):
+            fail(f"sdxl ensemble: steps {r['base_steps']} + {r['refiner_steps']} = "
+                 f"{r['inference_steps']} (cap {cap}), handoff t {r['handoff_t']} (cutoff "
+                 f"{t_cut}), timesteps {ts}")
+    phase("sdxl ensemble", f"BatchingEngine(max_batch=2) over make_sdxl_ensemble_runner("
+                           f"denoising_end={SDXL_DENOISING_END}): caps {SDXL_ENSEMBLE_CAPS}, base "
+                           f"+ refiner steps {[(r['base_steps'], r['refiner_steps']) for r in got]}"
+                           f", handoff t {[r['handoff_t'] for r in got]} (below the cutoff "
+                           f"{t_cut}), {span:.3f} s; K1 {k1_base} a base step, {k1_ref} a "
+                           f"refiner step, K2 1")
+    del rpipe, pipe, engine, runner
+
+    # 7. the SDXL continuous engine at 1024 px
+    family_continuous("sdxl", counted, m.agent, m.tpm, m.encode, make_vae_decoder(m.vae),
+                      k1_base, m.prompts, seed + 1910, smi)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the command line on the card
+    for label, argv in (("sdxl", ["--family", "sdxl"]),
+                        ("sd15 continuous", ["--family", "sd15", "--continuous"])):
+        family_cli(label, argv, counted)
+    phase("sdxl phase", f"{time.perf_counter() - t_phase:.1f} s; K1 {totals[0]}, K2 {totals[1]} "
+                        f"launches; {smi}")
+    flash_attention.launches = flash_attention_streaming.launches = 0
+    return totals[0], totals[1], k1_entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4331,6 +4882,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         k1_sd15, k2_sd15, sd15_k1 = sd15_phase(args.seed, dev, smi)  # 18
         kernels["K1"].update(sd15_k1)
+        k1_sdxl, k2_sdxl, sdxl_k1 = sdxl_phase(args.seed, dev, smi)  # 19
+        kernels["K1"].update(sdxl_k1)
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -4341,12 +4894,12 @@ def main() -> int:
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
              "launches": (k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35
-                          + k1_i2i + k1_sd15),
+                          + k1_i2i + k1_sd15 + k1_sdxl),
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
              "launches": (k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35
-                          + k2_i2i + k2_sd15),
+                          + k2_i2i + k2_sd15 + k2_sdxl),
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

@@ -19,6 +19,13 @@ from tpdm_tpu_torch.models.tpm import TimePredictor
 from tpdm_tpu_torch.models.vae import VAE, VAEConfig
 from tpdm_tpu_torch.utils.convert import mmdit_from_jax, tpm_from_jax, vae_from_jax
 
+# One intra-op thread a test process. The suite runs several xdist workers
+# on a few cores; at torch's default of a thread a core in every worker the
+# toy-size ops of these tests spend their time handing work between
+# oversubscribed threads (the port's files summed 2826.6 s of case time
+# under six workers at the default, 344.2 s with one thread each).
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 # the repo's cross-program fp32 bound (tests/test_guidance_interval.py:333)
 RTOL, ATOL = 1e-4, 1e-5

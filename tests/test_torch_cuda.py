@@ -262,7 +262,47 @@ def test_k1_d40_scales_by_the_true_head_dim(device):
     assert (out.float() - wrong.float()).abs().max() > 10 * ATOL
 
 
-@pytest.mark.parametrize("d", [32, 48, 96, 128])
+# K1 at d 64 at SDXL's 1024 px shapes, at CFG batch 2 and 4: the base UNet's
+# 10 heads over the level-1 grid's 4096 tokens and 20 heads over level 2's
+# and the mid block's 1024; the refiner's 12 heads over 4096, 24 over 1024
+# and, in its mid block, 24 over 256; each beside its cross-attention
+# against the 77 text tokens
+SDXL_SHAPES = [
+    shape for b in (2, 4) for h, n in ((10, 4096), (20, 1024), (12, 4096), (24, 1024), (24, 256))
+    for shape in ((b, h, n, n), (b, h, n, 77))
+]
+
+
+@pytest.mark.parametrize("shape", SDXL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_sdxl_shapes_match_plain(device, shape):
+    b, h, n_q, n_kv = shape
+    q, k, v = _qkv(device, b, h, n_q, n_kv, 64, seed=n_q + h)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_close(out, _blocked_plain(q, k, v, rows=1024))
+
+
+# the toy UNets' head dims (toy_xl and toy_refiner at 4, the SD1.5 toy's 4,
+# 6 and 8 heads of 2): K1's d-64 kernel on operands zero-padded to 64
+# columns, at the toy world's self- and cross-attention shapes and ragged ones
+@pytest.mark.parametrize("d", [4, 6, 8])
+@pytest.mark.parametrize("b,h,n_q,n_kv,kv_len", [(4, 2, 256, 256, None), (4, 2, 256, 8, None),
+                                                 (4, 4, 64, 64, None), (1, 3, 193, 300, 257),
+                                                 (2, 2, 1, 77, None)])
+def test_k1_padded_small_head_dims_match_plain(device, d, b, h, n_q, n_kv, kv_len):
+    q, k, v = _qkv(device, b, h, n_q, n_kv, d, seed=n_q + n_kv + d)
+    q = (q.float() * 3.0).to(torch.bfloat16)  # scores of order 10: the scale shows
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == (b, h, n_q, d)
+    _assert_close(out, attention_reference(q, k, v, kv_len))
+
+
+@pytest.mark.parametrize("d", [72, 96, 128, 192])
 def test_k1_raises_on_other_head_dims(device, d):
     q, k, v = _qkv(device, 1, 1, 64, 64, d, seed=d)
     before = flash_attention.launches
@@ -416,8 +456,8 @@ def test_joint_attention_routes_by_head_dim(device):
     before = flash_attention_streaming.launches
     joint_attention(q, k, v)
     assert flash_attention_streaming.launches == before + 1
-    q, k, v = _qkv(device, 1, 1, 64, 64, 32, seed=1)
-    with pytest.raises(ValueError, match="head_dim 32"):
+    q, k, v = _qkv(device, 1, 1, 64, 64, 96, seed=1)
+    with pytest.raises(ValueError, match="head_dim 96"):
         joint_attention(q, k, v)
 
 

@@ -14,6 +14,8 @@ waits for data parallelism (ROADMAP queue 1, item 9(d)).
 import numpy as np
 import torch
 
+import _torch_parity  # noqa: F401 (one torch thread a test process)
+
 from tpdm_tpu_torch.train import RLOOConfig, RLOOTrainer
 from tpdm_tpu_torch.train.builders import build_toy_agent
 

@@ -309,7 +309,7 @@ def test_serve_family_sd15_cli(tmp_path, capsys):
     (["--family", "sd15", "--cpu", "--cli"], "--toy"),
     (["--family", "sd15", "--toy", "--cpu", "--int8"], "int8"),
     (["--family", "sd15", "--toy", "--cli"], "--cpu"),
-    (["--family", "sdxl", "--toy", "--cpu"], r"item 12"),
+    (["--family", "flux", "--toy", "--cpu", "--continuous"], r"item 12"),
     (["--family", "flux", "--toy", "--cpu"], r"item 12"),
     (["--family", "sd15", "--toy", "--cpu", "--solver", "ab2"], "solver"),
 ])
@@ -320,8 +320,9 @@ def test_serve_family_refusals(argv, match):
 
 def test_serve_family_sd15_http(tmp_path):
     """``--family sd15 --toy`` behind the HTTP server: a /generate request
-    answers with a PNG and the integer schedule; --continuous and
-    --resolutions are refused, as in JAX (the former is not ported)."""
+    answers with a PNG and the integer schedule; --continuous over a bare
+    runner (without the family world) and --resolutions are refused, as in
+    JAX."""
     args = serve.parse_args(["--family", "sd15", "--toy", "--cpu", "--port", "0",
                              "--max_steps", "4"])
     world = serve.build_family_world(args)

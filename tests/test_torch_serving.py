@@ -11,6 +11,7 @@ import argparse
 import base64
 import http.client
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -20,6 +21,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+import _torch_parity  # noqa: F401 (one torch thread a test process)
 
 from tpdm_tpu.serving import BatchingEngine as JBatchingEngine
 from tpdm_tpu.utils.metrics_export import prometheus_text as jax_prometheus_text
@@ -500,7 +503,8 @@ def test_cli_writes_a_png(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "tpdm_tpu_torch.serve", "--toy", "--cpu", "--cli",
          "--prompt", "a cat", "--max_steps", "3", "--out", str(out)],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
     assert "inference steps:" in proc.stdout and "/ cap 3" in proc.stdout
     assert read_png(out.read_bytes()).shape == (PX, PX, 3)

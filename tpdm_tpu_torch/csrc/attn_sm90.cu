@@ -12,7 +12,10 @@
 //       (2b, 8, 1024, 80), (2b, 8, 256, 160) and the mid block's
 //       (2b, 8, 64, 160); cross-attention against the 77 text tokens,
 //       kv (2b, 8, 77, d); 32 calls a CFG forward at 512 px.
-//   K3  tpdm_flash_attention_stats_d64 replaces tpdm_tpu/ops/attention.py
+//   K1 at any other head dim below 64 (tpdm_flash_attention_d64_padded):
+//       the d-64 kernel on q, k, v zero-padded to 64 columns on the host,
+//       with the true d's scale (the toy UNets' d 4, 6 and 8).
+//   K3 tpdm_flash_attention_stats_d64 replaces tpdm_tpu/ops/attention.py
 //       _flash_kernel_stats: K1 plus each query row's m and l, the local
 //       step of the sequence-parallel ring (parallel/sp_attention.py). At
 //       2048 px a ring of one runs q (2b, 24, 16717, 64) against the image
@@ -409,13 +412,17 @@ __global__ void __launch_bounds__(128 * (kConsumers + 1), 1)
   }
 }
 
+// log2(e) / sqrt(d): the scores' scale of the true head dim d, not the padded one
+inline float scale_of(int d) { return kLog2e / sqrtf(static_cast<float>(d)); }
+
 // q, o: (bh, n_q, d); k, v: (bh, n_kv, d); bf16, contiguous, 16-byte
 // aligned, d <= 64 kChunks (the tensor maps' inner extent: a box past it
 // is zero-filled on load and clipped on store); m, l (kStats): (bh, n_q)
-// fp32. Columns at or past kv_len (1 <= kv_len <= n_kv) are masked.
+// fp32. Columns at or past kv_len (1 <= kv_len <= n_kv) are masked;
+// scale_log2 multiplies the scores (scale_of(d) for an unpadded d).
 // Returns a cudaError_t.
 template <bool kStats, int kConsumers, int kChunks>
-int launch(int d, const void* q, const void* k, const void* v, void* o, void* m, void* l,
+int launch(int d, float scale_log2, const void* q, const void* k, const void* v, void* o, void* m, void* l,
            int bh, int n_q, int n_kv, int kv_len, void* stream) {
   using C = Cfg<kConsumers, kChunks>;
   for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
@@ -444,7 +451,7 @@ int launch(int d, const void* q, const void* k, const void* v, void* o, void* m,
   const dim3 grid((n_q + C::kBQ - 1) / C::kBQ, bh);
   kernel<<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       map_q, map_k, map_v, map_o, static_cast<float*>(m), static_cast<float*>(l), n_q, kv_len,
-      kLog2e / sqrtf(static_cast<float>(d)));  // the true d's scale, not the padded one
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -455,8 +462,21 @@ int launch(int d, const void* q, const void* k, const void* v, void* o, void* m,
 // Returns a cudaError_t.
 extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void* v, void* o,
                                         int bh, int n_q, int n_kv, int kv_len, void* stream) {
-  return launch<false, kK1Consumers, 1>(64, q, k, v, o, nullptr, nullptr, bh, n_q, n_kv,
-                                        kv_len, stream);
+  return launch<false, kK1Consumers, 1>(64, scale_of(64), q, k, v, o, nullptr, nullptr, bh,
+                                        n_q, n_kv, kv_len, stream);
+}
+
+// K1 at a head dim below 64 that has no entry of its own (the toy UNets'
+// 4, 6 and 8): the wrapper zero-pads q, k and v to 64 columns on the host
+// and this runs the d-64 kernel with the scale of the true head_dim. The
+// zero columns add nothing to Q K^T, and the output's columns past head_dim
+// (zero) are cut off by the wrapper.
+extern "C" int tpdm_flash_attention_d64_padded(const void* q, const void* k, const void* v,
+                                               void* o, int bh, int n_q, int n_kv, int kv_len,
+                                               int head_dim, void* stream) {
+  if (head_dim < 1 || head_dim > 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false, kK1Consumers, 1>(64, scale_of(head_dim), q, k, v, o, nullptr, nullptr,
+                                        bh, n_q, n_kv, kv_len, stream);
 }
 
 // K1 at the SD1.5 UNet's head dims (see the note at the top): q, o
@@ -464,18 +484,20 @@ extern "C" int tpdm_flash_attention_d64(const void* q, const void* k, const void
 // tpdm_flash_attention_d64.
 extern "C" int tpdm_flash_attention_d40(const void* q, const void* k, const void* v, void* o,
                                         int bh, int n_q, int n_kv, int kv_len, void* stream) {
-  return launch<false, kK1Consumers, 1>(40, q, k, v, o, nullptr, nullptr, bh, n_q, n_kv,
-                                        kv_len, stream);
+  return launch<false, kK1Consumers, 1>(40, scale_of(40), q, k, v, o, nullptr, nullptr, bh,
+                                        n_q, n_kv, kv_len, stream);
 }
 
 extern "C" int tpdm_flash_attention_d80(const void* q, const void* k, const void* v, void* o,
                                         int bh, int n_q, int n_kv, int kv_len, void* stream) {
-  return launch<false, 2, 2>(80, q, k, v, o, nullptr, nullptr, bh, n_q, n_kv, kv_len, stream);
+  return launch<false, 2, 2>(80, scale_of(80), q, k, v, o, nullptr, nullptr, bh, n_q, n_kv,
+                             kv_len, stream);
 }
 
 extern "C" int tpdm_flash_attention_d160(const void* q, const void* k, const void* v, void* o,
                                          int bh, int n_q, int n_kv, int kv_len, void* stream) {
-  return launch<false, 1, 3>(160, q, k, v, o, nullptr, nullptr, bh, n_q, n_kv, kv_len, stream);
+  return launch<false, 1, 3>(160, scale_of(160), q, k, v, o, nullptr, nullptr, bh, n_q, n_kv,
+                             kv_len, stream);
 }
 
 // K3: K1, and also m, l: (bh, n_q) fp32, the row statistics in the exp2
@@ -483,5 +505,6 @@ extern "C" int tpdm_flash_attention_d160(const void* q, const void* k, const voi
 extern "C" int tpdm_flash_attention_stats_d64(const void* q, const void* k, const void* v,
                                               void* o, void* m, void* l, int bh, int n_q,
                                               int n_kv, int kv_len, void* stream) {
-  return launch<true, kK3Consumers, 1>(64, q, k, v, o, m, l, bh, n_q, n_kv, kv_len, stream);
+  return launch<true, kK3Consumers, 1>(64, scale_of(64), q, k, v, o, m, l, bh, n_q, n_kv,
+                                       kv_len, stream);
 }

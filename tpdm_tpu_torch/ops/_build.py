@@ -37,7 +37,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # C entry points, each returning a cudaError_t: every pointer and the stream
 # are void*, every size an int.
 #   (q, k, v, o, bh, n_q, n_kv, kv_len, stream); the stats entry takes m, l
-#   after o
+#   after o, the padded d-64 entry the true head_dim before the stream
 #   tpdm_int8_gemm (a, b, out, x_scale, w_scale, bias, m, n, k, stream), the
 #   int32 epilogue when x_scale is null; tpdm_bf16_gemm (a, b, out, m, n, k,
 #   stream)
@@ -53,6 +53,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 ENTRIES = {
     "tpdm_flash_attention_d64": [_P] * 4 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_d64_padded": [_P] * 4 + [_I] * 5 + [_P],
     "tpdm_flash_attention_d40": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d80": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d160": [_P] * 4 + [_I] * 4 + [_P],

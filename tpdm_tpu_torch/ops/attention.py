@@ -77,17 +77,20 @@ def _check_kernel_operands(name: str, q, k, v, head_dim: int, kv_len) -> int:
     return kv_len
 
 
-def _launch(entry: str, q, k, v, kv_len: int, *stats: torch.Tensor) -> torch.Tensor:
+def _launch(entry: str, q, k, v, kv_len: int, *stats: torch.Tensor,
+            head_dim: Optional[int] = None) -> torch.Tensor:
     """Launch ``entry`` on q's current stream; ``stats`` are K3's (m, l)
-    outputs, passed after o."""
+    outputs, passed after o; ``head_dim`` the true head dim of the padded
+    d-64 entry."""
     lib = _build.load_library()
     out = torch.empty_like(q)
     b, h, n_q, _ = q.shape
+    extra = () if head_dim is None else (head_dim,)
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in stats),
-            b * h, n_q, k.shape[2], kv_len,
+            b * h, n_q, k.shape[2], kv_len, *extra,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -96,8 +99,14 @@ def _launch(entry: str, q, k, v, kv_len: int, *stats: torch.Tensor) -> torch.Ten
     return out
 
 
-# K1's head dims: 64 (the MMDiT) and the SD1.5 UNet's 40, 80 and 160
+# K1's head dims: 64 (the MMDiT) and the SD1.5 UNet's 40, 80 and 160; any
+# other head dim below 64 runs the d-64 entry on operands padded to 64
 K1_HEAD_DIMS = (40, 64, 80, 160)
+
+
+def _pad_to_64(t: torch.Tensor) -> torch.Tensor:
+    """(b, h, n, d) -> (b, h, n, 64) with zero columns past d, contiguous."""
+    return torch.nn.functional.pad(t, (0, 64 - t.shape[-1])).contiguous()
 
 
 def flash_attention(
@@ -118,20 +127,29 @@ def flash_attention(
     brings by TMA through a shared-memory ring, 192 query rows a block.
     The other head dims are the same kernel on rows padded to whole
     64-column TMA boxes (TMA zero-fills the padding, the store clips it),
-    with the softmax scale of the true head dim. ``csrc/attn_sm90.cu``
-    holds the design note.
+    with the softmax scale of the true head dim. A head dim below 64 with
+    no entry of its own (the toy UNets' 4, 6 and 8) is zero-padded to 64
+    columns here and runs the d-64 kernel at its own scale: zero q and k
+    columns add nothing to a score, and the output's extra columns are cut
+    off. ``csrc/attn_sm90.cu`` holds the design note.
 
-    CUDA: bf16, contiguous (b, h, n, d) tensors with d in ``K1_HEAD_DIMS``,
-    none requiring grad while grad mode is on, or it raises. CPU: the plain
-    version ``attention_reference``.
+    CUDA: bf16, contiguous (b, h, n, d) tensors with d in ``K1_HEAD_DIMS``
+    or below 64, none requiring grad while grad mode is on, or it raises.
+    CPU: the plain version ``attention_reference``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_len)
     d = q.shape[-1]
-    if d not in K1_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d}; the kernel takes {K1_HEAD_DIMS}")
-    kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len)
-    out = _launch(f"tpdm_flash_attention_d{d}", q, k, v, kv_len)
+    if d in K1_HEAD_DIMS:
+        kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len)
+        out = _launch(f"tpdm_flash_attention_d{d}", q, k, v, kv_len)
+    elif 1 <= d < 64:
+        kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len)
+        out = _launch("tpdm_flash_attention_d64_padded", _pad_to_64(q), _pad_to_64(k),
+                      _pad_to_64(v), kv_len, head_dim=d)[..., :d]
+    else:
+        raise ValueError(f"flash_attention: head_dim {d}; the kernel takes {K1_HEAD_DIMS} "
+                         "or any head_dim below 64")
     flash_attention.launches += 1
     return out
 
@@ -258,7 +276,8 @@ def joint_attention(
 ) -> torch.Tensor:
     """Attention routed by head width: 512 (the VAE's single wide head) to
     K2, anything else to K1, which on CUDA takes the head dims of
-    ``K1_HEAD_DIMS`` only. On CPU tensors both run the plain version."""
+    ``K1_HEAD_DIMS`` and any below 64. On CPU tensors both run the plain
+    version."""
     if q.shape[-1] == 512:
         return flash_attention_streaming(q, k, v, kv_len)
     return flash_attention(q, k, v, kv_len)

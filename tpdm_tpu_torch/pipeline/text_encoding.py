@@ -12,8 +12,12 @@ Tokenization happens on the host (``utils/tokenizer.py``,
 (``requires_grad_(False)``, ``eval()``) and ``encode`` runs under
 ``torch.no_grad()``: grad mode is thread-local, so a serving worker
 thread would otherwise build an autograd graph over T5-XXL on every cold
-batch, and the embed cache would keep it alive with its rows. Not ported
-yet: ``SDXLTextEncoders`` (ROADMAP queue 1, item 12).
+batch, and the embed cache would keep it alive with its rows.
+
+``SDXLTextEncoders`` is the counterpart of JAX's SDXL bundle: the same two
+CLIP towers without T5, the penultimate states joined to 2048 wide and
+bigG's projected EOS as the pooled row; ``encode_refiner`` runs bigG
+alone, as the refiner conditions on it.
 """
 
 from __future__ import annotations
@@ -65,3 +69,44 @@ class SD3TextEncoders:
         prompt_embeds = torch.cat([clip_embeds, t5_embeds], dim=-2)
         pooled = torch.cat([proj_l, proj_g], dim=-1)
         return PromptEmbeds(prompt_embeds, pooled)
+
+
+class SDXLTextEncoders:
+    """SDXL prompt encoding: CLIP-L + CLIP-bigG -> UNet conditioning.
+
+        prompt_embeds = cat([clip_l_penultimate, clip_g_penultimate], -1)
+                        # (b, 77, 768 + 1280 = 2048)
+        pooled        = clip_g_projected                     # (b, 1280)
+
+    diffusers' ``StableDiffusionXLPipeline.encode_prompt`` (clip_skip None):
+    both towers give their penultimate hidden states, only the second
+    tower's projected EOS embedding is pooled. The embeds come back in
+    CLIP-L's dtype, on the towers' device."""
+
+    def __init__(self, clip_l: nn.Module, clip_g: nn.Module):
+        self.clip_l = clip_l.requires_grad_(False).eval()
+        self.clip_g = clip_g.requires_grad_(False).eval()
+
+    def _ids(self, ids) -> torch.Tensor:
+        device = next(self.clip_g.parameters()).device
+        return torch.as_tensor(ids, dtype=torch.long, device=device)
+
+    @torch.no_grad()
+    def encode(self, clip_ids, clip_g_ids=None) -> PromptEmbeds:
+        """``clip_ids`` (b, 77) for CLIP-L and, by default, bigG too;
+        ``clip_g_ids`` the bigG tower's own ids where they differ (diffusers
+        tokenizes each tower on its own: bigG's tokenizer pads with id 0, not
+        49407, and a second prompt may go to it)."""
+        clip_ids = self._ids(clip_ids)
+        g_ids = clip_ids if clip_g_ids is None else self._ids(clip_g_ids)
+        pen_l = self.clip_l(clip_ids)[0]
+        pen_g, _, _, proj_g = self.clip_g(g_ids)
+        return PromptEmbeds(torch.cat([pen_l, pen_g.to(pen_l.dtype)], dim=-1), proj_g)
+
+    @torch.no_grad()
+    def encode_refiner(self, clip_g_ids) -> PromptEmbeds:
+        """The refiner's conditioning, bigG alone: its penultimate state (b,
+        77, 1280) and its projected EOS embedding (diffusers'
+        ``StableDiffusionXLImg2ImgPipeline`` without a first tower)."""
+        pen_g, _, _, proj_g = self.clip_g(self._ids(clip_g_ids))
+        return PromptEmbeds(pen_g, proj_g)

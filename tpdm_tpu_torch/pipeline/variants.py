@@ -1,10 +1,12 @@
-"""Generation pipelines of the other model families: SD1.5.
+"""Generation pipelines of the other model families: SD1.5 and SDXL.
 
-Counterpart of ``tpdm_tpu/pipeline/variants.py``'s SD1.5 part: adaptive
-generation with the agent's rollout in predict mode, the VAE decode of
-each sample's last valid latents, the realised step counts and integer
-schedules, and integer-t image-to-image. The SDXL and FLUX pipelines of
-that file wait for their slices (ROADMAP queue 1, item 12).
+Counterpart of ``tpdm_tpu/pipeline/variants.py``'s SD1.5 and SDXL parts:
+adaptive generation with the agent's rollout in predict mode, the VAE
+decode of each sample's last valid latents, the realised step counts and
+integer schedules, and integer-t image-to-image; for SDXL also the refiner
+(``SDXLRefinerPipeline.refine``) and the base + refiner ensemble
+(``sdxl_ensemble_generate``). The FLUX pipeline of that file waits for its
+slice (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -157,3 +159,248 @@ class SD15Pipeline:
         return VariantResult(images=images, num_steps=int(out.num_steps),
                              last_valid_index=out.last_valid_index.cpu().numpy(),
                              schedule=out.times.cpu().numpy())
+
+
+class SDXLPipeline:
+    """SDXL adaptive generation: the agent's rollout (predict) and the VAE
+    decode, the dual-CLIP context, bigG's pooled row and the size / crop
+    time_ids threaded through CFG. ``text_encoders``: an
+    ``SDXLTextEncoders`` for ``generate(clip_ids=)``.
+
+    The VAE must be ``VAEConfig.sdxl()`` (scaling factor 0.13025): SD3's
+    and SD1.5's configs decode an SDXL latent wrong without a warning."""
+
+    def __init__(self, agent, vae=None, text_encoders=None):
+        self.agent = agent
+        self.vae = None if vae is None else vae.requires_grad_(False).eval()
+        self.text_encoders = text_encoders
+
+    def _encode_ids(self, clip_ids):
+        return self.text_encoders.encode(np.asarray(clip_ids))
+
+    def _resolve_conditioning(self, prompt_embeds, pooled_prompt_embeds, negative_prompt_embeds,
+                              negative_pooled_prompt_embeds, clip_ids, negative_clip_ids,
+                              time_ids) -> dict:
+        """Embeds or ids, checked for CFG: the conditioning part of the
+        agent's batch (shared by ``generate``, ``refine`` and the ensemble)."""
+        if prompt_embeds is None:
+            if self.text_encoders is None:
+                raise ValueError("need prompt_embeds or text_encoders")
+            prompt_embeds, pooled_prompt_embeds = self._encode_ids(clip_ids)
+            if negative_clip_ids is not None:
+                negative_prompt_embeds, negative_pooled_prompt_embeds = self._encode_ids(
+                    negative_clip_ids)
+        if pooled_prompt_embeds is None:
+            raise ValueError("SDXL conditioning needs pooled_prompt_embeds (the bigG projected "
+                             "EOS embedding) beside prompt_embeds: precomputed embeds come as "
+                             "the (prompt_embeds, pooled_prompt_embeds) pair")
+        gs = self.agent.guidance_scale
+        if gs is not None and gs > 1 and (negative_prompt_embeds is None
+                                          or negative_pooled_prompt_embeds is None):
+            raise ValueError(
+                f"classifier-free guidance is on (guidance_scale={gs}); pass "
+                "negative_prompt_embeds AND negative_pooled_prompt_embeds (or negative_clip_ids: "
+                "diffusers encodes an empty prompt)")
+        batch = {"prompt_embeds": prompt_embeds, "pooled_prompt_embeds": pooled_prompt_embeds,
+                 "negative_prompt_embeds": negative_prompt_embeds,
+                 "negative_pooled_prompt_embeds": negative_pooled_prompt_embeds}
+        if time_ids is not None:
+            batch["time_ids"] = torch.as_tensor(np.asarray(time_ids, np.float32),
+                                                device=self.agent.device)
+        return batch
+
+    def _decode_result(self, out) -> VariantResult:
+        if self.vae is not None:
+            images = postprocess_images(decode_latents(self.vae, out.final_latents))
+        else:
+            images = out.final_latents.float().cpu().numpy()
+        return VariantResult(images=images, num_steps=int(out.num_steps),
+                             last_valid_index=out.last_valid_index.cpu().numpy(),
+                             schedule=out.times.cpu().numpy())
+
+    def _tpm(self, tpm_params):
+        agent = self.agent
+        if tpm_params is None:
+            tpm_params = agent.init_tpm_params(
+                torch.Generator(device=agent.device).manual_seed(0))
+        return tpm_params
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.agent.device).manual_seed(int(seed))
+
+    @torch.no_grad()
+    def generate(
+        self,
+        prompt_embeds: Optional[torch.Tensor] = None,  # (b, 77, 2048)
+        pooled_prompt_embeds: Optional[torch.Tensor] = None,  # (b, 1280)
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        negative_pooled_prompt_embeds: Optional[torch.Tensor] = None,
+        clip_ids: Optional[np.ndarray] = None,
+        negative_clip_ids: Optional[np.ndarray] = None,
+        time_ids: Optional[np.ndarray] = None,
+        seed: int = 0,
+        tpm_params=None,
+        init_image: Optional[np.ndarray] = None,
+        strength: float = 0.6,
+        cache_interval: int = 0,
+        guidance_interval: Optional[tuple] = None,
+        cache_tau: float = 0.0,
+    ) -> VariantResult:
+        """From precomputed (prompt_embeds, pooled_prompt_embeds) [and the
+        negatives under CFG] or from ids through ``text_encoders``.
+        ``init_image`` runs integer-t img2img, and ``cache_interval``,
+        ``guidance_interval`` and ``cache_tau`` are ``SD15Pipeline.generate``'s
+        options (DeepCache reuse steps run no transformer of SDXL's UNet)."""
+        agent = self.agent
+        batch = self._resolve_conditioning(
+            prompt_embeds, pooled_prompt_embeds, negative_prompt_embeds,
+            negative_pooled_prompt_embeds, clip_ids, negative_clip_ids, time_ids)
+        if init_image is not None:
+            batch.update(_ddpm_img2img_batch(self.vae, batch["prompt_embeds"].shape[0],
+                                             init_image, strength, seed, agent.dtype,
+                                             agent.device))
+        out = agent.sample(self._tpm(tpm_params), batch, self._generator(seed), predict=True,
+                           sampler_cfg=_cached_scfg(agent, cache_interval, guidance_interval,
+                                                    cache_tau))
+        return self._decode_result(out)
+
+
+class SDXLRefinerPipeline(SDXLPipeline):
+    """SDXL's refiner: adaptive refinement of the low-noise tail (diffusers'
+    ``StableDiffusionXLImg2ImgPipeline`` over the refiner UNet). ``refine``
+    takes latents mid-denoise with their per-sample ``init_t`` (the
+    ensemble's handoff) or a decoded image at a low ``strength``. The
+    context is bigG alone ((b, 77, 1280) embeds, or ``clip_g_ids`` through
+    ``text_encoders.encode_refiner``); the aesthetic score rides the agent's
+    five time_ids."""
+
+    def _encode_ids(self, clip_g_ids):
+        return self.text_encoders.encode_refiner(np.asarray(clip_g_ids))
+
+    def generate(self, *a, **kw):
+        raise NotImplementedError(
+            "the refiner is not a text-to-image model: call refine() with latents (+init_t) or "
+            "init_image, or run the ensemble with sdxl_ensemble_generate(base, refiner, ...)")
+
+    @torch.no_grad()
+    def refine(
+        self,
+        latents: Optional[torch.Tensor] = None,  # (b, 4, h, w) mid-denoise
+        init_t: Optional[np.ndarray] = None,  # (b,) int timesteps of the latents
+        init_image: Optional[np.ndarray] = None,  # uint8 (b, H, W, 3)
+        strength: float = 0.3,
+        prompt_embeds: Optional[torch.Tensor] = None,  # (b, 77, 1280)
+        pooled_prompt_embeds: Optional[torch.Tensor] = None,  # (b, 1280)
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        negative_pooled_prompt_embeds: Optional[torch.Tensor] = None,
+        clip_g_ids: Optional[np.ndarray] = None,
+        negative_clip_g_ids: Optional[np.ndarray] = None,
+        time_ids: Optional[np.ndarray] = None,
+        seed: int = 0,
+        tpm_params=None,
+    ) -> VariantResult:
+        if (latents is None) == (init_image is None):
+            raise ValueError("pass exactly one of latents (+init_t, the ensemble handoff) or "
+                             "init_image (+strength, image refinement)")
+        if latents is not None and init_t is None:
+            raise ValueError("latents need their per-sample timesteps: pass init_t ((b,) ints, "
+                             "e.g. the base stage's handoff times)")
+        agent = self.agent
+        batch = self._resolve_conditioning(
+            prompt_embeds, pooled_prompt_embeds, negative_prompt_embeds,
+            negative_pooled_prompt_embeds, clip_g_ids, negative_clip_g_ids, time_ids)
+        if latents is not None:
+            batch["latents"] = torch.as_tensor(latents, device=agent.device).to(agent.dtype)
+            batch["init_t"] = torch.as_tensor(np.asarray(init_t), dtype=torch.int32,
+                                              device=agent.device)
+        else:
+            batch.update(_ddpm_img2img_batch(self.vae, batch["prompt_embeds"].shape[0],
+                                             init_image, strength, seed, agent.dtype,
+                                             agent.device))
+        out = agent.sample(self._tpm(tpm_params), batch, self._generator(seed), predict=True)
+        return self._decode_result(out)
+
+
+class SDXLEnsembleResult(NamedTuple):
+    images: np.ndarray
+    num_steps: int  # executed denoise steps, base + refiner
+    base_steps: int
+    refiner_steps: int
+    handoff_t: np.ndarray  # (b,) timesteps where the refiner took over
+    base_schedule: np.ndarray  # (b, T_base + 1) the base stage's times
+    refiner_schedule: np.ndarray  # (b, T_ref + 1) the refiner stage's times
+    last_valid_index: np.ndarray  # the refiner stage's (-1: the base finished alone)
+
+
+def handoff_times(out) -> np.ndarray:
+    """(b,) the t of each sample's last valid base step's t_next, the first
+    below the cutoff (-1 valid steps: still at its starting t)."""
+    times = out.times.cpu().numpy()
+    lvi = out.last_valid_index.cpu().numpy()
+    return times[np.arange(times.shape[0]), lvi + 1]
+
+
+@torch.no_grad()
+def sdxl_ensemble_generate(
+    base: SDXLPipeline,
+    refiner: SDXLRefinerPipeline,
+    denoising_end: float = 0.8,
+    seed: int = 0,
+    tpm_params=None,
+    refiner_tpm_params=None,
+    clip_ids: Optional[np.ndarray] = None,
+    negative_clip_ids: Optional[np.ndarray] = None,
+    base_kwargs: Optional[dict] = None,
+    refiner_kwargs: Optional[dict] = None,
+) -> SDXLEnsembleResult:
+    """SDXL's ensemble of experts with both stages adaptive.
+
+    diffusers splits a fixed ladder at t_cut = round(999 (1 - denoising_end)):
+    the base denoises t >= t_cut, the refiner the rest. Here the base runs
+    its own TPM loop with min_time = t_cut (it stops once a sample crosses
+    the cutoff), and the refiner resumes from each sample's actual handoff
+    (its latents and t) through the integer-t img2img entry: exact, per
+    sample, with no shared ladder. A sample that meets the base's step cap
+    integrates to x0 there (t = 0) and the refiner passes it through.
+
+    Prompts: ``clip_ids`` / ``negative_clip_ids`` through both stages'
+    encoders (dual CLIP for the base, bigG alone for the refiner), or
+    embeds in ``base_kwargs`` / ``refiner_kwargs`` (``prompt_embeds``,
+    ``pooled_prompt_embeds``, the negatives, ``time_ids``). The base draws
+    from seed ``seed``, the refiner from ``seed + 1``."""
+    if not 0.0 < denoising_end < 1.0:
+        raise ValueError(f"denoising_end must be in (0, 1), got {denoising_end}")
+    bcfg, rcfg = base.agent.unet.config, refiner.agent.unet.config
+    if bcfg.sample_size != rcfg.sample_size:
+        raise ValueError(f"base and refiner latent grids differ: {bcfg.sample_size} vs "
+                         f"{rcfg.sample_size}")
+    bk, rk = dict(base_kwargs or {}), dict(refiner_kwargs or {})
+    t_cut = int(round(999 * (1.0 - denoising_end)))
+
+    def conditioning(pipe, kw, label):
+        batch = pipe._resolve_conditioning(
+            kw.pop("prompt_embeds", None), kw.pop("pooled_prompt_embeds", None),
+            kw.pop("negative_prompt_embeds", None), kw.pop("negative_pooled_prompt_embeds", None),
+            clip_ids, negative_clip_ids, kw.pop("time_ids", None))
+        if kw:
+            raise ValueError(f"unknown {label}: {sorted(kw)}")
+        return batch
+
+    batch = conditioning(base, bk, "base_kwargs")
+    scfg = dataclasses.replace(base.agent.sampler_cfg, predict=True, min_time=max(t_cut, 1))
+    out = base.agent.sample(base._tpm(tpm_params), batch, base._generator(seed),
+                            sampler_cfg=scfg)
+    handoff_t = handoff_times(out)
+
+    rbatch = conditioning(refiner, rk, "refiner_kwargs")
+    ragent = refiner.agent
+    rbatch["latents"] = out.final_latents.to(ragent.dtype)
+    rbatch["init_t"] = torch.as_tensor(handoff_t, dtype=torch.int32, device=ragent.device)
+    rout = ragent.sample(refiner._tpm(refiner_tpm_params), rbatch, refiner._generator(seed + 1),
+                         predict=True)
+    res = refiner._decode_result(rout)
+    return SDXLEnsembleResult(
+        images=res.images, num_steps=int(out.num_steps) + int(rout.num_steps),
+        base_steps=int(out.num_steps), refiner_steps=int(rout.num_steps), handoff_t=handoff_t,
+        base_schedule=out.times.cpu().numpy(), refiner_schedule=res.schedule,
+        last_valid_index=res.last_valid_index)

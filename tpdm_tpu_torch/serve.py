@@ -30,20 +30,24 @@ no ``transformers`` fallback):
 
     python -m tpdm_tpu_torch.serve --pretrained DIR --tpm tpm.safetensors --cli
 
-``--family sd15 --toy`` serves the SD1.5 family's toy world (UNet, CLIP
-tower, TPM and VAE drawn from the same seed) through ``serving_families.
-make_sd15_runner``, on ``--cli`` or the HTTP engine, on the CPU only
-(``--cpu``: the toy UNet's head dims have no K1 kernel); a full-width SD1.5
-model is served through the library (build an ``SD15Agent`` and call
-``make_sd15_runner``), as with the JAX package:
+``--family sd15 --toy`` and ``--family sdxl --toy`` serve the families'
+toy worlds (UNet, CLIP towers, TPM and VAE drawn from the same seed, bf16
+on the card) through ``serving_families.make_sd15_runner`` /
+``make_sdxl_runner``, on ``--cli`` or the HTTP engine; ``--refiner`` adds
+SDXL's toy refiner behind ``make_sdxl_ensemble_runner`` (the handoff at
+``--denoising_end``), and ``--continuous`` serves a family through
+``ContinuousSD15Engine`` / ``ContinuousSDXLEngine`` (not with
+``--refiner``). A full-width model is served through the library (build
+the agent and call the runner or the engine), as with the JAX package:
 
-    python -m tpdm_tpu_torch.serve --family sd15 --toy --cpu --cli --prompt "a cat"
+    python -m tpdm_tpu_torch.serve --family sdxl --toy --cli --prompt "a cat"
+    python -m tpdm_tpu_torch.serve --family sd15 --toy --continuous --port 7861
 
 Not ported yet, each exiting with a message that names its ROADMAP queue 1
-item: ``--family sdxl|flux`` (12), ``--family sd15 --continuous`` (12),
-``--dp`` / ``--mesh`` (9(d) and 14), ``--lora*`` (13(b)), ``--few_step``
-(9(e)), ``--quant_text`` (13(a)) and ``--reward_checkpoint`` (8); gradio
-is not ported. Importing the module starts nothing.
+item: ``--family flux`` (12), ``--dp`` / ``--mesh`` (9(d) and 14),
+``--lora*`` (13(b)), ``--few_step`` (9(e)), ``--quant_text`` (13(a)) and
+``--reward_checkpoint`` (8); gradio is not ported. Importing the module
+starts nothing.
 """
 
 from __future__ import annotations
@@ -221,65 +225,128 @@ def build_pipeline(args):
 
 
 def build_family_world(args):
-    """``--family sd15``: the toy SD1.5 world as the root serve.py builds it
-    (the toy UNet at cross-attention width 32, an 8-token CLIP tower 32
-    wide, a 4-channel TPM, the toy VAE at 4 latent channels, at most 8
-    steps), weights N(0, 0.02²) from ``TOY_SEED``: a dict of the agent, its
-    TPM, ``encode``, ``decode`` and the fixed-batch ``runner``. None for
-    sd3. Without ``--toy`` it exits: a full-width model is built in the
-    library and served with ``make_sd15_runner``. The toy world runs on
-    the CPU only (``--cpu``): its UNet's head dims (4, 6, 8) have no K1
-    kernel on the card."""
+    """``--family sd15`` / ``sdxl``: the family's toy world as the root
+    serve.py builds it, weights N(0, 0.02²) from ``TOY_SEED``, on the card
+    in bf16 unless ``--cpu`` (K1 serves the toy UNets' head dims 4, 6 and 8
+    on operands padded to 64 columns): a dict of the agent, its TPM,
+    ``encode``, ``decode`` and the fixed-batch ``runner``. None for sd3.
+
+    - sd15: the toy UNet at cross-attention width 32, an 8-token CLIP tower
+      32 wide, a 4-channel TPM, the toy VAE at 4 latent channels, at most 8
+      steps;
+    - sdxl: ``UNetConfig.toy_xl`` on CLIP towers 16 and 24 wide (context
+      40, pooled 12), the same TPM and VAE; ``--refiner`` adds the toy
+      refiner (bigG context 24) behind the ensemble runner.
+
+    Without ``--toy`` it exits: a full-width model is built in the library
+    and served with the family's runner."""
     fam = getattr(args, "family", "sd3")
     if fam == "sd3":
         return None
-    if fam != "sd15":
+    if fam not in ("sd15", "sdxl"):
         raise SystemExit(str(not_ported(f"--family {fam}", "12")))
     if not getattr(args, "toy", False):
         raise SystemExit(f"--family {fam} currently serves --toy configs from the CLI; for "
                          "real checkpoints build a runner with "
-                         "tpdm_tpu_torch.serving_families.make_sd15_runner")
+                         f"tpdm_tpu_torch.serving_families.make_{fam}_runner")
     if _quant_bits(args) is not None:
-        raise SystemExit("--int8/--int4 are not supported for --family sd15 (quantization "
+        raise SystemExit(f"--int8/--int4 are not supported for --family {fam} (quantization "
                          "covers the MMDiT/FLUX transformer backbones)")
-    if not getattr(args, "cpu", False):
-        raise SystemExit(f"--family {fam} --toy runs on the CPU: pass --cpu (the toy UNet's "
-                         "head dims have no K1 kernel on the card; there, build a full-width "
-                         "runner with tpdm_tpu_torch.serving_families.make_sd15_runner)")
+    refiner = getattr(args, "refiner", False)
+    ci, gi, tau = _accel_kwargs(args)
+    if refiner:
+        if fam != "sdxl":
+            raise SystemExit("--refiner is SDXL's second expert: pass --family sdxl")
+        if getattr(args, "continuous", False):
+            raise SystemExit("--refiner serves through the fixed-batch ensemble runner; "
+                             "--continuous is not supported with it")
+        if ci or gi is not None or tau:
+            raise SystemExit("--cache_interval/--guidance_interval/--cache_tau are not "
+                             "supported with --refiner (the ensemble runner owns both experts' "
+                             "sampler configs)")
     from tpdm_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
     from tpdm_tpu_torch.models.tpm import TimePredictor
     from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
     from tpdm_tpu_torch.models.vae import VAE, VAEConfig
-    from tpdm_tpu_torch.serving_families import make_sd15_runner, make_vae_decoder
+    from tpdm_tpu_torch import serving_families as families
     from tpdm_tpu_torch.train.config import RLOOConfig
-    from tpdm_tpu_torch.train.sd15_agent import SD15Agent
 
     device = _device(args)
-    ucfg = UNetConfig.toy(cross_attention_dim=32)
-    ch0 = ucfg.block_out_channels[0]
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    config = RLOOConfig(max_inference_steps=min(args.max_steps, 8))
     g = torch.Generator(device=device).manual_seed(TOY_SEED)
-    with torch.device(device):
-        unet = UNetSD15(ucfg).init_weights(g)
-        text = CLIPTextModel(CLIPTextConfig.toy(hidden_size=32, max_position_embeddings=8))
-        vae = VAE(VAEConfig.toy(latent_channels=4))
-    text.init_weights(g).eval()
-    vae.init_weights(g)
-    agent = SD15Agent(unet, RLOOConfig(max_inference_steps=min(args.max_steps, 8)),
-                      tpm=lambda: TimePredictor(conv_out_channels=4, in_channels=2 * ch0,
-                                                temb_dim=ch0))
+
+    def tpm_of(ucfg):
+        ch0 = ucfg.block_out_channels[0]
+        return lambda: TimePredictor(conv_out_channels=4, in_channels=2 * ch0, temb_dim=ch0,
+                                     dtype=dtype)
+
+    def build(module):
+        with torch.device(device):
+            return module().init_weights(g).to(dtype).eval()
+
+    def ids_of(prompts):
+        return torch.as_tensor(np.concatenate([toy_tokenize(p)[0] for p in prompts]),
+                               device=device).long()
+
+    vae = lambda: VAE(VAEConfig.toy(latent_channels=4))
+    if fam == "sd15":
+        from tpdm_tpu_torch.train.sd15_agent import SD15Agent
+
+        ucfg = UNetConfig.toy(cross_attention_dim=32)
+        unet = build(lambda: UNetSD15(ucfg))
+        text = build(lambda: CLIPTextModel(CLIPTextConfig.toy(hidden_size=32,
+                                                              max_position_embeddings=8)))
+        decode = families.make_vae_decoder(build(vae))
+        agent = SD15Agent(unet, config, tpm=tpm_of(ucfg))
+        tpm = agent.init_tpm_params(g).eval()
+
+        @torch.no_grad()
+        def encode(prompts):
+            ids = ids_of(prompts)
+            return text(ids)[1], text(torch.zeros_like(ids))[1]
+
+        runner = families.make_sd15_runner(agent, tpm, encode, decode, cache_interval=ci,
+                                           guidance_interval=gi, cache_tau=tau)
+        return dict(family=fam, agent=agent, tpm_params=tpm, encode=encode, decode=decode,
+                    runner=runner)
+
+    from tpdm_tpu_torch.pipeline.text_encoding import SDXLTextEncoders
+    from tpdm_tpu_torch.train.sdxl_agent import SDXLAgent, SDXLRefinerAgent
+
+    ucfg = UNetConfig.toy_xl(cross_attention_dim=16 + 24, addition_pooled_dim=12)
+    unet = build(lambda: UNetSD15(ucfg))
+    towers = [build(lambda w=w, p=p: CLIPTextModel(CLIPTextConfig.toy(
+        hidden_size=w, projection_dim=p, max_position_embeddings=8))) for w, p in ((16, 8), (24, 12))]
+    text = SDXLTextEncoders(*towers)
+    decode = families.make_vae_decoder(build(vae))
+    agent = SDXLAgent(unet, config, tpm=tpm_of(ucfg))
     tpm = agent.init_tpm_params(g).eval()
 
-    @torch.no_grad()
-    def encode(prompts):
-        ids = torch.as_tensor(np.concatenate([toy_tokenize(p)[0] for p in prompts]),
-                              device=device).long()
-        return text(ids)[1], text(torch.zeros_like(ids))[1]
+    def encoder(fn):
+        """(prompts) -> (pe, pooled, negative pe, negative pooled): the
+        negative pair is the towers on zero ids."""
+        def encode(prompts):
+            ids = ids_of(prompts)
+            pos, neg = fn(ids), fn(torch.zeros_like(ids))
+            return (pos.prompt_embeds, pos.pooled_prompt_embeds, neg.prompt_embeds,
+                    neg.pooled_prompt_embeds)
 
-    ci, gi, tau = _accel_kwargs(args)
-    decode = make_vae_decoder(vae)
+        return encode
+
+    encode = encoder(text.encode)
+    if refiner:
+        rcfg = UNetConfig.toy_refiner(cross_attention_dim=24, addition_pooled_dim=12)
+        ragent = SDXLRefinerAgent(build(lambda: UNetSD15(rcfg)), config, tpm=tpm_of(rcfg))
+        rtpm = ragent.init_tpm_params(g).eval()
+        runner = families.make_sdxl_ensemble_runner(
+            agent, tpm, ragent, rtpm, encode, encoder(text.encode_refiner), decode,
+            denoising_end=args.denoising_end)
+    else:
+        runner = families.make_sdxl_runner(agent, tpm, encode, decode, cache_interval=ci,
+                                           guidance_interval=gi, cache_tau=tau)
     return dict(family=fam, agent=agent, tpm_params=tpm, encode=encode, decode=decode,
-                runner=make_sd15_runner(agent, tpm, encode, decode, cache_interval=ci,
-                                        guidance_interval=gi, cache_tau=tau))
+                runner=runner)
 
 
 def generate(pipe, tokenize, prompt, seed, max_steps, cache_interval=0,
@@ -326,24 +393,50 @@ def _pipe_vae_scale_factor(pipe) -> int:
     return vae_scale_factor(pipe.vae.config)
 
 
-def make_engine(pipe, tokenize, args, runner=None):
+def _family_continuous_engine(world, args):
+    """``--continuous`` for a family world: ``ContinuousSD15Engine`` or
+    ``ContinuousSDXLEngine`` over its agent, encode and decode
+    (``--max_batch`` slots), the agent's own step budget as ``max_steps``.
+    The family segments carry no cache or guidance-window state, so those
+    flags exit, as in the root serve.py."""
+    ci, gi, tau = _accel_kwargs(args)
+    if ci or gi is not None or tau:
+        raise SystemExit("--cache_interval/--guidance_interval/--cache_tau serve through the "
+                         "fixed-batch runners (the family continuous engines' segments do not "
+                         "carry the cache/branch state); drop --continuous")
+    from tpdm_tpu_torch.serving_continuous import ContinuousSD15Engine, ContinuousSDXLEngine
+
+    cls = {"sd15": ContinuousSD15Engine, "sdxl": ContinuousSDXLEngine}[world["family"]]
+    return cls(world["agent"], world["encode"], decode=world["decode"],
+               tpm_params=world["tpm_params"], slots=args.max_batch,
+               seg_steps=getattr(args, "seg_steps", 4),
+               pipeline_depth=getattr(args, "pipeline_depth", 1) or 1,
+               decode_batch=getattr(args, "decode_batch", 1) or 1)
+
+
+def make_engine(pipe, tokenize, args, runner=None, world=None):
     """The serving engine for ``args``: a ``BatchingEngine``, or with
     ``--continuous`` a ``ContinuousBatchingEngine`` (``--max_batch``
     slots), or with ``--continuous --resolutions`` a
     ``MultiResContinuousRouter``. The continuous engines take the Δ-cache
     per segment (``--cache_interval``) and exit on ``--guidance_interval``
     and ``--cache_tau``, as the root serve.py does. With a family
-    ``runner``, a ``BatchingEngine`` over it (``pipe`` None)."""
+    ``runner``, a ``BatchingEngine`` over it (``pipe`` None), or with
+    ``--continuous`` the family's continuous engine over ``world``
+    (``build_family_world``'s)."""
     from tpdm_tpu_torch.serving import BatchingEngine
 
     if runner is not None:
         if _resolutions(args):
             raise SystemExit("--resolutions is SD3-only (fixed-batch sub-batches or "
-                             "MultiResContinuousRouter); the sd15 family agent serves one "
-                             "latent geometry")
+                             "MultiResContinuousRouter); the family agents serve one latent "
+                             "geometry")
         if getattr(args, "continuous", False):
-            raise SystemExit(str(not_ported("--continuous for --family sd15 "
-                                            "(ContinuousSD15Engine)", "12")))
+            if world is None:
+                raise SystemExit("--continuous with a bare runner needs the family world "
+                                 "(agent/encode/decode): build a ContinuousSD15Engine or "
+                                 "ContinuousSDXLEngine directly")
+            return _family_continuous_engine(world, args)
         return BatchingEngine(None, tokenize, max_batch=args.max_batch,
                               window_ms=args.batch_window_ms, max_steps=args.max_steps,
                               runner=runner)
@@ -381,20 +474,21 @@ def _alive(engine) -> bool:
     return all(e._thread is not None for e in engines)
 
 
-def make_http_server(pipe, tokenize, args, ranker=None, runner=None):
+def make_http_server(pipe, tokenize, args, ranker=None, runner=None, world=None):
     """A threaded HTTP server over ``make_engine``'s engine: concurrent
     requests coalesce into one batch, or share the continuous engine's
     slots. ``ranker`` (``train.builders.build_inference_ranker``) ranks
     ``/rank``'s candidates; without one they come back unranked. Returns
     (engine, server); start the engine, then ``server.serve_forever()``.
-    ``runner``: a family runner, served by a ``BatchingEngine`` over it."""
+    ``runner``: a family runner, served by a ``BatchingEngine`` over it, or
+    with ``--continuous`` by the family's continuous engine over ``world``."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from tpdm_tpu_torch.serving import EngineOverloaded, RequestExpired, generate_ranked
     from tpdm_tpu_torch.utils.image import read_png_rgb
     from tpdm_tpu_torch.utils.metrics_export import prometheus_text
 
-    engine = make_engine(pipe, tokenize, args, runner=runner)
+    engine = make_engine(pipe, tokenize, args, runner=runner, world=world)
 
     def not_served(req):
         """Request fields whose options are not ported: a 400 naming them."""
@@ -567,6 +661,10 @@ def parse_args(argv=None):
     p.add_argument("--tpm", default=None, help="a TPM-only safetensors checkpoint")
     p.add_argument("--toy", action="store_true", help="random toy weights (runs anywhere)")
     p.add_argument("--family", default="sd3", choices=["sd3", "sd15", "sdxl", "flux"])
+    p.add_argument("--refiner", action="store_true",
+                   help="--family sdxl: the base + refiner ensemble runner")
+    p.add_argument("--denoising_end", type=float, default=0.8,
+                   help="--refiner: the base's share of the noise levels")
     p.add_argument("--cli", action="store_true", help="generate --prompt once, write --out")
     p.add_argument("--cpu", action="store_true", help="serve on the CPU instead of the card")
     p.add_argument("--prompt", default="a serene mountain lake at dawn")
@@ -613,7 +711,7 @@ def parse_args(argv=None):
     for name, (what, item) in _NOT_PORTED_FLAGS.items():
         if getattr(args, name):
             raise SystemExit(str(not_ported(what, item)))
-    if args.family not in ("sd3", "sd15"):
+    if args.family not in ("sd3", "sd15", "sdxl"):
         raise SystemExit(str(not_ported(f"--family {args.family}", "12")))
     if args.family != "sd3" and args.solver != "euler":
         raise SystemExit("--solver serves the SD3 engines and --cli; family runners keep euler")
@@ -658,7 +756,7 @@ def main(argv=None):
         print(f"saved {args.out}; inference steps: {nfe} / cap {args.max_steps}")
         return
 
-    engine, server = make_http_server(pipe, tokenize, args, runner=runner)
+    engine, server = make_http_server(pipe, tokenize, args, runner=runner, world=world)
     engine.start()
     streamer = None
     if args.tb_dir:

@@ -1,11 +1,12 @@
 """Continuous batching for adaptive-NFE serving: step-level slot recycling.
 
 Counterpart of ``tpdm_tpu/serving_continuous.py``'s ``PromptEmbedCache``,
-``ContinuousBatchingEngine`` and ``MultiResContinuousRouter``. TPDM gives
-every prompt its own number of denoise steps. Under the fixed-batch engine
-(``serving.BatchingEngine``) a batch runs until its slowest row finishes,
-so the other rows idle. This engine treats the batch as S persistent
-*slots* and the denoise loop as a sequence of fixed-length *segments*:
+``ContinuousBatchingEngine``, ``MultiResContinuousRouter`` and the SD1.5
+and SDXL engines. TPDM gives every prompt its own number of denoise steps.
+Under the fixed-batch engine (``serving.BatchingEngine``) a batch runs
+until its slowest row finishes, so the other rows idle. This engine treats
+the batch as S persistent *slots* and the denoise loop as a sequence of
+fixed-length *segments*:
 
     ┌─ refill free slots from the request queue (prompt embeds, latent)
     │  run ONE segment: ``seg_steps`` adaptive steps over all S slots
@@ -51,10 +52,17 @@ shape its latents equal the fixed engine's to the bit. With
 by the engine, shared by all slots. The negative prompt's embeds (the
 towers on zero ids) are encoded once at build.
 
+The family engines: ``ContinuousSD15Engine`` and ``ContinuousSDXLEngine``
+(on ``_AgentContinuousEngine``) run the same host loop over an agent, its
+``encode`` and ``decode``: a slot carries the integer t and the
+DPM-Solver++ history, and its segment mirrors ``pipeline/sd15_sampler.py``'s
+step, so a request's schedule equals the family runner's
+(``serving_families.py``).
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: ``dp`` (9(d)), ``mesh_shape`` (14), LoRA adapters
 (``register_adapter``, ``fused_lora``, ``submit(lora=)``: 13(b)) and the
-family engines (12).
+FLUX engine (12).
 """
 
 from __future__ import annotations
@@ -200,14 +208,7 @@ class ContinuousBatchingEngine:
         cache_interval: int = 0,
         solver: str = "euler",
     ):
-        if dp is not None:
-            raise not_ported("dp (data-parallel slots)", "9(d)")
-        if mesh_shape is not None:
-            raise not_ported("mesh_shape (sharded-model serving)", "14")
-        if fused_lora:
-            raise not_ported("fused_lora (continuous LoRA adapters)", "13(b)")
-        if slots < 1 or seg_steps < 1:
-            raise ValueError("slots and seg_steps must be >= 1")
+        _refuse_unported(dp, mesh_shape, fused_lora)
         if cache_interval == 1 or cache_interval < 0:
             raise ValueError("cache_interval must be 0 (off) or >= 2")
         if solver not in ("euler", "ab2"):
@@ -215,10 +216,6 @@ class ContinuousBatchingEngine:
         if solver != "euler" and cache_interval:
             raise ValueError("solver='ab2' and cache_interval are mutually exclusive on the "
                              "continuous engine (both extend the segment carry)")
-        if pipeline_depth < 1:
-            raise ValueError("pipeline_depth must be >= 1")
-        if decode_batch < 1:
-            raise ValueError("decode_batch must be >= 1")
         mcfg = pipe.mmdit.config
         if resolution is not None:
             if resolution % vae_scale_factor != 0:
@@ -232,17 +229,46 @@ class ContinuousBatchingEngine:
                     f"{mcfg.patch_size}: use a multiple of {vae_scale_factor * mcfg.patch_size}")
         self.pipe = pipe
         self.tokenize = tokenize
+        self.resolution = resolution
+        self.vae_scale_factor = vae_scale_factor
+        self.cache_interval = cache_interval
+        self.solver = solver
+        self._init_host(slots, seg_steps, max_steps, guidance_scale, predict, queue_limit,
+                        embed_cache_size, embed_cache, pipeline_depth, decode_batch)
+
+        self._device, self._dtype = pipe._device_dtype()
+        self._min_live = pipe.min_sigma  # a slot below it has finished
+        self._lat_size = (resolution // vae_scale_factor if resolution is not None
+                          else mcfg.sample_size)
+        self._token_grid = self._lat_size // mcfg.patch_size
+        self._clamp_cfg = SamplerConfig(relative=pipe.relative)
+        # the uncond branch's default is the empty prompt (zero ids, as
+        # BatchingEngine's constant negative): encoded once here, which
+        # also gives the embed shapes
+        c, t = tokenize("")
+        probe = self._encode(np.zeros_like(c), None if t is None else np.zeros_like(t))
+        self._probe_shapes = (probe[0].shape[1:], probe[1].shape[1:])
+        self._neg_rows = (probe[0][0], probe[1][0]) if guidance_scale is not None else None
+        self._generator = torch.Generator(device=self._device)
+        self._reset_state()
+
+    def _init_host(self, slots, seg_steps, max_steps, guidance_scale, predict, queue_limit,
+                   embed_cache_size, embed_cache, pipeline_depth, decode_batch):
+        """The host side that every engine shares: the queue, the workers,
+        the slot table and its mirrors, the counters and the embed cache."""
+        if slots < 1 or seg_steps < 1:
+            raise ValueError("slots and seg_steps must be >= 1")
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if decode_batch < 1:
+            raise ValueError("decode_batch must be >= 1")
         self.slots = slots
         self.seg_steps = seg_steps
         self.max_steps = max_steps
         self.guidance_scale = guidance_scale
         self.predict = predict
-        self.resolution = resolution
-        self.vae_scale_factor = vae_scale_factor
         self.pipeline_depth = int(pipeline_depth)
         self.decode_batch = int(decode_batch)
-        self.cache_interval = cache_interval
-        self.solver = solver
         self._queue: "queue.Queue[Optional[ServeRequest]]" = queue.Queue(
             maxsize=queue_limit if queue_limit is not None else 8 * slots)
         # requests drained from _queue awaiting a slot (worker-owned)
@@ -273,21 +299,6 @@ class ContinuousBatchingEngine:
         self._embed_cache = (embed_cache if embed_cache is not None
                              else PromptEmbedCache(embed_cache_size))
         self._lock = threading.Lock()  # guards the counters stats() reads
-
-        self._device, self._dtype = pipe._device_dtype()
-        self._lat_size = (resolution // vae_scale_factor if resolution is not None
-                          else mcfg.sample_size)
-        self._token_grid = self._lat_size // mcfg.patch_size
-        self._clamp_cfg = SamplerConfig(relative=pipe.relative)
-        # the uncond branch's default is the empty prompt (zero ids, as
-        # BatchingEngine's constant negative): encoded once here, which
-        # also gives the embed shapes
-        c, t = tokenize("")
-        probe = self._encode(np.zeros_like(c), None if t is None else np.zeros_like(t))
-        self._probe_shapes = (probe[0].shape[1:], probe[1].shape[1:])
-        self._neg_rows = (probe[0][0], probe[1][0]) if guidance_scale is not None else None
-        self._generator = torch.Generator(device=self._device)
-        self._reset_state()
 
     # -- not ported ---------------------------------------------------------
     def register_adapter(self, name: str, lora: dict, scale: float = 1.0,
@@ -336,10 +347,7 @@ class ContinuousBatchingEngine:
         live; a done slot keeps its latents and sigma. The step is
         ``adaptive_sample``'s (``pipeline/sampler.py``): the same ops in
         the same dtypes, so a slot's trajectory is a solo ``generate``'s."""
-        shapes = tuple(None if x is None else (tuple(x.shape), x.dtype) for x in st)
-        if shapes not in self._segment_shapes:
-            self._segment_shapes.add(shapes)
-            self.segment_traces = len(self._segment_shapes)
+        self._note_state_shapes(st)
         pipe, mcfg = self.pipe, self.pipe.mmdit.config
         dtype = self._dtype
         cfg_on = st.gs is not None
@@ -386,6 +394,13 @@ class ContinuousBatchingEngine:
             sigma = sig_next
             trace.append(sig_next)
         return st._replace(latents=lat, sigma=sigma, steps=steps), torch.stack(trace)
+
+    def _note_state_shapes(self, st):
+        """Count the distinct state shapes a segment has run on."""
+        shapes = tuple(None if x is None else (tuple(x.shape), x.dtype) for x in st)
+        if shapes not in self._segment_shapes:
+            self._segment_shapes.add(shapes)
+            self.segment_traces = len(self._segment_shapes)
 
     # -- host side ----------------------------------------------------------
     def _encode(self, clip_ids, t5_ids):
@@ -438,7 +453,8 @@ class ContinuousBatchingEngine:
         new = dict(latents=_put(st.latents, slot, lat), sigma=_put(st.sigma, slot, sigma0),
                    steps=_put(st.steps, slot, 0), caps=_put(st.caps, slot, cap),
                    pe=_put(st.pe, slot, pe_row), pp=_put(st.pp, slot, pp_row))
-        if st.gs is not None:
+        new.update(self._assign_extra(st, slot, sigma0))
+        if getattr(st, "gs", None) is not None:
             gs0 = self.guidance_scale if req.guidance_scale is None else req.guidance_scale
             npe_row, npp_row = (self._neg_prompt_embeds(req.negative_prompt)
                                 if req.negative_prompt else self._neg_rows)
@@ -450,6 +466,11 @@ class ContinuousBatchingEngine:
         self._slot_sigmas[slot] = []
         self._steps_host[slot] = 0
         self._caps_host[slot] = cap
+
+    def _assign_extra(self, st, slot: int, sigma0) -> dict:
+        """Further state rows a fresh slot sets (the family engines' solver
+        history); none here."""
+        return {}
 
     def _decode_rows(self, lats: torch.Tensor) -> np.ndarray:
         """(b, c, h, w) latents -> (b, H, W, 3) uint8 images; without a VAE
@@ -619,7 +640,7 @@ class ContinuousBatchingEngine:
             with self._lock:
                 self.slot_steps_active += executed
             self._slot_sigmas[i].extend(float(s) for s in trace[:executed, i])
-            if sigma[i] < self.pipe.min_sigma or steps[i] >= self._caps_host[i]:
+            if sigma[i] < self._min_live or steps[i] >= self._caps_host[i]:
                 self._finish(i, int(steps[i]))
 
     # -- public surface -----------------------------------------------------
@@ -822,6 +843,293 @@ class ContinuousBatchingEngine:
             out["latency_s_p50"] = lats[len(lats) // 2]
             out["latency_s_p95"] = lats[min(len(lats) - 1, int(0.95 * len(lats)))]
         return out
+
+
+def _refuse_unported(dp, mesh_shape, fused_lora):
+    if dp is not None:
+        raise not_ported("dp (data-parallel slots)", "9(d)")
+    if mesh_shape is not None:
+        raise not_ported("mesh_shape (sharded-model serving)", "14")
+    if fused_lora:
+        raise not_ported("fused_lora (continuous LoRA adapters)", "13(b)")
+
+
+class _AgentContinuousEngine(ContinuousBatchingEngine):
+    """The plumbing of the agent-backed family engines: built from (agent,
+    encode, decode) instead of a pipeline, per-seed latents drawn as the
+    family runners draw them, the decode given or none. A request carries a
+    prompt, a seed and a cap: per-request guidance, negatives and img2img
+    are the SD3 engine's."""
+
+    def __init__(
+        self,
+        agent,
+        encode: Callable,
+        decode: Optional[Callable] = None,
+        tpm_params=None,
+        slots: int = 4,
+        seg_steps: int = 4,
+        max_steps: Optional[int] = None,
+        guidance_scale: Optional[float] = None,
+        predict: bool = True,
+        queue_limit: Optional[int] = None,
+        embed_cache_size: int = 256,
+        dp: Optional[int] = None,
+        mesh_shape: Optional[tuple] = None,
+        fused_lora: bool = False,
+        pipeline_depth: int = 1,
+        decode_batch: int = 1,
+    ):
+        _refuse_unported(dp, mesh_shape, fused_lora)
+        self.agent = agent
+        self._encode_fn = encode
+        self._decode_fn = decode
+        self._device, self._dtype = agent.device, agent.dtype
+        self._tpm_params = (tpm_params if tpm_params is not None else agent.init_tpm_params(
+            torch.Generator(device=agent.device).manual_seed(0)))
+        self.pipe = self.tokenize = None
+        self.resolution = None
+        self._lat_size, self.vae_scale_factor = agent.unet.config.sample_size, 8
+        self.cache_interval = 0
+        self.solver = "euler"
+        self._init_host(slots, seg_steps, max_steps or self._default_max_steps(),
+                        guidance_scale if guidance_scale is not None
+                        else self._default_guidance(),
+                        predict, queue_limit, embed_cache_size, None, pipeline_depth,
+                        decode_batch)
+        self._generator = torch.Generator(device=self._device)
+        self._build()
+        self._reset_state()
+
+    def _default_max_steps(self) -> int:
+        raise NotImplementedError
+
+    def _default_guidance(self) -> Optional[float]:
+        return None
+
+    def _build(self):
+        """Family hook: the encode probe and the segment's constants."""
+        raise NotImplementedError
+
+    def _init_latent(self, seed: int) -> torch.Tensor:
+        """(c, h, w): the family runners' draw of a batch-1 request with this
+        seed (``serving_families._per_seed_latents``)."""
+        g = torch.Generator(device=self.agent.device).manual_seed(int(seed))
+        return self.agent.prepare_latents(g, 1)[0]
+
+    def _decode_rows(self, lats: torch.Tensor) -> np.ndarray:
+        if self._decode_fn is not None:
+            return self._decode_fn(lats)
+        return lats.float().cpu().numpy()
+
+    def submit(self, prompt: str, seed: int = 0, steps: Optional[int] = None,
+               resolution: Optional[int] = None, deadline_s: Optional[float] = None,
+               init_image: Optional[np.ndarray] = None, strength: Optional[float] = None,
+               guidance_scale: Optional[float] = None, negative_prompt: Optional[str] = None,
+               lora: Optional[str] = None) -> ServeRequest:
+        """Enqueue one text-to-image request (``steps`` caps its NFE);
+        ``guidance_scale``, ``negative_prompt`` and ``init_image`` are
+        refused, as the JAX family engines refuse them."""
+        if guidance_scale is not None or negative_prompt:
+            raise ValueError("per-request guidance/negative prompts are SD3-only")
+        if init_image is not None or strength is not None:
+            raise ValueError("img2img needs the SD3 pipeline engine with a VAE")
+        return super().submit(prompt, seed=seed, steps=steps, resolution=resolution,
+                              deadline_s=deadline_s, lora=lora)
+
+
+class _SD15SlotState(NamedTuple):
+    """The SD1.5 and SDXL slots' state: the integer t (carried as fp32 in
+    ``sigma``, so the host's finish check reads it as the SD3 sigma) and
+    the DPM-Solver++ history (t_prev, x0_prev)."""
+
+    latents: torch.Tensor  # (S, 4, h, w) model dtype
+    sigma: torch.Tensor  # (S,) f32, the integer t; below min_time: finished or empty
+    steps: torch.Tensor  # (S,) i32
+    caps: torch.Tensor  # (S,) i32
+    pe: torch.Tensor  # (S, n, d) positive context rows
+    pp: torch.Tensor  # (S, P): (S, 1) zeros for SD1.5, bigG's pooled rows for SDXL
+    t_prev: torch.Tensor  # (S,) i32
+    x0_prev: torch.Tensor  # (S, 4, h, w) f32
+
+
+class ContinuousSD15Engine(_AgentContinuousEngine):
+    """Slot-recycling serving for the SD1.5 family: the integer-t adaptive
+    DPM-Solver++ loop a slot at a time.
+
+    The segment mirrors ``pipeline/sd15_sampler.py``'s step: a slot is done
+    before a step where t < min_time, its steps reached its cap, or it is
+    not live; t_next = int(t x ratio), truncated; the first- or
+    second-order update picked per slot (first on a slot's first step, at
+    t_next = 0 and on the cap step); the cap step integrates to x0. So a
+    slot's integer schedule equals a fixed-batch rollout's, and at the same
+    CFG batch its latents equal it to the bit.
+
+    Args:
+        agent: an ``SD15Agent``.
+        encode: ``(prompts) -> (prompt_embeds, negative_prompt_embeds)``,
+            the negative the empty prompt's (``make_sd15_runner``'s).
+        decode: optional ``final_latents -> uint8 images``; None returns
+            the final latents (fp32).
+        tpm_params: the TPM module (default ``agent.init_tpm_params`` of a
+            generator seeded 0).
+        dp, mesh_shape, fused_lora: not ported (ROADMAP queue 1, items
+            9(d), 14 and 13(b)).
+    """
+
+    def _default_max_steps(self) -> int:
+        return self.agent.sampler_cfg.num_inference_steps
+
+    def _default_guidance(self) -> Optional[float]:
+        return self.agent.guidance_scale
+
+    def _cfg_on(self) -> bool:
+        return self.guidance_scale is not None and self.guidance_scale > 1
+
+    def _encode_probe(self):
+        """(positive probe rows, negative context (1, n, d), negative pooled
+        (1, P) or None, the pooled row's shape)."""
+        pe, npe = self._encode_fn(["probe"])
+        return pe, npe[:1], None, (1,)
+
+    def _build(self):
+        from tpdm_tpu_torch.ops.dpm_solver import ddpm_sigmas_from_betas
+
+        self._min_live = float(self.agent.sampler_cfg.min_time)  # the carried scalar is t
+        pe, self._neg_pe, self._neg_pp, self._pp_shape = self._encode_probe()
+        self._pe_shape, self._pe_dtype = tuple(pe.shape[1:]), pe.dtype
+        self._sigmas = ddpm_sigmas_from_betas(device=self._device)
+
+    def _reset_state(self):
+        """All-empty slots (t 0: frozen) and a reseeded generator."""
+        S, ucfg, dev = self.slots, self.agent.unet.config, self._device
+        hw = (ucfg.in_channels, ucfg.sample_size, ucfg.sample_size)
+        self._state = _SD15SlotState(
+            latents=torch.zeros((S,) + hw, dtype=self._dtype, device=dev),
+            sigma=torch.zeros((S,), dtype=torch.float32, device=dev),
+            steps=torch.zeros((S,), dtype=torch.int32, device=dev),
+            caps=torch.full((S,), self.max_steps, dtype=torch.int32, device=dev),
+            pe=torch.zeros((S,) + self._pe_shape, dtype=self._pe_dtype, device=dev),
+            pp=torch.zeros((S,) + tuple(self._pp_shape), dtype=torch.float32, device=dev),
+            t_prev=torch.full((S,), 999, dtype=torch.int32, device=dev),
+            x0_prev=torch.zeros((S,) + hw, dtype=torch.float32, device=dev))
+        self._generator.manual_seed(0)
+        self._steps_host[:] = 0
+        self._caps_host[:] = self.max_steps
+
+    def _slot_init(self, req: ServeRequest):
+        """A fresh slot starts at t = 999 from its seed's latent."""
+        return self._init_latent(req.seed), 999.0
+
+    def _assign_extra(self, st, slot: int, sigma0) -> dict:
+        return dict(t_prev=_put(st.t_prev, slot, int(sigma0)),
+                    x0_prev=_put(st.x0_prev, slot, 0.0))
+
+    def _prompt_embeds(self, prompt: str):
+        hit = self._embed_cache.get(prompt)
+        if hit is not None:
+            return hit
+        pe, _ = self._encode_fn([prompt])
+        return self._embed_cache.put(
+            prompt, (pe[0], torch.zeros((1,), dtype=torch.float32, device=self._device)))
+
+    def _segment_denoise(self, st: _SD15SlotState):
+        """The segment's ``(latents, t) -> (eps, temb, h)`` from the slots'
+        context rows, [negative; positive] under CFG."""
+        from tpdm_tpu_torch.train.sd15_agent import make_sd15_denoise_fn
+
+        pe = st.pe
+        if self._cfg_on():
+            pe = torch.cat([self._neg_pe.expand(st.pe.shape), st.pe])
+        return make_sd15_denoise_fn(self.agent.unet, pe, self.guidance_scale)
+
+    @torch.no_grad()
+    def _segment(self, st: _SD15SlotState, live: torch.Tensor):
+        """``seg_steps`` integer-t steps over every slot; returns the new
+        state and the (seg, S) trace of t. A done slot keeps its latents, t
+        and history."""
+        from tpdm_tpu_torch.ops.dpm_solver import (
+            dpm_first_order_update,
+            dpm_second_order_update,
+            epsilon_to_x0,
+        )
+
+        self._note_state_shapes(st)
+        scfg = self.agent.sampler_cfg
+        denoise_fn = self._segment_denoise(st)
+        tpm_fn = self.agent.tpm_fn(self._tpm_params)
+        table = self._sigmas
+        lat, t_f, steps = st.latents, st.sigma, st.steps
+        t_prev, x0_prev = st.t_prev, st.x0_prev
+        bcast = (-1,) + (1,) * (lat.dim() - 1)
+        trace = []
+        for _ in range(self.seg_steps):
+            t = t_f.to(torch.int32)
+            tf = t.to(torch.float32)
+            eps, temb, h = denoise_fn(lat, tf)
+            raw = tpm_fn(h, temb).float()
+            alpha, beta = raw[:, 0], raw[:, 1]
+            ratio = (beta_mode(alpha, beta) if self.predict
+                     else beta_sample(self._generator, alpha, beta))
+            ratio = torch.clamp(ratio, scfg.epsilon, 1.0 - scfg.epsilon)
+            t_next = (tf * ratio).to(torch.int32)
+            done = (t < scfg.min_time) | (steps >= st.caps) | ~live
+            cap_now = ~done & (steps >= st.caps - 1)
+            t_next = torch.where(cap_now, torch.zeros_like(t_next), t_next)
+            lat32 = lat.float()
+            sigma_s0, sigma_s1 = table[t.long()], table[t_prev.long()]
+            sigma_t = torch.where(cap_now, torch.zeros_like(sigma_s0), table[t_next.long()])
+            x0 = epsilon_to_x0(eps.float(), lat32, sigma_s0)
+            first = dpm_first_order_update(x0, lat32, sigma_t, sigma_s0)
+            second = dpm_second_order_update(x0, x0_prev, lat32, sigma_t, sigma_s0, sigma_s1,
+                                             solver_type=scfg.solver_type)
+            use_first = (steps == 0) | (t_next == 0) | cap_now
+            stepped = torch.where(use_first.reshape(bcast), first, second).to(lat.dtype)
+            lat = torch.where(done.reshape(bcast), lat, stepped)
+            t_f = torch.where(done, t, t_next).to(torch.float32)
+            t_prev = torch.where(done, t_prev, t)
+            x0_prev = torch.where(done.reshape(bcast), x0_prev, x0)
+            steps = steps + (~done).to(torch.int32)
+            trace.append(t_f)
+        return (st._replace(latents=lat, sigma=t_f, steps=steps, t_prev=t_prev,
+                            x0_prev=x0_prev), torch.stack(trace))
+
+
+class ContinuousSDXLEngine(ContinuousSD15Engine):
+    """Slot-recycling serving for the SDXL family: the SD1.5 engine's
+    segment, the slots' ``pp`` rows holding bigG's pooled embedding and the
+    segment threading the text_time conditioning (pooled rows and the
+    agent's ``default_time_ids``) through CFG.
+
+    The size / crop ids are fixed for the engine: every request is
+    conditioned on ``agent.default_time_ids``, the native resolution's.
+
+    Args:
+        agent: an ``SDXLAgent``.
+        encode: ``(prompts) -> (prompt_embeds, pooled, negative_prompt_embeds,
+            negative_pooled)`` (``make_sdxl_runner``'s).
+    """
+
+    def _encode_probe(self):
+        pe, pooled, npe, npooled = self._encode_fn(["probe"])
+        return pe, npe[:1], npooled[:1], tuple(pooled.shape[1:])
+
+    def _prompt_embeds(self, prompt: str):
+        hit = self._embed_cache.get(prompt)
+        if hit is not None:
+            return hit
+        pe, pooled, _, _ = self._encode_fn([prompt])
+        return self._embed_cache.put(prompt, (pe[0], pooled[0]))
+
+    def _segment_denoise(self, st: _SD15SlotState):
+        from tpdm_tpu_torch.train.sdxl_agent import make_sdxl_denoise_fn
+
+        pe, pp = st.pe, st.pp
+        if self._cfg_on():
+            pe = torch.cat([self._neg_pe.expand(st.pe.shape), st.pe])
+            pp = torch.cat([self._neg_pp.to(st.pp.dtype).expand(st.pp.shape), st.pp])
+        added = {"text_embeds": pp, "time_ids": self.agent.default_time_ids(pe.shape[0])}
+        return make_sdxl_denoise_fn(self.agent.unet, pe, added, self.guidance_scale)
 
 
 class MultiResContinuousRouter:

@@ -220,11 +220,18 @@ class SD15Agent:
                             torch.as_tensor(pe)])
         return torch.as_tensor(pe, device=self.device).to(self.dtype)
 
-    def _make_cached(self, latents, pe, scfg: SD15SamplerConfig) -> CachedDenoise:
+    def _conditioning(self, batch: dict):
+        """(context rows, unet): the text context ([negative; positive] under
+        CFG) on the UNet's device and dtype, and the UNet as the denoise
+        builders call it, ``(latents, t, ctx, **cache_kw)``. SDXL's agent
+        adds its pooled and size conditioning here."""
+        return self._embeds(batch), self.unet
+
+    def _make_cached(self, latents, pe, scfg: SD15SamplerConfig, unet) -> CachedDenoise:
         """The DeepCache pair (with the guidance window composed where one
         is set), its zero initial feature at the doubled batch."""
         mode_apply = lambda mode: (
-            lambda lat, t, ctx, c: self.unet(lat, t, ctx, cache=c, cache_mode=mode))
+            lambda lat, t, ctx, c: unet(lat, t, ctx, cache=c, cache_mode=mode))
         bb = latents.shape[0] * (2 if _cfg_on(self.guidance_scale) else 1)
         init = torch.zeros(deepcache_feature_shape(self.unet.config, bb, latents.shape[-2:]),
                            dtype=self.dtype, device=self.device)
@@ -248,7 +255,7 @@ class SD15Agent:
         ``negative_prompt_embeds``; optional ``latents`` (else drawn from
         ``generator``, which then draws the Beta ratios) and ``init_t``
         ((b,) int starting timesteps, the integer-t img2img entry)."""
-        pe = self._embeds(batch)
+        pe, unet = self._conditioning(batch)
         latents = batch.get("latents")
         if latents is None:
             latents = self.prepare_latents(generator, batch["prompt_embeds"].shape[0])
@@ -256,12 +263,12 @@ class SD15Agent:
         scfg = sampler_cfg or dataclasses.replace(self.sampler_cfg, predict=predict)
         denoise_fn = cached = None
         if scfg.cache_interval >= 2 or scfg.cache_tau > 0:
-            cached = self._make_cached(latents, pe, scfg)
+            cached = self._make_cached(latents, pe, scfg, unet)
         elif scfg.guidance_interval is not None:
-            denoise_fn = make_sd15_interval_denoise_fn(self.unet, pe, self.guidance_scale,
+            denoise_fn = make_sd15_interval_denoise_fn(unet, pe, self.guidance_scale,
                                                        scfg.guidance_interval)
         else:
-            denoise_fn = make_sd15_denoise_fn(self.unet, pe, self.guidance_scale)
+            denoise_fn = make_sd15_denoise_fn(unet, pe, self.guidance_scale)
         if step_caps is not None:
             step_caps = torch.as_tensor(step_caps, dtype=torch.int32)
         return sd15_adaptive_sample(denoise_fn, self.tpm_fn(tpm), latents, generator, scfg,

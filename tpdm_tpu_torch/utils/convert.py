@@ -388,14 +388,19 @@ def unet_sd15_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 _UNET_ATTN_RENAMES = (
-    (re.compile(r"^block\.(attn[12])_to_out\."), r"transformer_blocks.0.\1.to_out.0."),
-    (re.compile(r"^block\.(attn[12])_(to_[qkv])\."), r"transformer_blocks.0.\1.\2."),
-    (re.compile(r"^block\.ff_proj\."), "transformer_blocks.0.ff.net.0.proj."),
-    (re.compile(r"^block\.ff_out\."), "transformer_blocks.0.ff.net.2."),
-    (re.compile(r"^block\."), "transformer_blocks.0."),
+    (re.compile(r"^block\.(?:(\d+)\.)?(attn[12])_to_out\."),
+     lambda m: f"transformer_blocks.{m[1] or 0}.{m[2]}.to_out.0."),
+    (re.compile(r"^block\.(?:(\d+)\.)?(attn[12])_(to_[qkv])\."),
+     lambda m: f"transformer_blocks.{m[1] or 0}.{m[2]}.{m[3]}."),
+    (re.compile(r"^block\.(?:(\d+)\.)?ff_proj\."),
+     lambda m: f"transformer_blocks.{m[1] or 0}.ff.net.0.proj."),
+    (re.compile(r"^block\.(?:(\d+)\.)?ff_out\."),
+     lambda m: f"transformer_blocks.{m[1] or 0}.ff.net.2."),
+    (re.compile(r"^block\.(?:(\d+)\.)?"), lambda m: f"transformer_blocks.{m[1] or 0}."),
 )
 _UNET_RENAMES = (
     (re.compile(r"^time_linear_(\d)\."), r"time_embedding.linear_\1."),
+    (re.compile(r"^add_linear_(\d)\."), r"add_embedding.linear_\1."),
     (re.compile(r"^(down|up)_(\d+)_resnet_(\d+)\."), r"\1_blocks.\2.resnets.\3."),
     (re.compile(r"^mid_resnet_(\d+)\."), r"mid_block.resnets.\1."),
     (re.compile(r"^(down|up)_(\d+)_attn_(\d+)\."), r"\1_blocks.\2.attentions.\3."),
@@ -405,14 +410,12 @@ _UNET_RENAMES = (
 )
 
 
-def _unet_sd15_keys(block_out_channels, layers_per_block: int):
-    """[(diffusers key, port key)] of an SD1.5-topology UNet (one
-    transformer block a level): the port's keys from the module built on
-    the meta device, each renamed to diffusers' layout."""
-    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
+def _unet_keys(cfg):
+    """[(diffusers key, port key)] of a ``UNetSD15(cfg)``: the port's keys
+    from the module built on the meta device, each renamed to diffusers'
+    layout (a transformer's block ``k`` to ``transformer_blocks.k``)."""
+    from tpdm_tpu_torch.models.unet_sd15 import UNetSD15
 
-    cfg = UNetConfig(block_out_channels=tuple(block_out_channels),
-                     layers_per_block=layers_per_block)
     with torch.device("meta"):
         port_keys = list(UNetSD15(cfg).state_dict())
     keys = []
@@ -433,6 +436,14 @@ def _unet_sd15_keys(block_out_channels, layers_per_block: int):
     return keys
 
 
+def _unet_sd15_keys(block_out_channels, layers_per_block: int):
+    """The keys of an SD1.5-topology UNet (one transformer block a level)."""
+    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig
+
+    return _unet_keys(UNetConfig(block_out_channels=tuple(block_out_channels),
+                                 layers_per_block=layers_per_block))
+
+
 def convert_unet_sd15(
     state_dict: Mapping,
     block_out_channels=(320, 640, 1280, 1280),
@@ -450,3 +461,61 @@ def export_unet_sd15(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
     the diffusers layout, contiguous CPU tensors."""
     keys = _unet_sd15_keys(cfg.block_out_channels, cfg.layers_per_block)
     return {src: _tensor(state_dict[dst].detach().cpu()) for src, dst in keys}
+
+
+# ---------------------------------------------------------------------------
+# SDXL UNet (diffusers UNet2DConditionModel, use_linear_projection)
+# ---------------------------------------------------------------------------
+
+_PROJ = re.compile(r"\.proj_(in|out)\.weight$")
+
+
+def _unet_sdxl_keys(block_out_channels, layers_per_block, transformer_layers_per_block,
+                    mid_transformer_layers):
+    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig
+
+    return _unet_keys(UNetConfig(
+        block_out_channels=tuple(block_out_channels), layers_per_block=layers_per_block,
+        transformer_layers_per_block=tuple(transformer_layers_per_block),
+        mid_transformer_layers=mid_transformer_layers, addition_embed=True))
+
+
+def convert_unet_sdxl(
+    state_dict: Mapping,
+    block_out_channels=(320, 640, 1280),
+    layers_per_block: int = 2,
+    transformer_layers_per_block=(0, 2, 10),
+    mid_transformer_layers: int = 10,
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """diffusers SDXL ``UNet2DConditionModel`` state dict (DownBlock2D and
+    CrossAttnDownBlock2D with transformer depths a level, the text_time
+    ``add_embedding``) -> state dict of ``models.unet_sd15.UNetSD15``
+    (``UNetConfig.sdxl()``; the refiner with its own geometry). The
+    transformers' ``proj_in`` / ``proj_out`` may be Linear weights (out,
+    in), SDXL's ``use_linear_projection``, or 1 x 1 convs: both become the
+    port's 1 x 1 conv, the same map."""
+    keys = _unet_sdxl_keys(block_out_channels, layers_per_block, transformer_layers_per_block,
+                           mid_transformer_layers)
+    out = _renamed(state_dict, keys, dtype)
+    for k, w in out.items():
+        if _PROJ.search(k) and w.dim() == 2:
+            out[k] = w[:, :, None, None].contiguous()
+    return out
+
+
+def export_unet_sdxl(state_dict: Mapping, cfg, linear_projection: bool = True
+                     ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_unet_sdxl``: a ``UNetSD15(cfg)`` state dict (an
+    SDXL or refiner config) -> the diffusers layout, contiguous CPU tensors;
+    ``linear_projection`` writes ``proj_in`` / ``proj_out`` as Linear
+    weights (diffusers' SDXL convention), else as 1 x 1 convs."""
+    keys = _unet_sdxl_keys(cfg.block_out_channels, cfg.layers_per_block, cfg.depths,
+                           cfg.mid_transformer_layers)
+    out = {}
+    for src, dst in keys:
+        w = state_dict[dst].detach().cpu()
+        if linear_projection and _PROJ.search(src):
+            w = w[:, :, 0, 0]
+        out[src] = _tensor(w)
+    return out
