@@ -229,6 +229,28 @@ Phases, one line each, and any failure exits non-zero:
    /generate each. K1 (140 a base forward, 88 a refiner forward, 32 an
    SD1.5 forward) and K2 (one an encode or decode) are checked exactly
    around every call.
+20. FLUX.1-dev (guidance 3.5 embedded, predict=True, TPM head bias
+   (1.0, 0.55), at most 28 steps), after phase 19's models are freed: K1 at
+   head dim 128 at (1, 24, 4608, 128) and (2, 24, 4608, 128) (1024 px: 512
+   T5 + 4096 image tokens) and (4, 24, 1536, 128) (512 px, 4 slots) against
+   its plain version, timed as phase 18 times it; FLUX at full width with
+   2 double and 2 single blocks, bf16 against an fp32 copy on the card
+   (MODULE_REL_TOL of each output's range); the full-depth model (19
+   double + 38 single blocks, 11.9 B parameters) built on the meta device
+   and drawn on the card in bf16 from the seed, its TPM and a 16-channel
+   VAE with FLUX.1's factors (scaling 0.3611, shift 0.1159); FluxPipeline.
+   generate at 1024 px at batch 1 and 2 (random T5-shaped embeds), the
+   28-step Euler generate_fixed, image-to-image at strength 0.6 and
+   cache_interval 2; ContinuousFluxEngine(slots=4, seg_steps=4) at 512 px
+   on a burst of 8 against BatchingEngine(max_batch=4) over
+   make_flux_runner, as phase 19 holds the UNet engines; ``serve --family
+   flux --toy`` and ``--family flux --toy --continuous`` on the card over
+   HTTP; then the model prequantised W8A8 in place and, drawn again from
+   the seed, int4: one 1024 px forward of each against the bf16 forward
+   (mean |dv| / mean |v| under QUANT_REL_BOUND) and one request each. K1
+   (57 a forward, cache_front_blocks a Δ-cache reuse forward), K2 (one an
+   encode or decode), K4 (304 a W8A8 forward) and K5 (77 a W8A8 forward,
+   381 an int4 one) are checked exactly around every call.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -375,10 +397,10 @@ SD15_K1_SHAPES = {
 # K2's kernel is not a template: E closes its name)
 # K1 and K3 are flash_attn_sm90_kernel<stats, consumers, 64-column boxes>:
 # K1 at d 64 and d 40 share one instantiation (the head dim is the tensor
-# maps' extent), d 80 and d 160 have their own
+# maps' extent), as do d 80 and d 128; d 160 has its own
 WGMMA_KERNELS = (
     ("K1", "flash_attn_sm90_kernelILb0ELi3ELi1E"),
-    ("K1 d80", "flash_attn_sm90_kernelILb0ELi2ELi2E"),
+    ("K1 d80/d128", "flash_attn_sm90_kernelILb0ELi2ELi2E"),
     ("K1 d160", "flash_attn_sm90_kernelILb0ELi1ELi3E"),
     ("K2", "flash_attn_d512_kernelE"),
     ("K3", "flash_attn_sm90_kernelILb1ELi3ELi1E"),
@@ -4442,19 +4464,28 @@ def family_continuous(label, counted, agent, tpm, encode, decode, k1_fwd, prompt
     BatchingEngine(max_batch=4) over the family's runner given the
     continuous engine's embed rows and decoding a row at a time as the
     continuous engine does (a decode's batch changes its rounding):
-    makespans and p50 side by side, each request's integer schedule and
-    steps equal. A request's final latents and image are then held to the
-    runner at the same CFG batch with the request in its slot's row (runner
-    calls of 4 rows, the requests placed by slot): equal, or the image
+    makespans and p50 side by side, each request's schedule (integer t,
+    or FLUX's sigmas) and steps equal. A request's final latents and image
+    are then held to the runner at the same CFG batch with the request in
+    its slot's row (runner calls of 4 rows, the requests placed by slot):
+    equal, or the image
     within the 1-level uint8 seam on under 1 % of pixels; the share equal
     to the fixed engine's own row is printed. K1 and K2 checked exactly
     around each burst."""
     from tpdm_tpu_torch.serving import BatchingEngine
-    from tpdm_tpu_torch.serving_continuous import ContinuousSD15Engine, ContinuousSDXLEngine
-    from tpdm_tpu_torch.serving_families import make_sd15_runner, make_sdxl_runner
+    from tpdm_tpu_torch.serving_continuous import (
+        ContinuousFluxEngine,
+        ContinuousSD15Engine,
+        ContinuousSDXLEngine,
+    )
+    from tpdm_tpu_torch.serving_families import (
+        make_flux_runner,
+        make_sd15_runner,
+        make_sdxl_runner,
+    )
 
-    sdxl = label == "sdxl"
-    cls = ContinuousSDXLEngine if sdxl else ContinuousSD15Engine
+    sdxl, flux = label == "sdxl", label.startswith("flux")
+    cls = ContinuousFluxEngine if flux else ContinuousSDXLEngine if sdxl else ContinuousSD15Engine
     cont = cls(agent, encode, decode=decode, tpm_params=tpm, slots=4, seg_steps=4)
     cont.warmup()
     slot_of, finals = {}, {}
@@ -4478,6 +4509,8 @@ def family_continuous(label, counted, agent, tpm, encode, decode, k1_fwd, prompt
 
     def rows_encode(texts):
         rows = [cont._prompt_embeds(t) for t in texts]
+        if flux:
+            return torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows])
         pe, npe = torch.stack([r[0] for r in rows]), cont._neg_pe.expand(len(texts), -1, -1)
         if not sdxl:
             return pe, npe
@@ -4490,14 +4523,14 @@ def family_continuous(label, counted, agent, tpm, encode, decode, k1_fwd, prompt
         calls_z[-1][1] = z
         return np.concatenate([decode(z[i:i + 1]) for i in range(z.shape[0])])
 
-    make = make_sdxl_runner if sdxl else make_sd15_runner
+    make = make_flux_runner if flux else make_sdxl_runner if sdxl else make_sd15_runner
     inner = make(agent, tpm, rows_encode, decode_rows)
 
     def runner(texts, seeds, caps):
         calls_z.append([list(seeds), None])
         return inner(texts, seeds, caps)
 
-    T = agent.sampler_cfg.num_inference_steps
+    T = agent.sampler_cfg.max_inference_steps if flux else agent.sampler_cfg.num_inference_steps
     warm = [p for p, _, _ in jobs[:4]]
     counted(f"{label} fixed warm-up", lambda: runner(warm, [seed] * 4, [1] * 4), None)
     decodes = FAMILY_BURST + -FAMILY_BURST % 4  # a batch's padded rows decode too
@@ -4511,8 +4544,8 @@ def family_continuous(label, counted, agent, tpm, encode, decode, k1_fwd, prompt
     finally:
         restore()
     for (p, s, c), a, b in zip(jobs, got, want):
-        if [int(v) for v in a["sigmas"]] != b["sigmas"] or a["inference_steps"] != b[
-                "inference_steps"]:
+        same = (a["sigmas"] if flux else [int(v) for v in a["sigmas"]]) == b["sigmas"]
+        if not same or a["inference_steps"] != b["inference_steps"]:
             fail(f"{label} continuous ({p!r}, {s}, cap {c}): schedule {a['sigmas']} against the "
                  f"fixed runner's {b['sigmas']}")
         if c is not None and a["inference_steps"] != min(c, T):
@@ -4571,9 +4604,10 @@ def family_continuous(label, counted, agent, tpm, encode, decode, k1_fwd, prompt
 
 def family_cli(label, argv, counted):
     """``serve`` on the card (no --cpu) with ``argv``: its toy world behind
-    the HTTP server, one POST /generate answered with a PNG and the integer
-    schedule; K1 (the toy UNet's forwards and the toy VAE's attention, d 16)
-    checked exactly, K2 none. Returns the round trip's seconds."""
+    the HTTP server, one POST /generate answered with a PNG and the schedule
+    (integer t, or FLUX's sigmas); K1 (the toy UNet's or FLUX's forwards and
+    the toy VAE's attention, d 16) checked exactly, K2 none. Returns the
+    round trip's seconds."""
     import http.client
     import threading
 
@@ -4582,7 +4616,9 @@ def family_cli(label, argv, counted):
 
     args = serve.parse_args(["--toy", "--port", "0", "--max_steps", "8", *argv])
     world = serve.build_family_world(args)
-    k1_fwd = unet_k1_a_forward(world["agent"].unet.config)
+    agent = world["agent"]
+    flux = hasattr(agent, "flux")
+    k1_fwd = flux_k1_a_forward(agent.flux.config) if flux else unet_k1_a_forward(agent.unet.config)
     outs, restore = recorded_samples(world["agent"])
     engine, server = serve.make_http_server(None, None, args, runner=world["runner"],
                                             world=world)
@@ -4621,7 +4657,8 @@ def family_cli(label, argv, counted):
         fail(f"serve {label}: image {image.shape}, sigmas {reply['sigmas']}")
     phase(f"cli {label}", f"python -m tpdm_tpu_torch.serve {' '.join(argv)} --toy on the card: "
                           f"{type(engine).__name__}, POST /generate {status} in {sec:.3f} s, "
-                          f"{reply['inference_steps']} steps, timesteps {reply['sigmas']}, a "
+                          f"{reply['inference_steps']} steps, {'sigmas' if flux else 'timesteps'} "
+                          f"{reply['sigmas']}, a "
                           f"{image.shape[0]} x {image.shape[1]} PNG; K1 {got[0]} launches "
                           f"({k1_fwd} a toy forward at head dims below 64, one a toy decode), K2 0")
     return got
@@ -4815,6 +4852,311 @@ def sdxl_phase(seed, dev, smi):
     return totals[0], totals[1], k1_entries
 
 
+FLUX_T_MAX = 28
+FLUX_N_TXT = 512  # FLUX.1-dev's T5 sequence length
+FLUX_STRENGTH = 0.6
+FLUX_FIXED_STEPS = 28
+FLUX_ENGINE_PX = 512
+# FLUX.1-dev's VAE: SD3's 16-channel geometry with its own published factors
+FLUX_VAE_FACTORS = dict(scaling_factor=0.3611, shift_factor=0.1159)
+# K1 at head dim 128: the joint [512 T5, image] sequence at 1024 px (4096
+# image tokens) at batch 1 and 2, and at 512 px (1024) at the engine's 4 slots
+FLUX_K1_SHAPES = {
+    "flux_1024px": (1, 24, 4608, 4608, 128),
+    "flux_1024px_batch_2": (2, 24, 4608, 4608, 128),
+    "flux_512px_batch_4": (4, 24, 1536, 1536, 128),
+}
+
+
+def flux_k1_a_forward(fcfg):
+    """K1 calls of one full FLUX forward: one a double and a single block."""
+    return fcfg.depth_double + fcfg.depth_single
+
+
+def flux_backbone(cfg, dev, seed):
+    """A ``Flux(cfg)`` built on the meta device and given bf16 storage on the
+    card, its N(0, WEIGHT_STD²) weights drawn there from a generator seeded
+    ``seed``: 12 B parameters never pass through fp32 (48 GB)."""
+    from tpdm_tpu_torch.models.flux import Flux
+
+    with torch.device("meta"):
+        flux = Flux(cfg).to(torch.bfloat16)
+    flux = flux.to_empty(device=dev)
+    return flux.init_weights(torch.Generator(device=dev).manual_seed(seed), WEIGHT_STD).eval()
+
+
+def flux_quantize_in_place(agent, bits):
+    """``agent.flux`` replaced by its quant_matmuls form holding the same
+    tensors (built on the meta device and given them by assign), then
+    prequantised: each bf16 weight is freed as its int copy replaces it."""
+    from tpdm_tpu_torch.models.flux import Flux
+    from tpdm_tpu_torch.ops.quant import prequantize_
+
+    flux = agent.flux
+    with torch.device("meta"):
+        qm = Flux(dataclasses.replace(flux.config, quant_matmuls=True, quant_bits=bits))
+    qm.load_state_dict(flux.state_dict(), assign=True)
+    agent.flux = qm.requires_grad_(False).eval()
+    del flux
+    gc.collect()
+    return prequantize_(qm)
+
+
+def flux_embeds(texts, dev):
+    """T5-shaped rows (b, FLUX_N_TXT, 4096) and pooled vectors (b, 768), bf16,
+    drawn per text from a generator seeded by its crc32: the same text gives
+    the same rows in every batch."""
+    import zlib
+
+    rows, pooled = [], []
+    for text in texts:
+        gen = torch.Generator(device=dev).manual_seed(zlib.crc32(text.encode()))
+        rows.append(torch.randn(FLUX_N_TXT, 4096, generator=gen, device=dev))
+        pooled.append(torch.randn(768, generator=gen, device=dev))
+    return torch.stack(rows).to(torch.bfloat16), torch.stack(pooled).to(torch.bfloat16)
+
+
+def check_flux_result(label, res, b, px, s0=1.0):
+    """Finite uint8 images (b, px, px, 3), 1 to FLUX_T_MAX steps, each
+    sample's sigmas falling from below ``s0``."""
+    img = res.images
+    sig = res.schedule[:, :res.num_steps]
+    if (img.dtype != np.uint8 or img.shape != (b, px, px, 3)
+            or not 1 <= res.num_steps <= FLUX_T_MAX or not np.isfinite(sig).all()
+            or not (sig[:, 0] < s0).all() or not (np.diff(sig, axis=1) <= 0).all()):
+        fail(f"flux {label}: images {img.dtype} {img.shape}, {res.num_steps} steps, sigmas "
+             f"{sig.tolist()}")
+
+
+def flux_phase(seed, dev, smi):
+    """Phase 20: FLUX.1-dev at 1024 px, item 20 of this file's docstring.
+    Returns (K1, K2, K4, K5 launches, the kernels line's K1 entries)."""
+    import copy
+
+    from tpdm_tpu_torch.models import flux as flux_module
+    from tpdm_tpu_torch.models.flux import Flux, FluxConfig, pack_latents
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.ops.attention import (
+        attention_reference,
+        flash_attention,
+        flash_attention_streaming,
+    )
+    from tpdm_tpu_torch.ops.gemm import bf16_gemm, int8_gemm
+    from tpdm_tpu_torch.pipeline.sampler import cache_reuse_schedule
+    from tpdm_tpu_torch.pipeline.variants import FluxPipeline
+    from tpdm_tpu_torch.serving_families import make_vae_decoder
+    from tpdm_tpu_torch.train import RLOOConfig
+    from tpdm_tpu_torch.train.flux_agent import FluxAgent
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    k1_entries = {key: k1_check(g, dev, key, *shape) for key, shape in FLUX_K1_SHAPES.items()}
+    torch.cuda.empty_cache()
+    totals = [0, 0]
+    counted = launch_counter("flux", totals)
+    gemm_totals = [0, 0]
+
+    def counted_gemms(label, fn, want):
+        """counted() with K4's and K5's launches also set to 0 before and
+        checked after: want(out) -> (K1, K2, K4, K5)."""
+        int8_gemm.launches = bf16_gemm.launches = 0
+        out, sec = counted(label, fn, lambda o: want(o)[:2])
+        got = (int8_gemm.launches, bf16_gemm.launches)
+        gemm_totals[0] += got[0]
+        gemm_totals[1] += got[1]
+        if got != want(out)[2:]:
+            fail(f"flux {label}: K4 {got[0]}, K5 {got[1]} launches, expected {want(out)[2:]}")
+        return out, sec
+
+    # 1. full width, 2 double + 2 single blocks: bf16 through the kernels
+    # against an fp32 copy of the same (bf16-valued) weights on the card,
+    # whose attention is the plain version (K1 takes bf16 only)
+    small_cfg = FluxConfig.flux_dev(depth_double=2, depth_single=2)
+    with torch.device(dev):
+        f32 = Flux(small_cfg).init_weights(g, WEIGHT_STD).eval()
+    f32 = f32.to(torch.bfloat16).float()
+    bf16 = copy.deepcopy(f32).to(torch.bfloat16)
+    lat = torch.randn(1, 16, 128, 128, generator=g, device=dev)
+    tokens, img_ids = pack_latents(lat)
+    txt, pooled = flux_embeds(["a lighthouse on a cliff at dusk"], dev)
+    txt_ids = torch.zeros(1, FLUX_N_TXT, 3, device=dev)
+    ts, gs = torch.tensor([0.7], device=dev), torch.tensor([3.5], device=dev)
+    with torch.no_grad():
+        out, _ = counted("forward 2+2", lambda: bf16(tokens, img_ids, txt, txt_ids, ts, pooled, gs),
+                         lambda _: (4, 0))
+        real_attention = flux_module.joint_attention
+        flux_module.joint_attention = attention_reference
+        try:
+            ref = f32(tokens, img_ids, txt.float(), txt_ids, ts, pooled.float(), gs)
+        finally:
+            flux_module.joint_attention = real_attention
+    errs = [rel_to_range(a, b) for a, b in zip(out, ref)]
+    if not all(bool(torch.isfinite(a.float()).all()) for a in out) or max(errs) > MODULE_REL_TOL:
+        fail(f"flux forward 2+2: bf16 against fp32, max error / range {errs} (bound "
+             f"{MODULE_REL_TOL})")
+    phase("flux forward", f"FLUX.1-dev width (3072, 24 heads of 128), 2 double + 2 single "
+                          f"blocks, 1024 px batch 1 (4096 image + {FLUX_N_TXT} text tokens): "
+                          f"velocity, vec, h1, h2 in bf16 against fp32 on the card "
+                          f"{', '.join(f'{e:.3e}' for e in errs)} of their range (bound "
+                          f"{MODULE_REL_TOL}); K1 4 launches")
+    del f32, bf16, out, ref
+    torch.cuda.empty_cache()
+
+    # 2. the full-depth model, its TPM and the VAE
+    t0 = time.perf_counter()
+    fcfg = FluxConfig.flux_dev()
+    flux = flux_backbone(fcfg, dev, seed + 200)
+    k1_fwd = flux_k1_a_forward(fcfg)
+    config = RLOOConfig(max_inference_steps=FLUX_T_MAX, init_alpha=TPM_HEAD_BIAS[0],
+                        init_beta=TPM_HEAD_BIAS[1])
+    agent = FluxAgent(flux, config)
+    gen = torch.Generator(device=dev).manual_seed(seed + 201)
+    tpm = agent.init_tpm_params(gen).eval()
+    with torch.device(dev):
+        vae = VAE(VAEConfig(**FLUX_VAE_FACTORS)).init_weights(gen, WEIGHT_STD)
+    vae = vae.to(torch.bfloat16).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in flux.parameters())
+    phase("flux models", f"FLUX.1-dev {n_params / 1e9:.3f} B parameters ({fcfg.depth_double} "
+                         f"double + {fcfg.depth_single} single blocks, K1 {k1_fwd} a forward), "
+                         f"TPM head bias {TPM_HEAD_BIAS}, VAE {FLUX_VAE_FACTORS} with its "
+                         f"encoder, bf16, drawn on the card in {time.perf_counter() - t0:.1f} s; "
+                         f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    pipe = FluxPipeline(agent, vae)
+    prompts = ["a red fox in fresh snow", "a city street at night in the rain"]
+
+    # 3. generate at batch 1 and 2, each warmed by a one-step rollout at its batch
+    results = {}
+    for b in (1, 2):
+        txt, pooled = flux_embeds(prompts[:b], dev)
+        one = dataclasses.replace(agent.sampler_cfg, max_inference_steps=1, predict=True,
+                                  cache_activations=False)
+        counted(f"warm-up, batch {b}", lambda: agent.sample(
+            tpm, {"prompt_embeds": txt, "pooled_prompt_embeds": pooled},
+            torch.Generator(device=dev).manual_seed(0), sampler_cfg=one), lambda _: (k1_fwd, 0))
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, sec = counted(f"request, batch {b}", lambda: pipe.generate(
+            txt, pooled, seed=seed + 202 + b, tpm_params=tpm), lambda r: (k1_fwd * r.num_steps, 1))
+        check_flux_result(f"request, batch {b}", res, b, 1024)
+        results[b] = res
+        phase("flux request", f"1024 px, batch {b}, guidance 3.5 embedded: {res.num_steps} steps "
+                              f"(sigmas {[round(float(x), 5) for x in res.schedule[0, :res.num_steps]]})"
+                              f", {sec:.3f} s ({sec / b:.3f} s an image, "
+                              f"{1000 * sec / res.num_steps:.1f} ms a step with the decode); K1 "
+                              f"{k1_fwd} a step, K2 1; peak "
+                              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {smi}")
+
+    # 4. the fixed-schedule baseline, 28 Euler steps at batch 1
+    txt, pooled = flux_embeds(prompts[:1], dev)
+    fixed, sec = counted("fixed", lambda: pipe.generate_fixed(
+        txt, pooled, num_steps=FLUX_FIXED_STEPS, seed=seed + 203),
+        lambda _: (k1_fwd * FLUX_FIXED_STEPS, 1))
+    if fixed.dtype != np.uint8 or fixed.shape != (1, 1024, 1024, 3):
+        fail(f"flux fixed: images {fixed.dtype} {fixed.shape}")
+    phase("flux fixed", f"generate_fixed, {FLUX_FIXED_STEPS} Euler steps on uniform_flow_sigmas, "
+                        f"batch 1: {sec:.3f} s ({1000 * sec / FLUX_FIXED_STEPS:.1f} ms a step "
+                        f"with the decode) against the adaptive request's "
+                        f"{results[1].num_steps} steps; K1 {k1_fwd} a step, K2 1")
+
+    # 5. image-to-image at FLUX_STRENGTH on the batch-1 image
+    i2i, sec = counted("img2img", lambda: pipe.generate(
+        txt, pooled, seed=seed + 204, tpm_params=tpm, init_image=results[1].images,
+        strength=FLUX_STRENGTH), lambda r: (k1_fwd * r.num_steps, 2))
+    check_flux_result("img2img", i2i, 1, 1024, s0=FLUX_STRENGTH)
+    phase("flux img2img", f"strength {FLUX_STRENGTH}: {i2i.num_steps} steps from sigma "
+                          f"{FLUX_STRENGTH} (sigmas "
+                          f"{[round(float(x), 5) for x in i2i.schedule[0, :i2i.num_steps]]}) in "
+                          f"{sec:.3f} s (encode + denoise + decode); K1 {k1_fwd} a step, K2 2")
+
+    # 6. the Δ-cache every 2 steps: a reuse step runs the first
+    # cache_front_blocks double blocks
+    front = fcfg.cache_front_blocks
+
+    def cache_k1(r):
+        reuse = cache_reuse_schedule(FLUX_T_MAX, 2)[:r.num_steps]
+        return k1_fwd * reuse.count(False) + front * reuse.count(True), 1
+
+    cached, sec = counted("cache_interval 2", lambda: pipe.generate(
+        txt, pooled, seed=seed + 203, tpm_params=tpm, cache_interval=2), cache_k1)
+    check_flux_result("cache_interval 2", cached, 1, 1024)
+    gap = np.abs(cached.images.astype(np.int16) - results[1].images.astype(np.int16)).mean()
+    phase("flux cache", f"cache_interval 2: {cached.num_steps} steps in {sec:.3f} s against "
+                        f"{results[1].num_steps} uncached; K1 {k1_fwd} a full step, {front} a "
+                        f"reuse step; mean |d| against the uncached batch-1 image {gap:.2f} "
+                        f"uint8 levels")
+
+    # 7. the continuous engine at 512 px against the fixed-batch runner
+    agent512 = FluxAgent(flux, config, latent_size=FLUX_ENGINE_PX // 8)
+    with open(REPO / "example" / "prompts.jsonl") as f:
+        burst_prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+    family_continuous("flux 512px", counted, agent512, tpm,
+                      lambda texts: flux_embeds(texts, dev), make_vae_decoder(vae), k1_fwd,
+                      burst_prompts, seed + 2000, smi)
+    del agent512
+
+    # 8. the toy world's command line on the card
+    for label, argv in (("flux", ["--family", "flux"]),
+                        ("flux continuous", ["--family", "flux", "--continuous"])):
+        family_cli(label, argv, counted)
+
+    # 9. W8A8 in place, then int4 on the backbone drawn again from the seed:
+    # one 1024 px forward of each against the bf16 forward, then a request
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    tokens, img_ids = pack_latents(rand(1, 16, 128, 128))
+    fwd_in = (tokens, img_ids, txt, torch.zeros(1, FLUX_N_TXT, 3, device=dev),
+              torch.tensor([0.7], device=dev), pooled)
+    with torch.no_grad():
+        v_ref, _ = counted("forward bf16", lambda: agent.flux(*fwd_in)[0].float(),
+                           lambda _: (k1_fwd, 0))
+    n_w8a8 = fcfg.depth_double * 12 + fcfg.depth_single * 2  # K4: the blocks' matmuls
+    n_mod = fcfg.depth_double * 2 + fcfg.depth_single + 1  # the modulations
+    gaps, quant_lines = {}, []
+    for bits in (8, 4):
+        if bits == 4:
+            agent.flux = None
+            del flux
+            gc.collect()
+            torch.cuda.empty_cache()
+            agent.flux = flux_backbone(fcfg, dev, seed + 200)
+        t0 = time.perf_counter()
+        qm = flux_quantize_in_place(agent, bits)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        per_fwd = (n_w8a8, n_mod) if bits == 8 else (0, n_w8a8 + n_mod)
+        with torch.no_grad():
+            v, _ = counted_gemms(f"forward int{bits}", lambda: qm(*fwd_in)[0].float(),
+                                 lambda _: (k1_fwd, 0) + per_fwd)
+        if not bool(torch.isfinite(v).all()):
+            fail(f"flux int{bits}: the forward gave non-finite values")
+        gaps[bits] = ((v - v_ref).abs().mean() / v_ref.abs().mean()).item()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, sec = counted_gemms(f"request int{bits}", lambda: pipe.generate(
+            txt, pooled, seed=seed + 203, tpm_params=tpm),
+            lambda r: (k1_fwd * r.num_steps, 1) + tuple(n * r.num_steps for n in per_fwd))
+        check_flux_result(f"request int{bits}", res, 1, 1024)
+        mode = "W8A8" if bits == 8 else "int4"
+        quant_lines.append(
+            f"{mode}: weights {module_bytes(qm) / 1e9:.3f} GB, prequantised in {quant_s:.1f} s, "
+            f"mean |dv| / mean |v| {gaps[bits]:.4e} (bound {QUANT_REL_BOUND[bits]}); request "
+            f"{res.num_steps} steps in {sec:.3f} s ({1000 * sec / res.num_steps:.1f} ms a step "
+            f"with the decode), K4 {per_fwd[0]} and K5 {per_fwd[1]} a step, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        del qm, v
+    for bits, gap_q in gaps.items():
+        if not gap_q < QUANT_REL_BOUND[bits]:
+            fail(f"flux int{bits} forward is {gap_q} from the bf16 one (bound "
+                 f"{QUANT_REL_BOUND[bits]})")
+    phase("flux quant", f"1024 px batch 1, against the bf16 forward on the same weights (bf16 "
+                        f"{n_params * 2 / 1e9:.3f} GB): {'; '.join(quant_lines)}; {smi}")
+    del agent, pipe, tpm, vae, v_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("flux phase", f"{time.perf_counter() - t_phase:.1f} s; K1 {totals[0]}, K2 {totals[1]}, "
+                        f"K4 {gemm_totals[0]}, K5 {gemm_totals[1]} launches; {smi}")
+    flash_attention.launches = flash_attention_streaming.launches = 0
+    return totals[0], totals[1], gemm_totals[0], gemm_totals[1], k1_entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4884,6 +5226,8 @@ def main() -> int:
         kernels["K1"].update(sd15_k1)
         k1_sdxl, k2_sdxl, sdxl_k1 = sdxl_phase(args.seed, dev, smi)  # 19
         kernels["K1"].update(sdxl_k1)
+        k1_flux, k2_flux, k4_flux, k5_flux, flux_k1 = flux_phase(args.seed, dev, smi)  # 20
+        kernels["K1"].update(flux_k1)
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -4894,21 +5238,22 @@ def main() -> int:
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
              "launches": (k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35
-                          + k1_i2i + k1_sd15 + k1_sdxl),
+                          + k1_i2i + k1_sd15 + k1_sdxl + k1_flux),
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
              "launches": (k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35
-                          + k2_i2i + k2_sd15 + k2_sdxl),
+                          + k2_i2i + k2_sd15 + k2_sdxl + k2_flux),
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,
              **kernels["K3"]},
             {"name": "int8_gemm (K4)", "route": "cuda", "source": gemm_src,
-             "replaces": "experiments/attn_round3.py:301", "launches": k4_total + k4_sd35,
+             "replaces": "experiments/attn_round3.py:301",
+             "launches": k4_total + k4_sd35 + k4_flux,
              **kernels["K4"]},
             {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
-             "replaces": "experiments/attn_round3.py:266", "launches": k5_total,
+             "replaces": "experiments/attn_round3.py:266", "launches": k5_total + k5_flux,
              **kernels["K5"]},
             {"name": "attention_strided (K6)", "route": "cuda", "source": studies_src,
              "replaces": "; ".join([

@@ -302,7 +302,28 @@ def test_k1_padded_small_head_dims_match_plain(device, d, b, h, n_q, n_kv, kv_le
     _assert_close(out, attention_reference(q, k, v, kv_len))
 
 
-@pytest.mark.parametrize("d", [72, 96, 128, 192])
+# K1 at FLUX's head dim 128: the joint [text, image] sequence of 512 T5
+# tokens and the image tokens, 4096 at 1024 px (batch 1 and 2) and 1024 at
+# 512 px (the continuous engine's 4 slots), no kv_len; and ragged query and
+# kv tiles of the d-128 entry (128 query rows a block)
+FLUX_SHAPES = [(1, 24, 4608, 4608, None), (2, 24, 4608, 4608, None),
+               (4, 24, 1536, 1536, None), (1, 3, 129, 300, 257), (2, 2, 1, 65, None),
+               (1, 2, 193, 128, 1)]
+
+
+@pytest.mark.parametrize("shape", FLUX_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_flux_shapes_match_plain(device, shape):
+    b, h, n_q, n_kv, kv_len = shape
+    q, k, v = _qkv(device, b, h, n_q, n_kv, 128, seed=n_q + n_kv + h)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == (b, h, n_q, 128)
+    _assert_close(out, _blocked_plain(q, k, v, kv_len, rows=1024))
+
+
+@pytest.mark.parametrize("d", [72, 96, 192, 256])
 def test_k1_raises_on_other_head_dims(device, d):
     q, k, v = _qkv(device, 1, 1, 64, 64, d, seed=d)
     before = flash_attention.launches

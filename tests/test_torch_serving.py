@@ -512,7 +512,7 @@ def test_cli_writes_a_png(tmp_path):
         with pytest.raises(SystemExit, match="no CUDA device"):
             serve.main(["--toy", "--cli"])
     for flag, item in ((["--dp", "2"], "9\\(d\\)"),
-                       (["--family", "flux"], "12"), (["--quant_text"], "13\\(a\\)"),
+                       (["--mesh", "2,2,1"], "14"), (["--quant_text"], "13\\(a\\)"),
                        (["--lora", "x"], "13\\(b\\)"), (["--few_step", "0,14"], "9\\(e\\)"),
                        (["--reward_checkpoint", "r"], "8")):
         with pytest.raises(SystemExit, match=f"item {item}"):

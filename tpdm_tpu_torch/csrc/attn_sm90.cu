@@ -12,6 +12,10 @@
 //       (2b, 8, 1024, 80), (2b, 8, 256, 160) and the mid block's
 //       (2b, 8, 64, 160); cross-attention against the 77 text tokens,
 //       kv (2b, 8, 77, d); 32 calls a CFG forward at 512 px.
+//   K1 at d 128 (tpdm_flash_attention_d128): FLUX.1's 24 heads of 128 over
+//       the joint [text, image] sequence, q = k = v (b, 24, 4608, 128) at
+//       1024 px (512 T5 tokens + 4096 image tokens, no padding, no kv_len),
+//       57 calls a forward (19 double + 38 single blocks).
 //   K1 at any other head dim below 64 (tpdm_flash_attention_d64_padded):
 //       the d-64 kernel on q, k, v zero-padded to 64 columns on the host,
 //       with the true d's scale (the toy UNets' d 4, 6 and 8).
@@ -71,19 +75,21 @@
 //   one TMA store, which drops rows >= n_q. K3's m and l are plain stores
 //   from one thread of each quad (rows g and g + 8), guarded by n_q.
 // Head dims other than 64: a row of d bf16 is padded to kChunks boxes of
-// 64 columns (d 40 -> 64, d 80 -> 128, d 160 -> 192). The tensor maps keep
-// the true extent d in their inner dimension, so TMA zero-fills a box past
-// column d on load and drops those columns on store: the zero Q and K
-// columns add nothing to Q K^T, the zero V columns give O columns that the
-// store clips. Each 64-column box of a tile lies in shared memory as a
-// tile of its own (rows x 128 bytes, swizzled), so S = Q K^T runs 4 k16
-// steps a box and O = P V one m64n64 product a box, on the layouts of d 64.
-// The softmax scale is 1/sqrt(d) of the true d, passed from the host. The
-// ring needs 2 x (K + V) tiles of 128 x 64 kChunks beside Q: d 80
-// keeps two consumers (160 KB), d 160 takes one consumer (Q 24 KB, the ring
-// 192 KB: 216 KB of the 227) and its O accumulator (64 x 192 fp32) is 96
-// registers a thread beside S's 64 and P's 32. These instantiations are
-// right first; their speed is not tuned.
+// 64 columns (d 40 -> 64, d 80 -> 128, d 160 -> 192; d 128 fills its two
+// boxes exactly). The tensor maps keep the true extent d in their inner
+// dimension, so TMA zero-fills a box past column d on load and drops those
+// columns on store: the zero Q and K columns add nothing to Q K^T, the
+// zero V columns give O columns that the store clips. Each 64-column box
+// of a tile lies in shared memory as a tile of its own (rows x 128 bytes,
+// swizzled), so S = Q K^T runs 4 k16 steps a box and O = P V one m64n64
+// product a box, on the layouts of d 64. The softmax scale is 1/sqrt(d) of
+// the true d, passed from the host. The ring needs 2 x (K + V) tiles of
+// 128 x 64 kChunks beside Q: d 80 and d 128 share two consumers (160 KB;
+// the O accumulator, 64 x 128 fp32, is 64 registers a thread beside S's
+// 64), d 160 takes one consumer (Q 24 KB, the ring 192 KB: 216 KB of the
+// 227) and its O accumulator (64 x 192 fp32) is 96 registers a thread
+// beside S's 64 and P's 32. These instantiations are right first; their
+// speed is not tuned.
 // Overlap: each warp group issues S of tile t before P V of tile t - 1
 // and runs tile t's softmax while that product is in flight (two wgmma
 // groups in flight, waited in order), and the consumer warp groups, on
@@ -491,6 +497,14 @@ extern "C" int tpdm_flash_attention_d40(const void* q, const void* k, const void
 extern "C" int tpdm_flash_attention_d80(const void* q, const void* k, const void* v, void* o,
                                         int bh, int n_q, int n_kv, int kv_len, void* stream) {
   return launch<false, 2, 2>(80, scale_of(80), q, k, v, o, nullptr, nullptr, bh, n_q, n_kv,
+                             kv_len, stream);
+}
+
+// K1 at FLUX's head dim 128: the d-80 instantiation (two consumers, rows
+// of two 64-column boxes) with no zero-filled columns.
+extern "C" int tpdm_flash_attention_d128(const void* q, const void* k, const void* v, void* o,
+                                         int bh, int n_q, int n_kv, int kv_len, void* stream) {
+  return launch<false, 2, 2>(128, scale_of(128), q, k, v, o, nullptr, nullptr, bh, n_q, n_kv,
                              kv_len, stream);
 }
 

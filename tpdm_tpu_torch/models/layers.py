@@ -255,11 +255,13 @@ class AdaLayerNormContinuous(nn.Module):
         return _layer_norm_fp32(x) * (1.0 + scale[:, None]) + shift[:, None]
 
 
-def dense(in_features: int, out_features: int, quant: bool = False, bits: int = 8) -> nn.Module:
+def dense(in_features: int, out_features: int, quant: bool = False, bits: int = 8,
+          act_quant: bool = True) -> nn.Module:
     """``nn.Linear``, or with ``quant`` a quantised ``DenseMaybeQuant``: the
-    matmuls that the JAX package builds as ``DenseMaybeQuant``."""
+    matmuls that the JAX package builds as ``DenseMaybeQuant``
+    (``act_quant=False``: weight-only int8 at 8 bits)."""
     if quant:
-        return DenseMaybeQuant(in_features, out_features, bits=bits)
+        return DenseMaybeQuant(in_features, out_features, bits=bits, act_quant=act_quant)
     return nn.Linear(in_features, out_features)
 
 

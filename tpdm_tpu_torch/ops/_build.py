@@ -56,6 +56,7 @@ ENTRIES = {
     "tpdm_flash_attention_d64_padded": [_P] * 4 + [_I] * 5 + [_P],
     "tpdm_flash_attention_d40": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d80": [_P] * 4 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_d128": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d160": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d512": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_stats_d64": [_P] * 6 + [_I] * 4 + [_P],

@@ -99,9 +99,10 @@ def _launch(entry: str, q, k, v, kv_len: int, *stats: torch.Tensor,
     return out
 
 
-# K1's head dims: 64 (the MMDiT) and the SD1.5 UNet's 40, 80 and 160; any
-# other head dim below 64 runs the d-64 entry on operands padded to 64
-K1_HEAD_DIMS = (40, 64, 80, 160)
+# K1's head dims: 64 (the MMDiT), the SD1.5 UNet's 40, 80 and 160 and
+# FLUX's 128; any other head dim below 64 runs the d-64 entry on operands
+# padded to 64
+K1_HEAD_DIMS = (40, 64, 80, 128, 160)
 
 
 def _pad_to_64(t: torch.Tensor) -> torch.Tensor:
@@ -115,8 +116,9 @@ def flash_attention(
     v: torch.Tensor,
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """K1: fused non-causal attention at head_dim 64 (MMDiT joint attention)
-    and 40, 80, 160 (the SD1.5 UNet's 8 heads of 320, 640 and 1280).
+    """K1: fused non-causal attention at head_dim 64 (MMDiT joint attention),
+    40, 80, 160 (the SD1.5 UNet's 8 heads of 320, 640 and 1280) and 128
+    (FLUX's 24 heads of 3072).
 
     Replaces ``tpdm_tpu/ops/attention.py:_flash_kernel`` (driven by
     ``_flash_attention_fwd_impl``): softmax(QK^T/sqrt(d))V per batch*head
@@ -125,8 +127,9 @@ def flash_attention(
     (2, 24, 4480, 64) is compute bound; the kernel runs its two products as
     wgmma (bf16, fp32 accumulate) on K and V tiles that a producer warp
     brings by TMA through a shared-memory ring, 192 query rows a block.
-    The other head dims are the same kernel on rows padded to whole
-    64-column TMA boxes (TMA zero-fills the padding, the store clips it),
+    The other head dims are the same kernel on rows of whole 64-column TMA
+    boxes (d 128 two of them; TMA zero-fills the padding of the others, the
+    store clips it),
     with the softmax scale of the true head dim. A head dim below 64 with
     no entry of its own (the toy UNets' 4, 6 and 8) is zero-padded to 64
     columns here and runs the d-64 kernel at its own scale: zero q and k

@@ -16,9 +16,9 @@ torch ops, as JAX does outside any kernel, and runs the int8 product with
 its dequant epilogue on K4 (``ops/gemm.py:int8_gemm``). The weight-only
 products (``w4_matmul``, ``w8_matmul``) dequantise the weight in the
 activations' dtype, in JAX's order, and multiply on K5 (``bf16_gemm``).
-``DenseMaybeQuant`` runs W8A8 at 8 bits and ``w4_matmul`` at 4;
-``w8_matmul``'s callers in JAX (the T5 tower, FLUX's modulations) are not
-ported yet.
+``DenseMaybeQuant`` runs W8A8 at 8 bits, ``w8_matmul`` at 8 bits with
+``act_quant=False`` (FLUX's modulations) and ``w4_matmul`` at 4; JAX's
+other caller of ``w8_matmul``, the quantised T5 tower, is not ported yet.
 """
 
 from __future__ import annotations
@@ -154,19 +154,23 @@ class DenseMaybeQuant(nn.Module):
     every forward as JAX's in-graph mode does, or, once quantised
     (``prequantize_``, or a state dict with an int ``weight``), int
     ``weight`` and fp32 ``weight_scale`` buffers of the shapes listed at the
-    top of this file. ``bits`` 8 runs W8A8; ``bits`` 4 is weight-only.
+    top of this file. ``bits`` 8 runs W8A8, or with ``act_quant=False``
+    weight-only int8 (``w8_matmul``: fp activations); ``bits`` 4 is
+    weight-only whatever ``act_quant`` says, as in JAX.
 
     The scale stays fp32 through ``.to(dtype)``, ``.half()`` and the like,
     as JAX keeps it: only the device of ``weight_scale`` follows the module.
     """
 
-    def __init__(self, in_features: int, out_features: int, bits: int = 8):
+    def __init__(self, in_features: int, out_features: int, bits: int = 8,
+                 act_quant: bool = True):
         super().__init__()
         if bits not in (4, 8):
             raise ValueError(f"bits must be 8 or 4, got {bits}")
         if bits == 4 and in_features % 2:
             raise ValueError(f"int4 packs two inputs a byte: in_features {in_features} is odd")
         self.in_features, self.out_features, self.bits = in_features, out_features, bits
+        self.act_quant = act_quant
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
         # nn.Linear's initialisation
@@ -248,6 +252,8 @@ class DenseMaybeQuant(nn.Module):
             qw = self._quantize(self.weight)
         if self.bits == 4:
             return w4_matmul(x, qw)
+        if not self.act_quant:
+            return w8_matmul(x, qw)
         return int8_dynamic_matmul(x, qw)
 
 

@@ -1,12 +1,13 @@
-"""Generation pipelines of the other model families: SD1.5 and SDXL.
+"""Generation pipelines of the other model families: SD1.5, SDXL and FLUX.
 
-Counterpart of ``tpdm_tpu/pipeline/variants.py``'s SD1.5 and SDXL parts:
-adaptive generation with the agent's rollout in predict mode, the VAE
-decode of each sample's last valid latents, the realised step counts and
-integer schedules, and integer-t image-to-image; for SDXL also the refiner
+Counterpart of ``tpdm_tpu/pipeline/variants.py``: adaptive generation with
+the agent's rollout in predict mode, the VAE decode of each sample's last
+valid latents and the realised step counts and schedules; integer-t
+image-to-image for SD1.5 and SDXL, and for SDXL also the refiner
 (``SDXLRefinerPipeline.refine``) and the base + refiner ensemble
-(``sdxl_ensemble_generate``). The FLUX pipeline of that file waits for its
-slice (ROADMAP queue 1, item 12).
+(``sdxl_ensemble_generate``). ``FluxPipeline`` generates in FLUX's
+rectified-flow sigma space (image-to-image at sigma = strength, the
+Δ-cache, AB2) and runs the fixed-schedule baseline (``generate_fixed``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from tpdm_tpu_torch.ops.dpm_solver import ddpm_sigmas_from_betas, sigma_to_alpha_sigma_t
-from tpdm_tpu_torch.pipeline.pipeline import decode_latents, seed_noise
+from tpdm_tpu_torch.pipeline.pipeline import decode_latents, noised_latents, seed_noise
 from tpdm_tpu_torch.utils.image import postprocess_images, preprocess_images
 
 
@@ -404,3 +405,114 @@ def sdxl_ensemble_generate(
         base_steps=int(out.num_steps), refiner_steps=int(rout.num_steps), handoff_t=handoff_t,
         base_schedule=out.times.cpu().numpy(), refiner_schedule=res.schedule,
         last_valid_index=res.last_valid_index)
+
+
+class FluxPipeline:
+    """FLUX adaptive generation (embedded guidance, T5 features and the CLIP
+    pooled vector as conditioning) and the fixed-schedule baseline.
+
+    ``vae``: FLUX's 16-channel VAE, its config carrying FLUX.1's
+    ``scaling_factor`` 0.3611 and ``shift_factor`` 0.1159; without one the
+    final latents come back (fp32)."""
+
+    def __init__(self, agent, vae=None):
+        self.agent = agent
+        self.vae = None if vae is None else vae.requires_grad_(False).eval()
+
+    def encode_image(self, images) -> torch.Tensor:
+        """uint8 (b, H, W, 3) -> model-space latents (fp32): the posterior
+        mean, shifted and scaled by the VAE's factors."""
+        if self.vae is None:
+            raise ValueError("img2img needs a VAE on the pipeline")
+        return encode_init_image(self.vae, images)
+
+    def _images(self, latents: torch.Tensor) -> np.ndarray:
+        if self.vae is None:
+            return latents.float().cpu().numpy()
+        return postprocess_images(decode_latents(self.vae, latents))
+
+    def _img2img_batch(self, batch_size: int, init_image, strength, seed) -> dict:
+        """{"latents", "init_sigma"}: the image's latents mixed in fp32 with
+        the noise that text-to-image draws for ``seed`` at each sample's
+        strength, so strength 1.0 is text-to-image to the bit."""
+        agent, b = self.agent, batch_size
+        s0 = torch.broadcast_to(torch.as_tensor(strength, dtype=torch.float32), (b,))
+        if bool(((s0 <= 0.0) | (s0 > 1.0)).any()):
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
+        clean = self.encode_image(init_image).to(agent.device)
+        if clean.shape[0] != b:
+            raise ValueError(f"init_image batch {clean.shape[0]} != prompt batch {b}")
+        if clean.shape[-1] != agent.latent_size:
+            raise ValueError(f"init_image encodes to latent {clean.shape[-1]}, agent serves "
+                             f"{agent.latent_size}")
+        _, eps = seed_noise(seed, clean.shape, agent.device, agent.dtype)
+        s0 = s0.to(agent.device)
+        return {"latents": noised_latents(clean, eps, s0), "init_sigma": s0}
+
+    @torch.no_grad()
+    def generate(
+        self,
+        prompt_embeds: torch.Tensor,  # T5 features (b, n, txt_dim)
+        pooled_prompt_embeds: torch.Tensor,  # CLIP pooled (b, vec_dim)
+        seed: int = 0,
+        tpm_params=None,
+        init_image: Optional[np.ndarray] = None,
+        strength: float = 0.6,
+        cache_interval: int = 0,
+        solver: str = "euler",
+    ) -> VariantResult:
+        """``seed`` seeds a ``torch.Generator`` on the backbone's device that
+        draws the latents. ``tpm_params``: the TPM module (None: one drawn
+        from a generator seeded 0).
+
+        ``init_image`` (uint8 (b, H, W, 3)) runs image-to-image: the image's
+        latents noised to sigma = ``strength`` by the flow's forward mix
+        and the loop starting there; strength 1.0 is text-to-image.
+        ``cache_interval`` >= 2 runs the Δ-cache (approximate; 0 and 1
+        exact); ``solver`` "euler" or "ab2". ``schedule`` holds each
+        step's sigma_next (b, T)."""
+        agent = self.agent
+        batch = {"prompt_embeds": prompt_embeds, "pooled_prompt_embeds": pooled_prompt_embeds}
+        if init_image is not None:
+            batch.update(self._img2img_batch(prompt_embeds.shape[0], init_image, strength,
+                                             seed))
+        if tpm_params is None:
+            tpm_params = agent.init_tpm_params(
+                torch.Generator(device=agent.device).manual_seed(0))
+        # the activations feed no replay here: not kept
+        scfg = dataclasses.replace(agent.sampler_cfg, predict=True, cache_activations=False,
+                                   cache_interval=cache_interval, solver=solver)
+        generator = torch.Generator(device=agent.device).manual_seed(int(seed))
+        out = agent.sample(tpm_params, batch, generator, predict=True, sampler_cfg=scfg)
+        return VariantResult(images=self._images(out.final_latents),
+                             num_steps=int(out.num_steps),
+                             last_valid_index=out.last_valid_index.cpu().numpy(),
+                             schedule=out.sigmas.cpu().numpy())
+
+    @torch.no_grad()
+    def generate_fixed(
+        self,
+        prompt_embeds: torch.Tensor,
+        pooled_prompt_embeds: torch.Tensor,
+        num_steps: int = 28,
+        seed: int = 0,
+        solver: str = "euler",
+    ) -> np.ndarray:
+        """The fixed-schedule FLUX baseline (no TPM): ``num_steps`` steps down
+        ``uniform_flow_sigmas(num_steps)`` with ``solver`` (``FLOW_SOLVERS``:
+        euler, heun, midpoint, ab2), one forward an evaluation (no CFG
+        doubling). Returns uint8 images, or the final latents without a
+        VAE."""
+        from tpdm_tpu_torch.ops.schedules import uniform_flow_sigmas
+        from tpdm_tpu_torch.pipeline.sampler import FLOW_SOLVERS, fixed_schedule_sample_solver
+
+        if solver not in FLOW_SOLVERS:
+            raise ValueError(f"unknown solver {solver!r}; pick from {FLOW_SOLVERS}")
+        agent = self.agent
+        denoise_fn = agent.denoise_builder(agent.flux, {
+            "prompt_embeds": prompt_embeds, "pooled_prompt_embeds": pooled_prompt_embeds})
+        latents = agent.prepare_latents(
+            torch.Generator(device=agent.device).manual_seed(int(seed)), prompt_embeds.shape[0])
+        final = fixed_schedule_sample_solver(lambda lat, s: denoise_fn(lat, s)[0], latents,
+                                             uniform_flow_sigmas(num_steps), solver)
+        return self._images(final)

@@ -30,21 +30,24 @@ no ``transformers`` fallback):
 
     python -m tpdm_tpu_torch.serve --pretrained DIR --tpm tpm.safetensors --cli
 
-``--family sd15 --toy`` and ``--family sdxl --toy`` serve the families'
-toy worlds (UNet, CLIP towers, TPM and VAE drawn from the same seed, bf16
-on the card) through ``serving_families.make_sd15_runner`` /
-``make_sdxl_runner``, on ``--cli`` or the HTTP engine; ``--refiner`` adds
-SDXL's toy refiner behind ``make_sdxl_ensemble_runner`` (the handoff at
-``--denoising_end``), and ``--continuous`` serves a family through
-``ContinuousSD15Engine`` / ``ContinuousSDXLEngine`` (not with
+``--family sd15 --toy``, ``--family sdxl --toy`` and ``--family flux
+--toy`` serve the families' toy worlds (UNet or FLUX, text towers or
+hashed-prompt features, TPM and VAE drawn from the same seed, bf16 on the
+card) through ``serving_families.make_sd15_runner`` / ``make_sdxl_runner``
+/ ``make_flux_runner``, on ``--cli`` or the HTTP engine; ``--refiner``
+adds SDXL's toy refiner behind ``make_sdxl_ensemble_runner`` (the handoff
+at ``--denoising_end``), ``--int8`` / ``--int4`` quantise the toy FLUX,
+and ``--continuous`` serves a family through ``ContinuousSD15Engine`` /
+``ContinuousSDXLEngine`` / ``ContinuousFluxEngine`` (not with
 ``--refiner``). A full-width model is served through the library (build
 the agent and call the runner or the engine), as with the JAX package:
 
     python -m tpdm_tpu_torch.serve --family sdxl --toy --cli --prompt "a cat"
     python -m tpdm_tpu_torch.serve --family sd15 --toy --continuous --port 7861
+    python -m tpdm_tpu_torch.serve --family flux --toy --cpu --int4 --cli
 
 Not ported yet, each exiting with a message that names its ROADMAP queue 1
-item: ``--family flux`` (12), ``--dp`` / ``--mesh`` (9(d) and 14),
+item: ``--dp`` / ``--mesh`` (9(d) and 14),
 ``--lora*`` (13(b)), ``--few_step`` (9(e)), ``--quant_text`` (13(a)) and
 ``--reward_checkpoint`` (8); gradio is not ported. Importing the module
 starts nothing.
@@ -225,31 +228,36 @@ def build_pipeline(args):
 
 
 def build_family_world(args):
-    """``--family sd15`` / ``sdxl``: the family's toy world as the root
-    serve.py builds it, weights N(0, 0.02²) from ``TOY_SEED``, on the card
-    in bf16 unless ``--cpu`` (K1 serves the toy UNets' head dims 4, 6 and 8
-    on operands padded to 64 columns): a dict of the agent, its TPM,
-    ``encode``, ``decode`` and the fixed-batch ``runner``. None for sd3.
+    """``--family sd15`` / ``sdxl`` / ``flux``: the family's toy world as the
+    root serve.py builds it, weights N(0, 0.02²) from ``TOY_SEED``, on the
+    card in bf16 unless ``--cpu`` (K1 serves the toy UNets' head dims 4, 6
+    and 8 and the toy FLUX's 12 on operands padded to 64 columns): a dict
+    of the agent, its TPM, ``encode``, ``decode`` and the fixed-batch
+    ``runner``. None for sd3.
 
     - sd15: the toy UNet at cross-attention width 32, an 8-token CLIP tower
       32 wide, a 4-channel TPM, the toy VAE at 4 latent channels, at most 8
       steps;
     - sdxl: ``UNetConfig.toy_xl`` on CLIP towers 16 and 24 wide (context
       40, pooled 12), the same TPM and VAE; ``--refiner`` adds the toy
-      refiner (bigG context 24) behind the ensemble runner.
+      refiner (bigG context 24) behind the ensemble runner;
+    - flux: ``FluxConfig.toy`` caching one front block (``--int8`` /
+      ``--int4`` prequantise it; on the card K4 refuses the toy's 48-wide
+      contraction, so ``--int8`` serves on the CPU), 5 text rows of
+      hashed-prompt features (a numpy generator seeded by the prompt's
+      crc32, the next seed for the pooled vector), a 4-channel TPM over
+      the 8 x 8 latents of the toy VAE at 4 latent channels.
 
     Without ``--toy`` it exits: a full-width model is built in the library
     and served with the family's runner."""
     fam = getattr(args, "family", "sd3")
     if fam == "sd3":
         return None
-    if fam not in ("sd15", "sdxl"):
-        raise SystemExit(str(not_ported(f"--family {fam}", "12")))
     if not getattr(args, "toy", False):
         raise SystemExit(f"--family {fam} currently serves --toy configs from the CLI; for "
                          "real checkpoints build a runner with "
                          f"tpdm_tpu_torch.serving_families.make_{fam}_runner")
-    if _quant_bits(args) is not None:
+    if _quant_bits(args) is not None and fam != "flux":
         raise SystemExit(f"--int8/--int4 are not supported for --family {fam} (quantization "
                          "covers the MMDiT/FLUX transformer backbones)")
     refiner = getattr(args, "refiner", False)
@@ -290,6 +298,8 @@ def build_family_world(args):
                                device=device).long()
 
     vae = lambda: VAE(VAEConfig.toy(latent_channels=4))
+    if fam == "flux":
+        return _flux_world(args, config, build, vae, g, dtype)
     if fam == "sd15":
         from tpdm_tpu_torch.train.sd15_agent import SD15Agent
 
@@ -349,6 +359,48 @@ def build_family_world(args):
                 runner=runner)
 
 
+def _flux_world(args, config, build, vae, g, dtype):
+    """``build_family_world``'s FLUX part (see there)."""
+    from tpdm_tpu_torch import serving_families as families
+    from tpdm_tpu_torch.models.flux import Flux, FluxConfig
+    from tpdm_tpu_torch.models.tpm import TimePredictor
+    from tpdm_tpu_torch.ops.quant import prequantize_
+    from tpdm_tpu_torch.train.flux_agent import FluxAgent
+
+    bits = _quant_bits(args)
+    # one front block, so --cache_interval has blocks to skip (the JAX
+    # world keeps the default 4 of the toy's 2 and refuses it)
+    fcfg = FluxConfig.toy(quant_matmuls=bits is not None, quant_bits=bits or 8,
+                          cache_front_blocks=1)
+    flux = build(lambda: Flux(fcfg))
+    if bits is not None:
+        prequantize_(flux)
+    decode = families.make_vae_decoder(build(vae))
+    agent = FluxAgent(flux, config, latent_size=8, latent_channels=4,
+                      tpm=lambda: TimePredictor(conv_out_channels=4,
+                                                in_channels=2 * fcfg.hidden_size,
+                                                temb_dim=fcfg.hidden_size, dtype=dtype))
+    tpm = agent.init_tpm_params(g).eval()
+    n_txt = 5
+
+    def encode(prompts):
+        rngs = [np.random.default_rng(zlib.crc32(p.encode())) for p in prompts]
+        txt = np.stack([r.normal(size=(n_txt, fcfg.txt_dim)) for r in rngs])
+        rngs = [np.random.default_rng(zlib.crc32(p.encode()) + 1) for p in prompts]
+        pooled = np.stack([r.normal(size=(fcfg.vec_dim,)) for r in rngs])
+        as_dev = lambda a: torch.as_tensor(a.astype(np.float32), device=agent.device).to(dtype)
+        return as_dev(txt), as_dev(pooled)
+
+    ci, gi, tau = _accel_kwargs(args)
+    try:
+        runner = families.make_flux_runner(agent, tpm, encode, decode, cache_interval=ci,
+                                           guidance_interval=gi, cache_tau=tau)
+    except ValueError as e:
+        raise SystemExit(f"--family flux: {e}") from None
+    return dict(family="flux", agent=agent, tpm_params=tpm, encode=encode, decode=decode,
+                runner=runner)
+
+
 def generate(pipe, tokenize, prompt, seed, max_steps, cache_interval=0,
              guidance_interval=None, cache_tau=0.0, solver="euler"):
     """One prompt through ``pipe.generate`` at batch 1, the negative the
@@ -394,8 +446,9 @@ def _pipe_vae_scale_factor(pipe) -> int:
 
 
 def _family_continuous_engine(world, args):
-    """``--continuous`` for a family world: ``ContinuousSD15Engine`` or
-    ``ContinuousSDXLEngine`` over its agent, encode and decode
+    """``--continuous`` for a family world: ``ContinuousSD15Engine``,
+    ``ContinuousSDXLEngine`` or ``ContinuousFluxEngine`` over its agent,
+    encode and decode
     (``--max_batch`` slots), the agent's own step budget as ``max_steps``.
     The family segments carry no cache or guidance-window state, so those
     flags exit, as in the root serve.py."""
@@ -404,9 +457,14 @@ def _family_continuous_engine(world, args):
         raise SystemExit("--cache_interval/--guidance_interval/--cache_tau serve through the "
                          "fixed-batch runners (the family continuous engines' segments do not "
                          "carry the cache/branch state); drop --continuous")
-    from tpdm_tpu_torch.serving_continuous import ContinuousSD15Engine, ContinuousSDXLEngine
+    from tpdm_tpu_torch.serving_continuous import (
+        ContinuousFluxEngine,
+        ContinuousSD15Engine,
+        ContinuousSDXLEngine,
+    )
 
-    cls = {"sd15": ContinuousSD15Engine, "sdxl": ContinuousSDXLEngine}[world["family"]]
+    cls = {"sd15": ContinuousSD15Engine, "sdxl": ContinuousSDXLEngine,
+           "flux": ContinuousFluxEngine}[world["family"]]
     return cls(world["agent"], world["encode"], decode=world["decode"],
                tpm_params=world["tpm_params"], slots=args.max_batch,
                seg_steps=getattr(args, "seg_steps", 4),
@@ -434,8 +492,8 @@ def make_engine(pipe, tokenize, args, runner=None, world=None):
         if getattr(args, "continuous", False):
             if world is None:
                 raise SystemExit("--continuous with a bare runner needs the family world "
-                                 "(agent/encode/decode): build a ContinuousSD15Engine or "
-                                 "ContinuousSDXLEngine directly")
+                                 "(agent/encode/decode): build a ContinuousSD15Engine, "
+                                 "ContinuousSDXLEngine or ContinuousFluxEngine directly")
             return _family_continuous_engine(world, args)
         return BatchingEngine(None, tokenize, max_batch=args.max_batch,
                               window_ms=args.batch_window_ms, max_steps=args.max_steps,
@@ -695,8 +753,8 @@ def parse_args(argv=None):
     p.add_argument("--reward_checkpoint", default=None)
     p.add_argument("--max_rank_n", type=int, default=8, help="cap on /rank's candidates")
     p.add_argument("--quant_text", action="store_true")
-    p.add_argument("--int4", action="store_true", help="int4 weight-only MMDiT (K5)")
-    p.add_argument("--int8", action="store_true", help="W8A8 int8 MMDiT (K4)")
+    p.add_argument("--int4", action="store_true", help="int4 weight-only MMDiT or FLUX (K5)")
+    p.add_argument("--int8", action="store_true", help="W8A8 int8 MMDiT or FLUX (K4)")
     p.add_argument("--few_step", default=None)
     p.add_argument("--solver", default="euler", choices=["euler", "ab2"])
     p.add_argument("--cache_interval", type=int, default=0,
@@ -711,8 +769,6 @@ def parse_args(argv=None):
     for name, (what, item) in _NOT_PORTED_FLAGS.items():
         if getattr(args, name):
             raise SystemExit(str(not_ported(what, item)))
-    if args.family not in ("sd3", "sd15", "sdxl"):
-        raise SystemExit(str(not_ported(f"--family {args.family}", "12")))
     if args.family != "sd3" and args.solver != "euler":
         raise SystemExit("--solver serves the SD3 engines and --cli; family runners keep euler")
     if args.solver != "euler" and args.continuous and args.resolutions:

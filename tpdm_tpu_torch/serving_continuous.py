@@ -1,8 +1,8 @@
 """Continuous batching for adaptive-NFE serving: step-level slot recycling.
 
 Counterpart of ``tpdm_tpu/serving_continuous.py``'s ``PromptEmbedCache``,
-``ContinuousBatchingEngine``, ``MultiResContinuousRouter`` and the SD1.5
-and SDXL engines. TPDM gives every prompt its own number of denoise steps.
+``ContinuousBatchingEngine``, ``MultiResContinuousRouter`` and the SD1.5,
+SDXL and FLUX engines. TPDM gives every prompt its own number of denoise steps.
 Under the fixed-batch engine (``serving.BatchingEngine``) a batch runs
 until its slowest row finishes, so the other rows idle. This engine treats
 the batch as S persistent *slots* and the denoise loop as a sequence of
@@ -57,12 +57,13 @@ The family engines: ``ContinuousSD15Engine`` and ``ContinuousSDXLEngine``
 ``encode`` and ``decode``: a slot carries the integer t and the
 DPM-Solver++ history, and its segment mirrors ``pipeline/sd15_sampler.py``'s
 step, so a request's schedule equals the family runner's
-(``serving_families.py``).
+(``serving_families.py``). ``ContinuousFluxEngine`` runs the SD3 engine's
+sigma-ratio segment over FLUX's denoise (packed tokens, embedded guidance,
+no CFG doubling).
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue 1 item: ``dp`` (9(d)), ``mesh_shape`` (14), LoRA adapters
-(``register_adapter``, ``fused_lora``, ``submit(lora=)``: 13(b)) and the
-FLUX engine (12).
+queue 1 item: ``dp`` (9(d)), ``mesh_shape`` (14) and LoRA adapters
+(``register_adapter``, ``fused_lora``, ``submit(lora=)``: 13(b)).
 """
 
 from __future__ import annotations
@@ -889,7 +890,7 @@ class _AgentContinuousEngine(ContinuousBatchingEngine):
             torch.Generator(device=agent.device).manual_seed(0)))
         self.pipe = self.tokenize = None
         self.resolution = None
-        self._lat_size, self.vae_scale_factor = agent.unet.config.sample_size, 8
+        self._lat_size, self.vae_scale_factor = self._latent_size(), 8
         self.cache_interval = 0
         self.solver = "euler"
         self._init_host(slots, seg_steps, max_steps or self._default_max_steps(),
@@ -906,6 +907,9 @@ class _AgentContinuousEngine(ContinuousBatchingEngine):
 
     def _default_guidance(self) -> Optional[float]:
         return None
+
+    def _latent_size(self) -> int:
+        return self.agent.unet.config.sample_size
 
     def _build(self):
         """Family hook: the encode probe and the segment's constants."""
@@ -1130,6 +1134,102 @@ class ContinuousSDXLEngine(ContinuousSD15Engine):
             pp = torch.cat([self._neg_pp.to(st.pp.dtype).expand(st.pp.shape), st.pp])
         added = {"text_embeds": pp, "time_ids": self.agent.default_time_ids(pe.shape[0])}
         return make_sdxl_denoise_fn(self.agent.unet, pe, added, self.guidance_scale)
+
+
+class ContinuousFluxEngine(_AgentContinuousEngine):
+    """Slot-recycling serving for the FLUX family: the SD3 engine's
+    sigma-ratio segment over FLUX's denoise (packed tokens, the embedded
+    guidance, no CFG batch doubling). A slot carries its T5 rows (``pe``)
+    and pooled vector (``pp``); the text ids are zero.
+
+    The segment runs the ops of ``adaptive_sample``'s Euler step in the
+    same dtypes, so a slot's schedule equals a ``make_flux_runner`` call's
+    and, at the same batch shape with the request in the slot's row, its
+    final latents equal the runner's to the bit.
+
+    Args:
+        agent: a ``FluxAgent``.
+        encode: ``(prompts) -> (txt (b, n, txt_dim), pooled (b, vec_dim))``.
+        decode: optional ``final_latents -> uint8 images``
+            (``serving_families.make_vae_decoder``); None returns the final
+            latents (fp32).
+        tpm_params: the TPM module (default ``agent.init_tpm_params`` of a
+            generator seeded 0).
+        dp, mesh_shape, fused_lora: not ported (ROADMAP queue 1, items
+            9(d), 14 and 13(b)).
+    """
+
+    def _default_max_steps(self) -> int:
+        return self.agent.sampler_cfg.max_inference_steps
+
+    def _latent_size(self) -> int:
+        return self.agent.latent_size
+
+    def _build(self):
+        scfg = self.agent.sampler_cfg
+        self._min_live = scfg.min_sigma
+        txt, pooled = self._encode_fn(["probe"])
+        self._probe_rows = (txt[0], pooled[0])  # a slot's rows: shapes and dtypes
+        self._clamp_cfg = SamplerConfig(relative=scfg.relative, epsilon=scfg.epsilon)
+
+    def _reset_state(self):
+        """All-empty slots (sigma 0: frozen) and a reseeded generator."""
+        S, agent, dev = self.slots, self.agent, self._device
+        zeros = lambda row: torch.zeros((S,) + tuple(row.shape), dtype=row.dtype, device=dev)
+        self._state = _SlotState(
+            latents=torch.zeros((S, agent.latent_channels, self._lat_size, self._lat_size),
+                                dtype=self._dtype, device=dev),
+            sigma=torch.zeros((S,), dtype=torch.float32, device=dev),
+            steps=torch.zeros((S,), dtype=torch.int32, device=dev),
+            caps=torch.full((S,), self.max_steps, dtype=torch.int32, device=dev),
+            pe=zeros(self._probe_rows[0]), pp=zeros(self._probe_rows[1]))
+        self._generator.manual_seed(0)
+        self._steps_host[:] = 0
+        self._caps_host[:] = self.max_steps
+
+    def _slot_init(self, req: ServeRequest):
+        """A fresh slot starts at sigma 1.0 from its seed's latent."""
+        return self._init_latent(req.seed), 1.0
+
+    def _prompt_embeds(self, prompt: str):
+        hit = self._embed_cache.get(prompt)
+        if hit is not None:
+            return hit
+        txt, pooled = self._encode_fn([prompt])
+        return self._embed_cache.put(prompt, (txt[0], pooled[0]))
+
+    @torch.no_grad()
+    def _segment(self, st: _SlotState, live: torch.Tensor):
+        """``seg_steps`` adaptive steps over every slot; returns the new
+        state and the (seg, S) sigma trace. A slot is done before a step
+        where sigma < min_sigma, its steps reached its cap, or it is not
+        live; a done slot keeps its latents and sigma."""
+        from tpdm_tpu_torch.train.flux_agent import make_flux_denoise_fn
+
+        self._note_state_shapes(st)
+        agent, scfg, dtype = self.agent, self.agent.sampler_cfg, self._dtype
+        txt = st.pe.to(dtype)
+        txt_ids = torch.zeros(txt.shape[:2] + (3,), device=txt.device)
+        denoise_fn = make_flux_denoise_fn(agent.flux, txt, txt_ids, st.pp.to(dtype),
+                                          agent.guidance, (self._lat_size, self._lat_size))
+        tpm_fn = agent.tpm_fn(self._tpm_params)
+        lat, sigma, steps = st.latents, st.sigma, st.steps
+        bcast = (-1,) + (1,) * (lat.dim() - 1)
+        trace = []
+        for _ in range(self.seg_steps):
+            vel, temb, h = denoise_fn(lat, sigma.to(dtype))
+            alpha, beta = _raw_to_alpha_beta(tpm_fn(h, temb).float(), scfg.prediction_type)
+            ratio = (beta_mode(alpha, beta) if self.predict
+                     else beta_sample(self._generator, alpha, beta))
+            ratio = _clamp_ratio(ratio, sigma, self._clamp_cfg)
+            sig_next = sigma * ratio if scfg.relative else sigma - ratio
+            done = (sigma < scfg.min_sigma) | (steps >= st.caps) | ~live
+            sig_next = torch.where(done, sigma, sig_next)
+            lat = torch.where(done.reshape(bcast), lat, flow_euler_step(vel, sig_next, sigma, lat))
+            steps = steps + (~done).to(torch.int32)
+            sigma = sig_next
+            trace.append(sig_next)
+        return st._replace(latents=lat, sigma=sigma, steps=steps), torch.stack(trace)
 
 
 class MultiResContinuousRouter:

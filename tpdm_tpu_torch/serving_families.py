@@ -1,7 +1,8 @@
-"""Model-family serving runners: SD1.5 and SDXL behind the fixed-batch engine.
+"""Model-family serving runners: SD1.5, SDXL and FLUX behind the fixed-batch
+engine.
 
-Counterpart of ``tpdm_tpu/serving_families.py``'s SD1.5 and SDXL parts
-(the SDXL base, and the base + refiner ensemble). A runner
+Counterpart of ``tpdm_tpu/serving_families.py``'s adaptive runners (SD1.5,
+the SDXL base, its base + refiner ensemble, and FLUX). A runner
 ``(prompts, seeds, caps) -> [{image, inference_steps, sigmas}, ...]`` is
 what ``serving.BatchingEngine(runner=...)`` hands a padded batch to; the
 engine keeps the queue, the coalescing window, the padding and the stats,
@@ -12,7 +13,6 @@ device).manual_seed(seed_i), 1)``, the draw that ``agent.sample`` makes
 for a batch of one with that seed's generator: the same (prompt, seed,
 cap) gives the same image through the engine and a direct call at the
 same batch shape. Per-request step caps are the sampler's ``step_caps``.
-The FLUX runner waits for its slice (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ from tpdm_tpu_torch.pipeline.variants import _cached_scfg as _accel_scfg
 from tpdm_tpu_torch.pipeline.variants import handoff_times
 from tpdm_tpu_torch.utils.image import postprocess_images
 
-__all__ = ["make_sd15_runner", "make_sdxl_ensemble_runner", "make_sdxl_runner",
-           "make_vae_decoder"]
+__all__ = ["make_flux_runner", "make_sd15_runner", "make_sdxl_ensemble_runner",
+           "make_sdxl_runner", "make_vae_decoder"]
 
 
 def _per_seed_latents(agent, seeds) -> torch.Tensor:
@@ -206,6 +206,60 @@ def make_sdxl_ensemble_runner(
                 "handoff_t": int(handoff_t[i]),
                 "sigmas": times[i][1:base_nfe + 1].tolist() + rtimes[i][1:ref_nfe + 1].tolist(),
             })
+        return results
+
+    return runner
+
+
+def make_flux_runner(
+    agent,
+    tpm_params,
+    encode: Callable,
+    decode: Optional[Callable] = None,
+    cache_interval: int = 0,
+    guidance_interval=None,
+    cache_tau: float = 0.0,
+) -> Callable:
+    """The serving runner of the FLUX family (packed tokens, embedded
+    guidance, no CFG batch doubling).
+
+    Args:
+        agent: a ``FluxAgent``.
+        tpm_params: its TPM module.
+        encode: ``(prompts) -> (prompt_embeds (b, n, txt_dim), pooled (b,
+            vec_dim))``, the T5 features and the CLIP pooled vector.
+        decode: optional ``final_latents -> uint8 images``.
+        cache_interval: >= 2 runs the Δ-cache; ``cache_tau`` > 0 its
+            input-aware policy (exclusive with ``cache_interval``).
+        guidance_interval: refused: FLUX's guidance is an embedding, with no
+            unconditional branch to skip.
+
+    Each result's ``sigmas`` holds the request's sigma after each of its
+    steps."""
+    if guidance_interval is not None:
+        raise ValueError("guidance_interval does not apply to FLUX (embedded guidance, no CFG "
+                         "batch-doubling)")
+    if cache_tau and cache_interval >= 2:
+        raise ValueError("cache_tau (input-aware policy) and cache_interval (fixed schedule) "
+                         "are mutually exclusive")
+    # serving keeps no activations for a replay
+    scfg = dataclasses.replace(agent.sampler_cfg, predict=True, cache_activations=False,
+                               cache_interval=cache_interval, cache_tau=cache_tau)
+
+    def runner(prompts, seeds, caps):
+        txt, pooled = encode(prompts)
+        batch = {"prompt_embeds": txt, "pooled_prompt_embeds": pooled,
+                 "latents": _per_seed_latents(agent, seeds)}
+        out = agent.sample(tpm_params, batch, None, predict=True, sampler_cfg=scfg,
+                           step_caps=np.asarray(caps, np.int32))
+        images = _images(out, decode)
+        sigmas = out.sigmas.cpu().numpy()
+        lvi = out.last_valid_index.cpu().numpy()
+        results = []
+        for i in range(len(prompts)):
+            nfe = int(lvi[i]) + 1
+            results.append({"image": images[i], "inference_steps": nfe,
+                            "sigmas": sigmas[i][:nfe].tolist()})
         return results
 
     return runner

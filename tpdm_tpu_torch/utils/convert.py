@@ -4,10 +4,12 @@ package's Flax parameter trees.
 Published checkpoints (diffusers / transformers layouts, read from
 safetensors files by ``load_safetensors``) go straight to the port's state
 dicts through ``convert_mmdit``, ``convert_vae``, ``convert_clip_text``,
-``convert_t5`` and ``convert_tpm``, each with the name and arguments of
-``tpdm_tpu/utils/convert.py``'s. ``export_tpm`` writes the TPM back in
-the reference's layout (JAX's checkpoint export), and ``export_mmdit`` /
-``export_vae`` write the diffusers layout of drawn weights (a local
+``convert_t5``, ``convert_tpm``, the UNets' and ``convert_flux`` (the BFL
+layout: each double block's fused ``qkv`` split into three projections),
+each with the name and arguments of ``tpdm_tpu/utils/convert.py``'s.
+``export_tpm`` writes the TPM back in the reference's layout (JAX's
+checkpoint export), ``export_flux`` the BFL layout, and ``export_mmdit``
+/ ``export_vae`` the diffusers layout of drawn weights (a local
 checkpoint directory for tests and ``chip_smoke.py``). torch keeps the
 checkpoints' (out, in) and (out, in, kh, kw) layouts, so each converter is
 a table of renames (``to_out.0`` -> ``to_out``, ``net.0.proj`` /
@@ -518,4 +520,97 @@ def export_unet_sdxl(state_dict: Mapping, cfg, linear_projection: bool = True
         if linear_projection and _PROJ.search(src):
             w = w[:, :, 0, 0]
         out[src] = _tensor(w)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FLUX transformer (BFL checkpoint layout <-> models.flux.Flux)
+# ---------------------------------------------------------------------------
+
+
+def flux_from_jax(flax_params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.flux.Flux`` from the JAX Flux's params (float
+    or prequantised); with ``cfg``, the block counts are checked."""
+    sd = _flax_to_state_dict(flax_params)
+    if cfg is not None:
+        for kind, depth in (("double", cfg.depth_double), ("single", cfg.depth_single)):
+            n = len({k.split(".")[1] for k in sd if k.startswith(f"{kind}_blocks.")})
+            if n != depth:
+                raise ValueError(f"params hold {n} {kind} blocks, config has {depth}")
+    return sd
+
+
+def _flux_keys(state_keys, guidance: bool):
+    """[(BFL key, port key)] of every tensor of a Flux state dict but the
+    double blocks' q/k/v, which the BFL layout fuses; the blocks are those
+    that ``state_keys`` (port keys) hold. Raises on a module that has no
+    BFL name."""
+    keys = _pairs("img_in") + _pairs("txt_in") + _pairs("final_layer.linear", "final_proj")
+    keys += _pairs("final_layer.adaLN_modulation.1", "final_mod.lin")
+    for embed in ("time_in", "vector_in") + (("guidance_in",) if guidance else ()):
+        keys += _pairs(f"{embed}.in_layer") + _pairs(f"{embed}.out_layer")
+    norms = lambda src, dst: [(f"{src}.query_norm.scale", f"{dst}_q.weight"),
+                              (f"{src}.key_norm.scale", f"{dst}_k.weight")]
+    blocks = sorted({tuple(k.split(".")[:2]) for k in state_keys
+                     if k.startswith(("double_blocks.", "single_blocks."))})
+    for kind, i in blocks:
+        base = f"{kind}.{i}"
+        if kind == "double_blocks":
+            for side in ("img", "txt"):
+                keys += _pairs(f"{base}.{side}_mod.lin")
+                keys += _pairs(f"{base}.{side}_attn.proj", f"{base}.{side}_attn_proj")
+                keys += _pairs(f"{base}.{side}_mlp.0", f"{base}.{side}_mlp_0")
+                keys += _pairs(f"{base}.{side}_mlp.2", f"{base}.{side}_mlp_2")
+                keys += norms(f"{base}.{side}_attn.norm", f"{base}.{side}_attn_norm")
+        else:
+            keys += _pairs(f"{base}.modulation.lin") + _pairs(f"{base}.linear1")
+            keys += _pairs(f"{base}.linear2") + norms(f"{base}.norm", f"{base}.norm")
+    known = {"img_in", "txt_in", "time_in", "vector_in", "guidance_in", "final_mod",
+             "final_proj", "double_blocks", "single_blocks"}
+    for k in state_keys:
+        if k.split(".")[0] not in known:
+            raise ValueError(f"unmapped Flux module: {k.split('.')[0]}")
+    return keys
+
+
+def convert_flux(
+    state_dict: Mapping,
+    depth_double: int = 19,
+    depth_single: int = 38,
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """BFL flux.1 transformer state dict (img_in / txt_in / time_in /
+    vector_in [/ guidance_in], double_blocks.N with fused ``qkv`` and the
+    query / key RMSNorm scales, single_blocks.N with the fused ``linear1`` =
+    [qkv | mlp], final_layer) -> state dict of ``models.flux.Flux``. The
+    fused q/k/v rows split into the port's three projections; everything
+    else is a rename. ``guidance_in`` comes along where the checkpoint has
+    it (dev, not schnell). A missing key raises ``KeyError``."""
+    port_keys = [f"double_blocks.{i}." for i in range(depth_double)]
+    port_keys += [f"single_blocks.{i}." for i in range(depth_single)]
+    guidance = "guidance_in.in_layer.weight" in state_dict
+    out = _renamed(state_dict, _flux_keys(port_keys, guidance), dtype)
+    for i in range(depth_double):
+        for side in ("img", "txt"):
+            src, dst = f"double_blocks.{i}.{side}_attn.qkv", f"double_blocks.{i}.{side}_attn_to_"
+            for leaf in ("weight", "bias"):
+                for name, part in zip("qkv", _tensor(state_dict[f"{src}.{leaf}"], dtype).chunk(3)):
+                    out[f"{dst}{name}.{leaf}"] = part.contiguous()
+    return out
+
+
+def export_flux(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_flux``: a ``Flux`` state dict (float) -> the BFL
+    layout, contiguous CPU tensors. A module the BFL layout does not name
+    raises ``ValueError``."""
+    keys = _flux_keys(list(state_dict), "guidance_in.in_layer.weight" in state_dict)
+    out = {src: _tensor(state_dict[dst].detach().cpu()) for src, dst in keys}
+    doubles = sorted({k.split(".")[1] for k in state_dict if k.startswith("double_blocks.")},
+                     key=int)
+    for i in doubles:
+        for side in ("img", "txt"):
+            base = f"double_blocks.{i}.{side}_attn"
+            for leaf in ("weight", "bias"):
+                out[f"{base}.qkv.{leaf}"] = torch.cat([
+                    state_dict[f"{base}_to_{n}.{leaf}"].detach().cpu() for n in "qkv"]).contiguous()
     return out
