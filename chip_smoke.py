@@ -251,6 +251,24 @@ Phases, one line each, and any failure exits non-zero:
    (57 a forward, cache_front_blocks a Δ-cache reuse forward), K2 (one an
    encode or decode), K4 (304 a W8A8 forward) and K5 (77 a W8A8 forward,
    381 an int4 one) are checked exactly around every call.
+21. RLOO training over the families (tpdm_tpu_torch.train): one update of
+   RLOOTrainer over SD15Agent (512 px, CFG 7.5), SDXLAgent (1024 px, CFG
+   5.0), SDXLEnsembleAgent (base + refiner at denoising_end 0.8, both TPM
+   heads in one Adam step) and FluxAgent (1024 px, guidance 3.5 embedded,
+   no CFG doubling), each run by phases 18, 19 and 20 on the backbones and
+   VAEs they hold (FLUX before its quantised modes), with phase 11's
+   training configuration (2 prompts x rloo_k 2, one PPO epoch of 2
+   micro-batches, gradient accumulation 2, lr 1e-6, an fp32 TPM computing
+   in bf16) and reward (the family's VAE decode, then phase 11's
+   random-weight ImageReward). Each update prints its metrics, rollout,
+   reward and PPO seconds, steps (base + refiner), peak memory and
+   activation-cache bytes, and is checked: finite metrics, no skipped
+   step, |val/ratio - 1| < 1e-2, the TPM (each head) moved by more than 0
+   and at most 1.5 x lr, and K1 (a forward's launches times each stage's
+   loop iterations) and K2 (one, the decode) exact around the rollout and
+   the reward, none in the PPO epochs. K1 at the new shapes these
+   rollouts run (the refiner's at CFG batch 8, FLUX's (4, 24, 4608, 128))
+   is checked and timed with phases 19 and 20's.
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -1956,10 +1974,11 @@ class UpdateRecorder:
     and PPO, each ended by a synchronize), peak memory, the memory allocated
     when the reward was called beside the bytes of the rollout's time-major
     caches (and where they were), and the K1/K2 launches counted since the
-    previous update (the counters zeroed before the first). ``samples``
-    lists every rollout (batch, steps), an eval's too; with ``keep_last``
-    the last rollout and its batch are kept (which keeps its caches
-    alive)."""
+    previous update (the counters zeroed before the first), split into
+    those of the last rollout, of the reward and of what followed it (the
+    PPO epochs). ``samples`` lists every rollout (batch, steps), an eval's
+    too; with ``keep_last`` the last rollout and its batch are kept (which
+    keeps its caches alive)."""
 
     def __init__(self, dev, keep_last=False):
         from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
@@ -1975,10 +1994,12 @@ class UpdateRecorder:
         def timed_sample(tpm, batch, generator, **kw):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(self.dev)
+            before = self.launches()
             self.t0 = time.perf_counter()
             out = sample(tpm, batch, generator, **kw)
             torch.cuda.synchronize()
             self.t1 = time.perf_counter()
+            self.rollout_k = [n - b for n, b in zip(self.launches(), before)]
             self.samples.append((batch["prompt_embeds"].shape[0], out.num_steps))
             if self.keep_last:
                 self.last = (batch, out)
@@ -1988,28 +2009,38 @@ class UpdateRecorder:
         return agent
 
     def wrap_reward(self, reward_fn):
+        from tpdm_tpu_torch.train.rloo import _TIME_MAJOR_FIELDS
+
         def timed_reward(prompts, outputs):
             self.reward_calls += 1
             caches = [v for k, v in outputs._asdict().items()
-                      if k in ("h_cache", "temb_cache", "history_latents") and v is not None]
+                      if k in _TIME_MAJOR_FIELDS and v is not None]
             self.at_reward = dict(
                 allocated=torch.cuda.memory_allocated(self.dev),
                 cache_bytes=sum(v.numel() * v.element_size() for v in caches),
                 cache_on=sorted({v.device.type for v in caches}))
+            before = self.launches()
             scores, last = reward_fn(prompts, outputs)
             torch.cuda.synchronize()
             self.t2 = time.perf_counter()
+            self.at_reward_end = self.launches()
+            self.reward_k = [n - b for n, b in zip(self.at_reward_end, before)]
             return scores, last
 
         return timed_reward
 
+    def launches(self):
+        return [fn.launches for fn in self.counters]
+
     def on_step_end(self, trainer, update, metrics, eval_state):
         torch.cuda.synchronize()
-        now = [fn.launches for fn in self.counters]
+        now = self.launches()
         k1, k2 = (n - s for n, s in zip(now, self.seen))
         self.seen = now
         self.rows.append(dict(
             update=update, metrics=metrics, steps=self.samples[-1][1], k1=k1, k2=k2,
+            rollout_k=self.rollout_k, reward_k=self.reward_k,
+            ppo_k=[n - r for n, r in zip(now, self.at_reward_end)],
             rollout_s=self.t1 - self.t0, reward_s=self.t2 - self.t1,
             ppo_s=time.perf_counter() - self.t2, at_reward=self.at_reward,
             peak_gib=torch.cuda.max_memory_allocated(self.dev) / 2**30))
@@ -2034,6 +2065,128 @@ def print_update(label, row, layers):
     if row["k1"] != layers * row["steps"] or row["k2"] != 1:
         fail(f"{label}: K1 {row['k1']}, K2 {row['k2']} launches for {row['steps']} rollout "
              "steps and one decode")
+
+
+class FamilyRLOO:
+    """Phase 21: one update of RLOOTrainer over each non-SD3 family's agent
+    at full width, run by phases 18-20 on the backbones and VAEs they hold
+    (``update``), each agent built anew over them with phase 11's training
+    configuration: 2 prompts x rloo_k 2, one PPO epoch of 2 micro-batches
+    with gradient accumulation 2 (one Adam step), lr RLOO_LR, the TPM at
+    RLOOConfig's head bias with fp32 parameters computing in bf16, and the
+    reward the family's own VAE decode (K2) and then phase 11's
+    random-weight ImageReward (built once, at the first update). Each
+    update's launches are checked exactly: K1 a forward times each stage's
+    loop iterations around the rollout, one K2 around the reward's decode,
+    none in the PPO epochs (they replay the TPM alone)."""
+
+    def __init__(self, seed, dev, smi):
+        self.seed, self.dev, self.smi = seed, dev, smi
+        self.totals = [0, 0]
+        self.seconds = 0.0
+        self.lines = []
+        self._reward = None
+
+    def config(self, max_steps):
+        from tpdm_tpu_torch.train import RLOOConfig
+
+        return RLOOConfig(
+            per_device_train_batch_size=2, gradient_accumulation_steps=2, rloo_k=2,
+            num_ppo_epochs=1, num_mini_batches=1, total_episodes=4,
+            max_inference_steps=max_steps, learning_rate=RLOO_LR, kl_coef=0.05, gamma=0.9,
+            seed=self.seed)
+
+    def reward(self):
+        """(ImageRewardModel, BertTokenizer, prompts) as phase 11 builds them."""
+        if self._reward is None:
+            from tpdm_tpu_torch.rewards import ImageRewardModel
+            from tpdm_tpu_torch.utils.bert_tokenizer import BertTokenizer
+
+            with open(REPO / "example" / "prompts.jsonl") as f:
+                prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+            with tempfile.TemporaryDirectory() as tmp:
+                write_vocab(Path(tmp) / "vocab.txt", prompts)
+                tokenizer = BertTokenizer.from_pretrained(tmp)
+            model = ImageRewardModel.create(seed=self.seed + 30, device=self.dev)
+            self._reward = (model, tokenizer, prompts)
+        return self._reward
+
+    def update(self, label, agent, stages, vae, collate):
+        """One update of ``agent`` (its TPM drawn from the seed), the reward
+        ``vae``'s decode and ImageReward, the batch from ``collate(rows)``;
+        ``stages`` maps each agent that runs a loop in the rollout (the
+        agent, or the ensemble's base and refiner) to its K1 launches a
+        forward. Prints and checks the update."""
+        from tpdm_tpu_torch.train import RLOOTrainer
+        from tpdm_tpu_torch.train.builders import build_image_reward_fn
+
+        start = time.perf_counter()
+        reward_model, tokenizer, prompts = self.reward()
+        recorder = UpdateRecorder(self.dev)
+        outs, restore = recorded_samples(*stages)
+        recorder.wrap_agent(agent)
+        trainer = RLOOTrainer(agent.config, agent,
+                              recorder.wrap_reward(build_image_reward_fn(vae, reward_model,
+                                                                         tokenizer)),
+                              [{"prompt": p} for p in prompts], collate_fn=collate,
+                              callbacks=[recorder])
+        tpm = agent.init_tpm_params(torch.Generator(device=self.dev).manual_seed(self.seed + 210))
+        p0 = {k: v.clone() for k, v in tpm.state_dict().items()}
+        torch.cuda.synchronize()
+        recorder.seen = recorder.launches()
+        try:
+            tpm, optimizer = trainer.train(tpm=tpm)
+        finally:
+            restore()
+        row = recorder.rows[-1]
+        m = row["metrics"]
+        stage_steps = [(stages[a], out.num_steps) for a, out in outs]
+        want_k1 = sum(k1 * n for k1, n in stage_steps)
+        moved = {}
+        for k, v in tpm.state_dict().items():
+            head = k.split(".", 1)[0] if isinstance(tpm, torch.nn.ModuleDict) else "tpm"
+            moved[head] = max(moved.get(head, 0.0), (v - p0[k]).abs().max().item())
+        bound = ADAM_STEP_FACTOR * RLOO_LR * optimizer.count
+        self.totals[0] += row["k1"]
+        self.totals[1] += row["k2"]
+        steps = " + ".join(str(n) for _, n in stage_steps)
+        keys = ("policy/steps_avg", "objective/scores", "loss/policy_avg", "policy/grad_norm_avg",
+                "val/ratio", "val/num_skipped")
+        seconds = time.perf_counter() - start
+        self.seconds += seconds
+        phase(f"family rloo {label}", ", ".join(f"{k} {m[k]:.6g}" for k in keys)
+              + f"; rollout {steps} steps (batch {recorder.samples[-1][0]}) "
+              f"{row['rollout_s']:.3f} s, reward (decode + score) {row['reward_s']:.3f} s, PPO "
+              f"{row['ppo_s']:.3f} s; peak memory {row['peak_gib']:.2f} GiB; activation caches "
+              f"{row['at_reward']['cache_bytes'] / 2**30:.3f} GiB; K1 {row['rollout_k'][0]} in "
+              f"the rollout ({' + '.join(f'{k1} x {n}' for k1, n in stage_steps)}), K2 "
+              f"{row['reward_k'][1]} in the reward, {row['ppo_k']} in PPO; TPM moved "
+              + ", ".join(f"{h} {v:.4e}" for h, v in moved.items())
+              + f" (bound {bound:.4e}) in {optimizer.count} Adam step; {seconds:.1f} s; {self.smi}")
+        if not all(math.isfinite(v) for v in m.values()) or m["val/num_skipped"] != 0:
+            fail(f"family rloo {label}: non-finite metrics or a skipped step: {m}")
+        if not abs(m["val/ratio"] - 1.0) < RATIO_TOL:
+            fail(f"family rloo {label}: val/ratio {m['val/ratio']} is not within {RATIO_TOL} of "
+                 "1: the replay does not reproduce the rollout's log-probs")
+        if optimizer.count != 1 or not all(0 < v <= bound for v in moved.values()):
+            fail(f"family rloo {label}: the TPM moved {moved} in {optimizer.count} Adam steps "
+                 f"(bound {bound})")
+        if (row["rollout_k"] != [want_k1, 0] or row["reward_k"] != [0, 1]
+                or row["ppo_k"] != [0, 0] or row["k1"] != want_k1 or row["k2"] != 1):
+            fail(f"family rloo {label}: launches (K1, K2) rollout {row['rollout_k']}, reward "
+                 f"{row['reward_k']}, PPO {row['ppo_k']}; expected [{want_k1}, 0], [0, 1], "
+                 "[0, 0]")
+        self.lines.append(f"{label} {row['rollout_s'] + row['reward_s'] + row['ppo_s']:.3f} s")
+        del trainer, recorder, tpm, optimizer, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def summary(self):
+        if len(self.lines) != 4:
+            fail(f"family rloo: {len(self.lines)} of the 4 updates ran")
+        phase("family rloo", f"{'; '.join(self.lines)} an update; {self.seconds:.1f} s with the "
+                             f"agents' set-up; K1 {self.totals[0]}, K2 {self.totals[1]} launches; "
+                             f"{self.smi}")
 
 
 def rloo_phase(seed, dev):
@@ -4135,9 +4288,11 @@ def check_sd15_schedule(res, b, px, t0=999, t_max=SD15_T_MAX):
             fail(f"sd15 sample {i}: timesteps not falling from {t0} over valid steps: {ts}")
 
 
-def sd15_phase(seed, dev, smi):
-    """Phase 18: SD1.5 at 512 px, item 18 of this file's docstring.
-    Returns (K1 launches, K2 launches, the kernels line's K1 entries)."""
+def sd15_phase(seed, dev, smi, family_rloo):
+    """Phase 18: SD1.5 at 512 px, item 18 of this file's docstring, then
+    phase 21's SD1.5 update (``family_rloo``, a FamilyRLOO) on its models.
+    Returns (K1 launches, K2 launches, the kernels line's K1 entries) of
+    phase 18."""
     import copy
 
     from tpdm_tpu_torch.models import unet_sd15
@@ -4304,7 +4459,19 @@ def sd15_phase(seed, dev, smi):
                          f"padded_slots {stats['padded_slots']}")
     phase("sd15 phase", f"{time.perf_counter() - t_phase:.1f} s; K1 {totals[0]}, K2 {totals[1]} "
                         f"launches; {smi}")
-    del m, pipe, runner, engine
+    del pipe, runner, engine
+
+    # phase 21's SD1.5 update, CFG batch 8 at 512 px
+    from tpdm_tpu_torch.train.sd15_agent import SD15Agent
+
+    def collate(rows):
+        texts = [r["prompt"] for r in rows]
+        pe, npe = m.encode(texts)
+        return {"prompt": texts, "prompt_embeds": pe, "negative_prompt_embeds": npe}
+
+    agent = SD15Agent(m.unet, family_rloo.config(SD15_T_MAX), guidance_scale=SD15_GS)
+    family_rloo.update("sd15", agent, {agent: k1_a_forward}, m.vae, collate)
+    del m, agent
     gc.collect()
     torch.cuda.empty_cache()
     return totals[0], totals[1], k1_entries
@@ -4337,7 +4504,7 @@ SDXL_K1_SHAPES = {
     **{f"sdxl_{level}_{kind}{_batch_key(b)}": (b, h, n, n if kind == "self" else 77, 64)
        for b in (2, 4, 8) for level, h, n in _SDXL_LEVELS for kind in ("self", "cross")},
     **{f"sdxl_{level}_{kind}{_batch_key(b)}": (b, h, n, n if kind == "self" else 77, 64)
-       for b in (2, 4) for level, h, n in _SDXL_REFINER_LEVELS for kind in ("self", "cross")},
+       for b in (2, 4, 8) for level, h, n in _SDXL_REFINER_LEVELS for kind in ("self", "cross")},
     "toy_d4": (4, 2, 256, 256, 4), "toy_d6": (4, 2, 64, 64, 6), "toy_d8": (4, 2, 16, 16, 8),
     "toy_xl_d4": (4, 3, 64, 64, 4), "toy_vae_d16": (2, 1, 256, 256, 16),
 }
@@ -4664,10 +4831,11 @@ def family_cli(label, argv, counted):
     return got
 
 
-def sdxl_phase(seed, dev, smi):
+def sdxl_phase(seed, dev, smi, family_rloo):
     """Phase 19: SDXL at 1024 px and the families' continuous engines, item
-    19 of this file's docstring. Returns (K1 launches, K2 launches, the
-    kernels line's K1 entries)."""
+    19 of this file's docstring, with phase 21's SDXL and ensemble updates
+    (``family_rloo``) on its models. Returns (K1 launches, K2 launches, the
+    kernels line's K1 entries) of phase 19."""
     import copy
 
     from tpdm_tpu_torch.models import unet_sd15
@@ -4679,6 +4847,7 @@ def sdxl_phase(seed, dev, smi):
     from tpdm_tpu_torch.pipeline.variants import SDXLPipeline, SDXLRefinerPipeline
     from tpdm_tpu_torch.serving import BatchingEngine
     from tpdm_tpu_torch.serving_families import make_sdxl_ensemble_runner, make_vae_decoder
+    from tpdm_tpu_torch.train.sdxl_agent import SDXLAgent, SDXLEnsembleAgent, SDXLRefinerAgent
 
     t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(seed + 19)
@@ -4838,7 +5007,33 @@ def sdxl_phase(seed, dev, smi):
     # 7. the SDXL continuous engine at 1024 px
     family_continuous("sdxl", counted, m.agent, m.tpm, m.encode, make_vae_decoder(m.vae),
                       k1_base, m.prompts, seed + 1910, smi)
-    del m
+    t_rloo = time.perf_counter()
+
+    # phase 21's SDXL base update (CFG batch 8 at 1024 px), then the
+    # ensemble's at SDXL_DENOISING_END (both heads in one Adam step)
+    keys = ("prompt_embeds", "pooled_prompt_embeds", "negative_prompt_embeds",
+            "negative_pooled_prompt_embeds")
+
+    def collate(rows):
+        texts = [r["prompt"] for r in rows]
+        return {"prompt": texts, **dict(zip(keys, m.encode(texts)))}
+
+    def ensemble_collate(rows):
+        batch = collate(rows)
+        batch.update(zip((f"refiner_{k}" for k in keys), m.encode_refiner(batch["prompt"])))
+        return batch
+
+    train_cfg = family_rloo.config(SDXL_T_MAX)
+    base = SDXLAgent(m.unet, train_cfg, guidance_scale=SDXL_GS)
+    family_rloo.update("sdxl", base, {base: k1_base}, m.vae, collate)
+    ensemble = SDXLEnsembleAgent(SDXLAgent(m.unet, train_cfg, guidance_scale=SDXL_GS),
+                                 SDXLRefinerAgent(m.refiner, train_cfg, guidance_scale=SDXL_GS),
+                                 denoising_end=SDXL_DENOISING_END)
+    family_rloo.update("sdxl ensemble", ensemble,
+                       {ensemble.base: k1_base, ensemble.refiner: k1_ref}, m.vae,
+                       ensemble_collate)
+    t_phase += time.perf_counter() - t_rloo  # phase 19's seconds leave phase 21's out
+    del m, base, ensemble
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4860,11 +5055,13 @@ FLUX_ENGINE_PX = 512
 # FLUX.1-dev's VAE: SD3's 16-channel geometry with its own published factors
 FLUX_VAE_FACTORS = dict(scaling_factor=0.3611, shift_factor=0.1159)
 # K1 at head dim 128: the joint [512 T5, image] sequence at 1024 px (4096
-# image tokens) at batch 1 and 2, and at 512 px (1024) at the engine's 4 slots
+# image tokens) at batch 1 and 2 and at phase 21's RLOO batch 4, and at 512
+# px (1024) at the engine's 4 slots
 FLUX_K1_SHAPES = {
     "flux_1024px": (1, 24, 4608, 4608, 128),
     "flux_1024px_batch_2": (2, 24, 4608, 4608, 128),
     "flux_512px_batch_4": (4, 24, 1536, 1536, 128),
+    "flux_1024px_batch_4": (4, 24, 4608, 4608, 128),
 }
 
 
@@ -4928,9 +5125,11 @@ def check_flux_result(label, res, b, px, s0=1.0):
              f"{sig.tolist()}")
 
 
-def flux_phase(seed, dev, smi):
-    """Phase 20: FLUX.1-dev at 1024 px, item 20 of this file's docstring.
-    Returns (K1, K2, K4, K5 launches, the kernels line's K1 entries)."""
+def flux_phase(seed, dev, smi, family_rloo):
+    """Phase 20: FLUX.1-dev at 1024 px, item 20 of this file's docstring,
+    with phase 21's FLUX update (``family_rloo``) on the bf16 model before
+    the quantised modes. Returns (K1, K2, K4, K5 launches, the kernels
+    line's K1 entries) of phase 20."""
     import copy
 
     from tpdm_tpu_torch.models import flux as flux_module
@@ -5099,6 +5298,20 @@ def flux_phase(seed, dev, smi):
                         ("flux continuous", ["--family", "flux", "--continuous"])):
         family_cli(label, argv, counted)
 
+    # phase 21's FLUX update on the bf16 backbone: 4 samples at 1024 px
+    # (no CFG doubling), before step 9 quantises it in place
+    t_rloo = time.perf_counter()
+
+    def collate(rows):
+        texts = [r["prompt"] for r in rows]
+        txt, pooled = flux_embeds(texts, dev)
+        return {"prompt": texts, "prompt_embeds": txt, "pooled_prompt_embeds": pooled}
+
+    train_agent = FluxAgent(flux, family_rloo.config(FLUX_T_MAX))
+    family_rloo.update("flux", train_agent, {train_agent: k1_fwd}, vae, collate)
+    del train_agent
+    t_phase += time.perf_counter() - t_rloo  # phase 20's seconds leave phase 21's out
+
     # 9. W8A8 in place, then int4 on the backbone drawn again from the seed:
     # one 1024 px forward of each against the bf16 forward, then a request
     rand = lambda *shape: torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
@@ -5222,12 +5435,17 @@ def main() -> int:
             kernels[name].update(entries)
         gc.collect()
         torch.cuda.empty_cache()
-        k1_sd15, k2_sd15, sd15_k1 = sd15_phase(args.seed, dev, smi)  # 18
+        family_rloo = FamilyRLOO(args.seed, dev, smi)  # 21, run by phases 18-20
+        k1_sd15, k2_sd15, sd15_k1 = sd15_phase(args.seed, dev, smi, family_rloo)  # 18
         kernels["K1"].update(sd15_k1)
-        k1_sdxl, k2_sdxl, sdxl_k1 = sdxl_phase(args.seed, dev, smi)  # 19
+        k1_sdxl, k2_sdxl, sdxl_k1 = sdxl_phase(args.seed, dev, smi, family_rloo)  # 19
         kernels["K1"].update(sdxl_k1)
-        k1_flux, k2_flux, k4_flux, k5_flux, flux_k1 = flux_phase(args.seed, dev, smi)  # 20
+        k1_flux, k2_flux, k4_flux, k5_flux, flux_k1 = flux_phase(args.seed, dev, smi,
+                                                                 family_rloo)  # 20
         kernels["K1"].update(flux_k1)
+        family_rloo.summary()
+        k1_frl, k2_frl = family_rloo.totals
+        del family_rloo
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -5238,12 +5456,12 @@ def main() -> int:
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
              "launches": (k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35
-                          + k1_i2i + k1_sd15 + k1_sdxl + k1_flux),
+                          + k1_i2i + k1_sd15 + k1_sdxl + k1_flux + k1_frl),
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
              "launches": (k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35
-                          + k2_i2i + k2_sd15 + k2_sdxl + k2_flux),
+                          + k2_i2i + k2_sd15 + k2_sdxl + k2_flux + k2_frl),
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

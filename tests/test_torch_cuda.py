@@ -266,11 +266,13 @@ def test_k1_d40_scales_by_the_true_head_dim(device):
 # 10 heads over the level-1 grid's 4096 tokens and 20 heads over level 2's
 # and the mid block's 1024; the refiner's 12 heads over 4096, 24 over 1024
 # and, in its mid block, 24 over 256; each beside its cross-attention
-# against the 77 text tokens
+# against the 77 text tokens; and the refiner's at CFG batch 8, where the
+# ensemble's RLOO rollout of 2 prompts x rloo_k 2 runs it
 SDXL_SHAPES = [
     shape for b in (2, 4) for h, n in ((10, 4096), (20, 1024), (12, 4096), (24, 1024), (24, 256))
     for shape in ((b, h, n, n), (b, h, n, 77))
-]
+] + [shape for h, n in ((12, 4096), (24, 1024), (24, 256))
+     for shape in ((8, h, n, n), (8, h, n, 77))]
 
 
 @pytest.mark.parametrize("shape", SDXL_SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -304,11 +306,12 @@ def test_k1_padded_small_head_dims_match_plain(device, d, b, h, n_q, n_kv, kv_le
 
 # K1 at FLUX's head dim 128: the joint [text, image] sequence of 512 T5
 # tokens and the image tokens, 4096 at 1024 px (batch 1 and 2) and 1024 at
-# 512 px (the continuous engine's 4 slots), no kv_len; and ragged query and
-# kv tiles of the d-128 entry (128 query rows a block)
+# 512 px (the continuous engine's 4 slots), no kv_len; at 1024 px at batch
+# 4 (an RLOO rollout of 2 prompts x rloo_k 2, no CFG doubling); and ragged
+# query and kv tiles of the d-128 entry (128 query rows a block)
 FLUX_SHAPES = [(1, 24, 4608, 4608, None), (2, 24, 4608, 4608, None),
                (4, 24, 1536, 1536, None), (1, 3, 129, 300, 257), (2, 2, 1, 65, None),
-               (1, 2, 193, 128, 1)]
+               (1, 2, 193, 128, 1), (4, 24, 4608, 4608, None)]
 
 
 @pytest.mark.parametrize("shape", FLUX_SHAPES, ids=lambda s: "x".join(map(str, s)))

@@ -1,6 +1,7 @@
-"""Training of the port: RLOO/PPO of the TPM over a frozen SD3 backbone,
-its config, checkpoints and builders; the SD1.5 agent in
-``train.sd15_agent``."""
+"""Training of the port: RLOO/PPO of the TPM over a frozen backbone, its
+config, checkpoints and builders, and the agents of every family: SD3
+(``TPDMAgent``), SD1.5, SDXL (base, refiner and the joint ensemble) and
+FLUX."""
 
 from tpdm_tpu_torch.train.config import RLOOConfig
 from tpdm_tpu_torch.train.rloo import (
@@ -14,4 +15,11 @@ from tpdm_tpu_torch.train.rloo import (
     ppo_loss,
     rloo_advantages,
 )
+from tpdm_tpu_torch.train.flux_agent import FluxAgent
 from tpdm_tpu_torch.train.sd15_agent import SD15Agent
+from tpdm_tpu_torch.train.sdxl_agent import (
+    EnsembleSampleOutput,
+    SDXLAgent,
+    SDXLEnsembleAgent,
+    SDXLRefinerAgent,
+)

@@ -9,7 +9,10 @@ one, and ``trainer_meta.json`` the update, the episode and the numpy RNG's
 state. Beside them ``tpm.safetensors`` holds the TPM alone in the
 reference's ``agent_model.time_predictor.`` layout (``utils/convert.py:
 export_tpm``), as the JAX package writes it, for the inference stacks that
-load a TPM; ``load_tpm_safetensors`` reads it back. A save is written to
+load a TPM; ``load_tpm_safetensors`` reads it back. A TPM of several heads
+(the SDXL ensemble's ``nn.ModuleDict`` of "base" and "refiner") writes
+one such file a head, ``tpm-base.safetensors`` and
+``tpm-refiner.safetensors``, each in that layout. A save is written to
 ``tmp-checkpoint-N`` and renamed into place, so a kill mid-save leaves no
 resumable-looking half checkpoint. The frozen towers are never
 checkpointed.
@@ -36,6 +39,24 @@ STATE_FILE = "trainer_state.pt"
 META_FILE = "trainer_meta.json"
 EMA_FILE = "ema.pt"
 TPM_FILE = "tpm.safetensors"
+TPM_HEAD_FILE = "tpm-{}.safetensors"
+
+
+def tpm_heads(tpm: dict) -> dict:
+    """A TPM state dict by head: ``{"": tpm}`` for one ``TimePredictor``'s,
+    ``{name: its state}`` for a ``ModuleDict`` of them (keys
+    ``name.conv1.weight``, ...)."""
+    if "conv1.weight" in tpm:
+        return {"": tpm}
+    heads: dict = {}
+    for key, value in tpm.items():
+        name, _, rest = key.partition(".")
+        heads.setdefault(name, {})[rest] = value
+    for name, state in heads.items():
+        if "conv1.weight" not in state:
+            raise ValueError(f"TPM head {name!r} is not a TimePredictor's state dict "
+                             f"(keys {sorted(state)[:4]}...)")
+    return heads
 
 
 def save_checkpoint(
@@ -49,8 +70,8 @@ def save_checkpoint(
     ema: Optional[dict] = None,
 ) -> str:
     """Write ``output_dir/checkpoint-{step}`` (replacing one of that step);
-    ``tpm`` (a ``TimePredictor``'s), ``optimizer`` and ``ema`` are state
-    dicts. Returns its path."""
+    ``tpm`` (a ``TimePredictor``'s or a ``ModuleDict`` of them),
+    ``optimizer`` and ``ema`` are state dicts. Returns its path."""
     final = os.path.join(output_dir, f"checkpoint-{step}")
     path = os.path.join(output_dir, f"tmp-checkpoint-{step}")
     if os.path.isdir(path):
@@ -60,7 +81,9 @@ def save_checkpoint(
                os.path.join(path, STATE_FILE))
     if ema is not None:
         torch.save(ema, os.path.join(path, EMA_FILE))
-    safetensors.save_file(export_tpm(tpm), os.path.join(path, TPM_FILE))
+    for head, state in tpm_heads(tpm).items():
+        name = TPM_HEAD_FILE.format(head) if head else TPM_FILE
+        safetensors.save_file(export_tpm(state), os.path.join(path, name))
     meta = {"update": step, "episode": episode}
     if np_rng_state is not None:
         meta["np_rng_state"] = _encode_rng(np_rng_state)
@@ -113,8 +136,9 @@ def restore_checkpoint(path: str, map_location="cpu") -> dict:
 
 
 def load_tpm_safetensors(path: str) -> dict:
-    """A TPM-only safetensors file (``tpm.safetensors`` of a checkpoint, or
-    the reference's) as a ``TimePredictor`` state dict."""
+    """A TPM-only safetensors file (``tpm.safetensors`` or a head's
+    ``tpm-<head>.safetensors`` of a checkpoint, or the reference's) as a
+    ``TimePredictor`` state dict."""
     return convert_tpm(safetensors.load_file(path))
 
 

@@ -22,8 +22,12 @@ Counterpart of ``tpdm_tpu/train/rloo.py`` on one card:
   memory (pinned) right after the rollout; each PPO micro-step slices them
   there and moves only its slice back to the card.
 
-The command-line entry point is ``tpdm_tpu_torch/train/main.py``. Not
-ported yet: data parallelism (DDP over NCCL; ROADMAP queue 1, item 9(d)).
+The trainer takes any agent of the protocol (sample, replay, logprobs,
+kl_divergence, init_tpm_params): ``TPDMAgent`` here, ``SD15Agent``,
+``SDXLAgent``, ``FluxAgent`` and ``SDXLEnsembleAgent``, whose TPM is an
+``nn.ModuleDict`` of two heads that one Adam step updates together. The
+command-line entry point is ``tpdm_tpu_torch/train/main.py``. Not ported
+yet: data parallelism (DDP over NCCL; ROADMAP queue 1, item 9(d)).
 """
 
 from __future__ import annotations
@@ -165,7 +169,10 @@ def rloo_repeat(batch: dict, rloo_k: int) -> dict:
     return out
 
 
-_TIME_MAJOR_FIELDS = ("h_cache", "temb_cache", "history_latents")
+# the SDXL ensemble's refiner keeps caches of its own (its UNet's channel
+# widths differ from the base's: ``train/sdxl_agent.py:EnsembleSampleOutput``)
+_TIME_MAJOR_FIELDS = ("h_cache", "temb_cache", "history_latents", "refiner_h_cache",
+                      "refiner_temb_cache")
 _SCALAR_FIELDS = ("num_steps",)
 
 
@@ -203,9 +210,10 @@ def subset_outputs(outputs: SampleOutput, inds) -> SampleOutput:
     """Micro-batch view of a rollout: the time-major caches are indexed on
     axis 1, ``num_steps`` passes through. A cache offloaded to the host
     (``offload_outputs_to_host``) is sliced there, and only the slice moves
-    to the rollout's device (that of its ``sigmas``)."""
+    to the rollout's device (that of its ``last_valid_index``, a field of
+    every family's output)."""
     values = {}
-    device = outputs.sigmas.device
+    device = outputs.last_valid_index.device
     for name, value in outputs._asdict().items():
         if value is None or name in _SCALAR_FIELDS:
             values[name] = value
@@ -517,7 +525,9 @@ class RLOOTrainer:
 
     Args:
         config: RLOOConfig.
-        agent: TPDMAgent (or an object with its protocol).
+        agent: TPDMAgent or a family agent (an object with its protocol;
+            ``needs_inputs_for_replay`` True makes the PPO replay take the
+            micro-batch's inputs).
         reward_fn: (prompts, outputs) -> (scores, last_image_scores), each
             (b,) (tensors or arrays); the trainer applies the step discount.
         dataset: a sequence of rows; ``collate_fn`` turns a list of rows into
@@ -706,6 +716,8 @@ class RLOOTrainer:
                     start_time):
         cfg = self.config
         sizes = self.sizes
+        # only TPDMAgent's recompute mode re-runs the backbone on the inputs
+        replay_inputs = getattr(self.agent, "needs_inputs_for_replay", False)
         for update in range(start_update, sizes["num_total_batches"] + 1):
             self.episode += sizes["batch_size"]
             data = rloo_repeat(next(loader), cfg.rloo_k)
@@ -715,7 +727,7 @@ class RLOOTrainer:
             if cfg.offload_cache == "host":
                 outputs = offload_outputs_to_host(outputs)
             scores, last_image_scores = self.reward_fn(data.get("prompt"), outputs)
-            dev = outputs.sigmas.device
+            dev = outputs.last_valid_index.device
             scores = discounted_rewards(torch.as_tensor(scores, device=dev).to(torch.float32),
                                         outputs.last_valid_index, cfg.gamma)
             kl = self.agent.kl_divergence(outputs)
@@ -732,8 +744,7 @@ class RLOOTrainer:
                     mb_inds = b_inds[mb_start : mb_start + sizes["mini_batch_size"]]
                     for mi_start in range(0, len(mb_inds), sizes["micro_batch_size"]):
                         inds = mb_inds[mi_start : mi_start + sizes["micro_batch_size"]]
-                        mb_inputs = (subset_inputs(data, inds)
-                                     if self.agent.needs_inputs_for_replay else None)
+                        mb_inputs = subset_inputs(data, inds) if replay_inputs else None
                         stats_acc.append(self._train_step_impl(
                             tpm, optimizer, subset_outputs(outputs, inds),
                             _rows(advantages, inds), mb_inputs))
