@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with sm_90a (Hopper) cards:
 
-    python3 chip_smoke.py [--seed N] [--seq-parallel-only]
+    python3 chip_smoke.py [--seed N] [--seq-parallel-only | --lora-only]
 
 Phases, one line each, and any failure exits non-zero:
 
@@ -269,6 +269,33 @@ Phases, one line each, and any failure exits non-zero:
    the reward, none in the PPO epochs. K1 at the new shapes these
    rollouts run (the refiner's at CFG batch 8, FLUX's (4, 24, 4608, 128))
    is checked and timed with phases 19 and 20's.
+22. LoRA adapters on the serving engines and the weight-only quantised T5
+   tower (tpdm_tpu_torch.models.lora, serving, serving_continuous), run by
+   phases 14-20 on their models: rank-16 adapters with a non-zero b drawn
+   from the seed, every request capped at 4 steps. On phase 14's SD3-medium
+   at 1024 px: BatchingEngine with two adapters over every dense layer
+   (merged_cache 2; the merge's ms, the merged copy's bytes, peak memory),
+   an adapter request equal to the bit to an adapter-free engine on the
+   manually merged backbone and a base request after adapter traffic equal
+   to the bit to the adapter-free engine's; a burst of six (two prompts,
+   each on the base and under both adapters) through
+   ContinuousBatchingEngine(slots=4, seg_steps=4) multiplexed, each request
+   equal to the bit to its merged solo run (BatchingEngine(max_batch=4) at
+   the same CFG batch on the merged backbone), then fused over bf16 (base
+   requests within the 1-level seam, adapter requests within 24 levels and
+   a mean under 3 of their merged solo run and moving their image further
+   from the base than that gap) and over W8A8 (K4) and int4 (K5) copies
+   (adapter requests against the same rows of BatchingEngine under the
+   interceptor); T5-XXL at weight-only int8 and int4 (K5, 7 a block) on the
+   example prompts against the bf16 tower (error, ms, bytes). On phase
+   18's SD1.5 and phase 20's FLUX.1-dev (at 512 px, an adapter over its
+   attention projections): a base and an adapter request through the
+   family's continuous engine with fused_lora, held to the runner at the
+   engine's batch with each request at its slot's row (the base and the
+   merged backbone), and the base request alone through BatchingEngine,
+   its gap to the engine's row reported against the seam (the UNet row
+   check). K1, K2, K4 and K5 are checked exactly around every call;
+   ``--lora-only`` runs phases 1, 2 and 22 alone (no kernels line).
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -4288,10 +4315,10 @@ def check_sd15_schedule(res, b, px, t0=999, t_max=SD15_T_MAX):
             fail(f"sd15 sample {i}: timesteps not falling from {t0} over valid steps: {ts}")
 
 
-def sd15_phase(seed, dev, smi, family_rloo):
+def sd15_phase(seed, dev, smi, family_rloo, lora):
     """Phase 18: SD1.5 at 512 px, item 18 of this file's docstring, then
-    phase 21's SD1.5 update (``family_rloo``, a FamilyRLOO) on its models.
-    Returns (K1 launches, K2 launches, the kernels line's K1 entries) of
+    phase 22's SD1.5 part (``lora``, a LoraPhase) and phase 21's SD1.5
+    update (``family_rloo``, a FamilyRLOO) on its models. Returns (K1 launches, K2 launches, the kernels line's K1 entries) of
     phase 18."""
     import copy
 
@@ -4461,6 +4488,10 @@ def sd15_phase(seed, dev, smi, family_rloo):
                         f"launches; {smi}")
     del pipe, runner, engine
 
+    # phase 22's SD1.5 part: a fused adapter on the continuous engine
+    lora.family("sd15", m.agent, m.unet, m.tpm, m.encode, make_vae_decoder(m.vae),
+                k1_a_forward, m.prompts, seed + 2230)
+
     # phase 21's SD1.5 update, CFG batch 8 at 512 px
     from tpdm_tpu_torch.train.sd15_agent import SD15Agent
 
@@ -4606,12 +4637,14 @@ def recorded_samples(*agents):
 
 
 def burst(engine, jobs):
-    """``jobs`` at once through a started ``engine``: results, makespan and
-    latency p50 on the host clock (each request's completion polled)."""
+    """``jobs`` (prompt, seed, cap[, adapter]) at once through a started
+    ``engine``: results, makespan and latency p50 on the host clock (each
+    request's completion polled)."""
     engine.start()
     try:
         start = time.monotonic()
-        reqs = [engine.submit(p, seed=s, steps=c) for p, s, c in jobs]
+        reqs = [engine.submit(p, seed=s, steps=c, **({"lora": a[0]} if a and a[0] else {}))
+                for p, s, c, *a in jobs]
         done = [None] * len(reqs)
         while not all(done):
             for i, r in enumerate(reqs):
@@ -5125,10 +5158,10 @@ def check_flux_result(label, res, b, px, s0=1.0):
              f"{sig.tolist()}")
 
 
-def flux_phase(seed, dev, smi, family_rloo):
+def flux_phase(seed, dev, smi, family_rloo, lora):
     """Phase 20: FLUX.1-dev at 1024 px, item 20 of this file's docstring,
-    with phase 21's FLUX update (``family_rloo``) on the bf16 model before
-    the quantised modes. Returns (K1, K2, K4, K5 launches, the kernels
+    with phase 22's FLUX part (``lora``, at 512 px) and phase 21's FLUX
+    update (``family_rloo``) on the bf16 model before the quantised modes. Returns (K1, K2, K4, K5 launches, the kernels
     line's K1 entries) of phase 20."""
     import copy
 
@@ -5291,6 +5324,12 @@ def flux_phase(seed, dev, smi, family_rloo):
     family_continuous("flux 512px", counted, agent512, tpm,
                       lambda texts: flux_embeds(texts, dev), make_vae_decoder(vae), k1_fwd,
                       burst_prompts, seed + 2000, smi)
+    # phase 22's FLUX part: a fused adapter over the attention projections
+    t_lora = time.perf_counter()
+    lora.family("flux", agent512, flux, tpm, lambda texts: flux_embeds(texts, dev),
+                make_vae_decoder(vae), k1_fwd, burst_prompts, seed + 2240,
+                keep=FLUX_LORA_LAYERS)
+    t_phase += time.perf_counter() - t_lora  # phase 20's seconds leave phase 22's out
     del agent512
 
     # 8. the toy world's command line on the card
@@ -5370,11 +5409,566 @@ def flux_phase(seed, dev, smi, family_rloo):
     return totals[0], totals[1], gemm_totals[0], gemm_totals[1], k1_entries
 
 
+# phase 22: LoRA adapters on the serving engines and the weight-only
+# quantised T5 tower. The adapters' rank and the std of their b factor (a
+# fresh b is zero: an identity that would prove nothing), the requests'
+# step cap, FLUX's targeted layers (its attention projections: a merged
+# copy of every dense weight of the 12 B model would not fit beside it),
+# and the bounds: the image seam, and the fused path against the merged
+# solo run (tests/test_serving_continuous.py:781-834)
+LORA_RANK = 16
+LORA_B_STD = 0.02
+LORA_CAP = 4
+FLUX_LORA_LAYERS = ("_attn_", "linear1")
+SEAM_LEVELS, SEAM_SHARE = 1, 0.01
+FUSED_MAX_LEVELS, FUSED_MEAN_LEVELS = 24, 3.0
+
+
+def image_gap(a, b):
+    """(largest uint8 gap, mean gap, share of pixels that differ)."""
+    d = np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16))
+    return int(d.max()), float(d.mean()), float((d > 0).mean())
+
+
+def first_place_dependent(module, inputs):
+    """The first submodule of ``module``, in the order their forwards
+    return, whose output row 0 at the batch ``inputs`` (two rows) differs
+    from its row 1 with the two input rows exchanged: where a row's result
+    starts to depend on its place in the batch. None if no output does."""
+    records, handles, swapped = ([], []), [], [False]
+
+    def hook(name):
+        def record(mod, args, out):
+            o = out[0] if isinstance(out, (tuple, list)) else out
+            if isinstance(o, torch.Tensor) and o.dim() and o.shape[0] == 2:
+                records[swapped[0]].append((name, type(mod).__name__, o.detach().clone()))
+        return record
+
+    for name, m in module.named_modules():
+        if name:
+            handles.append(m.register_forward_hook(hook(name)))
+    try:
+        with torch.no_grad():
+            module(*inputs)
+            swapped[0] = True
+            module(*(x.flip(0) for x in inputs))
+    finally:
+        for h in handles:
+            h.remove()
+    for (name, kind, a), (_, _, b) in zip(*records):
+        if not torch.equal(a[0], b[1]):
+            return f"{name} ({kind})"
+    return None
+
+
+def recorded_generate(pipe, steps):
+    """``pipe.generate`` wrapped (on the instance; ``del pipe.generate``
+    undoes it) to append each call's loop iterations to ``steps``."""
+    real = pipe.generate
+
+    def generate(*a, **kw):
+        res = real(*a, **kw)
+        steps.append(res.num_steps)
+        return res
+
+    pipe.generate = generate
+
+
+class LoraPhase:
+    """Phase 22: LoRA adapters on the serving engines at full width and the
+    weight-only quantised T5-XXL tower, run by phases 14-17 (``sd3``, on
+    their models before they are freed), 18 (``family``, SD1.5) and 20
+    (``family``, FLUX at 512 px, on the bf16 model). Every request is capped
+    at LORA_CAP steps; every adapter is rank LORA_RANK with a non-zero b,
+    drawn on the card from the seed. K1, K2, K4 and K5 are counted around
+    every call and checked exactly."""
+
+    def __init__(self, seed, dev, smi):
+        self.seed, self.dev, self.smi = seed, dev, smi
+        self.totals = [0, 0, 0, 0]  # K1, K2, K4, K5
+        self.seconds = 0.0
+        self.parts = []
+
+    def counted(self, label, fn, want):
+        """fn() between synchronizes, the four kernels' launch counts set to
+        0 just before and read just after, added to the totals and checked
+        against ``want(out)``, (K1, K2, K4, K5); returns (out, seconds)."""
+        from tpdm_tpu_torch.ops.attention import flash_attention, flash_attention_streaming
+        from tpdm_tpu_torch.ops.gemm import bf16_gemm, int8_gemm
+
+        kernels = (flash_attention, flash_attention_streaming, int8_gemm, bf16_gemm)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        got = tuple(k.launches for k in kernels)
+        self.totals = [a + b for a, b in zip(self.totals, got)]
+        if got != tuple(want(out)):
+            fail(f"lora {label}: K1, K2, K4, K5 launches {got}, expected {tuple(want(out))}")
+        return out, seconds
+
+    def adapter(self, module, seed, keep=None):
+        """A rank-LORA_RANK adapter over ``module``'s dense layers (those
+        whose name holds one of ``keep``, or all): init_lora's a from the
+        seed, b ~ N(0, LORA_B_STD²)."""
+        from tpdm_tpu_torch.models.lora import default_match, init_lora
+
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        match = (None if keep is None else
+                 lambda n, m: default_match(n, m) and any(k in n for k in keep))
+        lora = init_lora(module, LORA_RANK, g, match=match)
+        for f in lora.values():
+            f["b"].normal_(0.0, LORA_B_STD, generator=g)
+        return lora
+
+    def done(self, label, start):
+        seconds = time.perf_counter() - start
+        self.seconds += seconds
+        self.parts.append(f"{label} {seconds:.1f} s")
+
+    def sd3(self, served):
+        """The SD3 part on phase 14's models at 1024 px (items 1-4 of phase
+        22 in this file's docstring)."""
+        from tpdm_tpu_torch.models.lora import (
+            apply_lora,
+            call_merged,
+            lora_interceptor,
+            stack_adapters,
+        )
+        from tpdm_tpu_torch.ops.quant import DenseMaybeQuant
+        from tpdm_tpu_torch.pipeline.pipeline import TPDMPipeline
+        from tpdm_tpu_torch.serving import BatchingEngine
+        from tpdm_tpu_torch.serving_continuous import ContinuousBatchingEngine
+        from tpdm_tpu_torch.utils.image import postprocess_images
+
+        start = time.perf_counter()
+        pipe, tokenize, prompts, dev = served.pipe, served.tokenize, served.prompts, self.dev
+        mmdit = pipe.mmdit
+        layers = mmdit.config.num_layers
+        la, lb = self.adapter(mmdit, self.seed + 2200), self.adapter(mmdit, self.seed + 2201)
+        steps = []  # each generate call's loop iterations
+
+        # 1. BatchingEngine at batch 1: two merged adapters
+        text, sd = prompts[0], self.seed + 2210
+        fixed = lambda p: BatchingEngine(p, tokenize, max_batch=1, window_ms=1.0, max_steps=35)
+        one = lambda eng, lora=None: eng.generate_batch([text], [sd], steps=[LORA_CAP],
+                                                        lora=lora)[0]["image"]
+        per_call = lambda _: (layers * steps[-1], 1, 0, 0)
+        plain, eng = fixed(pipe), fixed(pipe)
+        recorded_generate(pipe, steps)
+        try:
+            want_base, _ = self.counted("plain base", lambda: one(plain), per_call)
+            eng.register_adapter("a", la, merged_cache=2)
+            eng.register_adapter("b", lb)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            merged_a, merge_s = self.counted("merge", lambda: eng._params_for("a"),
+                                             lambda _: (0, 0, 0, 0))
+            grown = torch.cuda.memory_allocated(dev) - before
+            merged_bytes = sum(t.nbytes for t in merged_a.values())
+            img_a, sec_a = self.counted("adapter a", lambda: one(eng, "a"), per_call)
+            img_b, _ = self.counted("adapter b", lambda: one(eng, "b"), per_call)
+            again, _ = self.counted("base after adapters", lambda: one(eng), per_call)
+            peak = torch.cuda.max_memory_allocated(dev)
+            direct, _ = self.counted("manual merge", lambda: call_merged(
+                mmdit, apply_lora(mmdit, la), one, plain), per_call)
+        finally:
+            del pipe.generate
+        if not np.array_equal(img_a, direct):
+            fail(f"lora fixed: the adapter request differs from the manually merged backbone's "
+                 f"by {image_gap(img_a, direct)[:2]} levels")
+        if not np.array_equal(again, want_base):
+            fail(f"lora fixed: a base request after adapter traffic differs from the adapter-free "
+                 f"engine's by {image_gap(again, want_base)[:2]} levels")
+        moved = (image_gap(img_a, want_base)[0], image_gap(img_b, want_base)[0])
+        if min(moved) <= SEAM_LEVELS or eng.adapter_merges != 2:
+            fail(f"lora fixed: the adapters move the image {moved} levels; "
+                 f"{eng.adapter_merges} merges")
+        phase("lora fixed", f"BatchingEngine(max_batch=1), 1024 px, two rank-{LORA_RANK} adapters "
+              f"over all {len(la)} dense layers of the MMDiT, merged_cache 2: a merge "
+              f"{1e3 * merge_s:.1f} ms, its copy {merged_bytes / 1e9:.3f} GB ({grown / 1e9:.3f} GB "
+              f"allocated), peak {peak / 2**30:.2f} GiB with both; an adapter request "
+              f"({LORA_CAP} steps, {sec_a:.3f} s) equal to the bit to an adapter-free engine on "
+              f"the manually merged backbone; a base request after adapter traffic equal to the "
+              f"bit to the adapter-free engine's; the adapters move the image {moved[0]} and "
+              f"{moved[1]} levels at most; adapter_merges {eng.adapter_merges}; {self.smi}")
+        del eng, plain, merged_a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2-3. a burst of six through the continuous engine: two prompts,
+        # each on the base and under a and b
+        jobs = [(prompts[k], self.seed + 2220 + k, LORA_CAP, lora)
+                for k in (1, 2) for lora in (None, "a", "b")]
+        base_of = {i: 3 * (i // 3) for i in range(len(jobs))}
+        rows_of = lambda name: [i for i, j in enumerate(jobs) if j[3] == name]
+        dtype = pipe._device_dtype()[1]
+
+        def decode1(latents):
+            """Final latents decoded a row at a time, as the engine decodes."""
+            return [postprocess_images(pipe._decode_impl(
+                torch.as_tensor(lat[None]).to(dev, dtype)))[0] for lat in latents]
+
+        def engine(label, p, fused, n_quant=0, bits=8):
+            """The burst through a continuous engine with both adapters:
+            (engine, results, makespan, a segment's mean ms by CUDA events
+            around each ``_segment``, under its adapters)."""
+            eng = ContinuousBatchingEngine(p, tokenize, slots=4, seg_steps=LORA_CAP,
+                                           max_steps=35, fused_lora=fused)
+            eng.register_adapter("a", la, merged_cache=2)
+            eng.register_adapter("b", lb, merged_cache=2)
+            events, real = [], eng._segment
+
+            def timed(st, live):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = real(st, live)
+                ev[1].record()
+                events.append(ev)
+                return out
+
+            eng._segment = timed
+            gemms = lambda n: (n, 0) if bits == 8 else (0, n)
+            (res, span, _), _ = self.counted(label, lambda: burst(eng, jobs), lambda _: (
+                layers * LORA_CAP * eng.segments_run, len(jobs),
+                *gemms(n_quant * LORA_CAP * eng.segments_run)))
+            return eng, res, span, float(np.mean([a.elapsed_time(b) for a, b in events]))
+
+        def references(eng, p, rows, under=None, n_quant=0, bits=8):
+            """``rows`` of the burst through BatchingEngine(max_batch=4) on
+            ``p`` (no VAE) at the engine's CFG batch 8, given its batch-1
+            embed rows, under(fn) running it under an adapter; decoded a row
+            at a time."""
+            ref = BatchingEngine(p, tokenize, max_batch=4, max_steps=35)
+            for text_ in {jobs[i][0] for i in rows}:
+                ref._embed_cache[text_] = eng._prompt_embeds(text_)
+            ref._neg_embed = eng._neg_rows
+            call = lambda: ref.generate_batch([jobs[i][0] for i in rows],
+                                              [jobs[i][1] for i in rows],
+                                              steps=[LORA_CAP] * len(rows))
+            gemms = lambda n: (n, 0) if bits == 8 else (0, n)
+            recorded_generate(p, steps)
+            try:
+                out, _ = self.counted(f"reference {rows}", lambda: (under or (lambda f: f()))(call),
+                                      lambda _: (layers * steps[-1], 0,
+                                                 *gemms(n_quant * steps[-1])))
+            finally:
+                del p.generate
+            images, _ = self.counted("reference decode", lambda: decode1(
+                [o["image"] for o in out]), lambda _: (0, len(rows), 0, 0))
+            return dict(zip(rows, images))
+
+        raw = TPDMPipeline(mmdit, pipe.tpm, None, text_encoders=pipe.text_encoders)
+        t0 = time.perf_counter()
+        mux, res_m, span_m, seg_m = engine("multiplexed", pipe, fused=False)
+        st = mux.stats()
+        want = references(mux, raw, rows_of(None))
+        for name, lora in (("a", la), ("b", lb)):
+            merged = apply_lora(mmdit, lora)
+            want.update(references(mux, raw, rows_of(name),
+                                   under=lambda f, m=merged: call_merged(mmdit, m, f)))
+            del merged
+        unequal = [i for i, r in enumerate(res_m) if not np.array_equal(r["image"], want[i])]
+        if unequal:
+            fail(f"lora multiplexed: requests {unequal} differ from their merged solo runs by "
+                 f"{[image_gap(res_m[i]['image'], want[i])[:2] for i in unequal]} levels")
+        moves = [image_gap(res_m[i]["image"], res_m[base_of[i]]["image"])[0]
+                 for i in rows_of("a") + rows_of("b")]
+        if min(moves) <= SEAM_LEVELS:
+            fail(f"lora multiplexed: the adapters move their images {moves} levels from the base")
+        phase("lora multiplexed", f"ContinuousBatchingEngine(slots=4, seg_steps={LORA_CAP}), "
+              f"1024 px, {len(jobs)} requests (two prompts, each on the base, a and b): makespan "
+              f"{span_m:.3f} s, {seg_m:.1f} ms a segment (CUDA events), slot_utilization "
+              f"{st['slot_utilization']:.4f}, segments_run {st['segments_run']}, "
+              f"adapter_segments {st['adapter_segments']}, adapter_merges "
+              f"{st['adapter_merges']}; every request equal to the bit to its merged solo run "
+              f"(BatchingEngine(max_batch=4) at the same CFG batch 8 on the manually merged "
+              f"backbone, decoded a row at a time), the adapter requests {moves} levels from "
+              f"their prompt's base image; {time.perf_counter() - t0:.1f} s; {self.smi}")
+        del mux
+
+        merged_gap = {}  # adapter request -> the bf16 fused path's gap to its merged solo run
+
+        def check_fused(label, eng, res, span, seg_ms, base_ref, adapter_ref, extra=""):
+            """Base rows within the seam of ``base_ref``, adapter rows within
+            the fused bound of ``adapter_ref`` and further from their
+            prompt's base image than the bf16 fused-merged gap."""
+            st, cells = eng.stats(), []
+            for i, (r, j) in enumerate(zip(res, jobs)):
+                if j[3] is None:
+                    level, _, share = image_gap(r["image"], base_ref[i])
+                    if level > SEAM_LEVELS or share >= SEAM_SHARE:
+                        fail(f"lora {label}: base request {i} is {level} levels from its solo "
+                             f"run on {share:.4f} of the pixels")
+                    continue
+                level, mean, _ = image_gap(r["image"], adapter_ref[i])
+                if level > FUSED_MAX_LEVELS or mean >= FUSED_MEAN_LEVELS:
+                    fail(f"lora {label}: adapter request {i} is {level} levels (mean "
+                         f"{mean:.3f}) from its reference")
+                merged_gap.setdefault(i, level)
+                moved = image_gap(r["image"], base_ref[base_of[i]])[0]
+                if moved <= max(merged_gap[i], SEAM_LEVELS):
+                    fail(f"lora {label}: adapter request {i} moves its image {moved} levels from "
+                         f"the base, not more than the fused-merged gap {merged_gap[i]}")
+                cells.append(f"{level} / {mean:.3f} / {moved}")
+            if st["adapter_merges"] != 0 or st["lora_mode"] != "fused":
+                fail(f"lora {label}: stats {st}")
+            phase(f"lora {label}", f"the burst: makespan {span:.3f} s, {seg_ms:.1f} ms a segment "
+                  f"(CUDA events), slot_utilization "
+                  f"{st['slot_utilization']:.4f}, segments_run {st['segments_run']}, "
+                  f"adapter_segments {st['adapter_segments']}, adapter_merges 0; base requests "
+                  f"within {SEAM_LEVELS} level of their solo run on under {SEAM_SHARE} of the "
+                  f"pixels; each adapter request's largest / mean gap to its reference and "
+                  f"largest move from its prompt's base image, in levels: {', '.join(cells)} "
+                  f"(bounds {FUSED_MAX_LEVELS} / {FUSED_MEAN_LEVELS}; the move above the bf16 "
+                  f"fused-merged gap){extra}; {self.smi}")
+
+        t0 = time.perf_counter()
+        eng, res_f, span_f, seg_f = engine("fused bf16", pipe, fused=True)
+        check_fused("fused bf16", eng, res_f, span_f, seg_f, want, want,
+                    f"; against the multiplexed makespan {span_m:.3f} s and {seg_m:.1f} ms a "
+                    f"segment ({seg_f / seg_m:.3f} x); {time.perf_counter() - t0:.1f} s")
+        del eng
+        adapters = rows_of("a") + rows_of("b")
+        bank = stack_adapters({"a": (la, 1.0), "b": (lb, 1.0)})[0]
+        ids = torch.tensor([1 if jobs[i][3] == "a" else 2 for i in adapters], device=dev)
+        for bits in (8, 4):
+            t0 = time.perf_counter()
+            qm = quantized_copy(mmdit, bits, dev)
+            quant_s = time.perf_counter() - t0
+            n_quant = sum(isinstance(m, DenseMaybeQuant) for m in qm.modules())
+            qpipe = TPDMPipeline(qm, pipe.tpm, pipe.vae, text_encoders=pipe.text_encoders)
+            qraw = TPDMPipeline(qm, pipe.tpm, None, text_encoders=pipe.text_encoders)
+            mode = "W8A8" if bits == 8 else "int4"
+            eng, res_q, span_q, seg_q = engine(f"fused {mode}", qpipe, True, n_quant, bits)
+            qbase = references(eng, qraw, rows_of(None), n_quant=n_quant, bits=bits)
+
+            def fused_fixed(f, qm=qm):
+                with lora_interceptor(qm, bank, torch.cat([ids, ids])):
+                    return f()
+
+            qtuned = references(eng, qraw, adapters, fused_fixed, n_quant, bits)
+            check_fused(f"fused {mode}", eng, res_q, span_q, seg_q, qbase, qtuned,
+                        f"; adapter requests against the same rows through BatchingEngine("
+                        f"max_batch=4) under the interceptor (nothing float to merge into); "
+                        f"{module_bytes(qm) / 1e9:.3f} GB of weights prequantised in "
+                        f"{quant_s:.1f} s, K{4 if bits == 8 else 5} {n_quant} a forward; "
+                        f"{time.perf_counter() - t0:.1f} s")
+            del eng, qm, qpipe, qraw
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.done("SD3", start)
+        self.quant_text(served)
+
+    def quant_text(self, served):
+        """Phase 14's T5-XXL tower at weight-only int8, then int4, on the
+        example prompts' ids against the bf16 tower: relative error, encode
+        ms, bytes and K5 launches (7 a block)."""
+        from tpdm_tpu_torch.models.t5 import T5Encoder
+        from tpdm_tpu_torch.ops.quant import prequantize_
+
+        start = time.perf_counter()
+        t5 = served.towers["T5-XXL"]
+        ids = torch.as_tensor(np.concatenate([served.tokenize(p)[1] for p in served.prompts]),
+                              device=self.dev).long()
+        with torch.no_grad():
+            ref, _ = self.counted("T5 bf16", lambda: t5(ids), lambda _: (0, 0, 0, 0))
+            bf16_ms = median_ms(lambda: t5(ids), reps=5)
+        cells = []
+        for bits in (8, 4):
+            with torch.device("meta"):
+                qt5 = T5Encoder(dataclasses.replace(t5.config, quant_matmuls=True,
+                                                    quant_bits=bits))
+            qt5.load_state_dict(t5.state_dict(), assign=True)
+            prequantize_(qt5.eval())
+            n = 7 * t5.config.num_layers
+            with torch.no_grad():
+                out, _ = self.counted(f"T5 int{bits}", lambda: qt5(ids), lambda _: (0, 0, 0, n))
+                ms = median_ms(lambda: qt5(ids), reps=5)
+            if not bool(torch.isfinite(out.float()).all()):
+                fail(f"lora quant_text int{bits}: non-finite embeds")
+            err = (out.float() - ref.float()).abs()
+            rel_max = (err.max() / ref.float().abs().max()).item()
+            rel_mean = (err.mean() / ref.float().abs().mean()).item()
+            dense = sum(t.nbytes for name, t in qt5.state_dict().items()
+                        if name.startswith("block.") and "relative" not in name
+                        and "ln_" not in name)
+            cells.append(f"int{bits}: max |d| / max |bf16| {rel_max:.4e}, mean |d| / mean |bf16| "
+                         f"{rel_mean:.4e}, encode {ms:.3f} ms, block matmul weights and scales "
+                         f"{dense / 1e9:.3f} GB, K5 {n} an encode")
+            del qt5, out
+            torch.cuda.empty_cache()
+        t5_dense = sum(p.nbytes for name, p in t5.named_parameters()
+                       if name.startswith("block.") and p.dim() == 2 and "relative" not in name)
+        phase("lora quant_text", f"T5-XXL ({t5.config.num_layers} blocks of d {t5.config.d_model}, "
+              f"ff {t5.config.d_ff}) on the {ids.shape[0]} example prompts x {ids.shape[1]} ids, "
+              f"weight-only, against the bf16 tower ({bf16_ms:.3f} ms, block matmul weights "
+              f"{t5_dense / 1e9:.3f} GB): {'; '.join(cells)}; no bound (the CPU parity holds the "
+              f"tower to JAX's); {self.smi}")
+        self.done("quant_text", start)
+
+    def family(self, label, agent, backbone, tpm, encode, decode, k1_fwd, prompts, seed,
+               keep=None):
+        """A base and an adapter request (one prompt and seed) through the
+        family's continuous engine, fused (2 slots, one segment): the base
+        within the seam of the runner at the engine's batch with each request
+        in its slot's row, the adapter within the fused bound of the same
+        runner on the merged backbone and further from the base than that
+        gap; steps (and SD1.5's integer schedule) equal. Then the row check,
+        reported against the seam bound: the engine's base row against the
+        same request in the runner's other row (both rows of the base call
+        hold it) and alone through BatchingEngine(max_batch=1) over the
+        runner; and, for a UNet, the first op whose output row depends on
+        its place in a batch of two (``first_place_dependent``)."""
+        from tpdm_tpu_torch.models.lora import apply_lora, call_merged
+        from tpdm_tpu_torch.serving import BatchingEngine
+        from tpdm_tpu_torch.serving_continuous import ContinuousFluxEngine, ContinuousSD15Engine
+        from tpdm_tpu_torch.serving_families import make_flux_runner, make_sd15_runner
+
+        start = time.perf_counter()
+        flux = label == "flux"
+        lora = self.adapter(backbone, seed, keep)
+        cls = ContinuousFluxEngine if flux else ContinuousSD15Engine
+        eng = cls(agent, encode, decode=decode, tpm_params=tpm, slots=2, seg_steps=LORA_CAP,
+                  fused_lora=True)
+        eng.register_adapter("a", lora)
+        slot_of, assign = {}, eng._assign
+        eng._assign = lambda slot, req: slot_of.__setitem__(req.lora, slot) or assign(slot, req)
+        jobs = [(prompts[0], seed, LORA_CAP, None), (prompts[0], seed, LORA_CAP, "a")]
+        (res, span, _), _ = self.counted(f"{label} fused", lambda: burst(eng, jobs), lambda _: (
+            k1_fwd * LORA_CAP * eng.segments_run, len(jobs), 0, 0))
+        st = eng.stats()
+
+        def rows_encode(texts):
+            rows = [eng._prompt_embeds(t) for t in texts]
+            if flux:
+                return torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows])
+            return torch.stack([r[0] for r in rows]), eng._neg_pe.expand(len(texts), -1, -1)
+
+        rows_decode = lambda z: np.concatenate([decode(z[i:i + 1]) for i in range(z.shape[0])])
+        runner = (make_flux_runner if flux else make_sd15_runner)(agent, tpm, rows_encode,
+                                                                  rows_decode)
+        order = sorted(jobs, key=lambda j: slot_of[j[3]])  # each request at its slot's row
+        call = lambda: runner([j[0] for j in order], [j[1] for j in order], [LORA_CAP] * 2)
+        outs, restore = recorded_samples(agent)
+        per_call = lambda rows: lambda _: (k1_fwd * outs[-1][1].num_steps, rows, 0, 0)
+        try:
+            ref_base, _ = self.counted(f"{label} reference", call, per_call(2))
+            merged = apply_lora(backbone, lora)
+            ref_tuned, _ = self.counted(f"{label} merged reference",
+                                        lambda: call_merged(backbone, merged, call), per_call(2))
+            del merged
+            solo_engine = BatchingEngine(None, lambda p, _n=None: (None, None), max_batch=1,
+                                         window_ms=1.0, max_steps=eng.max_steps, runner=runner)
+            solo, _ = self.counted(f"{label} batch 1", lambda: solo_engine.generate_batch(
+                [jobs[0][0]], [jobs[0][1]], steps=[LORA_CAP])[0], per_call(1))
+        finally:
+            restore()
+        base, tuned = res
+        want_base, want_tuned = ref_base[slot_of[None]], ref_tuned[slot_of["a"]]
+        level_b, _, share_b = image_gap(base["image"], want_base["image"])
+        level, mean, _ = image_gap(tuned["image"], want_tuned["image"])
+        moved = image_gap(tuned["image"], base["image"])[0]
+        schedule = lambda r: r["sigmas"] if flux else [int(v) for v in r["sigmas"]]
+        if (schedule(base) != schedule(want_base) or schedule(tuned) != schedule(want_tuned)
+                or tuned["inference_steps"] != want_tuned["inference_steps"]):
+            fail(f"lora {label}: schedules {base['sigmas']} / {tuned['sigmas']} against the "
+                 f"runner's {want_base['sigmas']} / {want_tuned['sigmas']}")
+        if level_b > SEAM_LEVELS or share_b >= SEAM_SHARE:
+            fail(f"lora {label}: the base request is {level_b} levels from the runner's row on "
+                 f"{share_b:.4f} of the pixels")
+        if level > FUSED_MAX_LEVELS or mean >= FUSED_MEAN_LEVELS or moved <= max(level, 1):
+            fail(f"lora {label}: the adapter request is {level} levels (mean {mean:.3f}) from the "
+                 f"merged runner's and moves the image {moved} levels")
+        other = ref_base[1 - slot_of[None]]["image"]  # the same request at the other row
+        rows = {"in the other row": image_gap(base["image"], other),
+                "alone at batch 1": image_gap(base["image"], solo["image"])}
+        row_check = "; ".join(
+            f"{where}: {lv} levels, mean {mn:.4f}, on {sh:.4f} of the pixels ("
+            f"{'within' if lv <= SEAM_LEVELS and sh < SEAM_SHARE else 'misses'} the seam)"
+            for where, (lv, mn, sh) in rows.items())
+        if not flux:
+            g = torch.Generator(device=self.dev).manual_seed(seed)
+            ucfg = backbone.config
+            inputs = (torch.randn(2, ucfg.in_channels, ucfg.sample_size, ucfg.sample_size,
+                                  generator=g, device=self.dev).to(torch.bfloat16),
+                      torch.tensor([999.0, 500.0], device=self.dev),
+                      rows_encode(prompts[:2])[0])
+            op, _ = self.counted(f"{label} row places", lambda: first_place_dependent(
+                backbone, inputs), lambda _: (2 * k1_fwd, 0, 0, 0))
+            row_check += (f"; the first op whose output row depends on its place in a UNet "
+                          f"forward at batch 2: {op or 'none'}")
+        phase(f"lora {label}", f"{cls.__name__}(slots=2, seg_steps={LORA_CAP}, fused_lora=True), "
+              f"a rank-{LORA_RANK} adapter over {len(lora)} dense layers: a base and an adapter "
+              f"request, makespan {span:.3f} s, slot_utilization {st['slot_utilization']:.4f}, "
+              f"segments_run {st['segments_run']}; against the runner at the engine's batch with "
+              f"each request at its slot's row: base {level_b} levels on {share_b:.4f} of the "
+              f"pixels, adapter {level} / mean {mean:.3f} levels from the merged runner's "
+              f"(bounds {FUSED_MAX_LEVELS} / {FUSED_MEAN_LEVELS}), moving the image {moved} "
+              f"levels from the base; schedules equal; row check, the engine's base row against "
+              f"the same request {row_check} (seam: {SEAM_LEVELS} level on under {SEAM_SHARE} "
+              f"of the pixels); {self.smi}")
+        del eng, runner, solo_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.done(label, start)
+
+    def summary(self):
+        if len(self.parts) != 4:
+            fail(f"lora: {len(self.parts)} of the 4 parts ran")
+        phase("lora phase", f"{'; '.join(self.parts)}; {self.seconds:.1f} s in all; K1 "
+              f"{self.totals[0]}, K2 {self.totals[1]}, K4 {self.totals[2]}, K5 "
+              f"{self.totals[3]} launches; {self.smi}")
+
+
+def lora_only(seed, dev, smi):
+    """``--lora-only``: phase 22 alone, on its models built as phases 14,
+    18 and 20 build them (no kernels line)."""
+    from tpdm_tpu_torch.models.flux import FluxConfig
+    from tpdm_tpu_torch.models.vae import VAE, VAEConfig
+    from tpdm_tpu_torch.serving_families import make_vae_decoder
+    from tpdm_tpu_torch.train import RLOOConfig
+    from tpdm_tpu_torch.train.flux_agent import FluxAgent
+
+    lora = LoraPhase(seed, dev, smi)
+    served = serve_models(seed, dev)
+    lora.sd3(served)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = sd15_models(seed, dev)
+    lora.family("sd15", m.agent, m.unet, m.tpm, m.encode, make_vae_decoder(m.vae),
+                unet_k1_a_forward(m.unet.config), m.prompts, seed + 2230)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    fcfg = FluxConfig.flux_dev()
+    flux = flux_backbone(fcfg, dev, seed + 200)
+    config = RLOOConfig(max_inference_steps=FLUX_T_MAX, init_alpha=TPM_HEAD_BIAS[0],
+                        init_beta=TPM_HEAD_BIAS[1])
+    gen = torch.Generator(device=dev).manual_seed(seed + 201)
+    tpm = FluxAgent(flux, config).init_tpm_params(gen).eval()
+    with torch.device(dev):
+        vae = VAE(VAEConfig(**FLUX_VAE_FACTORS)).init_weights(gen, WEIGHT_STD)
+    vae = vae.to(torch.bfloat16).eval()
+    with open(REPO / "example" / "prompts.jsonl") as f:
+        prompts = [json.loads(line)["prompt"] for line in f if line.strip()]
+    lora.family("flux", FluxAgent(flux, config, latent_size=FLUX_ENGINE_PX // 8), flux, tpm,
+                lambda texts: flux_embeds(texts, dev), make_vae_decoder(vae),
+                flux_k1_a_forward(fcfg), prompts, seed + 2240, keep=FLUX_LORA_LAYERS)
+    lora.summary()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seq-parallel-only", action="store_true",
                     help="run only the device, build and sequence-parallel phases")
+    ap.add_argument("--lora-only", action="store_true",
+                    help="run only the device, build and LoRA / quant_text phases")
     args = ap.parse_args()
 
     # 1. the device
@@ -5409,6 +6003,8 @@ def main() -> int:
 
     if args.seq_parallel_only:
         seq_parallel_phase(args.seed, world)
+    elif args.lora_only:
+        lora_only(args.seed, dev, smi)
     else:
         g = torch.Generator(device=dev).manual_seed(args.seed)
         kernels = kernel_phase(g, dev, args.seed)  # 3
@@ -5424,9 +6020,11 @@ def main() -> int:
         k1_train, k2_train = rloo_phase(args.seed, dev)  # 11
         k1_fixed, k2_fixed = fixed_phase(args.seed, dev, adaptive)  # 12
         k1_cli, k2_cli = cli_phase(args.seed, dev)  # 13
+        lora = LoraPhase(args.seed, dev, smi)  # 22, run by phases 14-20
         (k1_serve, k2_serve), served = serve_phase(args.seed, dev, smi)  # 14
         k1_cont, k2_cont = continuous_phase(args.seed, dev, served)  # 15
         k1_i2i, k2_i2i = img2img_phase(args.seed, dev, served, smi)  # 17
+        lora.sd3(served)  # 22's SD3 part and quant_text, on phase 14's models
         del served
         gc.collect()
         torch.cuda.empty_cache()
@@ -5436,16 +6034,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         family_rloo = FamilyRLOO(args.seed, dev, smi)  # 21, run by phases 18-20
-        k1_sd15, k2_sd15, sd15_k1 = sd15_phase(args.seed, dev, smi, family_rloo)  # 18
+        k1_sd15, k2_sd15, sd15_k1 = sd15_phase(args.seed, dev, smi, family_rloo, lora)  # 18
         kernels["K1"].update(sd15_k1)
         k1_sdxl, k2_sdxl, sdxl_k1 = sdxl_phase(args.seed, dev, smi, family_rloo)  # 19
         kernels["K1"].update(sdxl_k1)
         k1_flux, k2_flux, k4_flux, k5_flux, flux_k1 = flux_phase(args.seed, dev, smi,
-                                                                 family_rloo)  # 20
+                                                                 family_rloo, lora)  # 20
         kernels["K1"].update(flux_k1)
         family_rloo.summary()
         k1_frl, k2_frl = family_rloo.totals
         del family_rloo
+        lora.summary()
+        k1_lora, k2_lora, k4_lora, k5_lora = lora.totals
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -5456,22 +6056,23 @@ def main() -> int:
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
              "launches": (k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35
-                          + k1_i2i + k1_sd15 + k1_sdxl + k1_flux + k1_frl),
+                          + k1_i2i + k1_sd15 + k1_sdxl + k1_flux + k1_frl + k1_lora),
              **kernels["K1"]},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
              "launches": (k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35
-                          + k2_i2i + k2_sd15 + k2_sdxl + k2_flux + k2_frl),
+                          + k2_i2i + k2_sd15 + k2_sdxl + k2_flux + k2_frl + k2_lora),
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,
              **kernels["K3"]},
             {"name": "int8_gemm (K4)", "route": "cuda", "source": gemm_src,
              "replaces": "experiments/attn_round3.py:301",
-             "launches": k4_total + k4_sd35 + k4_flux,
+             "launches": k4_total + k4_sd35 + k4_flux + k4_lora,
              **kernels["K4"]},
             {"name": "bf16_gemm (K5)", "route": "cuda", "source": gemm_src,
-             "replaces": "experiments/attn_round3.py:266", "launches": k5_total + k5_flux,
+             "replaces": "experiments/attn_round3.py:266",
+             "launches": k5_total + k5_flux + k5_lora,
              **kernels["K5"]},
             {"name": "attention_strided (K6)", "route": "cuda", "source": studies_src,
              "replaces": "; ".join([

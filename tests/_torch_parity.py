@@ -156,3 +156,47 @@ def drawn_models(seed: int = 0, vae: bool = True, tpm: bool = True, **cfg_kw):
         tv.load_state_dict(vae_from_jax(vvars))
         out["vae"] = (jv, vvars, tv.eval())
     return out
+
+
+def noisy_jax_lora(params, seed: int, rank: int = 2, keep=None):
+    """A JAX LoRA tree over ``params``: the keys and shapes of JAX's
+    ``init_lora`` (traced, not compiled), ``a`` ~ N(0, 1/d_in) and ``b`` ~
+    N(0, 0.05²) from seeded numpy (a zero ``b``, ``init_lora``'s, would be
+    an identity and tell no adapter apart); ``keep`` filters the keys."""
+    from tpdm_tpu.models.lora import init_lora
+
+    fresh = jax.eval_shape(lambda p: init_lora(p, rank, jax.random.PRNGKey(seed)), params)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, f in sorted(fresh.items()):
+        if keep is None or keep(k):
+            d_in = f["a"].shape[0]
+            out[k] = {"a": (rng.standard_normal(f["a"].shape) / np.sqrt(d_in)).astype(np.float32),
+                      "b": 0.05 * rng.standard_normal(f["b"].shape).astype(np.float32)}
+    return out
+
+
+def kernel_tree(module) -> dict:
+    """A Flax-shaped tree of zero (d_in, d_out) kernels, one at the JAX path
+    of each dense layer of a port ``module`` (``utils/convert.py:
+    lora_key_to_jax``): what JAX's ``init_lora`` reads of a model."""
+    from tpdm_tpu_torch.models.lora import lora_targets
+    from tpdm_tpu_torch.utils.convert import lora_key_to_jax
+
+    tree = {}
+    for name, m in lora_targets(module).items():
+        *mods, leaf = lora_key_to_jax(name).split("/")
+        node = tree
+        for part in mods:
+            node = node.setdefault(part, {})
+        node[leaf] = np.zeros((m.in_features, m.out_features), np.float32)
+    return tree
+
+
+def noisy_lora(module, seed: int, rank: int = 2) -> dict:
+    """The port's LoRA dict over a port ``module``, made on the JAX side
+    (``noisy_jax_lora`` of its ``kernel_tree``) and carried across with
+    ``lora_from_jax``."""
+    from tpdm_tpu_torch.utils.convert import lora_from_jax
+
+    return lora_from_jax(noisy_jax_lora(kernel_tree(module), seed, rank))

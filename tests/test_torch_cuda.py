@@ -1041,3 +1041,44 @@ def test_study_wrappers_raise_on_what_the_kernels_do_not_take(device):
         attention_probe(_layout(q, "T"), k, v, "qk_only", 64)
     with pytest.raises(ValueError, match=r"\(q, k\^T, v\^T\) are not instantiated"):
         attention_probe(q, _layout(k, "T"), _layout(v, "T"), "noexp", 64)
+
+
+@pytest.mark.parametrize("bits,act_quant", [(8, True), (4, True), (8, False)])
+def test_fused_lora_beside_a_quantised_layer(device, bits, act_quant):
+    """The fused LoRA path over a quantised backbone (``models/lora.py:
+    lora_interceptor`` on a prequantised ``DenseMaybeQuant``): the layer's
+    product runs on K4 (W8A8) or K5 (int4, and the weight-only int8 of the
+    quantised T5 tower), one launch a call, the bank's row 0 leaves the
+    layer's output as it is to the bit, and the output equals the plain
+    versions of the same layer on the CPU plus the fp32 delta within 2e-2 of
+    its largest magnitude (K5's bound)."""
+    import copy
+
+    from tpdm_tpu_torch.models.lora import lora_interceptor, stack_adapters
+    from tpdm_tpu_torch.ops.quant import DenseMaybeQuant
+
+    g = torch.Generator(device=device).manual_seed(bits + act_quant)
+    holder = torch.nn.Module()
+    holder.proj = DenseMaybeQuant(1536, 2048, bits=bits, act_quant=act_quant,
+                                  bias=act_quant).to(device=device, dtype=torch.bfloat16)
+    holder.proj.quantize_()
+    lora = {"proj": {"a": torch.randn(1536, 16, generator=g, device=device) / 1536 ** 0.5,
+                     "b": 0.05 * torch.randn(16, 2048, generator=g, device=device)}}
+    bank, _ = stack_adapters({"x": (lora, 1.5)})
+    ids = torch.tensor([0, 1, 1], device=device)
+    x = torch.randn(3, 333, 1536, generator=g, device=device).to(torch.bfloat16)
+    kernel = int8_gemm if bits == 8 and act_quant else bf16_gemm
+    with torch.no_grad():
+        base = holder.proj(x)
+        before = kernel.launches
+        with lora_interceptor(holder, bank, ids):
+            out = holder.proj(x)
+        assert kernel.launches == before + 1
+        cpu = copy.deepcopy(holder).cpu()
+        with lora_interceptor(cpu, {"proj": {k: v.cpu() for k, v in bank["proj"].items()}},
+                              ids.cpu()):
+            ref = cpu.proj(x.cpu())
+    assert out.dtype == torch.bfloat16 and torch.equal(out[0], base[0])
+    err = (out.float().cpu() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err <= 2e-2, err
+    assert (out[1:].float() - base[1:].float()).abs().max() > 0.1 * base.float().abs().max()

@@ -185,11 +185,15 @@ def test_engine_matches_the_jax_engine(family, port_run):
 def test_engine_refusals(family):
     name, _, tag, tenc, _ = family
     cls = _engine_cls(name)
-    for kw, match in ((dict(dp=2), r"9\(d\)"), (dict(mesh_shape=(1, 1, 1)), "14"),
-                      (dict(fused_lora=True), r"13\(b\)")):
+    for kw, match in ((dict(dp=2), r"9\(d\)"), (dict(mesh_shape=(1, 1, 1)), "14")):
         with pytest.raises(NotImplementedError, match=match):
             cls(tag, tenc, tpm_params=0, **kw)
     eng = cls(tag, tenc, tpm_params=0, slots=1)
+    # adapters are ported, fused only on the family engines
+    with pytest.raises(ValueError, match="fused-only"):
+        eng.register_adapter("a", {"x": {"a": torch.zeros(2, 1), "b": torch.zeros(1, 2)}})
+    with pytest.raises(ValueError, match="unknown adapter"):
+        eng.submit("a", lora="a")
     with pytest.raises(ValueError, match="SD3-only"):
         eng.submit("a", guidance_scale=3.0)
     with pytest.raises(ValueError, match="img2img"):

@@ -560,11 +560,15 @@ def test_continuous_engine_matches_the_runners(world, monkeypatch):
 
 def test_continuous_engine_refusals(world):
     tag = world["tag"]
-    for kw, match in ((dict(dp=2), r"9\(d\)"), (dict(mesh_shape=(1, 1, 1)), "14"),
-                      (dict(fused_lora=True), r"13\(b\)")):
+    for kw, match in ((dict(dp=2), r"9\(d\)"), (dict(mesh_shape=(1, 1, 1)), "14")):
         with pytest.raises(NotImplementedError, match=match):
             ContinuousFluxEngine(tag, _t_encode, tpm_params=0, **kw)
     eng = ContinuousFluxEngine(tag, _t_encode, tpm_params=0, slots=1)
+    # adapters are ported, fused only on the family engines
+    with pytest.raises(ValueError, match="fused-only"):
+        eng.register_adapter("a", {"x": {"a": torch.zeros(2, 1), "b": torch.zeros(1, 2)}})
+    with pytest.raises(ValueError, match="unknown adapter"):
+        eng.submit("a", lora="a")
     with pytest.raises(ValueError, match="SD3-only"):
         eng.submit("a", guidance_scale=3.0)
     with pytest.raises(ValueError, match="img2img"):

@@ -102,8 +102,8 @@ def test_serve_family_flux_http(continuous):
     (["--dp", "2"], r"item 9\(d\)"),
     (["--refiner"], "--family sdxl"),
     (["--solver", "ab2"], "solver"),
-    (["--lora", "x.safetensors"], r"item 13\(b\)"),
-    (["--quant_text"], r"item 13\(a\)"),
+    (["--lora", "a=x.safetensors"], "NAME=PATH"),
+    (["--quant_text"], "has none"),
 ])
 def test_serve_family_flux_refusals(tmp_path, argv, match):
     with pytest.raises(SystemExit, match=match):

@@ -348,8 +348,17 @@ def test_load_pipeline_quantised_and_refusals(toy_dir, toy_configs):
     drawn = TimePredictor(conv_out_channels=128, in_channels=128, temb_dim=64).init_weights(
         torch.Generator().manual_seed(0))
     _same(pipe.tpm.state_dict(), drawn.state_dict())
-    with pytest.raises(NotImplementedError, match=r"13\(a\)"):
-        load_pipeline_from_pretrained(str(root), quant_text=True, device="cpu")
+    # quant_text: the T5 tower's float weights loaded, then prequantised
+    # (weight-only int8, int4 at quant_bits 4), equal to prequantize_ of the
+    # in-memory copy; the MMDiT stays float
+    for bits, int_dtype in ((8, torch.int8), (4, torch.uint8)):
+        pipe = load_pipeline_from_pretrained(str(root), dtype=torch.float32, quant_text=True,
+                                             quant_bits=bits, device="cpu")
+        ref = T5Encoder(T5Config.toy(**T5_TOY, quant_matmuls=True, quant_bits=bits))
+        ref.load_state_dict(mods["t5"].state_dict())
+        _same(pipe.text_encoders.t5.state_dict(), prequantize_(ref).state_dict())
+        assert pipe.text_encoders.t5.block[0].attention.q.weight.dtype == int_dtype
+        assert all(p.is_floating_point() for p in pipe.mmdit.parameters())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             load_pipeline_from_pretrained(str(root))

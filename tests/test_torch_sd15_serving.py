@@ -309,7 +309,7 @@ def test_serve_family_sd15_cli(tmp_path, capsys):
     (["--family", "sd15", "--cpu", "--cli"], "--toy"),
     (["--family", "sd15", "--toy", "--cpu", "--int8"], "int8"),
     (["--family", "sd15", "--toy", "--cli"], "--cpu"),
-    (["--family", "flux", "--toy", "--cpu", "--continuous", "--lora_fused"], r"item 13\(b\)"),
+    (["--family", "flux", "--toy", "--cpu", "--continuous", "--lora_fused"], "without --lora"),
     (["--family", "flux", "--toy", "--cpu", "--few_step", "0"], r"item 9\(e\)"),
     (["--family", "sd15", "--toy", "--cpu", "--solver", "ab2"], "solver"),
 ])

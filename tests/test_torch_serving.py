@@ -345,10 +345,11 @@ def test_validation_and_options_not_ported(toy):
         ["a"], [0]) == stub(["a"], [0], [1])
     with pytest.raises(ValueError, match="resolutions"):
         BatchingEngine(pipe, tokenize, runner=stub, resolutions=[2 * PX])
+    # adapters are ported (tests/test_torch_lora_serving.py): the checks
     eng = _engine(toy)
-    with pytest.raises(NotImplementedError, match="13\\(b\\)"):
+    with pytest.raises(ValueError, match="empty"):
         eng.register_adapter("a", {})
-    with pytest.raises(NotImplementedError, match="13\\(b\\)"):
+    with pytest.raises(ValueError, match="unknown adapter"):
         eng.submit("a cat", lora="a")
     # img2img is ported: its options are checked as the JAX engine checks them
     eng = _engine(toy, vae_scale_factor=2)
@@ -512,10 +513,15 @@ def test_cli_writes_a_png(tmp_path):
         with pytest.raises(SystemExit, match="no CUDA device"):
             serve.main(["--toy", "--cli"])
     for flag, item in ((["--dp", "2"], "9\\(d\\)"),
-                       (["--mesh", "2,2,1"], "14"), (["--quant_text"], "13\\(a\\)"),
-                       (["--lora", "x"], "13\\(b\\)"), (["--few_step", "0,14"], "9\\(e\\)"),
+                       (["--mesh", "2,2,1"], "14"), (["--few_step", "0,14"], "9\\(e\\)"),
                        (["--reward_checkpoint", "r"], "8")):
         with pytest.raises(SystemExit, match=f"item {item}"):
+            serve.main(["--toy", "--cpu", *flag])
+    # --lora and --quant_text are ported: their misuses exit before serving
+    for flag, match in ((["--cli", "--lora", "a=x"], "NAME=PATH"),
+                        (["--lora", "x", "--lora", "y"], "multiple bare"),
+                        (["--lora", "x", "--lora", "a=y"], "mix")):
+        with pytest.raises(SystemExit, match=match):
             serve.main(["--toy", "--cpu", *flag])
     # --pretrained is ported: a directory without the tokenizer files exits naming one
     with pytest.raises(SystemExit, match="vocab.json"):

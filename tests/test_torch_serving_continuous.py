@@ -497,14 +497,14 @@ def test_router_routes_with_one_shared_cache(raw):
 
 def test_unported_options_name_their_items(toy):
     pipe, tokenize = toy
-    for kw, item in ((dict(dp=2), "9\\(d\\)"), (dict(mesh_shape=(1, 1, 1)), "14"),
-                     (dict(fused_lora=True), "13\\(b\\)")):
+    for kw, item in ((dict(dp=2), "9\\(d\\)"), (dict(mesh_shape=(1, 1, 1)), "14")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
             ContinuousBatchingEngine(pipe, tokenize, **kw)
+    # adapters are ported (tests/test_torch_lora_serving.py): the checks
     eng = _engine(toy)
-    with pytest.raises(NotImplementedError, match="item 13\\(b\\)"):
+    with pytest.raises(ValueError, match="empty"):
         eng.register_adapter("a", {})
-    with pytest.raises(NotImplementedError, match="item 13\\(b\\)"):
+    with pytest.raises(ValueError, match="unknown adapter"):
         eng.submit("a cat", lora="a")
     # img2img slots are ported: their options are checked as in JAX
     with pytest.raises(ValueError, match="strength must be"):

@@ -11,9 +11,14 @@ The numerics follow the JAX module: scores in fp32 without the
 sqrt(d_kv) scale, the bias added in fp32, padding masked at -1e9, an fp32
 softmax cast to V's dtype. The attention stays in plain torch ops: K1
 takes no additive bias, and at 256 tokens the tower's time is in its
-dense layers, which go to cuBLAS through ``nn.Linear``. Not ported: the
-weight-only int8 / int4 tower (``quant_matmuls``, ROADMAP queue 1, item
-13(a)).
+dense layers, which go to cuBLAS through ``nn.Linear``.
+
+``quant_matmuls`` stores the seven matmuls of every block as weight-only
+int8 or int4 (``quant_bits``): bias-free ``ops/quant.py:DenseMaybeQuant``
+layers with fp activations (``act_quant=False``), so ``w8_matmul`` or
+``w4_matmul`` dequantise the weight and multiply on K5. Load the float
+weights, then ``ops/quant.py:prequantize_`` quantises the tower once; a
+JAX-prequantised tree loads as it is (``utils/convert.py:t5_from_jax``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,10 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
+    # weight-only stored-int block matmuls (int8 halves T5-XXL's 9.5 GB of
+    # bf16 weights, int4 quarters them); the activations stay float
+    quant_matmuls: bool = False
+    quant_bits: int = 8
 
     @classmethod
     def t5_xxl(cls, **kw) -> "T5Config":
@@ -86,15 +95,26 @@ def t5_relative_position_bucket(
     return ret + torch.where(is_small, n.to(torch.int32), val_if_large)
 
 
+def _dense(cfg: T5Config, in_features: int, out_features: int) -> nn.Module:
+    """A bias-free block matmul: ``nn.Linear``, or with ``quant_matmuls`` a
+    weight-only ``DenseMaybeQuant`` at ``quant_bits``."""
+    if cfg.quant_matmuls:
+        from tpdm_tpu_torch.ops.quant import DenseMaybeQuant
+
+        return DenseMaybeQuant(in_features, out_features, bits=cfg.quant_bits,
+                               act_quant=False, bias=False)
+    return nn.Linear(in_features, out_features, bias=False)
+
+
 class T5Attention(nn.Module):
     def __init__(self, cfg: T5Config, has_relative_bias: bool = False):
         super().__init__()
         self.cfg = cfg
         inner = cfg.num_heads * cfg.d_kv
-        self.q = nn.Linear(cfg.d_model, inner, bias=False)
-        self.k = nn.Linear(cfg.d_model, inner, bias=False)
-        self.v = nn.Linear(cfg.d_model, inner, bias=False)
-        self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        self.q = _dense(cfg, cfg.d_model, inner)
+        self.k = _dense(cfg, cfg.d_model, inner)
+        self.v = _dense(cfg, cfg.d_model, inner)
+        self.o = _dense(cfg, inner, cfg.d_model)
         if has_relative_bias:
             self.relative_attention_bias = nn.Parameter(
                 torch.zeros(cfg.relative_attention_num_buckets, cfg.num_heads))
@@ -130,9 +150,9 @@ class T5Block(nn.Module):
         self.ln_attn = T5LayerNorm(cfg.d_model, eps)
         self.attention = T5Attention(cfg, has_relative_bias)
         self.ln_mlp = T5LayerNorm(cfg.d_model, eps)
-        self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
-        self.wi_1 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
-        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        self.wi_0 = _dense(cfg, cfg.d_model, cfg.d_ff)
+        self.wi_1 = _dense(cfg, cfg.d_model, cfg.d_ff)
+        self.wo = _dense(cfg, cfg.d_ff, cfg.d_model)
 
     def forward(self, x, mask, position_bias):
         att, position_bias = self.attention(self.ln_attn(x), mask, position_bias)

@@ -17,8 +17,8 @@ its dequant epilogue on K4 (``ops/gemm.py:int8_gemm``). The weight-only
 products (``w4_matmul``, ``w8_matmul``) dequantise the weight in the
 activations' dtype, in JAX's order, and multiply on K5 (``bf16_gemm``).
 ``DenseMaybeQuant`` runs W8A8 at 8 bits, ``w8_matmul`` at 8 bits with
-``act_quant=False`` (FLUX's modulations) and ``w4_matmul`` at 4; JAX's
-other caller of ``w8_matmul``, the quantised T5 tower, is not ported yet.
+``act_quant=False`` (FLUX's modulations and the quantised T5 tower, whose
+layers have no bias) and ``w4_matmul`` at 4.
 """
 
 from __future__ import annotations
@@ -144,7 +144,7 @@ def int8_dynamic_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
 
 
 class DenseMaybeQuant(nn.Module):
-    """The quantised counterpart of ``nn.Linear`` (with bias): what JAX's
+    """The quantised counterpart of ``nn.Linear``: what JAX's
     ``DenseMaybeQuant`` is with ``quant`` on. ``models/layers.py:dense``
     builds it for a quant model and ``nn.Linear`` otherwise, so a
     quantised state dict meets a float model only as a strict load's
@@ -156,14 +156,16 @@ class DenseMaybeQuant(nn.Module):
     ``weight`` and fp32 ``weight_scale`` buffers of the shapes listed at the
     top of this file. ``bits`` 8 runs W8A8, or with ``act_quant=False``
     weight-only int8 (``w8_matmul``: fp activations); ``bits`` 4 is
-    weight-only whatever ``act_quant`` says, as in JAX.
+    weight-only whatever ``act_quant`` says, as in JAX. ``bias=False``
+    builds it without a bias (JAX's ``use_bias=False``), and a state dict
+    then loads strictly without one.
 
     The scale stays fp32 through ``.to(dtype)``, ``.half()`` and the like,
     as JAX keeps it: only the device of ``weight_scale`` follows the module.
     """
 
     def __init__(self, in_features: int, out_features: int, bits: int = 8,
-                 act_quant: bool = True):
+                 act_quant: bool = True, bias: bool = True):
         super().__init__()
         if bits not in (4, 8):
             raise ValueError(f"bits must be 8 or 4, got {bits}")
@@ -172,11 +174,14 @@ class DenseMaybeQuant(nn.Module):
         self.in_features, self.out_features, self.bits = in_features, out_features, bits
         self.act_quant = act_quant
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
         # nn.Linear's initialisation
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
-        bound = 1 / math.sqrt(in_features) if in_features > 0 else 0
-        nn.init.uniform_(self.bias, -bound, bound)
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_features))
+            bound = 1 / math.sqrt(in_features) if in_features > 0 else 0
+            nn.init.uniform_(self.bias, -bound, bound)
+        else:
+            self.register_parameter("bias", None)
 
     @property
     def quantized(self) -> bool:

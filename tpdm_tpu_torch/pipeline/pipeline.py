@@ -634,13 +634,13 @@ def load_pipeline_from_pretrained(
     Everything is built on ``device`` (the card unless the caller asks for
     the CPU); JAX's host-resident text towers, a policy for a 16 GB TPU,
     are not carried over: the whole stack fits on an 80 GB card.
-    ``quant_text`` (the weight-only int8 T5) is not ported yet.
+    ``quant_text`` stores T5-XXL's block matmuls as weight-only int8, or
+    int4 at ``quant_bits`` 4 (``models/t5.py``): the float weights load,
+    are cast to ``dtype`` and are prequantised once, as the MMDiT's are.
     """
     from tpdm_tpu_torch.ops.quant import prequantize_
     from tpdm_tpu_torch.utils import convert
 
-    if quant_text:
-        raise not_ported("quant_text (the weight-only int8 T5 tower)", "13(a)")
     device = resolve_device(device)
     mcfg = mmdit_config or MMDiTConfig.sd3_medium(
         dtype=dtype, quant_matmuls=quant_int8, quant_bits=quant_bits)
@@ -679,9 +679,11 @@ def load_pipeline_from_pretrained(
                          ("text_encoder_2", CLIPTextConfig.sd3_clip_g())):
             state = convert.convert_clip_text(_load_dir(root, sub), cfg.num_hidden_layers)
             towers.append(_from_state(lambda: CLIPTextModel(cfg), state, device, dtype))
-        tcfg = T5Config.t5_xxl()
+        tcfg = T5Config.t5_xxl(quant_matmuls=quant_text, quant_bits=quant_bits)
         t5 = _from_state(lambda: T5Encoder(tcfg),
                          convert.convert_t5(_load_dir(root, "text_encoder_3"), tcfg.num_layers),
                          device, dtype)
+        if quant_text:
+            prequantize_(t5)
         text = SD3TextEncoders(*towers, t5, t5_width=tcfg.d_model)
     return TPDMPipeline(mmdit, tpm, vae, text_encoders=text)

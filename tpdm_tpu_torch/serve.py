@@ -46,9 +46,23 @@ the agent and call the runner or the engine), as with the JAX package:
     python -m tpdm_tpu_torch.serve --family sd15 --toy --continuous --port 7861
     python -m tpdm_tpu_torch.serve --family flux --toy --cpu --int4 --cli
 
+LoRA adapters (``train/draft.py`` files): ``--lora PATH`` merges one
+adapter into the backbone at load (``--lora_scale``; not into a quantised
+backbone); ``--lora NAME=PATH`` (repeated) registers named adapters on
+the engine, which requests pick with ``{"lora": "NAME"}`` on ``/generate``
+and ``/rank``: SD3's ``BatchingEngine`` (merged, ``--lora_cache`` merged
+copies) or ``--continuous`` engine (multiplexed, or with ``--lora_fused``
+per-slot fused deltas, also over ``--int8`` / ``--int4``), and a family's
+continuous engine with ``--continuous --lora_fused``. ``--quant_text``
+stores the T5-XXL tower's matmuls as weight-only int8 (int4 with
+``--int4``), run on K5:
+
+    python -m tpdm_tpu_torch.serve --toy --cpu --lora a=a.safetensors --port 7860
+    python -m tpdm_tpu_torch.serve --toy --cpu --continuous --lora_fused --lora a=a.safetensors
+    python -m tpdm_tpu_torch.serve --toy --cpu --quant_text --cli --prompt "a cat"
+
 Not ported yet, each exiting with a message that names its ROADMAP queue 1
-item: ``--dp`` / ``--mesh`` (9(d) and 14),
-``--lora*`` (13(b)), ``--few_step`` (9(e)), ``--quant_text`` (13(a)) and
+item: ``--dp`` / ``--mesh`` (9(d) and 14), ``--few_step`` (9(e)) and
 ``--reward_checkpoint`` (8); gradio is not ported. Importing the module
 starts nothing.
 """
@@ -78,12 +92,7 @@ TOY_SEED = 0
 _NOT_PORTED_FLAGS = {
     "dp": ("--dp (data-parallel replicas)", "9(d)"),
     "mesh": ("--mesh (sharded-model serving)", "14"),
-    "lora": ("--lora (LoRA adapters)", "13(b)"),
-    "lora_scale": ("--lora_scale (LoRA adapters)", "13(b)"),
-    "lora_cache": ("--lora_cache (LoRA adapters)", "13(b)"),
-    "lora_fused": ("--lora_fused (LoRA adapters)", "13(b)"),
     "few_step": ("--few_step (the distilled few-step sampler)", "9(e)"),
-    "quant_text": ("--quant_text (the weight-only int8 T5 tower)", "13(a)"),
     "reward_checkpoint": ("--reward_checkpoint (convert_image_reward)", "8"),
 }
 
@@ -141,6 +150,86 @@ def _quant_bits(args):
     return 8 if getattr(args, "int8", False) else None
 
 
+def _split_lora_args(args):
+    """--lora entries -> (bare path merged at load | None, [(name, path),
+    ...] registered on the engine). Mixing the two forms, more than one
+    bare path and a repeated name exit."""
+    entries = getattr(args, "lora", None) or []
+    if isinstance(entries, str):
+        entries = [entries]
+    merge, named = [], []
+    for e in entries:
+        name, sep, path = e.partition("=")
+        if sep and name and "/" not in name:
+            named.append((name, path))
+        else:
+            merge.append(e)
+    if merge and named:
+        raise SystemExit("--lora: mix of bare-path (merge at load) and NAME=PATH (registered "
+                         "adapter) entries; pick one mode")
+    if len(merge) > 1:
+        raise SystemExit("--lora: multiple bare paths; to serve several adapters use "
+                         "NAME=PATH entries")
+    dup = sorted({n for n, _ in named if sum(1 for m, _ in named if m == n) > 1})
+    if dup:
+        raise SystemExit(f"--lora: duplicate adapter names {dup}")
+    return (merge[0] if merge else None), named
+
+
+@torch.no_grad()
+def _merge_lora_(module, path: str, args, what: str) -> None:
+    """Merge the LoRA file ``path`` into ``module``'s weights in place, at
+    ``--lora_scale``. A factor key that names no dense layer of the module
+    raises (``models/lora.py``): the base weights are never served while an
+    adapter is believed live."""
+    from tpdm_tpu_torch.models.lora import apply_lora
+    from tpdm_tpu_torch.train.draft import load_lora
+
+    lora = load_lora(path)
+    scale = getattr(args, "lora_scale", 1.0)
+    try:
+        merged = apply_lora(module, lora, scale=scale)
+    except ValueError as e:
+        raise ValueError(f"--lora {path}: {e}") from None
+    for name, w in merged.items():
+        module.get_parameter(name).copy_(w)
+    logger.info("merged LoRA %s into the %s (%d layers, scale %.2f)", path, what, len(lora), scale)
+
+
+def _apply_cli_lora(pipe, args):
+    """--lora PATH: merge one adapter into the MMDiT at load, so every
+    engine mode serves it unchanged. NAME=PATH entries are registered on
+    the engine by ``make_http_server``."""
+    path, _named = _split_lora_args(args)
+    if not path:
+        return pipe
+    if _quant_bits(args) is not None:
+        raise SystemExit("--lora cannot merge into a quantized (--int8/--int4) backbone; merge "
+                         "first, then quantize the merged weights")
+    _merge_lora_(pipe.mmdit, path, args, "MMDiT")
+    return pipe
+
+
+def _merge_family_lora(module, args, family: str) -> None:
+    """--lora for a family backbone: a bare path merges at load; NAME=PATH
+    adapters need --continuous --lora_fused (the family engines serve
+    adapters fused only)."""
+    if not getattr(args, "lora", None):
+        return
+    path, named = _split_lora_args(args)
+    if named:
+        if not (getattr(args, "lora_fused", False) and getattr(args, "continuous", False)):
+            raise SystemExit(f"--family {family} NAME=PATH adapters need --continuous "
+                             "--lora_fused (per-slot fused deltas; family engines have no "
+                             "merged multiplex path); a bare path merges a single adapter at "
+                             "load")
+        return  # registered on the continuous engine by make_http_server
+    if _quant_bits(args) is not None:
+        raise SystemExit("--lora cannot merge into a quantized (--int8/--int4) backbone; merge "
+                         "first, then quantize the merged weights")
+    _merge_lora_(module, path, args, f"{family} backbone")
+
+
 def toy_tokenize(prompt: str, n: int = 8):
     """The toy towers' tokenizer: bos 97, up to six words at stable ids in
     [1, 90] (crc32, the same in every process), eos 98, zero padding; T5
@@ -180,7 +269,9 @@ def build_pipeline(args):
     configs (CLIP widths 32 and 48, T5 96, a 2-layer MMDiT caching its
     front block, a 4-channel TPM, the toy VAE) with N(0, 0.02²) weights
     drawn from a torch generator seeded with ``TOY_SEED``, on the card or,
-    with ``--cpu``, the CPU; ``--int8`` / ``--int4`` prequantise its MMDiT."""
+    with ``--cpu``, the CPU; ``--int8`` / ``--int4`` prequantise its MMDiT,
+    ``--quant_text`` its T5 tower (weight-only, int4 with ``--int4``). A
+    bare ``--lora PATH`` is merged into the MMDiT."""
     if getattr(args, "pretrained", None):
         from tpdm_tpu_torch.pipeline.pipeline import load_pipeline_from_pretrained
 
@@ -190,8 +281,8 @@ def build_pipeline(args):
         pipe = load_pipeline_from_pretrained(
             args.pretrained, dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
             tpm_checkpoint=getattr(args, "tpm", None), quant_int8=bits is not None,
-            quant_bits=bits or 8, device=device)
-        return pipe, tokenize
+            quant_bits=bits or 8, quant_text=getattr(args, "quant_text", False), device=device)
+        return _apply_cli_lora(pipe, args), tokenize
     if getattr(args, "tpm", None):
         raise SystemExit("--tpm loads a checkpoint's TPM: pass --pretrained")
     if not getattr(args, "toy", False):
@@ -207,13 +298,15 @@ def build_pipeline(args):
 
     device = _device(args)
     bits = _quant_bits(args)
+    quant_text = getattr(args, "quant_text", False)
     mcfg = MMDiTConfig.toy(joint_attention_dim=96, pooled_projection_dim=64,
                            cache_front_blocks=1, quant_matmuls=bits is not None,
                            quant_bits=bits or 8)
     with torch.device(device):
         clip_l = CLIPTextModel(CLIPTextConfig.toy(hidden_size=32, projection_dim=24))
         clip_g = CLIPTextModel(CLIPTextConfig.toy(hidden_size=48, projection_dim=40))
-        t5 = T5Encoder(T5Config.toy(d_model=96))
+        t5 = T5Encoder(T5Config.toy(d_model=96, quant_matmuls=quant_text,
+                                    quant_bits=4 if bits == 4 else 8))
         mmdit = MMDiT(mcfg)
         tpm = TimePredictor(conv_out_channels=4, in_channels=2 * mcfg.inner_dim,
                             temb_dim=mcfg.inner_dim, init_alpha=0.5, init_beta=2.0)
@@ -223,8 +316,10 @@ def build_pipeline(args):
         module.init_weights(g).eval()
     if bits is not None:
         prequantize_(mmdit)
+    if quant_text:
+        prequantize_(t5)
     text = SD3TextEncoders(clip_l, clip_g, t5, t5_width=96)
-    return TPDMPipeline(mmdit, tpm, vae, text_encoders=text), toy_tokenize
+    return _apply_cli_lora(TPDMPipeline(mmdit, tpm, vae, text_encoders=text), args), toy_tokenize
 
 
 def build_family_world(args):
@@ -260,6 +355,8 @@ def build_family_world(args):
     if _quant_bits(args) is not None and fam != "flux":
         raise SystemExit(f"--int8/--int4 are not supported for --family {fam} (quantization "
                          "covers the MMDiT/FLUX transformer backbones)")
+    if getattr(args, "quant_text", False):
+        raise SystemExit(f"--quant_text quantises SD3's T5-XXL tower; --family {fam} has none")
     refiner = getattr(args, "refiner", False)
     ci, gi, tau = _accel_kwargs(args)
     if refiner:
@@ -305,6 +402,7 @@ def build_family_world(args):
 
         ucfg = UNetConfig.toy(cross_attention_dim=32)
         unet = build(lambda: UNetSD15(ucfg))
+        _merge_family_lora(unet, args, fam)
         text = build(lambda: CLIPTextModel(CLIPTextConfig.toy(hidden_size=32,
                                                               max_position_embeddings=8)))
         decode = families.make_vae_decoder(build(vae))
@@ -326,6 +424,7 @@ def build_family_world(args):
 
     ucfg = UNetConfig.toy_xl(cross_attention_dim=16 + 24, addition_pooled_dim=12)
     unet = build(lambda: UNetSD15(ucfg))
+    _merge_family_lora(unet, args, fam)
     towers = [build(lambda w=w, p=p: CLIPTextModel(CLIPTextConfig.toy(
         hidden_size=w, projection_dim=p, max_position_embeddings=8))) for w, p in ((16, 8), (24, 12))]
     text = SDXLTextEncoders(*towers)
@@ -373,6 +472,7 @@ def _flux_world(args, config, build, vae, g, dtype):
     fcfg = FluxConfig.toy(quant_matmuls=bits is not None, quant_bits=bits or 8,
                           cache_front_blocks=1)
     flux = build(lambda: Flux(fcfg))
+    _merge_family_lora(flux, args, "flux")
     if bits is not None:
         prequantize_(flux)
     decode = families.make_vae_decoder(build(vae))
@@ -469,7 +569,8 @@ def _family_continuous_engine(world, args):
                tpm_params=world["tpm_params"], slots=args.max_batch,
                seg_steps=getattr(args, "seg_steps", 4),
                pipeline_depth=getattr(args, "pipeline_depth", 1) or 1,
-               decode_batch=getattr(args, "decode_batch", 1) or 1)
+               decode_batch=getattr(args, "decode_batch", 1) or 1,
+               fused_lora=getattr(args, "lora_fused", False))
 
 
 def make_engine(pipe, tokenize, args, runner=None, world=None):
@@ -523,7 +624,45 @@ def make_engine(pipe, tokenize, args, runner=None, world=None):
     res = _resolutions(args)
     if res:
         return MultiResContinuousRouter(pipe, tokenize, resolutions=res, **common)
-    return ContinuousBatchingEngine(pipe, tokenize, solver=solver, **common)
+    return ContinuousBatchingEngine(pipe, tokenize, solver=solver,
+                                    fused_lora=getattr(args, "lora_fused", False), **common)
+
+
+def register_named_adapters(engine, args, runner=None) -> None:
+    """--lora NAME=PATH: each adapter registered on ``engine`` at
+    --lora_scale (--lora_cache merged copies). SD3's engines serve them
+    (fixed-batch sub-batches, or continuous multiplexed or fused); a family
+    engine only fused (--continuous --lora_fused); the multi-resolution
+    router none."""
+    from tpdm_tpu_torch.serving import BatchingEngine
+    from tpdm_tpu_torch.serving_continuous import (
+        ContinuousBatchingEngine,
+        _AgentContinuousEngine,
+    )
+
+    _path, named = _split_lora_args(args)
+    fused = getattr(args, "lora_fused", False)
+    if fused:
+        if not isinstance(engine, ContinuousBatchingEngine):
+            raise SystemExit("--lora_fused needs a single continuous engine (--continuous, no "
+                             "--resolutions router)")
+        if not named:
+            raise SystemExit("--lora_fused without --lora NAME=PATH adapters")
+    if not named:
+        return
+    ok_fixed = isinstance(engine, BatchingEngine) and runner is None
+    ok_cont = isinstance(engine, ContinuousBatchingEngine) and (
+        not isinstance(engine, _AgentContinuousEngine) or fused)
+    if not (ok_fixed or ok_cont):
+        raise SystemExit("--lora NAME=PATH needs an SD3 engine (fixed-batch sub-batches or "
+                         "--continuous segments) or a family engine with --continuous "
+                         "--lora_fused; the multi-resolution router serves no adapters")
+    from tpdm_tpu_torch.train.draft import load_lora
+
+    for name, path in named:
+        engine.register_adapter(name, load_lora(path), scale=getattr(args, "lora_scale", 1.0),
+                                merged_cache=getattr(args, "lora_cache", 1) or 1)
+        logger.info("registered adapter %r from %s", name, path)
 
 
 def _alive(engine) -> bool:
@@ -547,11 +686,16 @@ def make_http_server(pipe, tokenize, args, ranker=None, runner=None, world=None)
     from tpdm_tpu_torch.utils.metrics_export import prometheus_text
 
     engine = make_engine(pipe, tokenize, args, runner=runner, world=world)
+    register_named_adapters(engine, args, runner=runner)
 
-    def not_served(req):
-        """Request fields whose options are not ported: a 400 naming them."""
-        if req.get("lora") is not None:
-            raise ValueError(str(not_ported("lora (LoRA adapters)", "13(b)")))
+    def lora_of(req):
+        """The request's adapter name (None: the base)."""
+        lora = req.get("lora")
+        if lora is not None and not isinstance(lora, str):
+            raise ValueError("lora must be an adapter name string")
+        if lora is not None and not hasattr(engine, "register_adapter"):
+            raise ValueError("this engine does not serve adapters")
+        return lora
 
     def steps_of(req):
         steps = req.get("steps")
@@ -607,7 +751,7 @@ def make_http_server(pipe, tokenize, args, ranker=None, runner=None, world=None)
                 req = self._body(8 * 1024 * 1024)
                 if req is None:
                     return
-                not_served(req)
+                lora = lora_of(req)
                 prompt = prompt_of(req)
                 seed = int(req.get("seed", args.seed))
                 steps = steps_of(req)
@@ -637,10 +781,11 @@ def make_http_server(pipe, tokenize, args, ranker=None, runner=None, world=None)
                 self.send_error(400, str(e)[:100])
                 return
             try:
+                kw = {} if lora is None else {"lora": lora}
                 res = engine.submit(prompt, seed, steps=steps, resolution=resolution,
                                     deadline_s=deadline_s, init_image=init_image,
                                     strength=strength, guidance_scale=guidance,
-                                    negative_prompt=negative or None).result(timeout=600)
+                                    negative_prompt=negative or None, **kw).result(timeout=600)
             except ValueError as e:  # an unknown resolution etc.
                 self.send_error(400, str(e)[:100])
                 return
@@ -661,7 +806,7 @@ def make_http_server(pipe, tokenize, args, ranker=None, runner=None, world=None)
                 req = self._body(65536)
                 if req is None:
                     return
-                not_served(req)
+                lora = lora_of(req)
                 prompt = prompt_of(req)
                 seed = int(req.get("seed", args.seed))
                 n = int(req.get("n", 4))
@@ -675,7 +820,7 @@ def make_http_server(pipe, tokenize, args, ranker=None, runner=None, world=None)
                 return
             try:
                 out = generate_ranked(engine, prompt, seed=seed, n=n, steps=steps,
-                                      ranker=ranker)
+                                      ranker=ranker, lora=lora)
             except ValueError as e:
                 self.send_error(400, str(e)[:100])
                 return
@@ -742,17 +887,24 @@ def parse_args(argv=None):
     p.add_argument("--decode_batch", type=int, default=1,
                    help="--continuous: finished slots coalesced into one decode")
     p.add_argument("--port", type=int, default=7860)
-    p.add_argument("--lora", action="append", default=None)
-    p.add_argument("--lora_scale", type=float, default=None)
-    p.add_argument("--lora_cache", type=int, default=None)
-    p.add_argument("--lora_fused", action="store_true")
+    p.add_argument("--lora", action="append", default=None,
+                   help="a LoRA file: a bare PATH merges into the backbone at load; NAME=PATH "
+                        "(repeat the flag) registers named adapters that requests pick with "
+                        '{"lora": "NAME"}')
+    p.add_argument("--lora_scale", type=float, default=1.0)
+    p.add_argument("--lora_cache", type=int, default=1,
+                   help="merged copies of the backbone kept for NAME=PATH adapters")
+    p.add_argument("--lora_fused", action="store_true",
+                   help="--continuous: NAME=PATH adapters as per-slot fused deltas (one "
+                        "segment advances every tenant; also over --int8/--int4)")
     p.add_argument("--tb_dir", default=None,
                    help="stream the engine's stats() to TensorBoard event files here")
     p.add_argument("--tb_interval", type=float, default=10.0)
     p.add_argument("--out", default="generated.png")
     p.add_argument("--reward_checkpoint", default=None)
     p.add_argument("--max_rank_n", type=int, default=8, help="cap on /rank's candidates")
-    p.add_argument("--quant_text", action="store_true")
+    p.add_argument("--quant_text", action="store_true",
+                   help="weight-only int8 T5-XXL tower (int4 with --int4), run on K5")
     p.add_argument("--int4", action="store_true", help="int4 weight-only MMDiT or FLUX (K5)")
     p.add_argument("--int8", action="store_true", help="W8A8 int8 MMDiT or FLUX (K4)")
     p.add_argument("--few_step", default=None)
@@ -774,6 +926,9 @@ def parse_args(argv=None):
     if args.solver != "euler" and args.continuous and args.resolutions:
         raise SystemExit("--solver with --continuous serves the single-resolution engine; "
                          "drop --resolutions")
+    if args.cli and _split_lora_args(args)[1]:
+        raise SystemExit("--lora NAME=PATH registers adapters on the HTTP engine; --cli "
+                         "merges a bare --lora PATH")
     return args
 
 

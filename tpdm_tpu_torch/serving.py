@@ -20,6 +20,13 @@ Counterpart of ``tpdm_tpu/serving.py``'s ``BatchingEngine``. It:
   its seed's noise exactly and whose sigma starts at 1.0. The whole padded
   batch is encoded in one VAE call, so each served resolution has one
   encode shape, as it has one denoise shape;
+- serves named LoRA adapters next to the base model (``register_
+  adapter``; a request's ``lora=``): each adapter's merged backbone
+  (``models/lora.py:apply_lora``) is kept in an LRU of ``merged_cache``
+  copies and run through ``call_merged``, which swaps the merged tensors in
+  for the batch and never writes the base module, so a base request after
+  adapter traffic is the adapter-free engine's to the bit. A window groups
+  by (resolution, adapter): one sub-batch each;
 - keeps per-request determinism: each request's initial latent is drawn
   as a batch-1 ``TPDMPipeline.generate(seed=s)`` draws it,
   ``torch.randn`` from ``torch.Generator(device).manual_seed(s)`` on the
@@ -37,9 +44,8 @@ engine-level acceleration options are refused, as in JAX.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 queue 1 item: data-parallel replicas and the sharded mesh (``dp``,
-``mesh_shape``: 9(d) and 14) and LoRA adapters (``register_adapter``,
-``lora=``: 13(b)). The continuous engine, which refills a finished
-request's slot mid-denoise, is ``serving_continuous.py``.
+``mesh_shape``: 9(d) and 14). The continuous engine, which refills a
+finished request's slot mid-denoise, is ``serving_continuous.py``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from tpdm_tpu_torch.models.lora import MergedLRU, call_merged, check_lora, lora_targets
 from tpdm_tpu_torch.pipeline.pipeline import not_ported, seed_noise
 from tpdm_tpu_torch.utils.image import postprocess_images
 
@@ -90,6 +97,9 @@ class ServeRequest:
     # per-request negative prompt; None/"" = the engine's constant negative
     # (the towers on zero ids)
     negative_prompt: Optional[str] = None
+    # the registered LoRA adapter this request runs under; None = the base.
+    # Requests coalesce per adapter
+    lora: Optional[str] = None
     submitted_at: float = field(default_factory=time.monotonic)
     _event: threading.Event = field(default_factory=threading.Event)
     _result: Optional[dict] = None
@@ -200,6 +210,10 @@ class BatchingEngine:
             sigmas}, ...]`` over the padded batch, in place of the SD3
             pipeline (``serving_families.make_sd15_runner``).
         dp, mesh_shape: not ported (ROADMAP queue 1, items 9(d) and 14).
+
+    LoRA adapters: ``register_adapter``, then ``submit(lora=name)`` or
+    ``generate_batch(lora=name)``; ``stats()`` adds ``adapter_batches``
+    and ``adapter_merges`` once one is registered.
     """
 
     def __init__(
@@ -285,10 +299,49 @@ class BatchingEngine:
         # deque(maxlen): the worker appends while HTTP threads read stats();
         # a deque's append and iteration are thread-safe
         self._stage_times: "collections.deque" = collections.deque(maxlen=256)
+        # LoRA adapters: name -> (factors, scale), and their merged weights
+        self._adapters: dict = {}
+        self._merged = MergedLRU()
+        self.adapter_batches: dict = {}
 
+    @property
+    def adapter_merges(self) -> int:
+        """Merges paid: the merged-weight LRU's misses."""
+        return self._merged.merges
+
+    # -- LoRA adapters -------------------------------------------------------
     def register_adapter(self, name: str, lora: dict, scale: float = 1.0,
                          merged_cache: Optional[int] = None) -> None:
-        raise not_ported("LoRA adapters (register_adapter)", "13(b)")
+        """Serve a named LoRA adapter (``models/lora.py`` factors, e.g. from
+        ``train/draft.py:load_lora``) next to the base model: a request
+        with ``lora=name`` runs on ``apply_lora(mmdit, lora, scale)``,
+        merged when first needed into an LRU of ``merged_cache`` entries
+        (default 1). Not on a runner engine (the runner owns its model) nor
+        a quantised backbone (a stored-int weight has no float to merge
+        into); a factor key that names no dense layer of the MMDiT raises."""
+        if self._runner is not None:
+            raise ValueError("adapters need the SD3 pipeline path; runner families own "
+                             "their own params")
+        if not name:
+            raise ValueError("adapter name must be non-empty")
+        if any(not m.weight.is_floating_point() for m in lora_targets(self.pipe.mmdit).values()):
+            raise ValueError("cannot merge LoRA into a quantized backbone; serve float "
+                             "weights to use adapters")
+        self._adapters[name] = (check_lora(self.pipe.mmdit, lora), float(scale))
+        self._merged.drop(name)  # a new registration invalidates its merge
+        if merged_cache is not None:
+            if merged_cache < 1:
+                raise ValueError("merged_cache must be >= 1")
+            self._merged.size = merged_cache
+
+    def _params_for(self, lora_name: Optional[str]):
+        """The merged weights of one adapter (None for the base)."""
+        if lora_name is None:
+            return None
+        if lora_name not in self._adapters:
+            raise ValueError(f"unknown adapter {lora_name!r}; registered: "
+                             f"{sorted(self._adapters)}")
+        return self._merged.get(self.pipe.mmdit, lora_name, *self._adapters[lora_name])
 
     # -- per-prompt embedding cache -----------------------------------------
     def _remember(self, key, row) -> None:
@@ -381,10 +434,23 @@ class BatchingEngine:
         entries = the engine's default) sets each one's CFG strength;
         ``negative_prompts`` (None/"" = the constant negative) each one's
         negative; ``init_images`` / ``strengths`` (None entries = text-to-
-        image) run img2img rows (see the module docstring). ``lora`` is not
-        ported."""
-        if lora is not None:
-            raise not_ported("lora (LoRA adapters)", "13(b)")
+        image) run img2img rows (see the module docstring). ``lora`` names
+        a registered adapter that the whole batch runs under."""
+        args = (prompts, seeds, record_stats, steps, resolution, lora, init_images, strengths,
+                guidances, negative_prompts)
+        if lora is None and not self._adapters:
+            return self._generate_batch_impl(*args)
+        if self._runner is not None:
+            raise ValueError("adapters are SD3-pipeline-only")
+        merged = self._params_for(lora)
+        if merged is None:
+            return self._generate_batch_impl(*args)
+        return call_merged(self.pipe.mmdit, merged, self._generate_batch_impl, *args)
+
+    def _generate_batch_impl(self, prompts, seeds, record_stats, steps, resolution, lora,
+                             init_images, strengths, guidances, negative_prompts):
+        # the adapter's weights are in place (generate_batch); ``lora`` here
+        # only labels the stats
         n = len(prompts)
         if not 0 < n <= self.max_batch:
             raise ValueError(f"a batch takes 1 to {self.max_batch} prompts, got {n}")
@@ -465,6 +531,11 @@ class BatchingEngine:
         stage = {"batch": n, "padded": pad, "tokenize_s": t_tokenized - t_start}
         if resolution is not None:
             stage["resolution"] = resolution
+        if lora is not None:
+            stage["lora"] = lora
+        if record_stats and (lora is not None or self._adapters):
+            key = lora or "<base>"
+            self.adapter_batches[key] = self.adapter_batches.get(key, 0) + 1
         if embeds is not None:
             stage["encode_s"] = t_encoded - t_tokenized
         t_device = t_encoded if embeds is not None else t_tokenized
@@ -528,8 +599,8 @@ class BatchingEngine:
             # a request queued after stop() would never run and block its
             # caller until the result() timeout
             raise EngineOverloaded("engine is stopped; no worker will run this")
-        if lora is not None:
-            raise not_ported("lora (LoRA adapters)", "13(b)")
+        if lora is not None and lora not in self._adapters:
+            raise ValueError(f"unknown adapter {lora!r}; registered: {sorted(self._adapters)}")
         if steps is not None and steps < 1:
             raise ValueError("steps must be >= 1")
         if self._runner is not None:
@@ -555,7 +626,7 @@ class BatchingEngine:
             prompt=prompt, seed=seed, steps=steps, resolution=resolution,
             deadline_s=deadline_s, init_image=init_image, strength=strength,
             guidance_scale=None if guidance_scale is None else float(guidance_scale),
-            negative_prompt=negative_prompt or None)
+            negative_prompt=negative_prompt or None, lora=lora)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -625,17 +696,18 @@ class BatchingEngine:
                 r._expire()
             self.requests_expired += len(expired)
             batch = [r for r in batch if r not in expired]
-            # one sub-batch a resolution, in first-seen order
+            # one sub-batch a (resolution, adapter), in first-seen order: a
+            # resolution is a shape of its own, an adapter weights of its own
             groups: dict = {}
             for r in batch:
-                groups.setdefault(r.resolution, []).append(r)
-            for res_px, group in groups.items():
+                groups.setdefault((r.resolution, r.lora), []).append(r)
+            for (res_px, lora_name), group in groups.items():
                 try:
                     now = time.monotonic()
                     waits = [now - r.submitted_at for r in group]
                     results = self.generate_batch(
                         [r.prompt for r in group], [r.seed for r in group],
-                        steps=[r.steps for r in group], resolution=res_px,
+                        steps=[r.steps for r in group], resolution=res_px, lora=lora_name,
                         init_images=[r.init_image for r in group],
                         strengths=[r.strength for r in group],
                         guidances=[r.guidance_scale for r in group],
@@ -689,6 +761,8 @@ class BatchingEngine:
             **decode_stats,
             "total_s_p50": pct("total_s", 0.5),
             "total_s_p95": pct("total_s", 0.95),
+            **({"adapter_batches": dict(self.adapter_batches),
+                "adapter_merges": self.adapter_merges} if self._adapters else {}),
         }
 
     def warmup(self):

@@ -61,9 +61,21 @@ step, so a request's schedule equals the family runner's
 sigma-ratio segment over FLUX's denoise (packed tokens, embedded guidance,
 no CFG doubling).
 
+LoRA adapters (``register_adapter``, ``submit(lora=)``) come in two
+modes. Multiplexed (the SD3 engine's default): each segment runs one
+adapter's merged weights (``models/lora.py:apply_lora`` into an LRU,
+swapped in by ``call_merged``), picked greedily by runnable slots with a
+fairness floor (``adapter_fair_every``); the live mask freezes the other
+adapters' slots, so a request's trajectory is its merged solo run's, and
+the refill prefers requests whose adapter is already in flight, for at
+most ``adapter_starvation_s``. Fused (``fused_lora=True``, the family
+engines' only mode): the adapters are stacked into a bank at ``start()``
+and every segment runs under ``lora_interceptor``, each slot's row adding
+its own rank-r delta, so one segment advances every tenant, over a float
+or a quantised backbone. Under CFG the row ids double as [uncond; cond].
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue 1 item: ``dp`` (9(d)), ``mesh_shape`` (14) and LoRA adapters
-(``register_adapter``, ``fused_lora``, ``submit(lora=)``: 13(b)).
+queue 1 item: ``dp`` (9(d)) and ``mesh_shape`` (14).
 """
 
 from __future__ import annotations
@@ -78,6 +90,14 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpdm_tpu_torch.models.lora import (
+    MergedLRU,
+    call_merged,
+    check_lora,
+    lora_interceptor,
+    lora_targets,
+    stack_adapters,
+)
 from tpdm_tpu_torch.ops.beta import beta_mode, beta_sample
 from tpdm_tpu_torch.ops.flow_euler import flow_euler_step
 from tpdm_tpu_torch.ops.flow_solver import flow_ab2_step
@@ -143,6 +163,7 @@ class _Readback(NamedTuple):
     """One dispatched segment's results on their way to the host."""
 
     busy: list  # [(slot, request)] at dispatch
+    advanced: list  # the adapters this segment advanced
     sigma: torch.Tensor  # (S,) host
     steps: torch.Tensor  # (S,) host
     trace: torch.Tensor  # (seg, S) host, sigma after each step
@@ -183,8 +204,10 @@ class ContinuousBatchingEngine:
             forward every N steps, a fresh cache every segment).
         solver: "euler" or "ab2" (per segment: each segment's first step
             is Euler).
-        dp, mesh_shape, fused_lora: not ported (ROADMAP queue 1, items
-            9(d), 14 and 13(b)).
+        fused_lora: serve registered adapters fused (per-slot deltas in
+            every segment) instead of multiplexed (one adapter's merged
+            weights a segment); see the module docstring.
+        dp, mesh_shape: not ported (ROADMAP queue 1, items 9(d) and 14).
     """
 
     def __init__(
@@ -209,7 +232,7 @@ class ContinuousBatchingEngine:
         cache_interval: int = 0,
         solver: str = "euler",
     ):
-        _refuse_unported(dp, mesh_shape, fused_lora)
+        _refuse_unported(dp, mesh_shape)
         if cache_interval == 1 or cache_interval < 0:
             raise ValueError("cache_interval must be 0 (off) or >= 2")
         if solver not in ("euler", "ab2"):
@@ -235,7 +258,7 @@ class ContinuousBatchingEngine:
         self.cache_interval = cache_interval
         self.solver = solver
         self._init_host(slots, seg_steps, max_steps, guidance_scale, predict, queue_limit,
-                        embed_cache_size, embed_cache, pipeline_depth, decode_batch)
+                        embed_cache_size, embed_cache, pipeline_depth, decode_batch, fused_lora)
 
         self._device, self._dtype = pipe._device_dtype()
         self._min_live = pipe.min_sigma  # a slot below it has finished
@@ -254,9 +277,10 @@ class ContinuousBatchingEngine:
         self._reset_state()
 
     def _init_host(self, slots, seg_steps, max_steps, guidance_scale, predict, queue_limit,
-                   embed_cache_size, embed_cache, pipeline_depth, decode_batch):
+                   embed_cache_size, embed_cache, pipeline_depth, decode_batch, fused_lora):
         """The host side that every engine shares: the queue, the workers,
-        the slot table and its mirrors, the counters and the embed cache."""
+        the slot table and its mirrors, the counters, the embed cache and
+        the adapters."""
         if slots < 1 or seg_steps < 1:
             raise ValueError("slots and seg_steps must be >= 1")
         if pipeline_depth < 1:
@@ -300,11 +324,85 @@ class ContinuousBatchingEngine:
         self._embed_cache = (embed_cache if embed_cache is not None
                              else PromptEmbedCache(embed_cache_size))
         self._lock = threading.Lock()  # guards the counters stats() reads
+        # LoRA adapters: name -> (factors, scale); the slots' adapters; the
+        # multiplexed mode's merged-weight LRU, the fused mode's bank
+        self._adapters: dict = {}
+        self._slot_adapter: list = [None] * slots
+        self._merged = MergedLRU()
+        self.fused_lora = bool(fused_lora)
+        self._bank = None
+        self._adapter_ids: dict = {}
+        self.adapter_segments: dict = {}  # adapter -> segments that advanced it
+        # fairness: an adapter with busy slots runs at least every
+        # adapter_fair_every segments, whatever the greedy count says
+        self.adapter_fair_every = 4
+        self._adapter_skipped: dict = {}  # adapter -> consecutive skips
+        # the refill's adapter affinity yields to FIFO for a request that has
+        # waited longer than this
+        self.adapter_starvation_s = 5.0
 
-    # -- not ported ---------------------------------------------------------
+    # -- LoRA adapters ------------------------------------------------------
+    @property
+    def adapter_merges(self) -> int:
+        """Merges paid: the merged-weight LRU's misses."""
+        return self._merged.merges
+
+    def _backbone(self):
+        """The module the adapters target."""
+        return self.pipe.mmdit
+
+    def _row_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """The bank row of every backbone batch row: the slots' ids, twice
+        under CFG ([uncond; cond], each branch with its slot's adapter)."""
+        return torch.cat([ids, ids]) if self.guidance_scale is not None else ids
+
     def register_adapter(self, name: str, lora: dict, scale: float = 1.0,
                          merged_cache: int = 1):
-        raise not_ported("LoRA adapters (register_adapter)", "13(b)")
+        """Serve a named LoRA adapter next to the base model: requests with
+        ``lora=name`` run under ``apply_lora(mmdit, lora, scale)``,
+        multiplexed (merged weights in an LRU of ``merged_cache`` entries,
+        the largest asked for) or, with ``fused_lora``, fused. A quantised
+        backbone serves adapters fused only (nothing float to merge into).
+        Register before ``start()``."""
+        if not self.fused_lora and any(not m.weight.is_floating_point()
+                                       for m in lora_targets(self._backbone()).values()):
+            raise ValueError("quantized (--int8/--int4) backbones serve adapters "
+                             "fused-only: build the engine with fused_lora=True")
+        self._store_adapter(name, lora, scale)
+        self._merged.size = max(self._merged.size, merged_cache)
+
+    def _store_adapter(self, name: str, lora: dict, scale: float):
+        if not name:
+            raise ValueError("adapter name must be non-empty")
+        if self._thread is not None:
+            raise RuntimeError("register adapters before start()")
+        self._adapters[name] = (check_lora(self._backbone(), lora), float(scale))
+        self._merged.drop(name)
+
+    def _pick_adapter(self, counts: dict):
+        """The adapter this segment runs (None: the base): the most runnable
+        slots, unless an adapter with busy slots was skipped
+        ``adapter_fair_every`` segments in a row, which then runs."""
+        if not counts:
+            return None
+        starved = [n for n in counts
+                   if self._adapter_skipped.get(n, 0) >= self.adapter_fair_every]
+        pool = starved or list(counts)
+        active = max(pool, key=lambda n: (counts[n], n is None))
+        for n in counts:
+            self._adapter_skipped[n] = 0 if n == active else self._adapter_skipped.get(n, 0) + 1
+        return active
+
+    def _run_adapted(self, fn, active, ids):
+        """``fn()`` under the segment's adapters: the fused bank with the
+        slots' ids, or the active adapter's merged weights, or neither."""
+        if ids is not None:
+            with lora_interceptor(self._backbone(), self._bank, self._row_ids(ids)):
+                return fn()
+        if active is not None:
+            merged = self._merged.get(self._backbone(), active, *self._adapters[active])
+            return call_merged(self._backbone(), merged, fn)
+        return fn()
 
     # -- device state -------------------------------------------------------
     def _reset_state(self):
@@ -464,6 +562,7 @@ class ContinuousBatchingEngine:
                        neg_pp=_put(st.neg_pp, slot, npp_row))
         self._state = st._replace(**new)
         self._slot_req[slot] = req
+        self._slot_adapter[slot] = req.lora
         self._slot_sigmas[slot] = []
         self._steps_host[slot] = 0
         self._caps_host[slot] = cap
@@ -488,6 +587,7 @@ class ContinuousBatchingEngine:
         lat_row = self._state.latents[slot : slot + 1]
         sigmas = [float(s) for s in self._slot_sigmas[slot][:nfe]]
         self._slot_req[slot] = None
+        self._slot_adapter[slot] = None
         self._slot_sigmas[slot] = []
         if self._decode_thread is not None:
             self._decode_queue.put((req, lat_row, nfe, sigmas))
@@ -563,7 +663,11 @@ class ContinuousBatchingEngine:
             self._resolve(req, image, nfe, sigmas)
 
     def _refill(self, block: bool) -> bool:
-        """Fill free slots from the queue. Returns False on shutdown."""
+        """Fill free slots from the queue. Returns False on shutdown.
+        Multiplexed adapters: a free slot prefers the oldest pending request
+        whose adapter already holds a slot (the scheduler's runnable set
+        grows), unless the queue's head has waited over
+        ``adapter_starvation_s``, which then takes it."""
         # drain the queue into the worker-owned pending deque; only the
         # first get may block, and only when nothing is pending
         while True:
@@ -585,11 +689,23 @@ class ContinuousBatchingEngine:
             else:
                 kept.append(req)
         self._pending = kept
+        inflight = {self._slot_adapter[i] for i in range(self.slots)
+                    if self._slot_req[i] is not None}
+        affinity = self._adapters and self._bank is None
+        now = time.monotonic()
         for slot in range(self.slots):
             if not self._pending:
                 break
-            if self._slot_req[slot] is None:
-                self._assign(slot, self._pending.popleft())
+            if self._slot_req[slot] is not None:
+                continue
+            idx = 0
+            if (affinity and inflight
+                    and now - self._pending[0].submitted_at <= self.adapter_starvation_s):
+                idx = next((j for j, r in enumerate(self._pending) if r.lora in inflight), 0)
+            req = self._pending[idx]
+            del self._pending[idx]
+            self._assign(slot, req)
+            inflight.add(req.lora)
         return True
 
     def _run_segment(self):
@@ -601,17 +717,36 @@ class ContinuousBatchingEngine:
         readbacks: a slot that finished in segment k is frozen by the
         done-mask in k + 1, so the speculative segment changes nothing."""
         busy = [(i, r) for i, r in enumerate(self._slot_req) if r is not None]
-        live = self._to_device(np.array([r is not None for r in self._slot_req]))
-        self._state, trace = self._segment(self._state, live)
+        counts: dict = {}
+        for i, _ in busy:
+            counts[self._slot_adapter[i]] = counts.get(self._slot_adapter[i], 0) + 1
+        live = np.array([r is not None for r in self._slot_req])
+        active = ids = None
+        if self._bank is not None:
+            # fused: every tenant advances; the bank rows route the deltas
+            ids = self._to_device(np.array([0 if a is None else self._adapter_ids[a]
+                                            for a in self._slot_adapter], np.int64))
+            advanced = [n for n in counts if n is not None]
+        elif self._adapters:
+            # multiplexed: one adapter's merged weights; the live mask
+            # freezes the other adapters' slots
+            active = self._pick_adapter(counts)
+            live &= np.array([a == active for a in self._slot_adapter])
+            advanced = [] if active is None else [active]
+        else:
+            advanced = []
+        live = self._to_device(live)
+        self._state, trace = self._run_adapted(lambda: self._segment(self._state, live),
+                                               active, ids)
         results = (self._state.sigma, self._state.steps, trace)
         if self._device.type != "cuda":
-            return _Readback(busy, *results, None)
+            return _Readback(busy, advanced, *results, None)
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in results]
         for h, t in zip(host, results):
             h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return _Readback(busy, *host, event)
+        return _Readback(busy, advanced, *host, event)
 
     def _may_finish(self, entry: _Readback) -> bool:
         """Will the oldest in-flight segment free a slot by its cap? Cap
@@ -633,6 +768,8 @@ class ContinuousBatchingEngine:
         with self._lock:
             self.segments_run += 1
             self.slot_steps_total += self.slots * self.seg_steps
+            for name in entry.advanced:
+                self.adapter_segments[name] = self.adapter_segments.get(name, 0) + 1
         for i, req in entry.busy:
             if self._slot_req[i] is not req:
                 continue
@@ -663,11 +800,12 @@ class ContinuousBatchingEngine:
         negative (per-slot state: any mix shares the segment).
         ``init_image`` (uint8 (H, W, 3) at the engine's resolution) runs it
         image-to-image: its slot starts at sigma = ``strength`` (default
-        0.6) from the noised init latents. ``lora`` is not ported."""
+        0.6) from the noised init latents. ``lora`` names a registered
+        adapter that it runs under (see ``register_adapter``)."""
         if self._stop.is_set():
             raise EngineOverloaded("engine is stopped; no worker will run this")
-        if lora is not None:
-            raise not_ported("lora (continuous LoRA adapters)", "13(b)")
+        if lora is not None and lora not in self._adapters:
+            raise ValueError(f"unknown adapter {lora!r}")
         if steps is not None and steps < 1:
             raise ValueError("steps must be >= 1")
         if guidance_scale is not None or negative_prompt:
@@ -686,7 +824,7 @@ class ContinuousBatchingEngine:
             prompt=prompt, seed=seed, steps=steps, deadline_s=deadline_s,
             init_image=init_image, strength=strength,
             guidance_scale=None if guidance_scale is None else float(guidance_scale),
-            negative_prompt=negative_prompt or None)
+            negative_prompt=negative_prompt or None, lora=lora)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -700,6 +838,8 @@ class ContinuousBatchingEngine:
     def start(self):
         if self._thread is not None:
             return
+        if self.fused_lora and self._adapters and self._bank is None:
+            self._bank, self._adapter_ids = stack_adapters(self._adapters)
         self._stop.clear()
         self._decode_thread = threading.Thread(target=self._decode_worker, daemon=True)
         self._decode_thread.start()
@@ -732,6 +872,7 @@ class ContinuousBatchingEngine:
                 req._error = RuntimeError("engine stopped mid-generation")
                 req._event.set()
                 self._slot_req[i] = None
+                self._slot_adapter[i] = None
                 self._slot_sigmas[i] = []
         if had_inflight:  # a restart begins from clean, all-empty slots
             self._reset_state()
@@ -790,6 +931,7 @@ class ContinuousBatchingEngine:
                         req._error = e
                         req._event.set()
                         self._slot_req[i] = None
+                        self._slot_adapter[i] = None
                         self._slot_sigmas[i] = []
                 # the other in-flight segments continue the failed state:
                 # start again from all-empty slots
@@ -812,7 +954,8 @@ class ContinuousBatchingEngine:
             self._latency_done.clear()
 
     def stats(self) -> dict:
-        """The JAX engine's stats() keys (no adapter keys)."""
+        """The JAX engine's stats() keys; with adapters registered also
+        ``adapter_merges``, ``adapter_segments`` and ``lora_mode``."""
         with self._lock:
             nfes = list(self._nfe_done)
             lats = sorted(self._latency_done)
@@ -837,6 +980,10 @@ class ContinuousBatchingEngine:
                 "decode_pending": self._decode_queue.qsize(),
                 "embed_cache_entries": len(self._embed_cache),
             }
+            if self._adapters:
+                out["adapter_merges"] = self.adapter_merges
+                out["adapter_segments"] = dict(self.adapter_segments)
+                out["lora_mode"] = "fused" if self.fused_lora else "multiplex"
         if nfes:
             out["nfe_mean"] = float(np.mean(nfes))
             out["nfe_max"] = int(np.max(nfes))
@@ -846,13 +993,11 @@ class ContinuousBatchingEngine:
         return out
 
 
-def _refuse_unported(dp, mesh_shape, fused_lora):
+def _refuse_unported(dp, mesh_shape):
     if dp is not None:
         raise not_ported("dp (data-parallel slots)", "9(d)")
     if mesh_shape is not None:
         raise not_ported("mesh_shape (sharded-model serving)", "14")
-    if fused_lora:
-        raise not_ported("fused_lora (continuous LoRA adapters)", "13(b)")
 
 
 class _AgentContinuousEngine(ContinuousBatchingEngine):
@@ -860,7 +1005,9 @@ class _AgentContinuousEngine(ContinuousBatchingEngine):
     encode, decode) instead of a pipeline, per-seed latents drawn as the
     family runners draw them, the decode given or none. A request carries a
     prompt, a seed and a cap: per-request guidance, negatives and img2img
-    are the SD3 engine's."""
+    are the SD3 engine's. Adapters are served fused only (``fused_lora=
+    True``): the agent owns its backbone, and a merged copy a tenant of a
+    12B FLUX would not fit."""
 
     def __init__(
         self,
@@ -881,7 +1028,7 @@ class _AgentContinuousEngine(ContinuousBatchingEngine):
         pipeline_depth: int = 1,
         decode_batch: int = 1,
     ):
-        _refuse_unported(dp, mesh_shape, fused_lora)
+        _refuse_unported(dp, mesh_shape)
         self.agent = agent
         self._encode_fn = encode
         self._decode_fn = decode
@@ -897,10 +1044,27 @@ class _AgentContinuousEngine(ContinuousBatchingEngine):
                         guidance_scale if guidance_scale is not None
                         else self._default_guidance(),
                         predict, queue_limit, embed_cache_size, None, pipeline_depth,
-                        decode_batch)
+                        decode_batch, fused_lora)
         self._generator = torch.Generator(device=self._device)
         self._build()
         self._reset_state()
+
+    def register_adapter(self, name: str, lora: dict, scale: float = 1.0,
+                         merged_cache: int = 1):
+        """Serve a named adapter, fused: needs ``fused_lora=True``."""
+        del merged_cache  # the fused mode keeps factors only
+        if not self.fused_lora:
+            raise ValueError("family engines serve adapters fused-only: build with "
+                             "fused_lora=True")
+        self._store_adapter(name, lora, scale)
+
+    def _backbone(self):
+        return self.agent.unet
+
+    def _row_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """The UNets double the batch under CFG (guidance above 1)."""
+        gs = self.guidance_scale
+        return torch.cat([ids, ids]) if gs is not None and gs > 1 else ids
 
     def _default_max_steps(self) -> int:
         raise NotImplementedError
@@ -977,8 +1141,9 @@ class ContinuousSD15Engine(_AgentContinuousEngine):
             the final latents (fp32).
         tpm_params: the TPM module (default ``agent.init_tpm_params`` of a
             generator seeded 0).
-        dp, mesh_shape, fused_lora: not ported (ROADMAP queue 1, items
-            9(d), 14 and 13(b)).
+        fused_lora: serve registered adapters fused (the family engines'
+            only mode); the row ids double under CFG.
+        dp, mesh_shape: not ported (ROADMAP queue 1, items 9(d) and 14).
     """
 
     def _default_max_steps(self) -> int:
@@ -1155,9 +1320,16 @@ class ContinuousFluxEngine(_AgentContinuousEngine):
             latents (fp32).
         tpm_params: the TPM module (default ``agent.init_tpm_params`` of a
             generator seeded 0).
-        dp, mesh_shape, fused_lora: not ported (ROADMAP queue 1, items
-            9(d), 14 and 13(b)).
+        fused_lora: serve registered adapters fused (the family engines'
+            only mode); FLUX has no CFG batch, so a slot is one row.
+        dp, mesh_shape: not ported (ROADMAP queue 1, items 9(d) and 14).
     """
+
+    def _backbone(self):
+        return self.agent.flux
+
+    def _row_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        return ids
 
     def _default_max_steps(self) -> int:
         return self.agent.sampler_cfg.max_inference_steps

@@ -151,8 +151,64 @@ def clip_text_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
 
 def t5_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for ``models.t5.T5Encoder`` from the JAX T5 encoder's
-    params (float only: the port's T5 has no quantised mode yet)."""
+    params: float, or prequantised for a ``quant_matmuls`` tower (int8 or
+    int4 kernels and their scales, no biases)."""
     return _flax_to_state_dict(flax_params, raw_leaves=_RAW_LEAVES + _T5_RAW_LEAVES)
+
+
+# ---------------------------------------------------------------------------
+# LoRA factors (models/lora.py <-> tpdm_tpu/models/lora.py)
+# ---------------------------------------------------------------------------
+
+
+def lora_key_from_jax(path: str) -> str:
+    """A JAX LoRA key, the Flax path of a dense kernel
+    (``params/transformer_blocks_0/attn/to_q/kernel``), -> the port's module
+    name (``transformer_blocks.0.attn.to_q``), by ``_flax_to_state_dict``'s
+    rule; the leading ``params/`` is optional."""
+    parts = path.split("/")
+    if parts and parts[0] == "params":
+        parts = parts[1:]
+    if len(parts) < 2 or parts[-1] != "kernel":
+        raise ValueError(f"LoRA key {path!r} is not the Flax path of a dense kernel "
+                         "('params/<module path>/kernel')")
+    return ".".join(_INDEXED.sub(r"\1.\2.", m).rstrip(".") for m in parts[:-1])
+
+
+def lora_key_to_jax(name: str) -> str:
+    """The inverse of ``lora_key_from_jax``: an index segment joins the
+    module name before it (``transformer_blocks.0`` -> ``transformer_blocks_0``).
+    A name that does not map back to itself raises."""
+    mods = []
+    for seg in name.split("."):
+        if seg.isdigit() and mods:
+            mods[-1] += f"_{seg}"
+        else:
+            mods.append(seg)
+    path = "params/" + "/".join(mods) + "/kernel"
+    if lora_key_from_jax(path) != name:
+        raise ValueError(f"module name {name!r} has no Flax path that maps back to it")
+    return path
+
+
+def lora_from_jax(lora: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA tree ({Flax kernel path: {"a", "b"}}) -> the port's LoRA
+    dict ({module name: {"a", "b"}}, fp32 CPU tensors in the same (d_in, r)
+    / (r, d_out) orientation)."""
+    out = {}
+    for path, fac in lora.items():
+        name = lora_key_from_jax(path)
+        if name in out:
+            raise ValueError(f"LoRA keys collide on {name!r}")
+        out[name] = {k: torch.from_numpy(np.array(fac[k], dtype=np.float32, order="C"))
+                     for k in ("a", "b")}
+    return out
+
+
+def lora_to_jax(lora: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's LoRA dict -> a JAX LoRA tree of fp32 numpy factors."""
+    return {lora_key_to_jax(name): {k: fac[k].detach().float().cpu().numpy() for k in ("a", "b")}
+            for name, fac in lora.items()}
 
 
 # ---------------------------------------------------------------------------
