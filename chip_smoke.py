@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with sm_90a (Hopper) cards:
 
-    python3 chip_smoke.py [--seed N] [--seq-parallel-only | --lora-only]
+    python3 chip_smoke.py [--seed N] [--seq-parallel-only | --lora-only | --lora-train-only]
 
 Phases, one line each, and any failure exits non-zero:
 
@@ -294,8 +294,26 @@ Phases, one line each, and any failure exits non-zero:
    engine's batch with each request at its slot's row (the base and the
    merged backbone), and the base request alone through BatchingEngine,
    its gap to the engine's row reported against the seam (the UNet row
-   check). K1, K2, K4 and K5 are checked exactly around every call;
+   check, which fails for SD1.5 beyond the seam: its UNet convolves each
+   row alone). K1, K2, K4 and K5 are checked exactly around every call;
    ``--lora-only`` runs phases 1, 2 and 22 alone (no kernels line).
+23. LoRA training through the SD3-medium backbone at full width, 1024 px,
+   bf16: K1's backward (attn_bwd_sm90.cu) against autograd through the
+   plain version in fp32 at DRaFT's (2, 24, 4480, 64) and DPO's (4, 24,
+   4480, 64), kv_len 4429, and a padded toy head dim (dK = dV = 0 past
+   kv_len), timed beside the plain version and SDPA's backward; K2's
+   chunked backward at (1, 1, 16384, 512) against the dense plain one;
+   one DRaFT update (28 steps, K = 1, CFG 7, ImageReward through
+   score_grad, the decode under autograd) and one DPO update (2 pairs of
+   1024 px latents, no CFG) through ``python -m tpdm_tpu_torch.train.main
+   --trainer draft|dpo`` in-process, each with a second, warm update
+   (metrics, seconds, peak memory, every b factor moved within 1.5 x lr x
+   updates, the base weights unchanged to the bit, K1 forward, K1
+   backward and K2 launches against the count the code implies); a DRaFT
+   loss's LoRA gradient with the kernels against the plain versions in
+   fp32 (cosine, beside a plain bf16 run's); one DistillTrainer update at
+   batch 2 (the EMA target moved); and phase 22's SD1.5 row check.
+   ``--lora-train-only`` runs phases 1, 2 and 23 alone (no kernels line).
 
 It then prints a JSON line of the kernels' results and, last, one JSON
 object naming the device. There is no CPU path: without a CUDA card it
@@ -4395,10 +4413,28 @@ def sd15_phase(seed, dev, smi, family_rloo, lora):
         else:
             text += ", its trace not measured (the profiler recorded no device event)"
         fwd.append(text)
+    # the cost of convolving each row alone (unet_sd15.RowConv2d): the same
+    # warm forwards with every convolution over the whole batch in one cuDNN
+    # call, as before, in the same run
+    whole = []
+    row_forward = unet_sd15.RowConv2d.forward
+    unet_sd15.RowConv2d.forward = torch.nn.Conv2d.forward
+    try:
+        for b in (1, 2):
+            x, c = lat.to(torch.bfloat16).repeat(b, 1, 1, 1), ctx.repeat(b, 1, 1)
+            ms, _ = counted(f"forward whole-batch convolutions, batch {b}",
+                            lambda: median_ms(lambda: m.unet(x, tt.repeat(b), c), reps=10,
+                                              warmup=2),
+                            lambda _: (k1_a_forward * 12, 0))
+            whole.append(f"CFG batch {2 * b} {ms:.2f} ms")
+    finally:
+        unet_sd15.RowConv2d.forward = row_forward
     phase("sd15 forward", f"{px} px, CFG batch 2: eps, t_feat, h1, h2 against fp32 on the card "
                           f"{', '.join(f'{e:.3e}' for e in errs)} of their range (bound "
-                          f"{MODULE_REL_TOL}); K1 {k1_a_forward} launches; warm forward "
-                          f"{'; '.join(fwd)}; {smi}")
+                          f"{MODULE_REL_TOL}); K1 {k1_a_forward} launches; warm forward, each "
+                          f"convolution a row at a time: {'; '.join(fwd)}; with every "
+                          f"convolution over the whole batch instead: {', '.join(whole)} "
+                          f"(CUDA events, median of 10); {smi}")
 
     # 2. requests through SD15Pipeline.generate at batch 1 and 2, each warmed
     # by a one-step request at its batch
@@ -5488,6 +5524,7 @@ class LoraPhase:
         self.totals = [0, 0, 0, 0]  # K1, K2, K4, K5
         self.seconds = 0.0
         self.parts = []
+        self.row_checks = {}  # label: the row check's (levels, mean, share) by place
 
     def counted(self, label, fn, want):
         """fn() between synchronizes, the four kernels' launch counts set to
@@ -5901,6 +5938,7 @@ class LoraPhase:
                 backbone, inputs), lambda _: (2 * k1_fwd, 0, 0, 0))
             row_check += (f"; the first op whose output row depends on its place in a UNet "
                           f"forward at batch 2: {op or 'none'}")
+        self.row_checks[label] = rows
         phase(f"lora {label}", f"{cls.__name__}(slots=2, seg_steps={LORA_CAP}, fused_lora=True), "
               f"a rank-{LORA_RANK} adapter over {len(lora)} dense layers: a base and an adapter "
               f"request, makespan {span:.3f} s, slot_utilization {st['slot_utilization']:.4f}, "
@@ -5911,6 +5949,11 @@ class LoraPhase:
               f"levels from the base; schedules equal; row check, the engine's base row against "
               f"the same request {row_check} (seam: {SEAM_LEVELS} level on under {SEAM_SHARE} "
               f"of the pixels); {self.smi}")
+        level_o, _, share_o = rows["in the other row"]
+        if not flux and (level_o > SEAM_LEVELS or share_o >= SEAM_SHARE):
+            fail(f"lora {label}: the same request in the other row of its batch is {level_o} "
+                 f"levels away on {share_o:.4f} of the pixels (seam {SEAM_LEVELS} on under "
+                 f"{SEAM_SHARE})")
         del eng, runner, solo_engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -5962,6 +6005,457 @@ def lora_only(seed, dev, smi):
     lora.summary()
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: LoRA training through the SD3 backbone
+# ---------------------------------------------------------------------------
+
+LORA_TRAIN_LR = 1e-4
+LORA_TRAIN_RANK = 4
+DRAFT_PROMPTS = 1  # DRaFT's batch: one prompt, CFG batch 2
+DPO_PAIRS = 2  # DPO's batch: two pairs, [w; l] batch 4 without CFG
+DISTILL_BATCH = 2
+GRAD_COS_BOUND = 0.99
+GRAD_CHECK_STEPS = 2  # the gradient check's ladder: one step without grad, one with
+
+
+def kernel_counts():
+    """The launch counts of K1's forward, K1's backward and K2."""
+    from tpdm_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_streaming,
+    )
+
+    return (flash_attention, flash_attention_backward, flash_attention_streaming)
+
+
+def plain_attention_grads(q, k, v, do, kv_len, rows=1120):
+    """(dq, dk, dv) by autograd through attention_reference in fp32, over
+    blocks of ``rows`` query rows (dk and dv summed over them)."""
+    from tpdm_tpu_torch.ops.attention import attention_reference
+
+    dq, dk, dv = [], 0.0, 0.0
+    for i in range(0, q.shape[2], rows):
+        leaves = [q[:, :, i:i + rows].float().requires_grad_(), k.float().requires_grad_(),
+                  v.float().requires_grad_()]
+        g = torch.autograd.grad(attention_reference(*leaves, kv_len), leaves,
+                                do[:, :, i:i + rows].float())
+        dq.append(g[0])
+        dk, dv = dk + g[1], dv + g[2]
+    return torch.cat(dq, dim=2), dk, dv
+
+
+def k1_backward_check(g, dev, label, b, h, n, d, kv_len, timed=True):
+    """K1's backward at q = k = v (b, h, n, d) bf16 and a random dO, drawn
+    from ``g``: flash_attention under autograd against the blocked plain
+    gradients in fp32 (each of dQ, dK, dV within KERNEL_REL_TOL of its max
+    |plain|; dK = dV = 0 at kv rows >= kv_len). With ``timed`` (d 64): the
+    backward alone (flash_attention_backward on the forward's o and row
+    statistics), the plain gradients, and SDPA's backward (its forward and
+    backward on the valid kv rows, less its forward), CUDA events, median
+    of 10 (the plain one of 3). Returns (kernels-line entry or None,
+    max abs error)."""
+    from tpdm_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_with_stats,
+    )
+    from torch.nn.functional import scaled_dot_product_attention
+
+    q, k, v, do = (torch.randn(b, h, n, d, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention_backward.launches
+    flash_attention(*leaves, kv_len).backward(do)
+    torch.cuda.synchronize()
+    if flash_attention_backward.launches != before + 1:
+        fail(f"K1 backward {label}: {flash_attention_backward.launches - before} launches for "
+             "one backward")
+    plain = plain_attention_grads(q, k, v, do, kv_len)
+    errs = []
+    for name, leaf, ref in zip(("dQ", "dK", "dV"), leaves, plain):
+        got = leaf.grad.float()
+        err, top = (got - ref).abs().max().item(), ref.abs().max().item()
+        if not (bool(torch.isfinite(got).all()) and err <= KERNEL_REL_TOL * top):
+            fail(f"K1 backward {label}: {name} max abs err {err}, max |plain| {top} (bound "
+                 f"{KERNEL_REL_TOL} of it)")
+        errs.append((name, err, err / top))
+    if kv_len is not None and (leaves[1].grad[:, :, kv_len:].any()
+                               or leaves[2].grad[:, :, kv_len:].any()):
+        fail(f"K1 backward {label}: dK or dV is not zero at kv rows >= kv_len {kv_len}")
+    text = ", ".join(f"{name} {err:.3e} ({share:.3e} of max |plain|)" for name, err, share in errs)
+    max_err = max(e for _, e, _ in errs)
+    n_valid = n if kv_len is None else kv_len
+    if not timed:
+        phase("K1 backward", f"{label} ({b}, {h}, {n}, {d}), kv_len {kv_len}, bf16 (padded to "
+                             f"64 columns): {text} (bound {KERNEL_REL_TOL} of each); dK = dV = 0 "
+                             f"past kv_len; {b * h} x one backward launch")
+        return None, max_err
+    o, m, l = flash_attention_with_stats(q, k, v, kv_len)
+    lse = m + torch.log2(l)
+    ms = median_ms(lambda: flash_attention_backward(q, k, v, o, do, lse, kv_len))
+    plain_ms = median_ms(lambda: plain_attention_grads(q, k, v, do, kv_len), reps=3, warmup=1)
+    lib = [t[:, :, :n_valid].contiguous().requires_grad_() if i else t.clone().requires_grad_()
+           for i, t in enumerate((q, k, v))]
+    with torch.no_grad():
+        lib_fwd_ms = median_ms(lambda: scaled_dot_product_attention(*lib))
+    lib_ms = median_ms(lambda: torch.autograd.grad(scaled_dot_product_attention(*lib), lib,
+                                                   do)) - lib_fwd_ms
+    flop = 2.5 * 4 * b * h * n * n_valid * d
+    nbytes = 2 * b * h * d * (4 * n + 4 * n_valid) + 8 * b * h * n  # 5 reads, 3 writes, lse, D
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    bound, by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    phase("K1 backward", f"{label} ({b}, {h}, {n}, {d}), kv_len {kv_len}, bf16: {text} (bound "
+                         f"{KERNEL_REL_TOL} of each); dK = dV = 0 past kv_len; backward "
+                         f"{ms:.3f} ms (two kernels and D = rowsum(dO o O)), "
+                         f"{flop / ms / 1e9:.1f} TFLOP/s at 2.5 x the forward's operations, "
+                         f"{100 * bound / ms:.1f} % of bound {bound:.3f} ms ({by}); plain "
+                         f"{plain_ms:.3f} ms (autograd through the fp32 plain version, 1120-row "
+                         f"query blocks); scaled_dot_product_attention's backward {lib_ms:.3f} "
+                         f"ms (forward and backward {lib_ms + lib_fwd_ms:.3f} less forward "
+                         f"{lib_fwd_ms:.3f})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms), max_err
+
+
+def k2_backward_check(g, dev):
+    """K2's chunked backward at the 1024 px decode's (1, 1, 16384, 512) on
+    K2's output, against autograd through the dense plain version in fp32:
+    each of dQ, dK, dV within KERNEL_REL_TOL of its max |plain|."""
+    from tpdm_tpu_torch.ops.attention import (
+        attention_backward_chunked,
+        attention_reference,
+        flash_attention_streaming,
+        streaming_block_kv,
+    )
+
+    q, k, v, do = (torch.randn(1, 1, 16384, 512, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    with torch.no_grad():
+        o = flash_attention_streaming(q, k, v)
+    chunk = streaming_block_kv(512, 2)
+    got = attention_backward_chunked(q, k, v, o, do, None, chunk)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    plain = torch.autograd.grad(attention_reference(*leaves), leaves, do.float())
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, ref in zip(("dQ", "dK", "dV"), got, plain):
+        err, top = (a.float() - ref).abs().max().item(), ref.abs().max().item()
+        if not (bool(torch.isfinite(a.float()).all()) and err <= KERNEL_REL_TOL * top):
+            fail(f"K2 backward: {name} max abs err {err}, max |plain| {top}")
+        errs.append(f"{name} {err:.3e} ({err / top:.3e} of max |plain|)")
+    ms = median_ms(lambda: attention_backward_chunked(q, k, v, o, do, None, chunk), reps=3)
+    phase("K2 backward", f"(1, 1, 16384, 512) bf16, attention_backward_chunked over {chunk}-row "
+                         f"kv chunks (plain tensor code) against autograd through the dense "
+                         f"fp32 plain version: {', '.join(errs)} (bound {KERNEL_REL_TOL} of "
+                         f"each); {ms:.3f} ms (CUDA events, median of 3)")
+
+
+def lora_agent(config, device="cuda", seed=0, guidance=True, remat=False):
+    """The LoRA trainers' agent YAML builder: a TPDMAgent over phase 13's
+    shared SD3-medium MMDiT (bf16), at the config's guidance scale or
+    without CFG, its blocks rematerialised or not."""
+    from tpdm_tpu_torch.train import TPDMAgent
+
+    mmdit = _cli_models(seed, torch.device(device))[0]
+    mmdit.remat = remat
+    if not guidance:
+        config = dataclasses.replace(config, guidance_scale=None)
+    return TPDMAgent(mmdit, config)
+
+
+def lora_reward(device="cuda", seed=0):
+    """The DRaFT reward YAML's builder: ImageReward through score_grad on
+    the decode under autograd (build_image_reward_grad_fn) over phase 13's
+    VAE decoder, ImageReward and tokenizer."""
+    from tpdm_tpu_torch.train.builders import build_image_reward_grad_fn
+
+    _, vae, reward_model, tokenizer = _cli_models(seed, torch.device(device))
+    return build_image_reward_grad_fn(vae, reward_model, tokenizer, device=device)
+
+
+class LoraRecorder:
+    """A trainer callback closing each update: its metrics, seconds since
+    the last (synchronized), peak memory, and the launches of K1's forward,
+    K1's backward and K2 (the counters zeroed at ``start`` and after every
+    update)."""
+
+    def __init__(self, dev):
+        self.dev, self.rows, self.lora = dev, [], None
+
+    def start(self):
+        torch.cuda.synchronize()
+        for fn in kernel_counts():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.t = time.perf_counter()
+
+    def on_step_end(self, trainer, update, metrics, lora):
+        torch.cuda.synchronize()
+        self.rows.append(dict(update=update, metrics=metrics,
+                              seconds=time.perf_counter() - self.t,
+                              launches=tuple(fn.launches for fn in kernel_counts()),
+                              peak_gib=torch.cuda.max_memory_allocated(self.dev) / 2**30))
+        self.lora = lora
+        self.start()
+
+
+def base_checksum(module):
+    """Per parameter, the sum and the sum of squares of its bits as
+    integers: a checksum that any change of a weight moves."""
+    sums = []
+    for p in module.parameters():
+        bits = p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32).long()
+        sums.append((int(bits.sum()), int((bits * bits).sum())))
+    return sums
+
+
+def check_lora_moved(label, lora, lr, updates, unreached):
+    """Every b factor moved from zero, by at most ADAM_STEP_FACTOR x lr x
+    updates, except those of the layers in ``unreached``, which no loss
+    reaches and which must stay zero; returns the smallest and the largest
+    move."""
+    moves = {k: f["b"].detach().abs().max().item() for k, f in lora.items()}
+    still = sorted(k for k, m in moves.items() if m == 0)
+    reached = [m for k, m in moves.items() if k not in unreached]
+    if still != sorted(unreached) or max(reached) > ADAM_STEP_FACTOR * lr * updates:
+        fail(f"{label}: b factors moved by {min(reached):.3e}..{max(reached):.3e}, expected at "
+             f"most {ADAM_STEP_FACTOR} x lr x {updates} updates; unmoved {still}, expected "
+             f"{sorted(unreached)}")
+    return min(reached), max(reached)
+
+
+def print_lora_update(label, row, keys, want):
+    """One LoraRecorder row, checked: finite metrics, nothing skipped, the
+    launches ``want`` (K1 forward, K1 backward, K2)."""
+    m = row["metrics"]
+    phase(label, ", ".join(f"{k} {m[k]:.6g}" for k in keys)
+          + f"; {row['seconds']:.3f} s; peak memory {row['peak_gib']:.2f} GiB; K1 forward "
+          f"{row['launches'][0]}, K1 backward {row['launches'][1]}, K2 {row['launches'][2]} "
+          f"launches (expected {want})")
+    if not all(math.isfinite(v) for v in m.values()):
+        fail(f"{label}: non-finite metrics {m}")
+    skipped = [v for k, v in m.items() if k.endswith("num_skipped")]
+    if skipped != [0.0]:
+        fail(f"{label}: skipped {skipped}")
+    if row["launches"] != want:
+        fail(f"{label}: launches {row['launches']}, expected {want}")
+
+
+def lora_train_phase(seed, dev, smi, lora_phase=None):
+    """Phase 23 (item 23 of this file's docstring); with ``lora_phase``
+    (phase 22's LoraPhase, after its SD1.5 part) its SD1.5 row check is
+    reported. Returns (K1 forward, K1 backward, K2 launches of the training
+    runs, the kernels line's entry for K1's backward)."""
+    from tpdm_tpu_torch.models import mmdit as mmdit_module, vae as vae_module
+    from tpdm_tpu_torch.models.lora import init_lora
+    from tpdm_tpu_torch.ops.attention import attention_reference
+    from tpdm_tpu_torch.train import RLOOConfig, TPDMAgent
+    from tpdm_tpu_torch.train.builders import build_image_reward_grad_fn
+    from tpdm_tpu_torch.train.distill import DistillConfig, DistillTrainer
+    from tpdm_tpu_torch.train.draft import (
+        DraftConfig,
+        DraftTrainer,
+        trainable_lora,
+        value_and_grad,
+    )
+    from tpdm_tpu_torch.train.main import main as train_main
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    t_phase = time.perf_counter()
+    totals = [0, 0, 0]  # K1 forward, K1 backward, K2
+
+    # 1-2. the backwards against their plain versions
+    g = torch.Generator(device=dev).manual_seed(seed + 230)
+    entries = {}
+    for label, b in (("DRaFT's CFG batch", 2), ("DPO's [w; l]", 4)):
+        entries[b], _ = k1_backward_check(g, dev, label, b, 24, 4480, 64, 4429)
+        gc.collect()
+        torch.cuda.empty_cache()
+    _, padded_err = k1_backward_check(g, dev, "the toy MMDiT's head dim", 2, 4, 128, 16, 69,
+                                      timed=False)
+    k2_backward_check(g, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. DRaFT and DPO through the command line, two updates each
+    mmdit, vae, reward_model, tokenizer = _cli_models(seed, dev)
+    layers = mmdit.config.num_layers
+    checksum = base_checksum(mmdit)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "reward.yaml").write_text(f"_target_: chip_smoke.lora_reward\nseed: {seed}\n")
+        (tmp / "collator.yaml").write_text(f"_target_: chip_smoke.cli_collator\nseed: {seed}\n")
+        for trainer_name, guidance, dataset, batch in (
+                ("draft", True, "jsonl_prompts.yaml", DRAFT_PROMPTS),
+                ("dpo", False, "sd3_preference_pairs.yaml", DPO_PAIRS)):
+            agent_yaml = tmp / f"{trainer_name}_agent.yaml"
+            agent_yaml.write_text(f"_target_: chip_smoke.lora_agent\n_partial_: true\nseed: "
+                                  f"{seed}\nguidance: {str(guidance).lower()}\nremat: false\n")
+            argv = ["--trainer", trainer_name, "--model_config", str(agent_yaml),
+                    "--train_dataset", str(REPO / "configs" / "torch" / "datasets" / dataset),
+                    "--data_collator", str(tmp / "collator.yaml"),
+                    "--per_device_train_batch_size", str(batch), "--draft_updates", "2",
+                    "--learning_rate", str(LORA_TRAIN_LR), "--lora_rank", str(LORA_TRAIN_RANK),
+                    "--max_inference_steps", str(T_MAX), "--k_backprop", "1",
+                    "--guidance_scale", "7.0", "--dpo_beta", "500",
+                    "--seed", str(seed), "--output_dir", str(tmp / trainer_name)]
+            if trainer_name == "draft":
+                argv += ["--reward_model_config", str(tmp / "reward.yaml")]
+            recorder = LoraRecorder(dev)
+            recorder.start()
+            with contextlib.chdir(REPO):  # the prompt dataset names example/prompts.jsonl
+                trainer = train_main(argv, callbacks=[recorder])
+            runs[trainer_name] = (trainer, recorder)
+            gc.collect()
+            torch.cuda.empty_cache()
+    draft_rows, dpo_rows = runs["draft"][1].rows, runs["dpo"][1].rows
+    want_draft = (layers * T_MAX, layers, 1)  # 27 steps without grad, one with; one decode
+    want_dpo = (2 * layers, layers, 0)  # the reference and the policy forward
+    for i, row in enumerate(draft_rows):
+        print_lora_update(f"draft update {i + 1}", row, ("draft/reward", "draft/loss",
+                                                        "draft/grad_norm", "draft/num_skipped"),
+                          want_draft)
+    for i, row in enumerate(dpo_rows):
+        print_lora_update(f"dpo update {i + 1}", row, (
+            "dpo/loss", "dpo/margin", "dpo/implicit_acc", "dpo/err_w", "dpo/err_l",
+            "dpo/grad_norm", "dpo/num_skipped"), want_dpo)
+    # the last block's text queries give outputs that it drops (no
+    # to_add_out): its add_q_proj takes no gradient
+    unreached = {f"transformer_blocks.{layers - 1}.attn.add_q_proj"}
+    moved = {name: check_lora_moved(name, rec.lora, LORA_TRAIN_LR, 2, unreached)
+             for name, (_, rec) in runs.items()}
+    for row in draft_rows + dpo_rows:
+        totals = [a + b for a, b in zip(totals, row["launches"])]
+    if base_checksum(mmdit) != checksum:
+        fail("lora training changed a base weight of the MMDiT")
+    phase("lora cli", f"python -m tpdm_tpu_torch.train.main --trainer draft (batch "
+                      f"{DRAFT_PROMPTS}, CFG 7.0, {T_MAX} steps, K = 1, ImageReward through "
+                      f"score_grad on the 1024 px decode under autograd) and --trainer dpo "
+                      f"({DPO_PAIRS} pairs of SyntheticPreferencePairs(channels=16, size=128), no "
+                      f"CFG, beta 500), rank {LORA_TRAIN_RANK}, lr {LORA_TRAIN_LR}, remat off: "
+                      f"warm update {draft_rows[1]['seconds']:.3f} s / "
+                      f"{dpo_rows[1]['seconds']:.3f} s, peak memory "
+                      f"{max(r['peak_gib'] for r in draft_rows):.2f} / "
+                      f"{max(r['peak_gib'] for r in dpo_rows):.2f} GiB; every b factor but "
+                      f"{sorted(unreached)[0]}'s (no gradient reaches it: zero) moved "
+                      f"{moved['draft'][0]:.3e}..{moved['draft'][1]:.3e} / "
+                      f"{moved['dpo'][0]:.3e}..{moved['dpo'][1]:.3e} (bound "
+                      f"{ADAM_STEP_FACTOR} x lr x 2); the MMDiT's {len(checksum)} base tensors "
+                      f"unchanged to the bit; {smi}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the gradient check: one DRaFT loss's LoRA gradient with the kernels
+    # (bf16) against the plain versions in fp32 and in bf16, remat on for the
+    # plain runs (their fp32 scores would take 3.85 GB a layer)
+    import copy
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 231)
+    lora0 = init_lora(mmdit, LORA_TRAIN_RANK, gen)
+    for f in lora0.values():
+        f["b"] = 1e-3 * torch.randn(f["b"].shape, generator=gen, device=dev)
+    latents = torch.randn((1, 16, 128, 128), generator=gen, device=dev)
+    with open(REPO / "example" / "prompts.jsonl") as fh:
+        prompt = json.loads(fh.readline())["prompt"]
+    batch = cli_collator(seed=seed)([{"prompt": prompt}])
+    cfg = DraftConfig(num_steps=GRAD_CHECK_STEPS, k_backprop=1, lora_rank=LORA_TRAIN_RANK)
+    config = RLOOConfig(max_inference_steps=T_MAX, guidance_scale=7.0)
+
+    def draft_grad(model, vae_m, plain):
+        model.remat = plain
+        agent = TPDMAgent(model, config)
+        reward = build_image_reward_grad_fn(vae_m, reward_model, tokenizer, device=dev)
+        trainer = DraftTrainer(cfg, agent, reward, [])
+        lora = trainable_lora(lora0)
+        patched = [(mmdit_module, "joint_attention"), (vae_module, "joint_attention")]
+        saved = [getattr(mod, name) for mod, name in patched]
+        if plain:
+            for mod, name in patched:
+                setattr(mod, name, attention_reference)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = time.perf_counter()
+            loss, _, grads, _, finite = value_and_grad(
+                lambda: trainer._loss(lora, latents.to(agent.dtype), batch), lora)
+            torch.cuda.synchronize()
+        finally:
+            for (mod, name), fn in zip(patched, saved):
+                setattr(mod, name, fn)
+            model.remat = False
+        if not finite:
+            fail(f"draft gradient check: a non-finite loss or gradient (plain versions: {plain})")
+        flat = torch.cat([gr.float().flatten() for gr in grads])
+        return flat, loss.item(), time.perf_counter() - start, \
+            torch.cuda.max_memory_allocated(dev) / 2**30
+
+    kern, loss_k, s_k, peak_k = draft_grad(mmdit, vae, False)
+    plain16, loss_16, s_16, _ = draft_grad(mmdit, vae, True)
+    f32, vae32 = copy.deepcopy(mmdit).float(), copy.deepcopy(vae).float()
+    plain32, loss_32, s_32, peak_32 = draft_grad(f32, vae32, True)
+    del f32, vae32
+    gc.collect()
+    torch.cuda.empty_cache()
+    cos = lambda a, b: torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    gap = lambda a, b: abs(a.norm().item() - b.norm().item()) / b.norm().item()
+    cos_k, cos_16 = cos(kern, plain32), cos(plain16, plain32)
+    bound = min(GRAD_COS_BOUND, cos_16)
+    phase("lora gradient", f"one DRaFT loss ({GRAD_CHECK_STEPS} steps, K = 1, CFG 7.0, the "
+                           f"1024 px decode and ImageReward) over rank-{LORA_TRAIN_RANK} factors "
+                           f"(b ~ N(0, 1e-6)), {kern.numel()} gradient entries: the kernels (bf16) "
+                           f"against the plain versions in fp32: cosine {cos_k:.6f}, norm gap "
+                           f"{gap(kern, plain32):.3e}; a plain bf16 run against the same: cosine "
+                           f"{cos_16:.6f}, norm gap {gap(plain16, plain32):.3e}; bound {bound:.6f}"
+                           f" (the smaller of {GRAD_COS_BOUND} and the plain bf16 run's); losses "
+                           f"{loss_k:.6f} / {loss_16:.6f} / {loss_32:.6f}; {s_k:.2f} / {s_16:.2f}"
+                           f" / {s_32:.2f} s, peak {peak_k:.2f} / {peak_32:.2f} GiB (kernels / "
+                           f"fp32 with remat)")
+    if not cos_k >= bound:
+        fail(f"draft gradient check: cosine {cos_k} with the kernels, under the bound {bound}")
+
+    # 5. one DistillTrainer update at batch 2 (CFG 7.0, the 28-step ladder)
+    recorder = LoraRecorder(dev)
+    agent = TPDMAgent(mmdit, config)
+    dcfg = DistillConfig(total_updates=1, batch_size=DISTILL_BATCH, learning_rate=LORA_TRAIN_LR,
+                         lora_rank=LORA_TRAIN_RANK, num_ladder_steps=T_MAX, seed=seed)
+    with open(REPO / "example" / "prompts.jsonl") as fh:
+        rows = [{"prompt": json.loads(line)["prompt"]} for line in fh if line.strip()]
+    distill = DistillTrainer(dcfg, agent, rows, collate_fn=cli_collator(seed=seed),
+                             callbacks=[recorder])
+    recorder.start()
+    lora, ema, _ = distill.train()
+    print_lora_update("distill update 1", recorder.rows[0], (
+        "distill/loss", "distill/mse", "distill/grad_norm", "distill/num_skipped"),
+        (3 * layers, layers, 0))
+    ema_move = max(f["b"].abs().max().item() for f in ema.values())
+    if not ema_move > 0:
+        fail("distill: the EMA target did not move")
+    totals = [a + b for a, b in zip(totals, recorder.rows[0]["launches"])]
+    if base_checksum(mmdit) != checksum:
+        fail("distillation changed a base weight of the MMDiT")
+    phase("distill", f"DistillTrainer, batch {DISTILL_BATCH}, ladder {T_MAX}, skip 1, EMA "
+                     f"{dcfg.ema_decay}: the EMA target's b moved by up to {ema_move:.3e}; base "
+                     f"weights unchanged")
+    del lora, ema, distill
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 6. phase 22's SD1.5 row check (it fails there beyond the seam)
+    rows = (lora_phase.row_checks.get("sd15") if lora_phase is not None else None) or {}
+    phase("lora row check", "SD1.5, each convolution a row at a time: " + (
+        "; ".join(f"the same request {where}: {lv} levels, mean {mn:.4f}, on {sh:.4f} of the "
+                  f"pixels" for where, (lv, mn, sh) in rows.items())
+        or "not run (phase 22 did not run)") + f" (seam {SEAM_LEVELS} level on under {SEAM_SHARE})")
+    phase("lora train phase", f"{time.perf_counter() - t_phase:.1f} s; K1 forward {totals[0]}, "
+                              f"K1 backward {totals[1]}, K2 {totals[2]} launches; K1's backward "
+                              f"on the padded head dim max abs err {padded_err:.3e}; {smi}")
+    entry = dict(entries[2])
+    entry["shapes"] = {"(2, 24, 4480, 64)": entries[2], "(4, 24, 4480, 64)": entries[4]}
+    return totals, entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5969,6 +6463,8 @@ def main() -> int:
                     help="run only the device, build and sequence-parallel phases")
     ap.add_argument("--lora-only", action="store_true",
                     help="run only the device, build and LoRA / quant_text phases")
+    ap.add_argument("--lora-train-only", action="store_true",
+                    help="run only the device, build and LoRA training phases")
     args = ap.parse_args()
 
     # 1. the device
@@ -6005,6 +6501,8 @@ def main() -> int:
         seq_parallel_phase(args.seed, world)
     elif args.lora_only:
         lora_only(args.seed, dev, smi)
+    elif args.lora_train_only:
+        lora_train_phase(args.seed, dev, smi)
     else:
         g = torch.Generator(device=dev).manual_seed(args.seed)
         kernels = kernel_phase(g, dev, args.seed)  # 3
@@ -6046,6 +6544,9 @@ def main() -> int:
         del family_rloo
         lora.summary()
         k1_lora, k2_lora, k4_lora, k5_lora = lora.totals
+        gc.collect()
+        torch.cuda.empty_cache()
+        (k1_lt, k1_bwd, k2_lt), k1_bwd_entry = lora_train_phase(args.seed, dev, smi, lora)  # 23
 
         k2_src = "tpdm_tpu_torch/csrc/attn_d512_sm90.cu"
         k1_src = "tpdm_tpu_torch/csrc/attn_sm90.cu"
@@ -6056,12 +6557,17 @@ def main() -> int:
             {"name": "flash_attention (K1)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:58",
              "launches": (k1_total + k1_train + k1_fixed + k1_cli + k1_serve + k1_cont + k1_sd35
-                          + k1_i2i + k1_sd15 + k1_sdxl + k1_flux + k1_frl + k1_lora),
+                          + k1_i2i + k1_sd15 + k1_sdxl + k1_flux + k1_frl + k1_lora + k1_lt),
              **kernels["K1"]},
+            {"name": "flash_attention_backward (K1's backward)", "route": "cuda",
+             "source": "tpdm_tpu_torch/csrc/attn_bwd_sm90.cu",
+             "replaces": "tpdm_tpu/ops/attention.py:449 (_bwd, JAX's dense recompute VJP of "
+                         "K1: no Pallas kernel)",
+             "launches": k1_bwd, **k1_bwd_entry},
             {"name": "flash_attention_streaming (K2)", "route": "cuda", "source": k2_src,
              "replaces": "tpdm_tpu/ops/attention.py:193",
              "launches": (k2_total + k2_train + k2_fixed + k2_cli + k2_serve + k2_cont + k2_sd35
-                          + k2_i2i + k2_sd15 + k2_sdxl + k2_flux + k2_frl + k2_lora),
+                          + k2_i2i + k2_sd15 + k2_sdxl + k2_flux + k2_frl + k2_lora + k2_lt),
              **kernels["K2"]},
             {"name": "flash_attention_with_stats (K3)", "route": "cuda", "source": k1_src,
              "replaces": "tpdm_tpu/ops/attention.py:123", "launches": k3_total,

@@ -200,3 +200,59 @@ def noisy_lora(module, seed: int, rank: int = 2) -> dict:
     from tpdm_tpu_torch.utils.convert import lora_from_jax
 
     return lora_from_jax(noisy_jax_lora(kernel_tree(module), seed, rank))
+
+
+N_TXT = 5
+
+
+def lora_world(seed: int = 0, guidance_scale=7.0):
+    """The JAX LoRA trainers' toy world (``tests/test_rloo.py:_toy_world``:
+    the toy MMDiT, its RLOOConfig with guidance 7.0, a 4-channel TPM, four
+    rows of 5 numpy prompt embeds and zero negatives from
+    ``np.random.default_rng(seed)``) with the MMDiT drawn by
+    ``drawn_models`` (no init compile), and the port's copy: (JAX
+    TPDMAgent, port TPDMAgent on the CPU, the rows)."""
+    from tpdm_tpu.models import TimePredictor as JTimePredictor
+    from tpdm_tpu.train import RLOOConfig as JRLOOConfig
+    from tpdm_tpu.train import TPDMAgent as JTPDMAgent
+    from tpdm_tpu_torch.train import RLOOConfig, TPDMAgent
+
+    jm, jvars, tm = drawn_models(seed, vae=False, tpm=False)["mmdit"]
+    c = jm.config
+    kw = dict(per_device_train_batch_size=4, rloo_k=2, max_inference_steps=3,
+              total_episodes=12, kl_coef=0.01, learning_rate=1e-3,
+              guidance_scale=guidance_scale)
+    jagent = JTPDMAgent(jm, jvars, JRLOOConfig(**kw), tpm=JTimePredictor(
+        conv_out_channels=4, in_channels=2 * c.inner_dim, temb_dim=c.inner_dim))
+    tpm = lambda: TimePredictor(conv_out_channels=4, in_channels=2 * c.inner_dim,
+                                temb_dim=c.inner_dim)
+    agent = TPDMAgent(tm, RLOOConfig(**kw), tpm=tpm)
+    rng = np.random.default_rng(seed)
+    rows = [{"prompt": f"prompt {i}",
+             "prompt_embeds": rng.normal(size=(N_TXT, c.joint_attention_dim)).astype(np.float32),
+             "pooled_prompt_embeds": rng.normal(size=(c.pooled_projection_dim,)).astype(np.float32),
+             "negative_prompt_embeds": np.zeros((N_TXT, c.joint_attention_dim), np.float32),
+             "negative_pooled_prompt_embeds": np.zeros((c.pooled_projection_dim,), np.float32)}
+            for i in range(4)]
+    return jagent, agent, rows
+
+
+def jax_arrays(batch: dict) -> dict:
+    """The array fields of a JAX trainer's collated batch."""
+    return {k: v for k, v in batch.items() if isinstance(v, (jax.Array, np.ndarray))}
+
+
+def close_lora(ours: dict, ref: dict, **kw):
+    """The port's LoRA dict against a JAX LoRA tree, factor by factor."""
+    from tpdm_tpu_torch.utils.convert import lora_key_to_jax
+
+    assert {lora_key_to_jax(k) for k in ours} == set(ref)
+    for k, fac in ours.items():
+        for w in ("a", "b"):
+            close(fac[w], np.asarray(ref[lora_key_to_jax(k)][w]), **kw)
+
+
+def state_checksum(module) -> list:
+    """Every parameter and buffer of ``module``, copied: base weights that
+    must stay the same to the bit."""
+    return [t.detach().clone() for t in module.state_dict().values()]

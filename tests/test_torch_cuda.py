@@ -27,6 +27,13 @@ for the strongly negative case) the two agree to a few 1e-4. Where q is
 long (the ring of one at 2048 px), the plain version runs over blocks of
 query rows, which are independent, so its fp32 scores fit the card.
 
+K1's backward (``flash_attention`` under autograd, its forward K3's
+statistics instantiation) against autograd through the plain version in
+fp32: dQ, dK and dV each within 2e-2 of its max |plain| (the kernel rounds
+P and dS to bf16 for its products and writes bf16), dK = dV = 0 past
+kv_len; a gradient the plain version gives as exactly zero (kv_len 1) is
+held at 1e-4, the fp32 rounding of dP - D.
+
 The GEMMs: K4's int32 accumulator is exact, so it must equal its plain
 version bit for bit; its dequant epilogue rounds each fp32 operation as the
 plain version does and then once to bf16, so it is held to one bf16 step
@@ -74,6 +81,7 @@ from tpdm_tpu_torch.ops.attention import (
     attention_reference,
     attention_reference_stats,
     flash_attention,
+    flash_attention_backward,
     flash_attention_streaming,
     flash_attention_with_stats,
     joint_attention,
@@ -510,11 +518,65 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
                                    v[..., :32].contiguous())
 
 
+def _k1_grads(q, k, v, do, kv_len):
+    """flash_attention's (dq, dk, dv) under autograd on the card."""
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, kv_len).backward(do)
+    return [t.grad for t in leaves]
+
+
+def _plain_grads(q, k, v, do, kv_len):
+    """Autograd through attention_reference in fp32."""
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    attention_reference(*leaves, kv_len).backward(do.float())
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("shape,kv_len", [
+    ((1, 2, 128, 128, 64), None), ((1, 3, 193, 300, 64), 257), ((2, 2, 64, 77, 64), 1),
+    ((1, 4, 129, 129, 16), 100), ((2, 2, 24, 24, 8), None),  # padded head dims
+    ((2, 24, 4480, 4480, 64), 4429),  # the SD3 1024 px CFG batch, DRaFT's
+], ids=lambda s: "x".join(map(str, s)) if isinstance(s, tuple) else str(s))
+def test_k1_backward_matches_plain(device, shape, kv_len):
+    """K1's backward against autograd through the plain version in fp32:
+    dQ, dK and dV within 2e-2 of each one's max |plain| (the kernel rounds
+    P and dS to bf16 for its products and writes bf16: relative steps of
+    2^-8, summed over thousands of columns in another order), and zero at
+    kv rows >= kv_len."""
+    b, h, n_q, n_kv, d = shape
+    q, k, v = _qkv(device, b, h, n_q, n_kv, d, seed=60)
+    g = torch.Generator(device=device).manual_seed(61)
+    do = torch.randn(b, h, n_q, d, generator=g, device=device).to(torch.bfloat16)
+    before = flash_attention_backward.launches
+    grads = _k1_grads(q, k, v, do, kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    if n_q * n_kv > 2**24:  # the plain version in blocks of query rows
+        blocks = [_plain_grads(q[:, :, i:i + 1120], k, v, do[:, :, i:i + 1120], kv_len)
+                  for i in range(0, n_q, 1120)]
+        plain = [torch.cat([bl[0] for bl in blocks], dim=2),
+                 sum(bl[1] for bl in blocks), sum(bl[2] for bl in blocks)]
+    else:
+        plain = _plain_grads(q, k, v, do, kv_len)
+    for name, got, want in zip("qkv", grads, plain):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
+        err, top = (got.float() - want).abs().max().item(), want.abs().max().item()
+        # a gradient that is exactly zero in the plain version (kv_len 1: one
+        # column, p = 1, ds = p (dp - D) = 0) is the kernel's fp32 rounding
+        # of dp - D: held at 1e-4
+        assert err <= (2e-2 * top if top > 0 else 1e-4), (name, err, top)
+    if kv_len is not None:
+        assert not grads[1][:, :, kv_len:].any() and not grads[2][:, :, kv_len:].any()
+
+
 def test_kernels_refuse_operands_that_require_grad(device):
-    """No kernel has a backward: with grad mode on, an operand that requires
-    grad makes every wrapper raise (its output would silently carry no
-    gradient); under torch.no_grad() the same call launches."""
+    """Every kernel without a backward (K1 at d 80, K3, K4, K5, K6-K9):
+    with grad mode on, an operand that requires grad makes the wrapper
+    raise, naming the queue item that brings its backward (its output
+    would silently carry no gradient); under torch.no_grad() the same call
+    launches. K1 at d 64 and below and K2 take the gradient instead."""
     q, k, v = _qkv(device, 1, 2, 64, 128, 64, seed=40)
+    q8, k8, v8 = _qkv(device, 1, 2, 64, 128, 80, seed=43)
     q5, k5, v5 = _qkv(device, 1, 1, 64, 128, 512, seed=41)
     g = torch.Generator(device=device).manual_seed(42)
     a, b_t = _int8(g, device, 64, 64), _int8(g, device, 32, 64)
@@ -526,20 +588,20 @@ def test_kernels_refuse_operands_that_require_grad(device):
     rb = torch.linalg.vector_norm(q.float(), dim=-1) * torch.linalg.vector_norm(
         k.float(), dim=-1).amax(-1)[..., None]
     calls = [
-        (flash_attention, lambda x: flash_attention(x, k, v), q),
-        (flash_attention_streaming, lambda x: flash_attention_streaming(q5, k5, x), v5),
-        (flash_attention_with_stats, lambda x: flash_attention_with_stats(q, x, v), k),
-        (int8_gemm, lambda x: int8_gemm(a, b_t, x, w_scale), x_scale),
-        (bf16_gemm, lambda x: bf16_gemm(x, bbf), abf),
-        (attention_strided, lambda x: attention_strided(x, k, v), q),
-        (attention_maxfree, lambda x: attention_maxfree(q, k, v, x), rb),
-        (attention_int8qk, lambda x: attention_int8qk(qi, ki, x, sq, sk), v),
-        (attention_probe, lambda x: attention_probe(q, k, x, "qk_only"), v),
+        (flash_attention, lambda x: flash_attention(x, k8, v8), q8, "item 9\\(g\\)"),
+        (flash_attention_with_stats, lambda x: flash_attention_with_stats(q, x, v), k,
+         "item 14\\(b\\)"),
+        (int8_gemm, lambda x: int8_gemm(a, b_t, x, w_scale), x_scale, "item 9\\(h\\)"),
+        (bf16_gemm, lambda x: bf16_gemm(x, bbf), abf, "item 9\\(h\\)"),
+        (attention_strided, lambda x: attention_strided(x, k, v), q, "K6-K9"),
+        (attention_maxfree, lambda x: attention_maxfree(q, k, v, x), rb, "K6-K9"),
+        (attention_int8qk, lambda x: attention_int8qk(qi, ki, x, sq, sk), v, "K6-K9"),
+        (attention_probe, lambda x: attention_probe(q, k, x, "qk_only"), v, "K6-K9"),
     ]
-    for wrapper, call, operand in calls:
+    for wrapper, call, operand, item in calls:
         leaf = operand.clone().requires_grad_()
         before = wrapper.launches
-        with pytest.raises(RuntimeError, match="no backward.*ROADMAP queue 1, item 9"):
+        with pytest.raises(RuntimeError, match=f"no backward.*{item}"):
             call(leaf)
         assert wrapper.launches == before
         with torch.no_grad():
@@ -547,6 +609,14 @@ def test_kernels_refuse_operands_that_require_grad(device):
         call(operand)  # an operand without grad launches with grad mode on
         torch.cuda.synchronize()
         assert wrapper.launches == before + 2, wrapper.__name__
+    for wrapper, call, operand in ((flash_attention, lambda x: flash_attention(x, k, v), q),
+                                   (flash_attention_streaming,
+                                    lambda x: flash_attention_streaming(q5, k5, x), v5)):
+        leaf = operand.clone().requires_grad_()
+        before = wrapper.launches
+        call(leaf).float().sum().backward()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1 and torch.isfinite(leaf.grad.float()).all()
 
 
 # (M, K, N): the SD3 1024 px image rows (batch 1, CFG 2) against the qkv/out,

@@ -89,7 +89,9 @@ def test_instantiate_partial_and_file_match_jax(tmp_path):
 
 def test_port_yamls_load_as_jax_loads_them():
     paths = sorted((REPO / TOY).rglob("*.yaml"))
-    assert len(paths) == 5  # with models/sd3_agent.yaml, the pretrained agent
+    # with models/sd3_agent.yaml, the pretrained agent, and the LoRA trainers'
+    # toy_draft_reward.yaml, image_reward_grad.yaml, toy_ and sd3_preference_pairs.yaml
+    assert len(paths) == 9
     for p in paths:
         assert inst.load_yaml(str(p)) == jinst.load_yaml(str(p))
     rows = [{"prompt": "The image shows a cat"}, {"prompt": "a dog"}]
@@ -226,15 +228,35 @@ def test_parser_values_match_jax(monkeypatch):
     assert cli.build_parser().parse_args(_REQUIRED + ["--total_episodes", "none"]).total_episodes is None
 
 
+def toy_sd15_agent(config, device="cuda"):
+    """An SD15Agent over a toy UNet: the LoRA trainers reach its refused
+    hooks (ROADMAP queue 1, item 9(e))."""
+    from tpdm_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
+    from tpdm_tpu_torch.train.sd15_agent import SD15Agent
+
+    return SD15Agent(UNetSD15(UNetConfig.toy()).to(device), config)
+
+
+_SD15 = ["--model_config", "{sd15_agent}", "--data_collator",
+         f"{TOY}/collators/json_prompt.yaml"]
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--trainer", "dpo"], r"item 9\(e\)"),
-    (["--trainer", "draft"], r"item 9\(e\)"),
+    # the LoRA trainers over an SD1.5 agent reach its refused family hooks
+    (["--trainer", "dpo", "--train_dataset", f"{TOY}/datasets/toy_preference_pairs.yaml"]
+     + _SD15, r"item 9\(e\)"),
+    (["--trainer", "draft", "--reward_model_config", f"{TOY}/models/toy_draft_reward.yaml",
+      "--train_dataset", f"{TOY}/datasets/jsonl_prompts.yaml"] + _SD15, r"item 9\(e\)"),
     (["--multihost"], r"item 9\(d\)"),
     (["--mesh_shape", "auto"], r"item 9\(d\)"),
     (["--watchdog_coordinator", "localhost:1234"], "item 14"),
     (["--watchdog_timeout", "5"], "item 14"),
 ])
-def test_unported_flags_raise(flags, match):
+def test_unported_flags_raise(flags, match, tmp_path, monkeypatch):
+    monkeypatch.chdir(REPO)
+    agent = tmp_path / "sd15_agent.yaml"
+    agent.write_text("_target_: test_torch_train_cli.toy_sd15_agent\n_partial_: true\n")
+    flags = [str(agent) if f == "{sd15_agent}" else f for f in flags]
     with pytest.raises(NotImplementedError, match=match):
         cli.main(_REQUIRED + ["--cpu"] + flags)
 

@@ -522,3 +522,16 @@ extern "C" int tpdm_flash_attention_stats_d64(const void* q, const void* k, cons
   return launch<true, kK3Consumers, 1>(64, scale_of(64), q, k, v, o, m, l, bh, n_q, n_kv,
                                        kv_len, stream);
 }
+
+// K3's instantiation at a head dim of 64 or below with that head dim's
+// scale (operands zero-padded to 64 columns, as for
+// tpdm_flash_attention_d64_padded): K1's forward under autograd, whose m
+// and l the backward (attn_bwd_sm90.cu) recomputes the probabilities from.
+extern "C" int tpdm_flash_attention_stats_d64_padded(const void* q, const void* k, const void* v,
+                                                     void* o, void* m, void* l, int bh, int n_q,
+                                                     int n_kv, int kv_len, int head_dim,
+                                                     void* stream) {
+  if (head_dim < 1 || head_dim > 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true, kK3Consumers, 1>(64, scale_of(head_dim), q, k, v, o, m, l, bh, n_q, n_kv,
+                                       kv_len, stream);
+}

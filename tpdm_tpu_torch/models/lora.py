@@ -13,7 +13,9 @@ to_q/kernel``), which are also the keys of the LoRA files
 - ``apply_lora`` merges: it returns the merged weight tensors (a dict of
   ``"<module>.weight"`` entries) and never writes into the module.
   ``call_merged`` runs a function with those tensors standing in for the
-  module's own (``torch.func.functional_call``).
+  module's own (``torch.func.functional_call``). ``merge_lora`` is the
+  same merge under autograd, for training: gradients reach the factors,
+  never the base weights (JAX's ``apply_lora`` is differentiable).
 - ``stack_adapters`` and ``lora_interceptor`` are the fused path: the
   factors of several adapters stacked into a bank (row 0 the base, an
   exact zero delta), and forward hooks that add each batch row's own
@@ -44,6 +46,7 @@ __all__ = [
     "check_lora",
     "init_lora",
     "apply_lora",
+    "merge_lora",
     "call_merged",
     "MergedLRU",
     "lora_param_count",
@@ -108,14 +111,14 @@ def init_lora(module: nn.Module, rank: int, generator: torch.Generator,
     return lora
 
 
-@torch.no_grad()
-def apply_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> Dict[str, torch.Tensor]:
+def merge_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> Dict[str, torch.Tensor]:
     """The merged weights ``W + ((a @ b) · scale)ᵀ``, the delta formed in
     fp32 and cast to W's dtype before the add (JAX's ``leaf +
     delta.astype(leaf.dtype)``), as {"<module>.weight": tensor} for every
-    key of ``lora``. The module's own parameters are not written. A
-    quantised (stored-int) layer has no float weight to merge into and
-    raises."""
+    key of ``lora``, differentiable with respect to the factors (the base
+    weights enter detached: they never receive a gradient). The module's own
+    parameters are not written. A quantised (stored-int) layer has no float
+    weight to merge into and raises."""
     targets = _checked_targets(module, lora)
     merged = {}
     for name, fac in lora.items():
@@ -126,8 +129,14 @@ def apply_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> Dict[str
         a = torch.as_tensor(fac["a"], dtype=torch.float32, device=w.device)
         b = torch.as_tensor(fac["b"], dtype=torch.float32, device=w.device)
         delta = (a @ b) * scale
-        merged[f"{name}.weight"] = w + delta.T.to(w.dtype)
+        merged[f"{name}.weight"] = w.detach() + delta.T.to(w.dtype)
     return merged
+
+
+@torch.no_grad()
+def apply_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> Dict[str, torch.Tensor]:
+    """``merge_lora`` without autograd: the serving path's merge."""
+    return merge_lora(module, lora, scale)
 
 
 class _Call(nn.Module):

@@ -38,6 +38,14 @@ residual Δ, and a "reuse" forward runs only the front blocks and adds a
 recorded Δ, so it skips the back blocks' work. The parameters are the same
 in every mode.
 
+Per-block rematerialisation (``MMDiT(remat=True)``, JAX's ``remat``
+module attribute, off by default as there): under autograd each joint
+block runs inside ``torch.utils.checkpoint`` (non-reentrant), keeping only
+its inputs and recomputing it in the backward. The block's weights go in
+as inputs of the checkpoint, so a backward that runs after a
+``functional_call`` of merged LoRA weights has returned recomputes with
+the merged weights, not the module's own.
+
 Not ported yet: the batch axis sharded beside the token axis
 (``seq_batch_axes``), and under ``seq_group`` the quantised matmuls, the
 Δ-cache and SD3.5's two features (``MMDiT`` refuses each pair).
@@ -50,6 +58,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.utils.checkpoint
 from torch import nn
 
 from tpdm_tpu_torch.models.layers import (
@@ -321,11 +330,22 @@ class JointBlock(nn.Module):
         return x, ctx
 
 
-class MMDiT(nn.Module):
-    """The SD3 denoiser. ``forward`` returns (velocity, temb, h1, h2)."""
+def _checkpointed(block: nn.Module, *args):
+    """``block(*args)`` under ``torch.utils.checkpoint``, with the block's
+    parameters (whatever tensors stand in for them now) passed in."""
+    params = dict(block.named_parameters())
+    return torch.utils.checkpoint.checkpoint(
+        lambda p, *a: torch.func.functional_call(block, p, a), params, *args,
+        use_reentrant=False)
 
-    def __init__(self, config: MMDiTConfig):
+
+class MMDiT(nn.Module):
+    """The SD3 denoiser. ``forward`` returns (velocity, temb, h1, h2).
+    ``remat`` checkpoints each joint block under autograd."""
+
+    def __init__(self, config: MMDiTConfig, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if config.qk_norm not in (None, "rms_norm"):
             raise ValueError(f"qk_norm must be None or 'rms_norm', got {config.qk_norm!r}")
         if (config.dual_attention_layers or config.qk_norm) and config.seq_group is not None:
@@ -406,8 +426,12 @@ class MMDiT(nn.Module):
         blocks = self.transformer_blocks
         if cache_mode == "reuse":
             blocks = blocks[: cfg.cache_front_blocks]
+        remat = self.remat and torch.is_grad_enabled()
         for i, block in enumerate(blocks):
-            x, ctx = block(x, ctx, temb, shard_valid)
+            if remat:
+                x, ctx = _checkpointed(block, x, ctx, temb, shard_valid)
+            else:
+                x, ctx = block(x, ctx, temb, shard_valid)
             if group is not None and group.size > 1 and not block.context_pre_only:
                 dist.broadcast(ctx, src=group.global_rank(0), group=group.group)
             if cache_mode == "record" and i == cfg.cache_front_blocks - 1:

@@ -18,7 +18,9 @@ input's dtype, as the Flax modules do. Attention goes through
 ``ops/attention.py:joint_attention``: K1 at head dims 40, 80 and 160 on
 CUDA tensors (bf16 only: it raises on any other dtype or head dim), the
 plain version on CPU tensors. Convolutions and GroupNorm are cuDNN's and
-torch's, as the JAX package left them to XLA.
+torch's, as the JAX package left them to XLA; on the card every convolution
+runs one batch row at a time (``RowConv2d``), so that a row's result does
+not depend on its place in the batch.
 """
 
 from __future__ import annotations
@@ -32,6 +34,26 @@ from torch import nn
 
 from tpdm_tpu_torch.models.layers import GroupNorm, init_weights, sinusoidal_timestep_embedding
 from tpdm_tpu_torch.ops.attention import joint_attention
+
+
+class RowConv2d(nn.Conv2d):
+    """``nn.Conv2d`` that, on a CUDA tensor, convolves each batch row alone.
+
+    cuDNN picks its algorithm by the whole input's shape, and at some shapes
+    the one it picks gives a row a result that depends on the row's place in
+    the batch: SD1.5's 1280-channel 3x3 ``up_1_upsample`` at 32 x 32 on an
+    H100 differs by up to 0.25 between the two rows of a batch of 2 or 4
+    that hold the same input (equal run to run, with or without
+    ``cudnn.deterministic`` or ``benchmark``, NCHW or channels-last), and
+    one request's image by 16 levels between the two rows of its CFG batch.
+    At batch 1 a row always runs the same algorithm on the same shape,
+    whatever the batch around it. CPU tensors convolve the whole batch."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = super().forward
+        if x.device.type != "cuda" or x.shape[0] == 1:
+            return conv(x)
+        return torch.cat([conv(x[i:i + 1]) for i in range(x.shape[0])])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,11 +190,11 @@ class ResnetBlockTimeEmb(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, groups: int, temb_dim: int):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_channels, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = RowConv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels)
         self.norm2 = GroupNorm(groups, out_channels, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = RowConv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (RowConv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -232,10 +254,10 @@ class SpatialTransformer(nn.Module):
     def __init__(self, dim: int, heads: int, ctx_dim: int, groups: int, depth: int = 1):
         super().__init__()
         self.norm = GroupNorm(groups, dim)
-        self.proj_in = nn.Conv2d(dim, dim, 1)
+        self.proj_in = RowConv2d(dim, dim, 1)
         blocks = [_CrossAttnBlock(dim, heads, ctx_dim) for _ in range(depth)]
         self.block = blocks[0] if depth == 1 else nn.ModuleList(blocks)
-        self.proj_out = nn.Conv2d(dim, dim, 1)
+        self.proj_out = RowConv2d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
@@ -269,7 +291,7 @@ class UNetSD15(nn.Module):
             add_in = cfg.addition_pooled_dim + cfg.num_time_ids * cfg.addition_time_embed_dim
             self.add_linear_1 = nn.Linear(add_in, temb)
             self.add_linear_2 = nn.Linear(temb, temb)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = RowConv2d(cfg.in_channels, ch[0], 3, padding=1)
         cur, skips = ch[0], [ch[0]]
         for i, out_ch in enumerate(ch):
             for j in range(cfg.layers_per_block):
@@ -280,7 +302,7 @@ class UNetSD15(nn.Module):
                 skips.append(cur)
             if i < n - 1:
                 self.add_module(f"down_{i}_downsample",
-                                nn.Conv2d(out_ch, out_ch, 3, stride=2, padding=1))
+                                RowConv2d(out_ch, out_ch, 3, stride=2, padding=1))
                 skips.append(cur)
         resnet("mid_resnet_0", ch[-1], ch[-1])
         transformer("mid_attn", ch[-1], cfg.mid_transformer_layers)
@@ -293,9 +315,9 @@ class UNetSD15(nn.Module):
                 if depth_i > 0:
                     transformer(f"up_{i}_attn_{j}", out_ch, depth_i)
             if i < n - 1:
-                self.add_module(f"up_{i}_upsample", nn.Conv2d(out_ch, out_ch, 3, padding=1))
+                self.add_module(f"up_{i}_upsample", RowConv2d(out_ch, out_ch, 3, padding=1))
         self.conv_norm_out = GroupNorm(g, ch[0], eps=1e-5)
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = RowConv2d(ch[0], cfg.out_channels, 3, padding=1)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02) -> "UNetSD15":

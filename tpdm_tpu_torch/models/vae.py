@@ -5,7 +5,9 @@ halves (one head, 512 wide, 16384 tokens at 1024 px) runs kernel K2 on the
 card (``ops/attention.py``). Convs and matmuls run in the weights' dtype
 and GroupNorm keeps fp32 statistics: with bf16 weights (``vae.to(
 torch.bfloat16)``) that is the JAX package's ``make_fast_decode`` policy,
-for the encode as for the decode.
+for the encode as for the decode. ``make_fast_decode`` is the decode that
+the reward-gradient trainer differentiates (K2's backward in the mid
+block, ``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -245,3 +247,17 @@ class VAE(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.decode(z)
 
+
+def make_fast_decode(vae: VAE):
+    """``decode(z)``: raw (b, c, h, w) latents -> fp32 images in [-1, 1]ish,
+    differentiable, as ``tpdm_tpu/models/vae.py:make_fast_decode``'s fn:
+    the un-scaling ``z / scaling_factor + shift_factor`` in the VAE's
+    dtype (JAX's in bf16 with its bf16 weights), the decode in the weights'
+    dtype with fp32 GroupNorm statistics, the images cast to fp32."""
+    cfg = vae.config
+    dtype = vae.decoder.conv_in.weight.dtype
+
+    def decode(z: torch.Tensor) -> torch.Tensor:
+        return vae.decode(z.to(dtype) / cfg.scaling_factor + cfg.shift_factor).float()
+
+    return decode

@@ -26,7 +26,8 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpdm_tpu_torch"
-SOURCES = ("attn_d512_sm90.cu", "attn_sm90.cu", "gemm_sm90.cu", "attn_studies_sm90.cu")
+SOURCES = ("attn_d512_sm90.cu", "attn_sm90.cu", "attn_bwd_sm90.cu", "gemm_sm90.cu",
+           "attn_studies_sm90.cu")
 HEADERS = ("sm90.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,8 +37,10 @@ NVCC_FLAGS = (
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # C entry points, each returning a cudaError_t: every pointer and the stream
 # are void*, every size an int.
-#   (q, k, v, o, bh, n_q, n_kv, kv_len, stream); the stats entry takes m, l
-#   after o, the padded d-64 entry the true head_dim before the stream
+#   (q, k, v, o, bh, n_q, n_kv, kv_len, stream); the stats entries take m, l
+#   after o, the padded d-64 entries the true head_dim before the stream
+#   tpdm_flash_attention_bwd_d64 (q, k, v, do, lse, delta, dq, dk, dv, bh,
+#   n_q, n_kv, kv_len, head_dim, stream), K1's backward
 #   tpdm_int8_gemm (a, b, out, x_scale, w_scale, bias, m, n, k, stream), the
 #   int32 epilogue when x_scale is null; tpdm_bf16_gemm (a, b, out, m, n, k,
 #   stream)
@@ -60,6 +63,8 @@ ENTRIES = {
     "tpdm_flash_attention_d160": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_d512": [_P] * 4 + [_I] * 4 + [_P],
     "tpdm_flash_attention_stats_d64": [_P] * 6 + [_I] * 4 + [_P],
+    "tpdm_flash_attention_stats_d64_padded": [_P] * 6 + [_I] * 5 + [_P],
+    "tpdm_flash_attention_bwd_d64": [_P] * 9 + [_I] * 5 + [_P],
     "tpdm_int8_gemm": [_P] * 6 + [_I] * 3 + [_P],
     "tpdm_bf16_gemm": [_P] * 3 + [_I] * 3 + [_P],
     "tpdm_attention_strided_d64": [_P] * 4 + [_S] + [_I] * 8 + [_P],
@@ -145,16 +150,18 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def refuse_grad(name: str, *operands) -> None:
-    """Raise if autograd would need a gradient through a kernel launch.
+def refuse_grad(name: str, item: str, *operands) -> None:
+    """Raise if autograd would need a gradient through a kernel launch that
+    has no backward.
 
     The kernels write into tensors that ctypes knows only as pointers, so
     their outputs carry no ``grad_fn``: a backward through one would drop
-    the gradient silently. None of them has a backward yet (ROADMAP queue 1,
-    item 9(e)): run them under ``torch.no_grad()`` or on operands that do not
-    require grad."""
+    the gradient silently. K1 at head dims up to 64 and K2 have backwards
+    (``ops/attention.py``); the others raise here, naming ``item``, the
+    queue item that brings theirs: run them under ``torch.no_grad()`` or on
+    operands that do not require grad."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
         raise RuntimeError(
-            f"{name}: an operand requires grad, and the CUDA kernel has no backward "
-            "(ROADMAP queue 1, item 9(e): the K1/K2 backward); run it under torch.no_grad()")
+            f"{name}: an operand requires grad, and this CUDA kernel has no backward "
+            f"({item}); run it under torch.no_grad()")

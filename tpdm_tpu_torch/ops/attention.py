@@ -5,9 +5,20 @@ wgmma + TMA kernel of ``csrc/attn_sm90.cu``; K2, a wgmma + TMA kernel of
 its own in ``csrc/attn_d512_sm90.cu``) and their plain PyTorch versions,
 ``attention_reference`` and ``attention_reference_stats``. The wrappers
 dispatch on the tensor's device: a CUDA tensor launches the kernel (or the
-wrapper raises on what the kernel does not take, operands that require
-grad included: no kernel has a backward), a CPU tensor runs the plain
-version. There is no flag that picks the plain version on CUDA.
+wrapper raises on what the kernel does not take), a CPU tensor runs the
+plain version. There is no flag that picks the plain version on CUDA.
+
+Gradients, as the JAX package's custom VJPs give them:
+- K1 at head dim 64 and below: ``flash_attention`` under autograd runs
+  K3's statistics instantiation forward and K1's backward,
+  ``flash_attention_backward`` (``csrc/attn_bwd_sm90.cu``, hand-written;
+  JAX's backward is a dense recompute through ``attention_reference``).
+  On the CPU autograd runs through ``attention_reference``, the plain
+  version of both.
+- K2: ``flash_attention_streaming`` under autograd keeps its forward and
+  backpropagates by ``attention_backward_chunked``, plain tensor code as
+  the JAX package's is XLA, on the card and on the CPU.
+- K1 at its other head dims and K3 raise under grad (``_build.refuse_grad``).
 
 Layouts follow the JAX package: q, k, v and the output are (b, h, n, d).
 """
@@ -45,9 +56,12 @@ def attention_reference(
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _check_kernel_operands(name: str, q, k, v, head_dim: int, kv_len) -> int:
-    """Validate CUDA operands for a kernel; returns the effective kv_len."""
-    _build.refuse_grad(name, q, k, v)
+def _check_kernel_operands(name: str, q, k, v, head_dim: int, kv_len, refuse: str = "") -> int:
+    """Validate CUDA operands for a kernel; returns the effective kv_len.
+    ``refuse`` (the queue item that brings a backward) makes operands that
+    require grad raise; without it the caller takes the gradient."""
+    if refuse:
+        _build.refuse_grad(name, refuse, q, k, v)
     for label, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {label} is on {t.device}, expected cuda")
@@ -103,11 +117,41 @@ def _launch(entry: str, q, k, v, kv_len: int, *stats: torch.Tensor,
 # FLUX's 128; any other head dim below 64 runs the d-64 entry on operands
 # padded to 64
 K1_HEAD_DIMS = (40, 64, 80, 128, 160)
+# where the backward of K1 at its other head dims is queued
+K1_GRAD_ITEM = ("ROADMAP queue 1, item 9(g): K1's backward at head dims 40, 80, 128 and 160, "
+                "for the UNet and FLUX trainers")
 
 
 def _pad_to_64(t: torch.Tensor) -> torch.Tensor:
     """(b, h, n, d) -> (b, h, n, 64) with zero columns past d, contiguous."""
     return torch.nn.functional.pad(t, (0, 64 - t.shape[-1])).contiguous()
+
+
+def _wants_grad(*operands) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+
+
+class _K1Grad(torch.autograd.Function):
+    """K1 at head dim <= 64 under autograd, on operands padded to 64
+    columns: the forward is K3's statistics instantiation at the true head
+    dim's scale (the output K1 gives, plus each row's m and l), the
+    backward ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len: int, head_dim: int):
+        m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        out = _launch("tpdm_flash_attention_stats_d64_padded", q, k, v, kv_len, m, l,
+                      head_dim=head_dim)
+        ctx.save_for_backward(q, k, v, out, m + torch.log2(l))
+        ctx.kv_len, ctx.head_dim = kv_len, head_dim
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_backward(q, k, v, out, do, lse, ctx.kv_len, ctx.head_dim)
+        return (*grads, None, None)
 
 
 def flash_attention(
@@ -136,18 +180,28 @@ def flash_attention(
     columns add nothing to a score, and the output's extra columns are cut
     off. ``csrc/attn_sm90.cu`` holds the design note.
 
+    Under autograd (grad mode on and an operand requiring grad) at head dim
+    64 or below, the call is differentiable: ``_K1Grad`` (forward with the
+    row statistics, backward ``flash_attention_backward``), one launch of
+    this wrapper's count a forward, on the same padding. At the other head
+    dims it raises under autograd.
+
     CUDA: bf16, contiguous (b, h, n, d) tensors with d in ``K1_HEAD_DIMS``
-    or below 64, none requiring grad while grad mode is on, or it raises.
-    CPU: the plain version ``attention_reference``.
+    or below 64, or it raises. CPU: the plain version
+    ``attention_reference``, differentiable by autograd.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_len)
     d = q.shape[-1]
-    if d in K1_HEAD_DIMS:
+    if 1 <= d <= 64 and _wants_grad(q, k, v):
         kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len)
+        pad = (lambda t: t) if d == 64 else _pad_to_64
+        out = _K1Grad.apply(pad(q), pad(k), pad(v), kv_len, d)[..., :d]
+    elif d in K1_HEAD_DIMS:
+        kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len, K1_GRAD_ITEM)
         out = _launch(f"tpdm_flash_attention_d{d}", q, k, v, kv_len)
     elif 1 <= d < 64:
-        kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len)
+        kv_len = _check_kernel_operands("flash_attention", q, k, v, d, kv_len, K1_GRAD_ITEM)
         out = _launch("tpdm_flash_attention_d64_padded", _pad_to_64(q), _pad_to_64(k),
                       _pad_to_64(v), kv_len, head_dim=d)[..., :d]
     else:
@@ -158,6 +212,170 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def attention_backward_reference(q, k, v, do, kv_len: Optional[int] = None,
+                                 head_dim: Optional[int] = None):
+    """The plain version of ``flash_attention_backward``: (dq, dk, dv) by
+    autograd through ``attention_reference`` on the first ``head_dim``
+    columns (all by default), in the operands' dtype, zero past them."""
+    d = head_dim or q.shape[-1]
+    with torch.enable_grad():
+        leaves = [t[..., :d].detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_reference(*leaves, kv_len)
+        grads = torch.autograd.grad(out, leaves, do[..., :d])
+    pad = q.shape[-1] - d
+    return tuple(torch.nn.functional.pad(g, (0, pad)) for g in grads)
+
+
+def flash_attention_backward(q, k, v, o, do, lse, kv_len: Optional[int] = None,
+                             head_dim: Optional[int] = None):
+    """K1's backward: (dq, dk, dv) of ``flash_attention`` at (b, h, n, 64)
+    operands (zero-padded past ``head_dim`` where it is below 64), given
+    the forward's output ``o``, the output's gradient ``do`` and each query
+    row's ``lse`` = m + log2(l) (K3's statistics, (b, h, n_q) fp32).
+
+    Replaces no Pallas kernel: JAX's K1 backpropagates by a dense recompute
+    through ``attention_reference`` (``tpdm_tpu/ops/attention.py:_bwd``,
+    :449), an XLA program. ``csrc/attn_bwd_sm90.cu`` recomputes the
+    probabilities tile by tile instead: one kernel walks each 64-row kv
+    tile over the q tiles and writes dK and dV, one walks each q tile over
+    the kv tiles and writes dQ (no atomics: the result does not depend on
+    the order blocks run in). D = rowsum(do * o) is formed here in fp32.
+    Rows of k and v at or past kv_len get zero gradients. The design note
+    is in the source.
+
+    CUDA: bf16, contiguous (b, h, n, 64) q, k, v, o, do, or it raises.
+    CPU: the plain version ``attention_backward_reference`` (``o`` and
+    ``lse`` unused).
+    """
+    head_dim = head_dim or q.shape[-1]
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, do, kv_len, head_dim)
+    do = do.contiguous()
+    kv_len = _check_kernel_operands("flash_attention_backward", q, k, v, 64, kv_len)
+    for label, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"flash_attention_backward: {label} must be a contiguous "
+                             f"{q.dtype} tensor of q's shape {tuple(q.shape)}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_backward: lse must be contiguous fp32 (b, h, n_q)")
+    if not 1 <= head_dim <= 64:
+        raise ValueError(f"flash_attention_backward: head_dim {head_dim} outside [1, 64]")
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load_library()
+    b, h, n_q, _ = q.shape
+    with torch.cuda.device(q.device):
+        err = lib.tpdm_flash_attention_bwd_d64(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, n_q, k.shape[2], kv_len, head_dim,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        msg = lib.tpdm_cuda_error_string(err).decode()
+        raise RuntimeError(f"tpdm_flash_attention_bwd_d64 launch failed: CUDA error {err} ({msg})")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def streaming_block_kv(d: int, itemsize: int) -> int:
+    """The kv block of the JAX streaming kernel at head dim ``d`` and
+    operand ``itemsize`` (``tpdm_tpu/ops/attention.py:_streaming_blocks``,
+    sized by its 8 MiB VMEM model): the chunk its backward walks (128 at
+    the VAE's d 512, bf16 or fp32)."""
+    dv = _round_up(d + 1, 16)
+    for bq in (1536, 1024, 512, 256, 128):
+        for bkv in (512, 256, 128):
+            use = (4 * bkv * bq + 4 * dv * bq
+                   + 2 * itemsize * ((d + 1) * bq + bkv * (d + 1) + dv * bkv))
+            if use <= 8 * 1024 * 1024:
+                return bkv
+    return 128
+
+
+def attention_backward_chunked(q, k, v, o, do, kv_len: Optional[int] = None,
+                               chunk: int = 1024):
+    """Flash-attention backward that never forms the (n, n) scores: the
+    port of ``tpdm_tpu/ops/attention.py:attention_backward_chunked``.
+
+    Pass 1 rebuilds each query row's softmax statistics (m, l) online over
+    kv chunks; pass 2 walks the chunks again: dv_c = p_c^T do, ds_c =
+    p_c (do v_c^T - D) scale, dq += ds_c k_c, dk_c = ds_c^T q, with D =
+    rowsum(do o), all in fp32 (a Python loop where JAX scans). Memory is
+    O(n_q chunk) a (batch, head). Returns (dq, dk, dv) in the operands'
+    dtypes."""
+    n_kv = k.shape[2]
+    kv_len = n_kv if kv_len is None else kv_len
+    d = q.shape[-1]
+    scale = 1.0 / d**0.5
+    n_chunks = _round_up(n_kv, chunk) // chunk
+    qf, dof = q.float(), do.float()
+
+    def chunk_of(t, c):
+        return t[:, :, c * chunk:(c + 1) * chunk].float()
+
+    def scores(c):
+        kc = chunk_of(k, c)
+        s = torch.matmul(qf, kc.transpose(-1, -2)) * scale
+        col = c * chunk + torch.arange(kc.shape[2], device=q.device)
+        return s.masked_fill(col >= kv_len, _NEG_INF), kc
+
+    m = torch.full(q.shape[:3], _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    for c in range(n_chunks):
+        s, _ = scores(c)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(dim=-1)
+        m = m_new
+    delta = (dof * o.float()).sum(dim=-1)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for c in range(n_chunks):
+        s, kc = scores(c)
+        p = torch.exp(s - m[..., None]) / l[..., None]
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        dp = torch.matmul(dof, chunk_of(v, c).transpose(-1, -2))
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.matmul(ds, kc)
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf))
+    return dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype), torch.cat(dvs, dim=2).to(v.dtype)
+
+
+class _K2Grad(torch.autograd.Function):
+    """K2 (or its plain version on the CPU) forward, saving its output;
+    backward ``attention_backward_chunked`` at the JAX forward's kv block,
+    as ``tpdm_tpu/ops/attention.py:_sbwd`` differentiates
+    ``_streaming_flash_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len: Optional[int]):
+        out = _streaming_forward(q, k, v, kv_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kv_len = kv_len
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        chunk = streaming_block_kv(q.shape[-1], q.element_size())
+        return (*attention_backward_chunked(q, k, v, out, do, ctx.kv_len, chunk), None)
+
+
+def _streaming_forward(q, k, v, kv_len):
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, kv_len)
+    kv_len = _check_kernel_operands("flash_attention_streaming", q, k, v, 512, kv_len)
+    out = _launch("tpdm_flash_attention_d512", q, k, v, kv_len)
+    flash_attention_streaming.launches += 1
+    return out
 
 
 def flash_attention_streaming(
@@ -176,16 +394,17 @@ def flash_attention_streaming(
     fit one warp group's registers, so two consumer warp groups own 256
     columns each. ``csrc/attn_d512_sm90.cu`` holds the design note.
 
-    CUDA: bf16, contiguous (b, h, n, 512) tensors, 16-byte aligned, none
-    requiring grad while grad mode is on, or it raises. CPU: the plain
-    version ``attention_reference``.
+    Under autograd (grad mode on and an operand requiring grad) the same
+    forward runs inside ``_K2Grad``, which backpropagates by
+    ``attention_backward_chunked`` (plain tensor code, on the card and on
+    the CPU).
+
+    CUDA: bf16, contiguous (b, h, n, 512) tensors, 16-byte aligned, or it
+    raises. CPU: the plain version ``attention_reference``.
     """
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, kv_len)
-    kv_len = _check_kernel_operands("flash_attention_streaming", q, k, v, 512, kv_len)
-    out = _launch("tpdm_flash_attention_d512", q, k, v, kv_len)
-    flash_attention_streaming.launches += 1
-    return out
+    if _wants_grad(q, k, v):
+        return _K2Grad.apply(q, k, v, kv_len)
+    return _streaming_forward(q, k, v, kv_len)
 
 
 flash_attention_streaming.launches = 0
@@ -260,7 +479,9 @@ def flash_attention_with_stats(
     """
     if q.device.type == "cpu":
         return attention_reference_stats(q, k, v, kv_len)
-    kv_len = _check_kernel_operands("flash_attention_with_stats", q, k, v, 64, kv_len)
+    kv_len = _check_kernel_operands(
+        "flash_attention_with_stats", q, k, v, 64, kv_len,
+        "ROADMAP queue 1, item 14(b): the ring's backward")
     m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     out = _launch("tpdm_flash_attention_stats_d64", q, k, v, kv_len, m, l)

@@ -46,6 +46,8 @@ from tpdm_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 _D = 64
+# the studies time forwards; no queue item brings them a backward
+STUDIES_GRAD_ITEM = "none: the K1 studies (K6-K9, ROADMAP queue 2) measure forwards only"
 _LN2_BF16 = 0.69140625  # log(2) rounded to bf16
 _PROBE_MODES = {"qk_only": 0, "noexp": 1}
 
@@ -233,7 +235,7 @@ def _check_view(name: str, label: str, t: torch.Tensor, dtype, dims=(_D,)) -> No
 def _check_operands(name, q, k, v, out, kv_len, qk_dtype=torch.bfloat16,
                     v_dims=tuple(range(_D, _D + 17))):
     """Validate CUDA views; returns (kv_len, the output view)."""
-    _build.refuse_grad(name, q, k, v, out)
+    _build.refuse_grad(name, STUDIES_GRAD_ITEM, q, k, v, out)
     _check_view(name, "q", q, qk_dtype)
     _check_view(name, "k", k, qk_dtype)
     _check_view(name, "v", v, torch.bfloat16, v_dims)
@@ -400,7 +402,7 @@ def attention_maxfree(
     kv_len, out = _check_operands(name, q, k, v, out, kv_len)
     _check_layouts(name, 2, q, k, v)
     b, h, n_q, _ = q.shape
-    _build.refuse_grad(name, rb)
+    _build.refuse_grad(name, STUDIES_GRAD_ITEM, rb)
     if rb.device != q.device or rb.dtype != torch.float32 or rb.shape != (b, h, n_q):
         raise ValueError(f"{name}: rb must be a ({b}, {h}, {n_q}) float32 tensor on "
                          f"{q.device}, got {tuple(rb.shape)} {rb.dtype} on {rb.device}")
@@ -454,7 +456,7 @@ def attention_int8qk(
         raise ValueError(f"{name}: k's dim axis must be contiguous (the s8 mma is K-major)")
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
-    _build.refuse_grad(name, sq, sk)
+    _build.refuse_grad(name, STUDIES_GRAD_ITEM, sq, sk)
     for label, s, n in (("sq", sq, n_q), ("sk", sk, n_kv)):
         if (s.device != q.device or s.dtype != torch.float32 or s.shape != (b, h, n)
                 or not s.is_contiguous()):

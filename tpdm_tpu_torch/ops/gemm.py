@@ -55,6 +55,11 @@ def int8_gemm_reference(
     return y.to(out_dtype)
 
 
+# K4 and K5 serve the quantised backbones, which LoRA cannot be merged into
+# (the JAX package refuses the merge too)
+GEMM_GRAD_ITEM = "ROADMAP queue 1, item 9(h): LoRA training on a quantised backbone"
+
+
 def bf16_gemm_reference(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """Plain ``bf16_gemm``: the fp32 product of a (M, K) and b_t (N, K),
     rounded once to a's dtype."""
@@ -63,7 +68,7 @@ def bf16_gemm_reference(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 def _check_operands(name: str, a, b_t, dtype: torch.dtype, k_multiple: int):
     """Validate CUDA operands of a GEMM kernel; returns (M, N, K)."""
-    _build.refuse_grad(name, a, b_t)
+    _build.refuse_grad(name, GEMM_GRAD_ITEM, a, b_t)
     for label, t in (("a", a), ("b_t", b_t)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {label} is on {t.device}, expected cuda")
@@ -131,7 +136,7 @@ def int8_gemm(
     if a.device.type == "cpu":
         return int8_gemm_reference(a, b_t, x_scale, w_scale, bias, out_dtype)
     name = "int8_gemm"
-    _build.refuse_grad(name, x_scale, w_scale, bias)
+    _build.refuse_grad(name, GEMM_GRAD_ITEM, x_scale, w_scale, bias)
     m, n, k = _check_operands(name, a, b_t, torch.int8, 32)
     if (x_scale is None) != (w_scale is None):
         raise ValueError(f"{name}: pass both x_scale and w_scale, or neither")

@@ -8,8 +8,9 @@ Counterpart of ``tpdm_tpu/rewards/image_reward.py``:
     r = mlp(txt);  score = (r - IR_MEAN) / IR_STD + 3 IR_STD
 
 The whole batch scores in one call, on the model's device, in fp32 (the
-JAX module's dtype). Not ported yet: ``score_grad`` and the checkpoint
-converters (ROADMAP queue 1, item 8).
+JAX module's dtype). ``score_grad`` is the differentiable path (the
+reward-gradient trainer's, ``train/draft.py``). Not ported yet: the
+checkpoint converters (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -114,11 +115,12 @@ class ImageRewardModel:
         # an id out of the vocabulary would index past the embedding table:
         # an IndexError on the CPU, a device-side assert on the card
         vocab = self.net.bert_config.vocab_size
-        ids = np.asarray(prompt_ids)
-        if ids.size and (ids.min() < 0 or ids.max() >= vocab):
+        ids = torch.as_tensor(np.asarray(prompt_ids) if not torch.is_tensor(prompt_ids)
+                              else prompt_ids)
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= vocab):
             raise ValueError(
                 f"prompt ids out of range for vocab_size={vocab}: "
-                f"min={ids.min()}, max={ids.max()} — tokenizer/model mismatch?"
+                f"min={int(ids.min())}, max={int(ids.max())} — tokenizer/model mismatch?"
             )
 
     @torch.no_grad()
@@ -138,6 +140,19 @@ class ImageRewardModel:
         model's device."""
         r = self._raw_scores(prompt_ids, images, text_mask)
         return (r - IR_MEAN) / IR_STD + 3 * IR_STD
+
+    def score_grad(self, pixels: torch.Tensor, prompt_ids, text_mask=None) -> torch.Tensor:
+        """The differentiable path: preprocessed pixels (b, 3, S, S) (CLIP-
+        normalised, at the model's ``image_size``) and (b, n) ids -> (b,)
+        (r - IR_MEAN) / IR_STD, without the +3σ shift, under autograd with
+        respect to the pixels (the net's weights stay frozen)."""
+        self._check_ids(prompt_ids)
+        dev = self.device
+        ids = torch.as_tensor(prompt_ids, device=dev).long()
+        mask = (torch.ones_like(ids, dtype=torch.bool) if text_mask is None
+                else torch.as_tensor(text_mask, device=dev).bool())
+        r = self.net(pixels.to(dev), ids, mask)
+        return (r - IR_MEAN) / IR_STD
 
     def inference_rank(self, prompt_ids, images, text_mask=None) -> tuple[list, list]:
         """Rank k candidate images of ONE prompt (ids (n,) or (1, n)).

@@ -1,7 +1,9 @@
 """Training of the port: RLOO/PPO of the TPM over a frozen backbone, its
-config, checkpoints and builders, and the agents of every family: SD3
+config, checkpoints and builders, the agents of every family: SD3
 (``TPDMAgent``), SD1.5, SDXL (base, refiner and the joint ensemble) and
-FLUX."""
+FLUX, and the LoRA trainers that differentiate through the SD3 backbone:
+DRaFT (``DraftTrainer``), Diffusion-DPO (``DPOTrainer``) and consistency
+distillation (``DistillTrainer``)."""
 
 from tpdm_tpu_torch.train.config import RLOOConfig
 from tpdm_tpu_torch.train.rloo import (
@@ -23,3 +25,6 @@ from tpdm_tpu_torch.train.sdxl_agent import (
     SDXLEnsembleAgent,
     SDXLRefinerAgent,
 )
+from tpdm_tpu_torch.train.draft import DraftConfig, DraftTrainer
+from tpdm_tpu_torch.train.dpo import DPOConfig, DPOTrainer
+from tpdm_tpu_torch.train.distill import DistillConfig, DistillTrainer

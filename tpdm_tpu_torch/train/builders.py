@@ -2,8 +2,10 @@
 embedder that stands in for the text towers.
 
 Counterpart of ``tpdm_tpu/train/builders.py``'s ``build_toy_agent``,
-``build_sd3_agent``, ``build_toy_reward``, ``build_image_reward_fn``,
-``build_inference_ranker`` and ``make_prompt_encoder``. The agent builders
+``build_sd3_agent``, ``build_toy_reward``, ``build_toy_draft_reward``,
+``build_image_reward_fn``, ``build_inference_ranker`` and
+``make_prompt_encoder``, and ``build_image_reward_grad_fn``, the
+differentiable ImageReward of ``--trainer draft``. The agent builders
 take ``device`` ("cuda" by default, which raises without a card; the tests
 pass "cpu"); the others run where the modules they are given live. Not
 ported yet: the checkpoint loading of the reward and the VAE (ROADMAP
@@ -93,6 +95,17 @@ def build_toy_reward() -> Callable:
     return reward_fn
 
 
+def build_toy_draft_reward() -> Callable:
+    """Differentiable latent-mean reward for ``--trainer draft`` toy runs
+    (DraftTrainer's reward_apply contract: (images, batch) -> (b,) scores
+    with gradients)."""
+
+    def reward_apply(images, batch):
+        return images.mean(dim=(1, 2, 3))
+
+    return reward_apply
+
+
 def build_image_reward_fn(
     vae: VAE,
     reward_model: ImageRewardModel,
@@ -115,6 +128,58 @@ def build_image_reward_fn(
         return scores, scores
 
     return reward_fn
+
+
+def build_image_reward_grad_fn(
+    vae: Optional[VAE] = None,
+    reward_model: Optional[ImageRewardModel] = None,
+    tokenizer: Optional[BertTokenizer] = None,
+    tokenizer_path: Optional[str] = None,
+    reward_checkpoint: Optional[str] = None,
+    max_length: int = 35,
+    seed: int = 0,
+    device="cuda",
+) -> Callable:
+    """ImageReward as DraftTrainer's differentiable ``reward_apply(final
+    latents, batch)``: ``models/vae.py:make_fast_decode`` (the 1024 px
+    decode under autograd, K2's backward in the mid block), then
+    ``train/draft.py:build_image_reward_grad_apply`` (the cubic resize and
+    ``score_grad``), the prompts (``batch["prompt"]``) tokenized by
+    ``tokenizer`` at ``max_length``. Without a ``vae`` an SD3 VAE decoder
+    and without a ``reward_model`` an ImageReward are built on ``device``
+    with random weights from ``seed`` (the checkpoint converters are ROADMAP
+    queue 1, item 8); without a ``tokenizer`` one is read from
+    ``tokenizer_path`` (a BERT vocab.txt)."""
+    from tpdm_tpu_torch.models.vae import VAEConfig, make_fast_decode
+    from tpdm_tpu_torch.train.draft import build_image_reward_grad_apply
+
+    if reward_checkpoint is not None:
+        raise not_ported("reward_checkpoint (convert_image_reward)", "8")
+    if vae is None:
+        device = resolve_device(device)
+        with torch.device(device):
+            vae = VAE(VAEConfig.sd3(), encoder=False)
+        vae.init_weights(torch.Generator(device=device).manual_seed(seed))
+        vae = vae.to(torch.bfloat16 if device.type == "cuda" else torch.float32).eval()
+        logger.warning("draft ImageReward decoding with a RANDOM-weight VAE")
+    if reward_model is None:
+        reward_model = ImageRewardModel.create(seed=seed + 1, device=device)
+        logger.warning("draft ImageReward running with RANDOM weights")
+    if tokenizer is None:
+        if tokenizer_path is None:
+            raise ValueError("the ImageReward needs a BERT vocab.txt path")
+        tokenizer = BertTokenizer.from_pretrained(tokenizer_path)
+    vae.requires_grad_(False)
+    decode = make_fast_decode(vae)
+    score = build_image_reward_grad_apply(reward_model)
+
+    def reward_apply(latents, batch):
+        enc = tokenizer(list(batch["prompt"]), padding="max_length", truncation=True,
+                        max_length=max_length, return_tensors="np")
+        return score(decode(latents), {"reward_ids": enc["input_ids"],
+                                       "reward_mask": enc["attention_mask"].astype(bool)})
+
+    return reward_apply
 
 
 def build_inference_ranker(

@@ -1,5 +1,5 @@
-"""RLOO training from the command line: the port's counterpart of the
-RLOO path of ``main_train.py``.
+"""Training from the command line: the port's counterpart of
+``main_train.py``.
 
     python -m tpdm_tpu_torch.train.main --cpu \\
         --model_config configs/torch/models/toy_agent.yaml \\
@@ -21,11 +21,25 @@ images when the agent carries a ``decode_fn``: final latents -> images in
 ``output_dir/profile``. ``main(argv)`` runs in-process and returns the
 trainer.
 
-Not ported yet, and refused: the other trainers (``--trainer
-draft|dpo|distill``, ROADMAP queue 1 item 9(e)), several processes and
-the mesh (``--multihost``, ``--mesh_shape``, item 9(d)) and the heartbeat
-watchdog (``--watchdog_*``, item 14). The JAX compile cache has no
-counterpart.
+``--trainer`` picks the algorithm: rloo (the TPM's schedule policy), draft
+(reward-gradient LoRA, ``train/draft.py``; the reward YAML builds a
+differentiable ``reward_apply(final latents, batch)``, e.g.
+``configs/torch/models/toy_draft_reward.yaml``), dpo (Diffusion-DPO,
+``train/dpo.py``; no reward model: the dataset's rows carry
+``latents_w`` / ``latents_l``, e.g.
+``configs/torch/datasets/toy_preference_pairs.yaml``) and distill
+(consistency distillation, ``train/distill.py``; no reward model). They
+share the RLOO flags where the concepts meet (seed, learning rate, Adam,
+clipping, batch size, ``max_inference_steps`` as the ladder's length,
+logging and saving) and add ``--lora_rank``, ``--lora_scale``,
+``--k_backprop``, ``--draft_updates`` (updates of draft, dpo and distill),
+``--dpo_beta``, ``--dpo_timestep_sampling``, ``--distill_skip`` and
+``--distill_ema``.
+
+Not ported yet, and refused: several processes and the mesh
+(``--multihost``, ``--mesh_shape``, ROADMAP queue 1 item 9(d)) and the
+heartbeat watchdog (``--watchdog_*``, item 14). The JAX compile cache has
+no counterpart.
 """
 
 from __future__ import annotations
@@ -36,6 +50,8 @@ import functools
 import logging
 import os
 from typing import Iterable, Optional, Sequence
+
+import torch
 
 from tpdm_tpu_torch.train.config import RLOOConfig
 
@@ -62,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m tpdm_tpu_torch.train.main",
         description="RLOO training of the TPM (tpdm_tpu_torch)")
     p.add_argument("--model_config", required=True, help="agent component yaml")
-    p.add_argument("--reward_model_config", required=True, help="reward yaml")
+    p.add_argument("--reward_model_config", default=None,
+                   help="reward yaml (rloo and draft; dpo and distill take none)")
     p.add_argument("--train_dataset", required=True, help="dataset yaml")
     p.add_argument("--data_collator", default=None, help="collator yaml")
     p.add_argument("--resume_from_checkpoint", default=None,
@@ -77,7 +94,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_start", type=int, default=1,
                    help="update whose completion starts the trace window")
     p.add_argument("--trainer", choices=["rloo", "draft", "dpo", "distill"], default="rloo",
-                   help="only rloo is ported")
+                   help="rloo = the TPM's schedule policy; draft = reward-gradient LoRA "
+                        "(a differentiable reward YAML); dpo = Diffusion-DPO over "
+                        "latents_w/latents_l rows (no reward); distill = consistency "
+                        "distillation (no reward)")
+    p.add_argument("--lora_rank", type=int, default=4)
+    p.add_argument("--lora_scale", type=float, default=1.0)
+    p.add_argument("--k_backprop", type=int, default=1,
+                   help="DRaFT-K: how many final denoise steps backprop")
+    p.add_argument("--draft_updates", type=int, default=10,
+                   help="LoRA updates of --trainer draft, dpo and distill")
+    p.add_argument("--dpo_beta", type=float, default=500.0,
+                   help="DPO inverse temperature on the err difference")
+    p.add_argument("--dpo_timestep_sampling", choices=["logit_normal", "uniform"],
+                   default="logit_normal")
+    p.add_argument("--distill_skip", type=int, default=1,
+                   help="LCM skip-k: ladder cells the teacher integrates a pair")
+    p.add_argument("--distill_ema", type=float, default=0.95,
+                   help="EMA decay of the consistency target")
     # accepted for main_train.py's command lines, refused until ported
     p.add_argument("--multihost", action="store_true", help="not ported (item 9(d))")
     p.add_argument("--mesh_shape", default=None, help="not ported (item 9(d))")
@@ -93,11 +127,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args, parser: argparse.ArgumentParser) -> None:
-    if args.trainer != "rloo":
-        raise NotImplementedError(
-            f"--trainer {args.trainer}: only rloo is ported to tpdm_tpu_torch; the "
-            "trainers that differentiate through the backbone wait for ROADMAP queue 1, "
-            "item 9(e)")
     if args.multihost or args.mesh_shape:
         raise NotImplementedError(
             "--multihost / --mesh_shape: data parallelism is not ported to tpdm_tpu_torch "
@@ -119,12 +148,72 @@ def _resume_arg(value: Optional[str]):
     return True if value.lower() == "true" else value
 
 
+def _lora_config(cls, args, config: RLOOConfig, **kw):
+    """A LoRA trainer's config from the RLOO flags they share and ``kw``."""
+    return cls(seed=config.seed, output_dir=config.output_dir, total_updates=args.draft_updates,
+               batch_size=config.per_device_train_batch_size,
+               learning_rate=config.learning_rate, adam_beta1=config.adam_beta1,
+               adam_beta2=config.adam_beta2, adam_epsilon=config.adam_epsilon,
+               max_grad_norm=config.max_grad_norm, lora_rank=args.lora_rank,
+               lora_scale=args.lora_scale, logging_steps=config.logging_steps,
+               save_steps=config.save_steps, **kw)
+
+
+def _run_lora_trainer(args, config: RLOOConfig, agent, reward_fn, dataset, collate_fn,
+                      callbacks: list):
+    """--trainer draft | dpo | distill: build the trainer, train, close
+    the callbacks; returns the trainer."""
+    if args.trainer == "draft":
+        from tpdm_tpu_torch.train.draft import DraftConfig, DraftTrainer
+
+        cfg = _lora_config(DraftConfig, args, config, num_steps=config.max_inference_steps,
+                           k_backprop=args.k_backprop)
+        trainer = DraftTrainer(cfg, agent, reward_fn, dataset, collate_fn=collate_fn,
+                               callbacks=callbacks)
+    elif args.trainer == "dpo":
+        from tpdm_tpu_torch.train.dpo import DPOConfig, DPOTrainer
+
+        def dpo_collate(rows):
+            # the pair arrays ride along with the prompt embedding
+            batch = collate_fn(rows)
+            for k in ("latents_w", "latents_l", "images_w", "images_l"):
+                if k in rows[0]:
+                    batch[k] = torch.stack([torch.as_tensor(r[k]) for r in rows])
+            return batch
+
+        cfg = _lora_config(DPOConfig, args, config, beta=args.dpo_beta,
+                           timestep_sampling=args.dpo_timestep_sampling,
+                           save_total_limit=config.save_total_limit)
+        trainer = DPOTrainer(cfg, agent, dataset, collate_fn=dpo_collate, callbacks=callbacks)
+    else:
+        from tpdm_tpu_torch.train.distill import DistillConfig, DistillTrainer
+
+        cfg = _lora_config(DistillConfig, args, config,
+                           num_ladder_steps=config.max_inference_steps,
+                           skip_steps=args.distill_skip, ema_decay=args.distill_ema)
+        trainer = DistillTrainer(cfg, agent, dataset, collate_fn=collate_fn,
+                                 callbacks=callbacks)
+    trainer.train()
+    for cb in callbacks:
+        close = getattr(cb, "close", None)
+        if close is not None:
+            close()
+    last = trainer.metrics_history[-1] if trainer.metrics_history else {}
+    logger.info("%s training done: %d updates, last metrics %s", args.trainer,
+                trainer.global_step, last)
+    return trainer
+
+
 def main(argv: Optional[Sequence[str]] = None, callbacks: Iterable = ()):
     """Parse ``argv`` (``sys.argv[1:]`` when None), build the components,
     train, and return the trainer. ``callbacks`` (for in-process callers)
     run first at each update, before the profiler's and the eval's."""
     from tpdm_tpu_torch.train.builders import make_prompt_encoder
-    from tpdm_tpu_torch.train.callbacks import EvalVisualizationCallback, ProfilerCallback
+    from tpdm_tpu_torch.train.callbacks import (
+        EvalVisualizationCallback,
+        ProfilerCallback,
+        TensorBoardCallback,
+    )
     from tpdm_tpu_torch.train.rloo import RLOOTrainer
     from tpdm_tpu_torch.utils.debug import setup_debug_from_env
     from tpdm_tpu_torch.utils.instantiate import instantiate_file
@@ -139,7 +228,12 @@ def main(argv: Optional[Sequence[str]] = None, callbacks: Iterable = ()):
     agent_builder = instantiate_file(args.model_config)
     agent = (agent_builder(config=config, device=device)
              if isinstance(agent_builder, functools.partial) else agent_builder)
-    reward_fn = instantiate_file(args.reward_model_config)
+    if args.trainer in ("rloo", "draft") and not args.reward_model_config:
+        raise SystemExit(f"--trainer {args.trainer} requires --reward_model_config")
+    reward_fn = (instantiate_file(args.reward_model_config)
+                 if args.trainer in ("rloo", "draft") else None)
+    if args.reward_model_config and reward_fn is None:
+        logger.info("--trainer %s ignores --reward_model_config", args.trainer)
     dataset = instantiate_file(args.train_dataset)
     if args.data_collator is not None:
         collate_fn = instantiate_file(args.data_collator)
@@ -149,6 +243,14 @@ def main(argv: Optional[Sequence[str]] = None, callbacks: Iterable = ()):
         collate_fn = make_prompt_encoder(agent)
 
     callbacks = list(callbacks)
+    if args.trainer != "rloo":
+        if config.report_to == "tensorboard":
+            callbacks.append(TensorBoardCallback(os.path.join(config.output_dir, "tb")))
+        if args.profile_updates:
+            callbacks.append(ProfilerCallback(os.path.join(config.output_dir, "profile"),
+                                              start=args.profile_start,
+                                              count=args.profile_updates))
+        return _run_lora_trainer(args, config, agent, reward_fn, dataset, collate_fn, callbacks)
     if args.profile_updates:
         # before the eval: the window closes ahead of the eval of its last update
         callbacks.append(ProfilerCallback(os.path.join(config.output_dir, "profile"),

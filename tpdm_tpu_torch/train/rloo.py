@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpdm_tpu_torch.models.lora import call_merged
 from tpdm_tpu_torch.models.tpm import TimePredictor
 from tpdm_tpu_torch.ops.beta import beta_entropy, beta_kl
 from tpdm_tpu_torch.ops.schedules import get_ref_beta
@@ -252,9 +253,11 @@ class TPDMAgent:
     The RL protocol of ``tpdm_tpu/train/rloo.py:TPDMAgent`` (sample,
     replay, logprobs, kl_divergence) over a TPM ``nn.Module`` that the
     caller passes in. The MMDiT is frozen here (``requires_grad_(False)``)
-    and only ever runs under ``torch.no_grad()``: the CUDA kernels return
-    tensors without a ``grad_fn``, and a frozen backbone keeps no
-    activations for autograd.
+    and the rollouts and replays run it under ``torch.no_grad()``: a frozen
+    backbone keeps no activations for autograd. The LoRA trainers
+    (``train/draft.py``, ``dpo.py``, ``distill.py``) differentiate through
+    it by the hooks ``backbone_params`` and ``denoise_builder``: merged
+    weights that require grad stand in for the frozen ones.
 
     Args:
         mmdit: the denoiser, on its device and dtype (bf16 on the card).
@@ -335,7 +338,26 @@ class TPDMAgent:
         shape = (batch_size, mcfg.in_channels, mcfg.sample_size, mcfg.sample_size)
         return torch.randn(shape, generator=generator, device=self.device, dtype=self.dtype)
 
-    def _denoise_fn(self, batch: dict):
+    # -- the hooks of the trainers that differentiate through the backbone --
+    @property
+    def backbone_params(self) -> nn.Module:
+        """The frozen MMDiT, whose dense layers LoRA factors target."""
+        return self.mmdit
+
+    def denoise_builder(self, params: Optional[dict], batch: dict):
+        """``denoise_fn(latents, sigma) -> (velocity, temb, h_combined)``,
+        CFG-doubled as the rollout's, for ``batch``'s embeds, over the
+        MMDiT with ``params`` (``models/lora.py:merge_lora``'s tensors)
+        standing in for its weights of the same names on every call (None:
+        its own weights). Differentiable where grad mode is on; the latents
+        are cast to the MMDiT's dtype."""
+        mmdit = self.mmdit
+        apply = mmdit if params is None else (
+            lambda *a: call_merged(mmdit, params, mmdit, *a))
+        denoise = self._denoise_fn(batch, apply)
+        return lambda latents, sigma: denoise(latents.to(self.dtype), sigma)
+
+    def _denoise_fn(self, batch: dict, apply: Optional[Callable] = None):
         if "prompt_embeds" not in batch:
             raise ValueError(
                 f"batch has no 'prompt_embeds' (keys: {sorted(batch)}). The trainer "
@@ -346,7 +368,7 @@ class TPDMAgent:
             pe = torch.cat([batch["negative_prompt_embeds"], pe])
             pp = torch.cat([batch["negative_pooled_prompt_embeds"], pp])
         as_dev = lambda t: torch.as_tensor(t, device=self.device).to(self.dtype)
-        return make_cfg_denoise_fn(self.mmdit, as_dev(pe), as_dev(pp),
+        return make_cfg_denoise_fn(apply or self.mmdit, as_dev(pe), as_dev(pp),
                                    self.config.guidance_scale, self.token_grid,
                                    self.patch_size)
 
@@ -455,17 +477,20 @@ class TPMOptimizer:
     (``g * max_norm / max(norm, max_norm)``), the learning rate is set from
     ``schedule(count)`` and ``torch.optim.Adam`` (the same bias-corrected
     update as optax's adam, eps outside the square root) steps once.
-    ``count`` is Adam's step count.
+    ``count`` is Adam's step count. ``every_k`` (by default
+    ``cfg.gradient_accumulation_steps``) is the accumulation window; the
+    LoRA trainers (``train/draft.py``) take 1, with a config that carries
+    only the learning rate, Adam's constants and ``max_grad_norm``.
     """
 
     def __init__(self, params: Iterable[torch.Tensor], cfg: RLOOConfig,
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float], every_k: Optional[int] = None):
         self.params = list(params)
         self.adam = torch.optim.Adam(self.params, lr=cfg.learning_rate,
                                      betas=(cfg.adam_beta1, cfg.adam_beta2),
                                      eps=cfg.adam_epsilon)
         self.max_norm = cfg.max_grad_norm
-        self.every_k = cfg.gradient_accumulation_steps
+        self.every_k = cfg.gradient_accumulation_steps if every_k is None else every_k
         self.schedule = schedule
         self.count = 0
         self.mini_step = 0

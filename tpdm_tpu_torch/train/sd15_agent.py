@@ -186,6 +186,11 @@ class SD15Agent:
             num_inference_steps=config.max_inference_steps, min_time=min_time,
             cache_activations=True)
 
+    @property
+    def backbone_params(self) -> UNetSD15:
+        """The frozen UNet (what LoRA factors target)."""
+        return self.unet
+
     def denoise_builder(self, params, batch):
         raise not_ported("SD15Agent.denoise_builder (a backward through the UNet)", "9(e)")
 
